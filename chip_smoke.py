@@ -15,12 +15,17 @@ Phases, one line each; any failure raises and the exit code is nonzero:
 4. main     — the bench configuration at full width: ML-25M-shaped ratings
               (162,541 × 59,047, 25,000,095 ratings, 95/5 split), k=8 Gemulla
               strata, rank 128, minibatch 32,768, warm_boost schedule, 3
-              sweeps through ``DSGD().fit`` on the card; holdout RMSE after
-              every sweep must be finite and fall, every stratum step must
-              have launched both kernels, and the same 3 sweeps through the
-              plain route on the card must end within 1e-4 of its RMSE;
+              sweeps through ``DSGD().fit`` on the card; the host steps
+              before the first sweep (collision scales, factor init,
+              host→device copies) are timed apart, and the sweeps inside
+              ``fit`` with CUDA events (``DSGD.segment_ms``); holdout RMSE
+              after every sweep must be finite and fall, every stratum step
+              must have launched both kernels, and the same 3 sweeps
+              through the plain route on the card must end within 1e-4 of
+              its RMSE;
 5. timing   — each kernel against its plain version at the main path's
-              shapes (CUDA events), with its bound on this card.
+              shapes (CUDA events), with its share of the bound of one
+              stratum step on this card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -87,9 +92,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_args(problem, minibatch: int, dev):
+def device_args(problem, icu, icv, dev):
     """The stratum-major arrays on the card, in ``dsgd_train`` order."""
-    icu, icv = blocking.minibatch_inv_counts(problem.ratings, minibatch)
     r = problem.ratings
 
     def put(a, dtype):
@@ -147,7 +151,9 @@ def phase_small(dev):
     mb, k, rank, lam = 1024, 4, 128, 0.1
     problem = blocking.block_problem(train, num_blocks=k, seed=0,
                                      minibatch_multiple=mb)
-    args = device_args(problem, mb, dev)
+    args = device_args(problem,
+                       *blocking.minibatch_inv_counts(problem.ratings, mb),
+                       dev)
     sw = problem.ratings.weights
     g = torch.Generator(device=dev).manual_seed(0)
     U = 0.08 * torch.rand((problem.users.num_rows, rank), generator=g,
@@ -212,9 +218,9 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    _build.load_libraries("dsgd_sweep")
+    _build.load_library("dsgd_sweep")
     say("build", seconds=round(time.perf_counter() - t0, 2))
-    for line in _build.build_logs.get("dsgd_sweep", "").splitlines():
+    for line in _build.nvcc_output.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
 
@@ -241,8 +247,23 @@ def main() -> int:
         block_nnz=b, n_mb=n_mb, max_pad_ratio=round(
             problem.ratings.max_pad_ratio, 4),
         gen_wall_s=round(gen_s, 2), blocking_wall_s=round(block_s, 2))
-    args = device_args(problem, mb, dev)
-    U0, V0 = (t.to(dev) for t in DSGD(cfg)._init_factors(problem))
+    t0 = time.perf_counter()
+    icu, icv = blocking.minibatch_inv_counts(problem.ratings, mb)
+    inv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    U0, V0 = DSGD(cfg)._init_factors(problem)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = device_args(problem, icu, icv, dev)
+    U0, V0 = U0.to(dev), V0.to(dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    # the same host steps fit runs before its first sweep, timed apart
+    say("host", inv_counts_wall_s=inv_s, init_factors_wall_s=init_s,
+        host_to_device_wall_s=copy_s,
+        host_to_device_bytes=sum(a.nbytes for a in args)
+        + U0.nbytes + V0.nbytes)
     lam = cfg.lambda_
     sched = schedule_from_name(cfg.lr_schedule, lam)
     full = check_strata(U0, V0, args, problem, mb, sched(cfg.learning_rate, 1),
@@ -262,14 +283,19 @@ def main() -> int:
     fit_s = time.perf_counter() - t0
     launches = dict(cuda_sgd.LAUNCHES)
     curve = solver.evaluator.rmse
-    say("main.fit", wall_s=round(fit_s, 2), rmse_per_sweep=curve,
-        rmse=rmse, launches=launches)
+    sweep_ms = solver.segment_ms  # one segment = one sweep, inside fit
+    nnz = problem.ratings.nnz
+    say("main.fit", wall_s=round(fit_s, 2), sweep_ms=sweep_ms,
+        ratings_per_s=nnz * len(sweep_ms) / (sum(sweep_ms) / 1e3),
+        rmse_per_sweep=curve, rmse=rmse, launches=launches)
     if not all(math.isfinite(x) for x in curve) or len(curve) != 3:
         raise AssertionError(f"holdout RMSE curve {curve}")
     if not all(b_ < a_ for a_, b_ in zip(curve, curve[1:])):
         raise AssertionError(f"holdout RMSE did not fall every sweep: {curve}")
     if abs(rmse - curve[-1]) > 1e-6:
         raise AssertionError(f"model.rmse {rmse} != last sweep {curve[-1]}")
+    if len(sweep_ms) != cfg.iterations:
+        raise AssertionError(f"fit timed {len(sweep_ms)} sweeps")
     want = n_mb * K * cfg.iterations
     if (launches["sgd_delta_kernel"] != want
             or launches["sgd_scatter_kernel"] != want):
@@ -278,38 +304,31 @@ def main() -> int:
     if tuple(model.U.shape) != (problem.users.num_rows, cfg.num_factors):
         raise AssertionError(f"U shape {tuple(model.U.shape)}")
 
-    # -- per-sweep kernel time, and the same 3 sweeps on the plain route ------
-    sweep_ms, plain_sweep_ms = [], []
-    Uk, Vk = U0, V0
+    # -- the same 3 sweeps on the plain route, and through the kernels again,
+    # from the same initial tables (for the comparison only) ---------------
+    def replay(step):
+        U, V, out = U0, V0, []
+        for sweep in range(cfg.iterations):
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            U, V = step(U, V, sweep)
+            e.record()
+            e.synchronize()
+            out.append(a.elapsed_time(e))
+        ev = solver.evaluator
+        return out, math.sqrt(float(sgd_ops.sse_rows(U, V, *ev.rows)) / ev.n)
+
     scratch = cuda_sgd.alloc_scratch(K, mb, cfg.num_factors, dev)
-    for sweep in range(cfg.iterations):
-        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        Uk, Vk = cuda_sgd.dsgd_train_cuda(
-            Uk, Vk, *args, lr=cfg.learning_rate, lam=lam, minibatch=mb,
-            num_blocks=K, iterations=1, schedule=sched, t0=sweep,
-            scratch=scratch)
-        e.record()
-        e.synchronize()
-        sweep_ms.append(a.elapsed_time(e))
     upd = RegularizedSGDUpdater(learning_rate=cfg.learning_rate, lambda_=lam,
                                 schedule=sched)
-    Up, Vp = U0, V0
-    for sweep in range(cfg.iterations):
-        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        Up, Vp = sgd_ops.dsgd_train(Up, Vp, *args, updater=upd, minibatch=mb,
-                                    num_blocks=K, iterations=1, t0=sweep)
-        e.record()
-        e.synchronize()
-        plain_sweep_ms.append(a.elapsed_time(e))
-    ev = solver.evaluator
-    rmse_plain = math.sqrt(float(sgd_ops.sse_rows(Up, Vp, *ev.rows)) / ev.n)
-    rmse_replay = math.sqrt(float(sgd_ops.sse_rows(Uk, Vk, *ev.rows)) / ev.n)
-    nnz = problem.ratings.nnz
-    say("main.sweeps", kernel_ms=[round(x, 3) for x in sweep_ms],
-        ratings_per_s=round(nnz / (min(sweep_ms) / 1e3)),
-        plain_ms=[round(x, 3) for x in plain_sweep_ms],
+    replay_ms, rmse_replay = replay(lambda U, V, sweep: cuda_sgd.dsgd_train_cuda(
+        U, V, *args, lr=cfg.learning_rate, lam=lam, minibatch=mb,
+        num_blocks=K, iterations=1, schedule=sched, t0=sweep,
+        scratch=scratch))
+    plain_ms, rmse_plain = replay(lambda U, V, sweep: sgd_ops.dsgd_train(
+        U, V, *args, updater=upd, minibatch=mb, num_blocks=K, iterations=1,
+        t0=sweep))
+    say("main.replay", kernel_ms=replay_ms, plain_ms=plain_ms,
         model_bytes_per_sweep=sgd_ops.dsgd_bytes_per_sweep(
             nnz, cfg.num_factors, kernel="cuda"),
         rmse_kernel_replay=rmse_replay, rmse_plain=rmse_plain)
@@ -370,26 +389,30 @@ def time_kernels(U0, V0, args, problem, mb, lam, launches):
     lib_ms = cuda_ms(lambda: (Up.index_add_(0, ur, du_flat),
                               Vp.index_add_(0, ir, dv_flat)), reps=20)
 
-    # bounds from this minibatch's data: each input read once, each output
-    # written once; distinct rows only
+    # bounds from this step's data. The ported function is the whole step
+    # (both kernels): it reads each distinct row once with its ω and 24 B of
+    # streams per entry, and writes each distinct row back once. The delta
+    # kernel's share is the reads, the scatter kernel's the writes; their
+    # sum is the step's bound. The du/dv scratch round trip is a cost of the
+    # two-launch design, reported apart and in neither bound.
     real = planes[3][:, :mb].reshape(-1) != 0
     n_real = int(real.sum())
     n_all = k * mb
     uniq_u = int(torch.unique(ur[real]).numel())
     uniq_v = int(torch.unique(ir[real]).numel())
     row = rank * 4
-    d_bytes = ((uniq_u + uniq_v) * (row + 4) + n_all * 24
-               + 2 * n_all * row)
+    d_bytes = (uniq_u + uniq_v) * (row + 4) + n_all * 24
+    s_bytes = (uniq_u + uniq_v) * row
     d_flops = n_real * 10 * rank
-    s_bytes = (2 * n_real * row + n_all * 12
-               + 2 * (uniq_u + uniq_v) * row)
-    s_flops = 2 * n_real * rank
+    s_flops = n_real * 2 * rank
+    scratch_bytes = 2 * 2 * n_all * row  # du/dv written, then read back
 
     def bound(nbytes, flops):
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        return round(max(tb, tf) * 1e3, 6), ("bytes" if tb >= tf
-                                             else "operations")
+        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
+    step_bms, _ = bound(d_bytes + s_bytes, d_flops + s_flops)
+    step_ms = delta_ms + scatter_ms
     out = []
     for name, err, ms, pms, (bms, by), lib in (
             ("sgd_delta_kernel", delta_err, delta_ms, delta_plain_ms,
@@ -401,11 +424,14 @@ def time_kernels(U0, V0, args, problem, mb, lam, launches):
         out.append({"name": name, "route": "cuda", "source": SOURCE,
                     "replaces": REPLACES,
                     "launches": launches[name], "max_abs_err": err,
-                    "ms": round(ms, 4), "plain_ms": round(pms, 4),
-                    "bound_ms": bms, "bound_by": by,
-                    "library_ms": None if lib is None else round(lib, 4)})
+                    "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                    "step_ms": step_ms, "step_bound_ms": step_bms})
     say("kernels.timing", visits=k, minibatch=mb, real_entries=n_real,
-        distinct_u=uniq_u, distinct_v=uniq_v)
+        distinct_u=uniq_u, distinct_v=uniq_v,
+        function_bytes=d_bytes + s_bytes, scratch_bytes=scratch_bytes,
+        step_ms=step_ms, step_bound_ms=step_bms,
+        step_share_of_bound=step_bms / step_ms)
     return out
 
 

@@ -30,11 +30,19 @@
 // scatter only to f32 rounding (the tolerance is stated in the tests and in
 // PERF.md).
 //
-// Bound. Per rating the design moves 2 row gathers + 2 row read-modify-writes
-// + the du/dv scratch write and read (10 rows of 512 B at rank 128 f32) plus
-// 24 B of per-entry streams: ~5.1 KB, i.e. ~1.5 ms per million ratings
-// against the H100's 3.35 TB/s. It is latency-bound on the random row
-// gathers and atomics; it makes no attempt at TMA or shared-memory staging.
+// Bound. The function of one minibatch step (all k visits) must read each
+// distinct U and V row it touches once, with its ω, write each of them back
+// once, and read 24 B of streams per entry (su, si, r, w, icu, icv). At the
+// bench geometry (k 8, mb 32,768, rank 128 f32, ~173k distinct rows per
+// step) that is ~185 MB, ~0.055 ms at the H100's 3.35 TB/s; the f32
+// operations (~12·rank per entry) are far below the card's rate.
+// What this design moves instead, per real entry: 2 row gathers, 2 row
+// read-modify-writes by atomics, and the du/dv scratch written and read back
+// (10 rows of 512 B at rank 128 f32), ~5.1 KB, ~1.5 ms per million ratings.
+// The scratch round trip and the per-entry (not per-row) traffic are costs
+// of the two-launch design, not of the function. The design is latency-bound
+// on the random row gathers and atomics; it makes no attempt at TMA or
+// shared-memory staging.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

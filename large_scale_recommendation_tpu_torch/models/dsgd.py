@@ -88,6 +88,9 @@ class DSGD:
         # they stay None (one pointer test per segment)
         self.watchdog = None
         self.evaluator = None
+        # device ms of each training segment of the last fit (CUDA events
+        # around the segment's launches; hooks excluded); empty on the CPU
+        self.segment_ms: list[float] = []
 
     # -- fit ---------------------------------------------------------------
 
@@ -143,16 +146,28 @@ class DSGD:
         cfg = self.config
         segment = checkpoint_every or cfg.iterations
         train = self._train_fn(args, k, int(U.shape[-1]))
+        timed = self.device.type == "cuda"
+        events = []
         done = 0
         while done < cfg.iterations:
             seg = min(segment, cfg.iterations - done)
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
             U, V = train(U, V, iterations=seg, t0=done)
+            if timed:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                events.append((start, end))
             done += seg
             if self.watchdog is not None:
                 self.watchdog.after_segment(U, V, label="dsgd_segment")
             if self.evaluator is not None:
                 self.evaluator.on_segment(U, V, label="dsgd_segment",
                                           step=done)
+        if events:
+            events[-1][1].synchronize()
+        self.segment_ms = [a.elapsed_time(b) for a, b in events]
         return U, V
 
     def _train_fn(self, args, k: int, rank: int):

@@ -1,12 +1,11 @@
-"""Build and load the port's CUDA sources (``csrc/*.cu``) as plain-C
-shared libraries bound with ctypes.
+"""Build and load the port's CUDA source (``csrc/<name>.cu``) as a plain-C
+shared library bound with ctypes.
 
-Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
+The source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -shared -Xcompiler -fPIC`` into ``<package>/build/`` (listed in
 ``.gitignore``) at first use, and again whenever the source is newer than
-its library. ``load_libraries`` starts one ``nvcc`` per source that needs a
-build, all at once, and waits for them together. There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+its library. There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -23,9 +21,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}  # name → nvcc's output (ptxas register use)
+nvcc_output = ""  # the last build's nvcc output (ptxas register use)
 
 
 def _nvcc() -> str:
@@ -40,50 +37,23 @@ def _nvcc() -> str:
         "need the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def _paths(name: str) -> tuple[str, str]:
-    return (os.path.join(CSRC, f"{name}.cu"),
-            os.path.join(BUILD_DIR, f"lib{name}.so"))
-
-
-def load_libraries(*names: str) -> dict[str, ctypes.CDLL]:
-    """Build (in parallel, where stale) and load ``csrc/<name>.cu`` for each
-    name; returns ``{name: CDLL}``."""
-    with _lock:
-        todo = [n for n in names if n not in _loaded]
-        stale = []
-        for n in todo:
-            src, lib = _paths(n)
-            if not os.path.exists(src):
-                raise FileNotFoundError(src)
-            if (not os.path.exists(lib)
-                    or os.path.getmtime(lib) < os.path.getmtime(src)):
-                stale.append(n)
-        if stale:
-            nvcc = _nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            procs = {}
-            for n in stale:
-                src, lib = _paths(n)
-                tmp = f"{lib}.{os.getpid()}.tmp"
-                procs[n] = (subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True), tmp, lib)
-            failed = []
-            for n, (proc, tmp, lib) in procs.items():
-                out, _ = proc.communicate()
-                build_logs[n] = out
-                if proc.returncode != 0:
-                    failed.append(f"{n}.cu (exit {proc.returncode}):\n"
-                                  f"{out[-4000:]}")
-                else:
-                    os.replace(tmp, lib)
-            if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        for n in todo:
-            _loaded[n] = ctypes.CDLL(_paths(n)[1])
-        return {n: _loaded[n] for n in names}
-
-
 def load_library(name: str) -> ctypes.CDLL:
-    return load_libraries(name)[name]
+    """Build ``csrc/<name>.cu`` if its library is missing or stale, and
+    load it."""
+    global nvcc_output
+    if name in _loaded:
+        return _loaded[name]
+    src = os.path.join(CSRC, f"{name}.cu")
+    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+    if not os.path.exists(src):
+        raise FileNotFoundError(src)
+    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", lib, src],
+                              capture_output=True, text=True, check=False)
+        nvcc_output = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+                               f"{proc.returncode}):\n{nvcc_output[-4000:]}")
+    _loaded[name] = ctypes.CDLL(lib)
+    return _loaded[name]

@@ -20,7 +20,10 @@ Beside them, the plain versions of the TPU kernels' own contracts, for the
 tests and the on-card comparisons: ``block_sweep_reference`` (one visit,
 block-local rows — ``pallas_block_sweep``) and ``stratum_sweep_reference``
 (one stratum from ``build_stratum_operands``' visit-major operands —
-``pallas_stratum_sweep``). The TPU's VMEM/SMEM budget helpers have no
+``pallas_stratum_sweep``). Every plain version applies the one λ/ω rule
+of ``RegularizedSGDUpdater.delta`` at a constant η; the two sweep
+references run it through ``ops.sgd.sgd_block_sweep``, the CPU route of
+``fit``. The TPU's VMEM/SMEM budget helpers have no
 counterpart: the wrappers' shape checks take their place.
 """
 
@@ -31,6 +34,11 @@ import ctypes
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.core.updaters import (
+    RegularizedSGDUpdater,
+    constant_lr,
+)
+from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.ops._build import load_library
 
 # launches per kernel since the last reset (counted where the kernel is
@@ -122,21 +130,25 @@ def _check_step(U, V, su_s, si_s, sw_s, du, dv, g, minibatch):
     return k, b, rank
 
 
+def _rule(lr: float, lam: float) -> RegularizedSGDUpdater:
+    """The λ/ω rule the kernels inline, at a constant η = ``lr``."""
+    return RegularizedSGDUpdater(learning_rate=lr, lambda_=lam,
+                                 schedule=constant_lr)
+
+
 def sgd_delta_reference(U, V, su_s, si_s, sv_s, sw_s, icu_s, icv_s,
                         omega_u, omega_v, g, du, dv, *, lr, lam, minibatch):
     """Plain version of ``sgd_delta_kernel``: fills du/dv ``[k, mb, r]``
     for minibatch g of every visit of the stratum."""
     sl = slice(g * minibatch, (g + 1) * minibatch)
-    ur = su_s[:, sl].long()
-    ir = si_s[:, sl].long()
-    u = U[ur]
-    v = V[ir]
-    w = sw_s[:, sl, None]
-    err = (sv_s[:, sl, None] - (u * v).sum(dim=-1, keepdim=True)) * w
-    gu = omega_u[ur].clamp_min(1.0)[..., None]
-    gv = omega_v[ir].clamp_min(1.0)[..., None]
-    du.copy_((lr * (err * v - (lam / gu) * u * w)) * icu_s[:, sl, None])
-    dv.copy_((lr * (err * u - (lam / gv) * v * w)) * icv_s[:, sl, None])
+    ur = su_s[:, sl].reshape(-1).long()
+    ir = si_s[:, sl].reshape(-1).long()
+    d_u, d_v = _rule(lr, lam).delta(
+        sv_s[:, sl].reshape(-1), U[ur], V[ir],
+        weights=sw_s[:, sl].reshape(-1), omega_u=omega_u[ur],
+        omega_v=omega_v[ir])
+    du.copy_((d_u * icu_s[:, sl].reshape(-1, 1)).view(du.shape))
+    dv.copy_((d_v * icv_s[:, sl].reshape(-1, 1)).view(dv.shape))
     return du, dv
 
 
@@ -319,38 +331,25 @@ def build_stratum_operands(su, si, sv, sw, icu, icv, omega_u, omega_v,
     return idx, streams
 
 
-def _visit_reference(Ub, Vb, ur, ir, vals, w, icu, icv, ou_e, ov_e, *,
-                     lr, lam, minibatch):
-    """One visit in place on the block slices: per minibatch, gather, the
-    λ/ω rule with per-entry ω, then ``index_add_``."""
-    for a in range(0, ur.shape[0], minibatch):
-        sl = slice(a, a + minibatch)
-        r_u, r_i = ur[sl].long(), ir[sl].long()
-        u, v = Ub[r_u], Vb[r_i]
-        wc = w[sl, None]
-        err = (vals[sl, None] - (u * v).sum(dim=-1, keepdim=True)) * wc
-        gu = ou_e[sl, None].clamp_min(1.0)
-        gv = ov_e[sl, None].clamp_min(1.0)
-        du = (lr * (err * v - (lam / gu) * u * wc)) * icu[sl, None]
-        dv = (lr * (err * u - (lam / gv) * v * wc)) * icv[sl, None]
-        Ub.index_add_(0, r_u, du)
-        Vb.index_add_(0, r_i, dv)
-
-
 def block_sweep_reference(U_blk, V_blk, ur_local, ir_local, vals, w, icu, icv,
                           omega_u, omega_v, *, lr: float, lam: float,
                           minibatch: int):
     """Plain version of ``pallas_block_sweep`` (``_sweep_kernel``): sweep one
-    rating block against its block-local U/V row slices. Returns updated
-    copies."""
-    e = ur_local.shape[0]
-    if e % minibatch:
-        raise ValueError(f"block nnz {e} not divisible by mb {minibatch}")
+    rating block against its block-local U/V row slices and ω. Returns
+    updated copies."""
     Ub, Vb = U_blk.clone(), V_blk.clone()
-    _visit_reference(Ub, Vb, ur_local, ir_local, vals, w, icu, icv,
-                     omega_u[ur_local.long()], omega_v[ir_local.long()],
-                     lr=lr, lam=lam, minibatch=minibatch)
-    return Ub, Vb
+    return sgd_ops.sgd_block_sweep(
+        Ub, Vb, ur_local, ir_local, vals, w, omega_u, omega_v,
+        _rule(lr, lam), 1, minibatch, "mean", icu, icv)
+
+
+def _block_omega(rows, omega_e, w, rpb):
+    """A block's ω slice from the per-entry ω stream: every real entry of a
+    row carries that row's ω (padding entries carry another block's)."""
+    real = w != 0
+    out = torch.zeros(rpb, dtype=omega_e.dtype, device=omega_e.device)
+    out[rows[real].long()] = omega_e[real]
+    return out
 
 
 def stratum_sweep_reference(U, V, idx, streams, s: int, *, lr: float,
@@ -362,16 +361,19 @@ def stratum_sweep_reference(U, V, idx, streams, s: int, *, lr: float,
     k = num_blocks
     rpb_u = U.shape[0] // k
     rpb_v = V.shape[0] // k
-    e = idx.shape[-1]
-    n_mb = e // minibatch
+    n_mb = idx.shape[-1] // minibatch
     U, V = U.clone(), V.clone()
     for p in range(k):
         q = (p + s) % k
         vrow = s * k + p
-        st = [streams[vrow, c * n_mb:(c + 1) * n_mb].reshape(-1)
-              for c in range(6)]
-        _visit_reference(
+        vals, w, icu, icv, ou_e, ov_e = (
+            streams[vrow, c * n_mb:(c + 1) * n_mb].reshape(-1)
+            for c in range(6))
+        ur, ir = idx[vrow, 0], idx[vrow, 1]
+        # in place on the visit's row slices of the copies
+        sgd_ops.sgd_block_sweep(
             U[p * rpb_u:(p + 1) * rpb_u], V[q * rpb_v:(q + 1) * rpb_v],
-            idx[vrow, 0], idx[vrow, 1], *st, lr=lr, lam=lam,
-            minibatch=minibatch)
+            ur, ir, vals, w, _block_omega(ur, ou_e, w, rpb_u),
+            _block_omega(ir, ov_e, w, rpb_v), _rule(lr, lam), 1, minibatch,
+            "mean", icu, icv)
     return U, V

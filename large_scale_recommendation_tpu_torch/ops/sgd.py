@@ -27,7 +27,9 @@ import torch
 
 def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
                          factor_bytes: int = 4) -> int:
-    """Bytes of device-memory traffic one full DSGD sweep moves, per route.
+    """Bytes of device-memory traffic one full DSGD sweep moves, per route
+    (a model of each route's design, not the function's bound: that counts
+    distinct rows once per step and depends on the data).
 
     - ``kernel="plain"`` (the gather route): every rating pays ~4 row
       transactions (read+write of a u row and a v row) of
