@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's DSGD training path on one NVIDIA GPU (an H100).
+"""Run the PyTorch port's DSGD training paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -11,7 +11,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               PyTorch version on the card: a small k=4, rank-128 problem
               with duplicate rows and padding (one stratum, 3 sweeps), and
               one stratum at the full bench geometry; max-abs ≤ 1e-5 per
-              stratum (atomic scatter order);
+              stratum (atomic scatter order). ``[kernels.bf16]``: the same
+              with bf16 tables (upcast kernel, f32 steps, downcast kernel)
+              against the plain twin, every element within one bf16 ulp
+              (magnitudes below 2^-16 counted as 2^-16, where a bf16 ulp
+              is the size of the f32 atomics-order difference), and the
+              cast kernels bit-equal to ``Tensor.to``;
 4. main     — the bench configuration at full width: ML-25M-shaped ratings
               (162,541 × 59,047, 25,000,095 ratings, 95/5 split), k=8 Gemulla
               strata, rank 128, minibatch 32,768, warm_boost schedule, 3
@@ -23,9 +28,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               must have launched both kernels, and the same 3 sweeps
               through the plain route on the card must end within 1e-4 of
               its RMSE;
-5. timing   — each kernel against its plain version at the main path's
-              shapes (CUDA events), with its share of the bound of one
-              stratum step on this card.
+5. main.device — the bench's device pipeline (``bench.py:254-363``):
+              ``synthetic_like_device`` on the card, device blocking and the
+              per-id init timed apart, then ``DSGD().fit_device`` at f32 and
+              at bf16, 3 sweeps each, from the same layout and initial
+              tables. Holdout RMSE per sweep (``holdout_rows``) must be
+              finite and fall, launch counts must equal their formulas, bf16
+              must end within 5% of f32, and the plain twin's replay on the
+              card within 1e-4 (f32) / 1e-3 (bf16) of each fit;
+6. timing   — each kernel against its plain version at the main path's
+              shapes (CUDA events), with its bound on this card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -34,6 +46,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -51,6 +64,7 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
     schedule_from_name,
 )
 from large_scale_recommendation_tpu_torch.data import blocking
+from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.data.movielens import synthetic_like
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
@@ -60,9 +74,14 @@ from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SOURCE = "large_scale_recommendation_tpu_torch/csrc/dsgd_sweep.cu"
-# the pair replaces the stratum kernel on the main path (and, by the same
-# launches, the per-visit _sweep_kernel at pallas_sgd.py:172)
-REPLACES = "large_scale_recommendation_tpu/ops/pallas_sgd.py:440"
+# the step pair replaces the stratum kernel on the main path (and, by the
+# same launches, the per-visit _sweep_kernel at pallas_sgd.py:172); the cast
+# pair its half=True upcast and downcast
+_PALLAS = "large_scale_recommendation_tpu/ops/pallas_sgd.py"
+REPLACES = {"sgd_delta_kernel": f"{_PALLAS}:440",
+            "sgd_scatter_kernel": f"{_PALLAS}:440",
+            "bf16_to_f32_kernel": f"{_PALLAS}:552",
+            "f32_to_bf16_kernel": f"{_PALLAS}:604"}
 # the bench configuration (bench.py:190-202), 3 sweeps
 BENCH = dict(num_factors=128, lambda_=0.1, iterations=3, learning_rate=0.3,
              lr_schedule="warm_boost", seed=0, minibatch_size=32768,
@@ -70,6 +89,11 @@ BENCH = dict(num_factors=128, lambda_=0.1, iterations=3, learning_rate=0.3,
 K = 8
 RMSE_TARGET = 0.155
 STRATUM_TOL = 1e-5  # max-abs per stratum: atomics add duplicates in any order
+BF16_ULPS = 1.0  # bf16 per stratum: an f32 last-place difference may flip
+#                  one rounding
+# below this magnitude a bf16 ulp (≤ 1.2e-7) is smaller than the f32
+# atomics-order difference it rounds from; ulps count at no less than it
+ULP_FLOOR = 2.0 ** -16
 
 
 def say(phase: str, **kv) -> None:
@@ -142,6 +166,69 @@ def check_strata(U, V, args, problem, minibatch, lr, lam, label):
     return worst
 
 
+def bf16_ulps(a, b, floor=ULP_FLOOR) -> torch.Tensor:
+    """|a − b| per element in units of one bf16 ulp at its magnitude
+    (counted at no less than ``floor``)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(floor)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_strata_bf16(U, V, args, problem, minibatch, lr, lam, label):
+    """bf16 tables: upcast kernel, the stratum's f32 steps, downcast kernel,
+    against the plain twin (``stratum_sweep_reference`` on the bf16 tables)
+    for every stratum of one sweep, each from the same tables. Returns the
+    largest difference in bf16 ulps, the share of elements that differ, and
+    (how many, largest magnitude) of those beyond one ulp only when counted
+    below ``ULP_FLOOR``."""
+    k = problem.ratings.num_blocks
+    su, si, sv, sw, ou, ov, icu, icv = args
+    idx, streams = stratum_operands(args, problem, minibatch)
+    du, dv = cuda_sgd.alloc_scratch(k, minibatch, U.shape[-1], U.device)
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    Uw, Vw = torch.empty_like(U), torch.empty_like(V)
+    worst, differ, total, tiny, tiny_mag = 0.0, 0, 0, 0, 0.0
+    for s in range(k):
+        Uk, Vk = Ub.clone(), Vb.clone()
+        cuda_sgd.bf16_to_f32(Uk, Vk, Uw, Vw)
+        cuda_sgd.stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, ou, ov, s,
+                               du, dv, lr=lr, lam=lam, minibatch=minibatch)
+        cuda_sgd.f32_to_bf16(Uw, Vw, Uk, Vk)
+        Ur, Vr = cuda_sgd.stratum_sweep_reference(
+            Ub, Vb, idx, streams, s, lr=lr, lam=lam, minibatch=minibatch,
+            num_blocks=k)
+        torch.cuda.synchronize()
+        for a, b in ((Uk, Ur), (Vk, Vr)):
+            worst = max(worst, float(bf16_ulps(a, b).max()))
+            differ += int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            total += a.numel()
+            # beyond one ulp only when counted below the floor
+            raw = bf16_ulps(a, b, floor=2.0 ** -126) > BF16_ULPS
+            tiny += int(raw.sum())
+            if raw.any():
+                tiny_mag = max(tiny_mag, float(a.float().abs()[raw].max()))
+        if not (worst <= BF16_ULPS and torch.isfinite(Uk.float()).all()):
+            raise AssertionError(f"{label} bf16: stratum {s} differs by "
+                                 f"{worst} bf16 ulps > {BF16_ULPS}")
+    return worst, differ / total, (tiny, tiny_mag)
+
+
+def check_casts(U, V):
+    """The cast kernels against ``Tensor.to`` on the given f32 tables (and
+    back): bit-equal, or raise."""
+    Ub, Vb = (torch.empty_like(t, dtype=torch.bfloat16) for t in (U, V))
+    Uf, Vf = torch.empty_like(U), torch.empty_like(V)
+    cuda_sgd.f32_to_bf16(U, V, Ub, Vb)
+    cuda_sgd.bf16_to_f32(Ub, Vb, Uf, Vf)
+    torch.cuda.synchronize()
+    for got, want in ((Ub, U.to(torch.bfloat16)), (Vb, V.to(torch.bfloat16))):
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError("f32_to_bf16_kernel differs from Tensor.to")
+    if not (torch.equal(Uf, Ub.float()) and torch.equal(Vf, Vb.float())):
+        raise AssertionError("bf16_to_f32_kernel differs from Tensor.to")
+    return U.numel() + V.numel()
+
+
 def phase_small(dev):
     """k=4, rank 128, skewed ids (duplicate rows inside minibatches) and
     weight-0 block padding."""
@@ -180,6 +267,19 @@ def phase_small(dev):
         pad_fraction=round(float((sw == 0).mean()), 4),
         one_stratum_max_abs=f"{one:.3e}", three_sweeps_max_abs=f"{err3:.3e}",
         tol_per_stratum=STRATUM_TOL)
+    ulps, share, below = check_strata_bf16(U, V, args, problem, mb, 0.75,
+                                           lam, "small")
+    kw = dict(lr=0.3, lam=lam, minibatch=mb, num_blocks=k, iterations=3,
+              schedule=sched)
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    Uk, Vk = cuda_sgd.dsgd_train_cuda(Ub, Vb, *args, **kw)
+    Ur, Vr = cuda_sgd.dsgd_train_reference(Ub, Vb, *args, **kw)
+    torch.cuda.synchronize()
+    say("kernels.bf16", problem="small", k=k, rank=rank, minibatch=mb,
+        one_stratum_max_ulps=ulps, one_stratum_share_differ=share,
+        beyond_one_ulp_below_floor=below[0], their_max_magnitude=below[1],
+        three_sweeps_max_abs=f"{max_abs([(Uk.float(), Ur.float()), (Vk.float(), Vr.float())]):.3e}",
+        cast_elements_bit_equal=check_casts(U, V), tol_ulps=BF16_ULPS)
 
 
 class HoldoutEval:
@@ -250,8 +350,10 @@ def main() -> int:
     t0 = time.perf_counter()
     icu, icv = blocking.minibatch_inv_counts(problem.ratings, mb)
     inv_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    U0, V0 = DSGD(cfg)._init_factors(problem)
+    U0, V0 = DSGD(cfg)._init_factors(problem)  # keyed rows, on the card
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -270,6 +372,13 @@ def main() -> int:
                         lam, "full")
     say("kernels.full", k=K, rank=cfg.num_factors, minibatch=mb,
         one_stratum_max_abs=f"{full:.3e}", tol_per_stratum=STRATUM_TOL)
+    ulps, share, below = check_strata_bf16(
+        U0, V0, args, problem, mb, sched(cfg.learning_rate, 1), lam, "full")
+    say("kernels.bf16", problem="full", k=K, rank=cfg.num_factors,
+        minibatch=mb, one_stratum_max_ulps=ulps,
+        one_stratum_share_differ=share, beyond_one_ulp_below_floor=below[0],
+        their_max_magnitude=below[1],
+        cast_elements_bit_equal=check_casts(U0, V0), tol_ulps=BF16_ULPS)
 
     # -- the main path: DSGD().fit on the card --------------------------------
     solver = DSGD(cfg)
@@ -296,11 +405,7 @@ def main() -> int:
         raise AssertionError(f"model.rmse {rmse} != last sweep {curve[-1]}")
     if len(sweep_ms) != cfg.iterations:
         raise AssertionError(f"fit timed {len(sweep_ms)} sweeps")
-    want = n_mb * K * cfg.iterations
-    if (launches["sgd_delta_kernel"] != want
-            or launches["sgd_scatter_kernel"] != want):
-        raise AssertionError(f"launches {launches}, expected {want} each "
-                             f"(2·n_mb·k·iterations = {2 * want} in all)")
+    check_launches(launches, n_mb, cfg.iterations, half=False)
     if tuple(model.U.shape) != (problem.users.num_rows, cfg.num_factors):
         raise AssertionError(f"U shape {tuple(model.U.shape)}")
 
@@ -337,8 +442,12 @@ def main() -> int:
                              f"{rmse}: differ by more than 1e-4")
     say("main.target", rmse=rmse, target=RMSE_TARGET,
         reached=rmse <= RMSE_TARGET)
+    del train, holdout, model, solver, scratch
 
-    kernels = time_kernels(U0, V0, args, problem, mb, lam, launches)
+    device_runs, (Ud, Vd) = phase_device(dev, cfg)
+    paths = {"fit": launches, **device_runs}
+    kernels = time_kernels(U0, V0, args, problem, mb, lam, paths)
+    kernels += time_casts(Ud, Vd, paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -346,7 +455,198 @@ def main() -> int:
     return 0
 
 
-def time_kernels(U0, V0, args, problem, mb, lam, launches):
+def check_launches(launches, n_mb, iterations, half):
+    """Each stratum step launched both step kernels; in bf16 each stratum
+    launched one upcast and one downcast, in f32 none."""
+    steps = n_mb * K * iterations
+    casts = K * iterations if half else 0
+    want = {"sgd_delta_kernel": steps, "sgd_scatter_kernel": steps,
+            "bf16_to_f32_kernel": casts, "f32_to_bf16_kernel": casts}
+    if launches != want:
+        raise AssertionError(
+            f"launches {launches}, expected {want} (2·n_mb·k·iterations "
+            f"step launches{', k·iterations of each cast' if half else ''})")
+
+
+class DeviceHoldoutEval:
+    """Segment hook of ``DSGD``: holdout RMSE of the live tables after each
+    sweep, on the rows of ``DeviceBlockedProblem.holdout_rows``."""
+
+    def __init__(self, ur, ir, values, mask):
+        self.rows = (ur, ir, values, mask)
+        self.n = float(mask.sum())
+        self.rmse: list[float] = []
+
+    def on_segment(self, U, V, label, step):
+        sse = float(sgd_ops.sse_rows(U, V, *self.rows))
+        self.rmse.append(math.sqrt(sse / self.n))
+
+    def of(self, U, V) -> float:
+        return math.sqrt(float(sgd_ops.sse_rows(U, V, *self.rows)) / self.n)
+
+
+def phase_device(dev, cfg):
+    """The bench's device pipeline at full width: generation, blocking and
+    init on the card (timed apart), then ``DSGD.fit_device`` at f32 and at
+    bf16, each against the plain twin's replay on the card from the same
+    layout and initial tables. Returns each fit's launch counts and the
+    initial f32 tables."""
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (train, hold, (nu, ni)), gen_s = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", rank=16, noise=0.1, seed=0, skew_lam=2.0, device=dev))
+    u, i, r = train
+    mb = cfg.minibatch_size
+    def block():
+        return device_blocking.device_block_problem(
+            u, i, r, nu, ni, num_blocks=K, minibatch_multiple=mb,
+            seed=cfg.seed, minibatch_sort=cfg.minibatch_sort, device=dev)
+
+    problem, block_s = timed(block)  # cold: the first sorts load kernels
+    _, block_warm_s = timed(block)  # as fit_device meets it
+    (U0, V0), init_s = timed(lambda: device_blocking.init_factors_device(
+        problem, cfg.num_factors, cfg.init_scale))
+    b = problem.su.shape[-1]
+    n_mb = b // mb
+    ur, ir, mask = problem.holdout_rows(hold[0], hold[1])
+    say("main.device.data", train=u.shape[0], holdout=hold[0].shape[0],
+        users=U0.shape[0], items=V0.shape[0],
+        rows_per_block=f"{problem.rows_per_block_u}/"
+                       f"{problem.rows_per_block_v}",
+        block_nnz=b, n_mb=n_mb, max_pad_ratio=problem.max_pad_ratio,
+        generation_wall_s=gen_s, blocking_wall_s=block_s,
+        blocking_warm_wall_s=block_warm_s, init_wall_s=init_s)
+    ids_u = problem.to_id_indices()[0].ids
+    args = (problem.su, problem.si, problem.sv, problem.sw, problem.omega_u,
+            problem.omega_v, problem.icu, problem.icv)
+    sched = schedule_from_name(cfg.lr_schedule, cfg.lambda_)
+    runs, final = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = dataclasses.replace(cfg, factor_dtype=dtype)
+        solver = DSGD(dcfg)
+        solver.evaluator = DeviceHoldoutEval(ur, ir, hold[2], mask)
+        torch.cuda.synchronize()
+        cuda_sgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = solver.fit_device(u, i, r, nu, ni, num_blocks=K,
+                                  checkpoint_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_sgd.LAUNCHES)
+        curve = solver.evaluator.rmse
+        half = dtype == "bfloat16"
+        # the replay: the plain twin on the card, same layout and init
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        Ur, Vr = cuda_sgd.dsgd_train_reference(
+            U0.to(model.U.dtype), V0.to(model.U.dtype), *args,
+            lr=cfg.learning_rate, lam=cfg.lambda_, minibatch=mb,
+            num_blocks=K, iterations=cfg.iterations, schedule=sched)
+        e.record()
+        e.synchronize()
+        rmse_plain = solver.evaluator.of(Ur, Vr)
+        say(f"main.device.{dtype}", wall_s=wall, sweep_ms=solver.segment_ms,
+            ratings_per_s=problem.nnz * len(solver.segment_ms)
+            / (sum(solver.segment_ms) / 1e3),
+            rmse_per_sweep=curve, launches=launches,
+            plain_twin_ms=a.elapsed_time(e), rmse_plain_twin=rmse_plain)
+        if model.U.dtype != dcfg.storage_dtype():
+            raise AssertionError(f"fit_device tables are {model.U.dtype}")
+        if not np.array_equal(model.users.ids, ids_u):
+            raise AssertionError("fit_device blocked another layout")
+        if not all(math.isfinite(x) for x in curve) or len(curve) != 3:
+            raise AssertionError(f"{dtype} holdout RMSE curve {curve}")
+        if not all(y < x for x, y in zip(curve, curve[1:])):
+            raise AssertionError(f"{dtype} holdout RMSE did not fall every "
+                                 f"sweep: {curve}")
+        check_launches(launches, n_mb, cfg.iterations, half)
+        bar = 1e-3 if half else 1e-4
+        if not abs(rmse_plain - curve[-1]) <= bar:
+            raise AssertionError(f"{dtype}: plain twin RMSE {rmse_plain} vs "
+                                 f"fit_device {curve[-1]}: beyond {bar}")
+        runs[f"fit_device_{dtype}"] = launches
+        final[dtype] = curve[-1]
+    gap = abs(final["bfloat16"] - final["float32"]) / final["float32"]
+    say("main.device", rmse_f32=final["float32"], rmse_bf16=final["bfloat16"],
+        bf16_relative_gap=gap, target=RMSE_TARGET)
+    if not gap <= 0.05:
+        raise AssertionError(f"bf16 RMSE {final['bfloat16']} is not within "
+                             f"5% of f32 {final['float32']}")
+    return runs, (U0, V0)
+
+
+def launch_counts(paths, name):
+    """A kernel's launches over every path's run, and per path."""
+    by_path = {path: counts[name] for path, counts in paths.items()}
+    return sum(by_path.values()), by_path
+
+
+def entry(name, err, ms, plain_ms, bound, library_ms, paths, **extra):
+    """One kernel's record in the ``{"kernels": [...]}`` line."""
+    launches, by_path = launch_counts(paths, name)
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, **extra}
+
+
+def bound_of(nbytes, flops):
+    """(ms, what bounds it): the larger of bytes over HBM and f32
+    operations over the f32 peak."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def time_casts(U, V, paths):
+    """The two cast kernels at the device path's table sizes, against their
+    plain versions (``copy_`` into the preallocated tables) and ``Tensor.to``
+    (the library yardstick); bound: n·(2 + 4) B over HBM."""
+    n = U.numel() + V.numel()
+    Ub, Vb = (torch.empty_like(t, dtype=torch.bfloat16) for t in (U, V))
+    Uf, Vf = torch.empty_like(U), torch.empty_like(V)
+    bound = bound_of(n * 6, 0)
+    down = (lambda: cuda_sgd.f32_to_bf16(U, V, Ub, Vb),
+            lambda: (Ub.copy_(U), Vb.copy_(V)),
+            lambda: (U.to(torch.bfloat16), V.to(torch.bfloat16)))
+    up = (lambda: cuda_sgd.bf16_to_f32(Ub, Vb, Uf, Vf),
+          lambda: (Uf.copy_(Ub), Vf.copy_(Vb)),
+          lambda: (Ub.to(torch.float32), Vb.to(torch.float32)))
+    out = []
+    for name, (kern, plain, lib) in (("f32_to_bf16_kernel", down),
+                                     ("bf16_to_f32_kernel", up)):
+        kern()
+        torch.cuda.synchronize()
+        if name == "f32_to_bf16_kernel":
+            pairs = ((Ub, U.to(torch.bfloat16)), (Vb, V.to(torch.bfloat16)))
+        else:
+            pairs = ((Uf, Ub.float()), (Vf, Vb.float()))
+        err = max_abs([(a.float(), b.float()) for a, b in pairs])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{name} differs from Tensor.to: {err}")
+        # interleaved: plain, kernel, kernel, plain
+        p1 = cuda_ms(plain, reps=20)
+        k1 = cuda_ms(kern, reps=20)
+        k2 = cuda_ms(kern, reps=20)
+        p2 = cuda_ms(plain, reps=20)
+        lib_ms = cuda_ms(lib, reps=20)
+        out.append(entry(name, err, min(k1, k2), min(p1, p2), bound, lib_ms,
+                         paths))
+    say("kernels.casts", elements=n, bytes=n * 6, bound_ms=bound[0],
+        **{f"{o['name']}_ms": o["ms"] for o in out},
+        **{f"{o['name']}_plain_ms": o["plain_ms"] for o in out},
+        **{f"{o['name']}_library_ms": o["library_ms"] for o in out})
+    return out
+
+
+def time_kernels(U0, V0, args, problem, mb, lam, paths):
     """Each kernel against its plain version on stratum 0, minibatch 0 of
     the main path (k visits × mb entries), with its bound from this data."""
     su, si, sv, sw, ou, ov, icu, icv = args
@@ -407,26 +707,18 @@ def time_kernels(U0, V0, args, problem, mb, lam, launches):
     s_flops = n_real * 2 * rank
     scratch_bytes = 2 * 2 * n_all * row  # du/dv written, then read back
 
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-    step_bms, _ = bound(d_bytes + s_bytes, d_flops + s_flops)
+    step_bms, _ = bound_of(d_bytes + s_bytes, d_flops + s_flops)
     step_ms = delta_ms + scatter_ms
     out = []
-    for name, err, ms, pms, (bms, by), lib in (
+    for name, err, ms, pms, bound, lib in (
             ("sgd_delta_kernel", delta_err, delta_ms, delta_plain_ms,
-             bound(d_bytes, d_flops), None),
+             bound_of(d_bytes, d_flops), None),
             ("sgd_scatter_kernel", scatter_err, scatter_ms, scatter_plain_ms,
-             bound(s_bytes, s_flops), lib_ms)):
+             bound_of(s_bytes, s_flops), lib_ms)):
         if not err <= STRATUM_TOL:
             raise AssertionError(f"{name} max-abs {err:.3e} vs plain")
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
-                    "replaces": REPLACES,
-                    "launches": launches[name], "max_abs_err": err,
-                    "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                    "bound_by": by, "library_ms": lib,
-                    "step_ms": step_ms, "step_bound_ms": step_bms})
+        out.append(entry(name, err, ms, pms, bound, lib, paths,
+                         step_ms=step_ms, step_bound_ms=step_bms))
     say("kernels.timing", visits=k, minibatch=mb, real_entries=n_real,
         distinct_u=uniq_u, distinct_v=uniq_v,
         function_bytes=d_bytes + s_bytes, scratch_bytes=scratch_bytes,

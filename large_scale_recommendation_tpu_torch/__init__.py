@@ -6,12 +6,16 @@ reader of the JAX package expects it. The port imports ``torch`` and never
 ``jax``, and nothing of the JAX package: the host-side numpy code it needs
 (ratings batches, generators, blocking) is copied here.
 
-This slice carries the DSGD training path end to end:
+The port carries the DSGD training path end to end, through a host and
+an on-device data pipeline, with f32 or bf16 factor tables:
 
     data.movielens.synthetic_like      planted low-rank ratings (numpy)
     data.blocking.block_problem        k×k Gemulla strata (numpy, bit-equal
                                        to the JAX package's layout)
     models.dsgd.DSGD.fit               factor init + stratum sweeps
+    data.device_blocking               generation + blocking in torch on
+                                       the solver's device
+    models.dsgd.DSGD.fit_device        the same sweeps from that layout
     ops.cuda_sgd.dsgd_train_cuda       hand-written sm_90a kernels
                                        (csrc/dsgd_sweep.cu) on a CUDA device
     ops.sgd.dsgd_train                 the plain PyTorch route (CPU tensors)

@@ -1,6 +1,6 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and layouts from the JAX package into the port.
 
-Both take plain numpy arrays (``np.asarray`` of the JAX arrays) and duck-typed
+All take plain numpy arrays (``np.asarray`` of the JAX arrays) and duck-typed
 ``IdIndex``-like objects, so nothing here imports JAX. bf16 tables may come
 as ``bfloat16`` numpy arrays (ml_dtypes) or as their ``uint16``/``int16``
 bit views; they stay bf16.
@@ -12,6 +12,9 @@ import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
+from large_scale_recommendation_tpu_torch.data.device_blocking import (
+    DeviceBlockedProblem,
+)
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
 
 
@@ -48,3 +51,21 @@ def model_from_jax(U, V, users, items, device="cpu") -> MFModel:
     ``IdIndex`` objects (any objects with the same fields)."""
     U, V = factors_from_jax(U, V, device)
     return MFModel(U=U, V=V, users=_index(users), items=_index(items))
+
+
+_PROBLEM_ARRAYS = ("su", "si", "sv", "sw", "icu", "icv", "omega_u", "omega_v",
+                   "row_of_user", "row_of_item", "id_of_user_row",
+                   "id_of_item_row")
+
+
+def device_problem_from_jax(p, device="cpu") -> DeviceBlockedProblem:
+    """A JAX ``DeviceBlockedProblem`` (any object with its fields; arrays
+    are read through ``np.asarray``) → the port's, its arrays on
+    ``device`` in the same dtypes."""
+    arrays = {f: torch.from_numpy(np.array(getattr(p, f))).to(device)
+              for f in _PROBLEM_ARRAYS}
+    return DeviceBlockedProblem(
+        **arrays, num_blocks=int(p.num_blocks),
+        rows_per_block_u=int(p.rows_per_block_u),
+        rows_per_block_v=int(p.rows_per_block_v), nnz=int(p.nnz),
+        max_pad_ratio=float(p.max_pad_ratio), minibatch=int(p.minibatch))

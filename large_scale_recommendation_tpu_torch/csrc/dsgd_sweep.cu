@@ -43,7 +43,25 @@
 // of the two-launch design, not of the function. The design is latency-bound
 // on the random row gathers and atomics; it makes no attempt at TMA or
 // shared-memory staging.
+//
+// bf16 factor storage (the half=True branch of both TPU kernels,
+// ops/pallas_sgd.py:193-198, :226-228, :270-274 and :475-478, :552-554,
+// :604-606): the tables rest in bf16; each visit works on an f32 copy of
+// its slices and rounds back once at the visit's end. Each U and V block is
+// visited exactly once per stratum, so that is one upcast and one downcast
+// of both whole tables per stratum:
+//   bf16_to_f32_kernel  fills the f32 work tables from the bf16 tables
+//                       (exact: the bf16 bits shifted into the f32 high half)
+//   [n_mb steps of the two f32 kernels above on the work tables]
+//   f32_to_bf16_kernel  rounds the work tables back (round to nearest even,
+//                       __float2bfloat16_rn, the rounding of Tensor.to and of
+//                       jnp.astype).
+// Both cast kernels take the two tables in one launch, 16-byte loads and
+// stores, a grid-stride loop over 8-element vectors, and a scalar tail. Their
+// bound is bytes: n·(2 + 4) B per cast. Gathering bf16 rows in the step
+// kernels and dropping the whole-table casts is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,6 +153,79 @@ dim3 step_grid(int mb, int k) {
   return dim3((unsigned)((mb + kWarps - 1) / kWarps), (unsigned)k);
 }
 
+constexpr int kCastThreads = 256;
+constexpr int kVec = 8;  // bf16 elements per 16-byte vector
+
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Tables a and b as one index space of 8-element vectors: vector v < va is
+// a's, the rest are b's.
+__global__ void bf16_to_f32_kernel(
+    const uint16_t* __restrict__ a16, float* __restrict__ a32, int64_t na,
+    const uint16_t* __restrict__ b16, float* __restrict__ b32, int64_t nb) {
+  const int64_t va = na / kVec, vb = nb / kVec;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       v < va + vb; v += stride) {
+    const bool in_a = v < va;
+    const int64_t o = in_a ? v : v - va;
+    const uint4 w = reinterpret_cast<const uint4*>(in_a ? a16 : b16)[o];
+    float4* dst = reinterpret_cast<float4*>(in_a ? a32 : b32) + 2 * o;
+    dst[0] = make_float4(bf16_bits_to_f32(w.x & 0xffffu),
+                         bf16_bits_to_f32(w.x >> 16),
+                         bf16_bits_to_f32(w.y & 0xffffu),
+                         bf16_bits_to_f32(w.y >> 16));
+    dst[1] = make_float4(bf16_bits_to_f32(w.z & 0xffffu),
+                         bf16_bits_to_f32(w.z >> 16),
+                         bf16_bits_to_f32(w.w & 0xffffu),
+                         bf16_bits_to_f32(w.w >> 16));
+  }
+  if (blockIdx.x == 0 && threadIdx.x < kVec) {  // the ragged tails
+    const int64_t ta = va * kVec + threadIdx.x, tb = vb * kVec + threadIdx.x;
+    if (ta < na) a32[ta] = bf16_bits_to_f32(a16[ta]);
+    if (tb < nb) b32[tb] = bf16_bits_to_f32(b16[tb]);
+  }
+}
+
+__global__ void f32_to_bf16_kernel(
+    const float* __restrict__ a32, uint16_t* __restrict__ a16, int64_t na,
+    const float* __restrict__ b32, uint16_t* __restrict__ b16, int64_t nb) {
+  const int64_t va = na / kVec, vb = nb / kVec;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       v < va + vb; v += stride) {
+    const bool in_a = v < va;
+    const int64_t o = in_a ? v : v - va;
+    const float4* src = reinterpret_cast<const float4*>(in_a ? a32 : b32)
+                        + 2 * o;
+    const float4 x = src[0], y = src[1];
+    reinterpret_cast<uint4*>(in_a ? a16 : b16)[o] = make_uint4(
+        pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w), pack_bf16x2(y.x, y.y),
+        pack_bf16x2(y.z, y.w));
+  }
+  if (blockIdx.x == 0 && threadIdx.x < kVec) {
+    const int64_t ta = va * kVec + threadIdx.x, tb = vb * kVec + threadIdx.x;
+    const __nv_bfloat16 ra = __float2bfloat16_rn(ta < na ? a32[ta] : 0.0f);
+    const __nv_bfloat16 rb = __float2bfloat16_rn(tb < nb ? b32[tb] : 0.0f);
+    if (ta < na) a16[ta] = *reinterpret_cast<const uint16_t*>(&ra);
+    if (tb < nb) b16[tb] = *reinterpret_cast<const uint16_t*>(&rb);
+  }
+}
+
+unsigned cast_blocks(int64_t na, int64_t nb) {
+  const int64_t vecs = na / kVec + nb / kVec;
+  const int64_t want = (vecs + kCastThreads - 1) / kCastThreads;
+  // a grid-stride loop: a few waves of blocks per SM are enough
+  return (unsigned)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
+}
+
 }  // namespace
 
 // Plain C entry points. The stratum's streams are passed at their stratum-s
@@ -168,5 +259,26 @@ extern "C" int sgd_scatter_launch(
       (float*)U, (float*)V, (const int32_t*)su, (const int32_t*)si,
       (const float*)sw, (const float*)du, (const float*)dv, block_stride,
       g_off, mb, rank);
+  return (int)cudaGetLastError();
+}
+
+// Both tables in one launch; every pointer 16-byte aligned.
+extern "C" int bf16_to_f32_launch(const void* a16, void* a32, int64_t na,
+                                  const void* b16, void* b32, int64_t nb,
+                                  void* stream) {
+  bf16_to_f32_kernel<<<cast_blocks(na, nb), kCastThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint16_t*)a16, (float*)a32, na, (const uint16_t*)b16,
+      (float*)b32, nb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int f32_to_bf16_launch(const void* a32, void* a16, int64_t na,
+                                  const void* b32, void* b16, int64_t nb,
+                                  void* stream) {
+  f32_to_bf16_kernel<<<cast_blocks(na, nb), kCastThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)a32, (uint16_t*)a16, na, (const float*)b32,
+      (uint16_t*)b16, nb);
   return (int)cudaGetLastError();
 }

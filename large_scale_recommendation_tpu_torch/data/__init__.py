@@ -1,2 +1,2 @@
-"""Host-side data path: synthetic workloads, id compaction and DSGD
-blocking (numpy)."""
+"""Data paths: synthetic workloads, id compaction and DSGD blocking, on the
+host (numpy) and on the solver's device (``device_blocking``, torch)."""

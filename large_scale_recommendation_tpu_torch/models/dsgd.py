@@ -1,8 +1,18 @@
 """DSGD: Gemulla-style stratified SGD matrix factorization (counterpart of
 ``large_scale_recommendation_tpu.models.dsgd``).
 
-Blocking is a one-time host pass (``data.blocking``); the tables and the
-blocked ratings then live on the solver's device for the whole run.
+Two data paths feed the same training loop:
+
+- ``fit``: external ids, blocked by a one-time host pass
+  (``data.blocking``); the tables and the blocked ratings then live on the
+  solver's device for the whole run;
+- ``fit_device``: dense ids, blocked on the solver's device
+  (``data.device_blocking``); only the id→row maps come back to the host.
+
+``factor_dtype="bfloat16"`` keeps the tables in bf16 at rest. On the card
+the kernels round once per stratum (the TPU kernels' once per block
+visit); the CPU route rounds once per ``dsgd_train`` call (the JAX XLA
+route). The two routes therefore legitimately differ in bf16.
 
 Routing follows the device, not a config field (the port's ``DSGDConfig``
 has no ``kernel``):
@@ -33,20 +43,13 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
     schedule_from_name,
 )
 from large_scale_recommendation_tpu_torch.data import blocking
+from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Without one, only an explicit CPU request
-    is honoured: there is no silent CPU route."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch route on the CPU")
-    return dev
+_FACTOR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +69,18 @@ class DSGDConfig:
     precompute_collisions: bool = True
     # intra-minibatch ordering ("user"|"item"|None): locality only, same math
     minibatch_sort: str | None = None
+    # factor table storage: "float32" | "bfloat16" (f32 accumulation)
+    factor_dtype: str = "float32"
 
     def schedule_fn(self):
         return schedule_from_name(self.lr_schedule, self.lambda_)
+
+    def storage_dtype(self) -> torch.dtype:
+        if self.factor_dtype not in _FACTOR_DTYPES:
+            raise ValueError(
+                f"factor_dtype {self.factor_dtype!r} unsupported; "
+                "float32 or bfloat16")
+        return _FACTOR_DTYPES[self.factor_dtype]
 
 
 class DSGD:
@@ -102,10 +114,7 @@ class DSGD:
         if ratings.n == 0:
             raise ValueError("cannot fit on an empty ratings set")
         k = num_blocks or cfg.num_blocks or 1
-        use_inv = cfg.precompute_collisions and cfg.collision_mode == "mean"
-        if self.device.type == "cuda":
-            cuda_sgd.validate_cuda_contract(self.updater, cfg.collision_mode,
-                                            use_inv)
+        use_inv = self._check_route()
         problem = blocking.block_problem(
             ratings,
             num_blocks=k,
@@ -140,10 +149,59 @@ class DSGD:
                              items=problem.items)
         return self.model
 
+    def fit_device(self, u, i, r, num_users: int, num_items: int,
+                   num_blocks: int | None = None,
+                   checkpoint_every: int | None = None) -> MFModel:
+        """Train through the on-device data pipeline
+        (``data.device_blocking``): dense ids in ``[0, num_users) ×
+        [0, num_items)`` as numpy arrays or tensors; blocking, collision
+        scales, init and training run on the solver's device. Init is the
+        per-id keyed form (``seed=None`` blocks with seed 0). Same
+        segmentation contract as ``fit``."""
+        cfg = self.config
+        k = num_blocks or cfg.num_blocks or 1
+        self._check_route()
+        problem = device_blocking.device_block_problem(
+            u, i, r, num_users, num_items, num_blocks=k,
+            minibatch_multiple=cfg.minibatch_size,
+            seed=cfg.seed if cfg.seed is not None else 0,
+            minibatch_sort=cfg.minibatch_sort, device=self.device)
+        return self._fit_problem(problem, checkpoint_every)
+
+    def _fit_problem(self, problem: device_blocking.DeviceBlockedProblem,
+                     checkpoint_every: int | None = None) -> MFModel:
+        """Train on a device-blocked problem (the seam a test uses to train
+        on a layout carried across from the JAX package)."""
+        cfg = self.config
+        use_inv = self._check_route()
+        p = problem
+        U, V = self._init_factors_device(p)
+        args = (p.su, p.si, p.sv, p.sw, p.omega_u, p.omega_v,
+                *((p.icu, p.icv) if use_inv else (None, None)))
+        U, V = self._train_segments(U, V, args, p.num_blocks,
+                                    checkpoint_every)
+        users, items = p.to_id_indices()
+        self.model = MFModel(U=U, V=V, users=users, items=items)
+        return self.model
+
+    def _check_route(self) -> bool:
+        """Validate the config for this device before any work; returns
+        whether the precomputed collision scales are used."""
+        cfg = self.config
+        cfg.storage_dtype()
+        use_inv = cfg.precompute_collisions and cfg.collision_mode == "mean"
+        if self.device.type == "cuda":
+            cuda_sgd.validate_cuda_contract(self.updater, cfg.collision_mode,
+                                            use_inv)
+        return use_inv
+
     def _train_segments(self, U, V, args, k, checkpoint_every=None):
         """The segment loop: ``checkpoint_every`` sweeps per segment, with
-        the hooks run at each boundary."""
+        the hooks run at each boundary. The tables are cast to the storage
+        dtype first."""
         cfg = self.config
+        fdt = cfg.storage_dtype()
+        U, V = U.to(fdt), V.to(fdt)
         segment = checkpoint_every or cfg.iterations
         train = self._train_fn(args, k, int(U.shape[-1]))
         timed = self.device.type == "cuda"
@@ -196,9 +254,17 @@ class DSGD:
 
         return plain
 
+    def _init_factors_device(
+            self, problem: device_blocking.DeviceBlockedProblem):
+        """Initial (U, V) f32 tables of a device-blocked problem, on its
+        device (the per-id keyed rows)."""
+        cfg = self.config
+        return device_blocking.init_factors_device(
+            problem, cfg.num_factors, scale=cfg.init_scale)
+
     def _init_factors(self, problem: blocking.BlockedProblem):
-        """Initial (U, V) as CPU float32 tensors: per-id keyed draws when
-        ``seed`` is set, else one stream per table."""
+        """Initial (U, V) f32 tables: per-id keyed rows on the solver's
+        device when ``seed`` is set, else one CPU stream per table."""
         cfg = self.config
         if cfg.seed is not None:
             init_u = PseudoRandomFactorInitializer(cfg.num_factors,
@@ -210,8 +276,9 @@ class DSGD:
                                              scale=cfg.init_scale)
             init_v = RandomFactorInitializer(cfg.num_factors, seed=0, salt=1,
                                              scale=cfg.init_scale)
-        U = init_u(problem.users.ids.clip(min=0))
-        V = init_v(problem.items.ids.clip(min=0))
+        dev = self.device if cfg.seed is not None else "cpu"
+        U = init_u(torch.as_tensor(problem.users.ids.clip(min=0), device=dev))
+        V = init_v(torch.as_tensor(problem.items.ids.clip(min=0), device=dev))
         return U, V
 
     # -- scoring passthroughs ----------------------------------------------

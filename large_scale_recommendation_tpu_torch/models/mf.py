@@ -2,8 +2,9 @@
 (counterpart of ``large_scale_recommendation_tpu.models.mf``; ``recommend``
 and ``ranking_quality`` come in a later slice).
 
-Factors live as dense tables on the model's device; external ids map to
-rows through the host-side ``IdIndex`` lookup tables.
+Factors live as dense float32 or bfloat16 tables on the model's device;
+scoring and the factor exports compute in float32. External ids map to rows
+through the host-side ``IdIndex`` lookup tables.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def masked_scores(scores, u_mask, i_mask, return_mask: bool):
 class MFModel:
     """A trained factorization: U, V on one device + the id maps."""
 
-    U: torch.Tensor  # float32[num_user_rows, rank]
-    V: torch.Tensor  # float32[num_item_rows, rank]
+    U: torch.Tensor  # float32|bfloat16[num_user_rows, rank]
+    V: torch.Tensor  # float32|bfloat16[num_item_rows, rank]
     users: IdIndex
     items: IdIndex
 
@@ -80,7 +81,7 @@ class MFModel:
         return float(np.sqrt(float(sse) / n))
 
     def user_factors(self) -> Iterator[FactorVector]:
-        """(id, factors) for every real user row."""
+        """(id, float32 factors) for every real user row."""
         U = self.U.float().cpu().numpy()
         for row, ident in enumerate(self.users.ids):
             if ident >= 0:

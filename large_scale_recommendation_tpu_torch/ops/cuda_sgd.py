@@ -1,7 +1,7 @@
 """The DSGD stratum sweep on Hopper (counterpart of
 ``large_scale_recommendation_tpu.ops.pallas_sgd``).
 
-Two hand-written CUDA kernels (``csrc/dsgd_sweep.cu``) replace the JAX
+Hand-written CUDA kernels (``csrc/dsgd_sweep.cu``) replace the JAX
 package's Pallas kernels ``_sweep_kernel`` and ``_stratum_kernel``. One
 stratum is ``n_mb`` minibatch steps; each step is two launches that cover
 all k row-disjoint visits of the stratum at once:
@@ -11,20 +11,29 @@ all k row-disjoint visits of the stratum at once:
 - ``sgd_scatter`` — ``sgd_scatter_kernel``: atomic scatter-add of the
   scratch into U and V.
 
+bf16 tables (the TPU kernels' ``half=True`` branch) rest in bf16 and the
+steps run on f32 work tables: per stratum, ``bf16_to_f32``
+(``bf16_to_f32_kernel``) fills them, and ``f32_to_bf16``
+(``f32_to_bf16_kernel``) rounds them back once at the stratum's end — one
+downcast per block visit, as in the TPU kernels, since every block is
+visited once per stratum.
+
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 ``LAUNCHES``) and uses its plain PyTorch version only for CPU tensors.
 There is no fallback: a CUDA tensor either goes through the kernel or the
-wrapper raises.
+wrapper raises (the step kernels take f32 tables only; a bf16 table reaches
+them only through the cast kernels).
 
 Beside them, the plain versions of the TPU kernels' own contracts, for the
 tests and the on-card comparisons: ``block_sweep_reference`` (one visit,
-block-local rows — ``pallas_block_sweep``) and ``stratum_sweep_reference``
+block-local rows — ``pallas_block_sweep``), ``stratum_sweep_reference``
 (one stratum from ``build_stratum_operands``' visit-major operands —
-``pallas_stratum_sweep``). Every plain version applies the one λ/ω rule
-of ``RegularizedSGDUpdater.delta`` at a constant η; the two sweep
-references run it through ``ops.sgd.sgd_block_sweep``, the CPU route of
-``fit``. The TPU's VMEM/SMEM budget helpers have no
-counterpart: the wrappers' shape checks take their place.
+``pallas_stratum_sweep``) and ``dsgd_train_reference`` (the whole training
+loop of ``dsgd_train_cuda``, bf16 rounding points included). Every plain
+version applies the one λ/ω rule of ``RegularizedSGDUpdater.delta`` at a
+constant η through ``ops.sgd.sgd_block_sweep``, the CPU route of ``fit``.
+The TPU's VMEM/SMEM budget helpers have no counterpart: the wrappers'
+shape checks take their place.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ from large_scale_recommendation_tpu_torch.ops._build import load_library
 
 # launches per kernel since the last reset (counted where the kernel is
 # launched, and nowhere else)
-LAUNCHES = {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0}
+LAUNCHES = {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0,
+            "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
+FACTOR_DTYPES = (torch.float32, torch.bfloat16)
 
 _LIB = "dsgd_sweep"
 _bound: ctypes.CDLL | None = None
@@ -68,6 +79,9 @@ def _lib() -> ctypes.CDLL:
                                                      P]
         lib.sgd_scatter_launch.restype = I
         lib.sgd_scatter_launch.argtypes = [P] * 7 + [I64, I64, I, I, I, P]
+        for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
+            fn.restype = I
+            fn.argtypes = [P, P, I64, P, P, I64, P]
         _bound = lib
     return _bound
 
@@ -218,6 +232,58 @@ def sgd_scatter(U, V, su_s, si_s, sw_s, g: int, du, dv, *, minibatch: int):
     return U, V
 
 
+def _check_cast(src, dst, src_dtype, dst_dtype):
+    for name, t, dt in (("U src", src[0], src_dtype),
+                        ("V src", src[1], src_dtype),
+                        ("U dst", dst[0], dst_dtype),
+                        ("V dst", dst[1], dst_dtype)):
+        _check(name, t, dt)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for a, b in zip(src, dst):
+        if a.shape != b.shape:
+            raise ValueError(f"cast shapes differ: {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}")
+
+
+def _cast(kernel: str, src, dst, src_dtype, dst_dtype):
+    """Launch one of the two cast kernels over both tables."""
+    _check_cast(src, dst, src_dtype, dst_dtype)
+    stream = torch.cuda.current_stream(src[0].device).cuda_stream
+    launch = getattr(_lib(), kernel.replace("_kernel", "_launch"))
+    rc = launch(src[0].data_ptr(), dst[0].data_ptr(), src[0].numel(),
+                src[1].data_ptr(), dst[1].data_ptr(), src[1].numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    LAUNCHES[kernel] += 1
+
+
+def bf16_to_f32(Ub, Vb, U32, V32):
+    """Fill the f32 work tables ``U32``/``V32`` from the bf16 tables (one
+    launch for both; exact)."""
+    if not _on_cuda(Ub, Vb, U32, V32):
+        _check_cast((Ub, Vb), (U32, V32), torch.bfloat16, torch.float32)
+        U32.copy_(Ub)
+        V32.copy_(Vb)
+        return U32, V32
+    _cast("bf16_to_f32_kernel", (Ub, Vb), (U32, V32), torch.bfloat16,
+          torch.float32)
+    return U32, V32
+
+
+def f32_to_bf16(U32, V32, Ub, Vb):
+    """Round the f32 work tables into the bf16 tables ``Ub``/``Vb`` (one
+    launch for both; round to nearest even)."""
+    if not _on_cuda(U32, V32, Ub, Vb):
+        _check_cast((U32, V32), (Ub, Vb), torch.float32, torch.bfloat16)
+        Ub.copy_(U32)
+        Vb.copy_(V32)
+        return Ub, Vb
+    _cast("f32_to_bf16_kernel", (U32, V32), (Ub, Vb), torch.float32,
+          torch.bfloat16)
+    return Ub, Vb
+
+
 def stratum_sweep(U, V, su, si, sv, sw, icu, icv, omega_u, omega_v,
                   s: int, du, dv, *, lr: float, lam: float,
                   minibatch: int):
@@ -242,9 +308,31 @@ def alloc_scratch(num_blocks: int, minibatch: int, rank: int,
             torch.empty(shape, dtype=torch.float32, device=device))
 
 
+def _check_tables(U, V, su, si, minibatch: int, k: int):
+    """The layout checks ``dsgd_train_cuda`` and its plain twin share."""
+    if U.dtype != V.dtype or U.dtype not in FACTOR_DTYPES:
+        raise ValueError(f"factor dtypes {U.dtype}/{V.dtype} unsupported; "
+                         "both float32 or both bfloat16")
+    if int(U.shape[0]) % k or int(V.shape[0]) % k:
+        raise ValueError(
+            f"table rows ({U.shape[0]}, {V.shape[0]}) must be divisible "
+            f"by num_blocks={k} — use the data.blocking layout")
+    if tuple(su.shape[:2]) != (k, k) or su.shape[-1] % minibatch:
+        raise ValueError(f"su shape {tuple(su.shape)} is not [{k}, {k}, b] "
+                         f"with b a multiple of {minibatch}")
+    for name, idx, rows in (("su", su, U.shape[0]), ("si", si, V.shape[0])):
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= rows):
+            raise ValueError(f"{name} holds rows outside [0, {rows})")
+
+
+def _lr_at(lr: float, schedule, t: int) -> float:
+    """η of sweep ``t`` (1-based), evaluated on the host."""
+    return float(np.float32(lr)) if schedule is None else schedule(lr, t)
+
+
 def dsgd_train_cuda(
-    U: torch.Tensor,  # f32[k*rpb_u, r]
-    V: torch.Tensor,  # f32[k*rpb_v, r]
+    U: torch.Tensor,  # f32|bf16[k*rpb_u, r]
+    V: torch.Tensor,  # f32|bf16[k*rpb_v, r]
     su: torch.Tensor,  # int32[k, k, b] stratum-major GLOBAL user rows
     si: torch.Tensor,
     sv: torch.Tensor,
@@ -271,30 +359,61 @@ def dsgd_train_cuda(
     enters the kernel as a runtime scalar (``schedule=None`` keeps η
     constant). ``scratch`` is the du/dv pair from ``alloc_scratch``
     (allocated here when absent). Returns trained copies of U and V.
+
+    bf16 tables: the steps run on f32 work tables, filled by
+    ``bf16_to_f32`` at each stratum's start and rounded back by
+    ``f32_to_bf16`` at its end (the TPU kernels' one downcast per visit).
     """
     k = num_blocks
-    if int(U.shape[0]) % k or int(V.shape[0]) % k:
-        raise ValueError(
-            f"table rows ({U.shape[0]}, {V.shape[0]}) must be divisible "
-            f"by num_blocks={k} — use the data.blocking layout")
-    if tuple(su.shape[:2]) != (k, k) or su.shape[-1] % minibatch:
-        raise ValueError(f"su shape {tuple(su.shape)} is not [{k}, {k}, b] "
-                         f"with b a multiple of {minibatch}")
-    for name, idx, rows in (("su", su, U.shape[0]), ("si", si, V.shape[0])):
-        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= rows):
-            raise ValueError(f"{name} holds rows outside [0, {rows})")
+    _check_tables(U, V, su, si, minibatch, k)
     U = U.clone()
     V = V.clone()
+    half = U.dtype == torch.bfloat16
+    # the step kernels' tables: f32 work copies in bf16 mode
+    Uw, Vw = ((torch.empty(U.shape, dtype=torch.float32, device=U.device),
+               torch.empty(V.shape, dtype=torch.float32, device=V.device))
+              if half else (U, V))
     du, dv = scratch if scratch is not None else alloc_scratch(
         k, minibatch, int(U.shape[-1]), U.device)
     for sweep in range(iterations):
-        t = sweep + 1 + int(t0)
-        lr_t = (float(np.float32(lr)) if schedule is None
-                else schedule(lr, t))
+        lr_t = _lr_at(lr, schedule, sweep + 1 + int(t0))
         for s in range(k):
-            stratum_sweep(U, V, su, si, sv, sw, icu, icv, omega_u, omega_v,
-                          s, du, dv, lr=lr_t, lam=lam, minibatch=minibatch)
+            if half:
+                bf16_to_f32(U, V, Uw, Vw)
+            stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, omega_u,
+                          omega_v, s, du, dv, lr=lr_t, lam=lam,
+                          minibatch=minibatch)
+            if half:
+                f32_to_bf16(Uw, Vw, U, V)
     return U, V
+
+
+def dsgd_train_reference(U, V, su, si, sv, sw, omega_u, omega_v, icu, icv,
+                         *, lr: float, lam: float, minibatch: int,
+                         num_blocks: int, iterations: int, schedule=None,
+                         t0: int = 0):
+    """Plain twin of ``dsgd_train_cuda`` on any device: the same visit
+    order and host schedule, each stratum swept by ``ops.sgd`` on an f32
+    copy of the tables and rounded back to their dtype at its end (the
+    kernels' rounding points in bf16; exact in f32). Returns trained
+    copies."""
+    k = num_blocks
+    _check_tables(U, V, su, si, minibatch, k)
+    store = U.dtype
+    b = su.shape[-1]
+    flat = [a.reshape(k, k * b) for a in (su, si, sv, sw, icu, icv)]
+    Uw = U.to(torch.float32, copy=True)
+    Vw = V.to(torch.float32, copy=True)
+    for sweep in range(iterations):
+        rule = _rule(_lr_at(lr, schedule, sweep + 1 + int(t0)), lam)
+        for s in range(k):
+            fs, fi, fv, fw, fcu, fcv = (a[s] for a in flat)
+            sgd_ops.sgd_block_sweep(Uw, Vw, fs, fi, fv, fw, omega_u, omega_v,
+                                    rule, 1, minibatch, "mean", fcu, fcv)
+            if store != torch.float32:
+                Uw.copy_(Uw.to(store))
+                Vw.copy_(Vw.to(store))
+    return Uw.to(store), Vw.to(store)
 
 
 # -- plain versions of the TPU kernels' own contracts -----------------------
@@ -336,11 +455,14 @@ def block_sweep_reference(U_blk, V_blk, ur_local, ir_local, vals, w, icu, icv,
                           minibatch: int):
     """Plain version of ``pallas_block_sweep`` (``_sweep_kernel``): sweep one
     rating block against its block-local U/V row slices and ω. Returns
-    updated copies."""
-    Ub, Vb = U_blk.clone(), V_blk.clone()
-    return sgd_ops.sgd_block_sweep(
+    updated copies in the input dtype (bf16: one f32 work copy, one
+    downcast at the visit's end)."""
+    Ub = U_blk.to(torch.float32, copy=True)
+    Vb = V_blk.to(torch.float32, copy=True)
+    sgd_ops.sgd_block_sweep(
         Ub, Vb, ur_local, ir_local, vals, w, omega_u, omega_v,
         _rule(lr, lam), 1, minibatch, "mean", icu, icv)
+    return Ub.to(U_blk.dtype), Vb.to(V_blk.dtype)
 
 
 def _block_omega(rows, omega_e, w, rpb):
@@ -357,7 +479,8 @@ def stratum_sweep_reference(U, V, idx, streams, s: int, *, lr: float,
     """Plain version of ``pallas_stratum_sweep`` (``_stratum_kernel``):
     visits p = 0..k−1 of stratum ``s`` in order (U block p, V block
     (p+s) mod k), from ``build_stratum_operands``' layout. Returns updated
-    copies."""
+    copies in the input dtype (bf16: each visit sweeps an f32 copy of its
+    slices and rounds it back once)."""
     k = num_blocks
     rpb_u = U.shape[0] // k
     rpb_v = V.shape[0] // k
@@ -370,10 +493,15 @@ def stratum_sweep_reference(U, V, idx, streams, s: int, *, lr: float,
             streams[vrow, c * n_mb:(c + 1) * n_mb].reshape(-1)
             for c in range(6))
         ur, ir = idx[vrow, 0], idx[vrow, 1]
-        # in place on the visit's row slices of the copies
+        Us = U[p * rpb_u:(p + 1) * rpb_u]
+        Vs = V[q * rpb_v:(q + 1) * rpb_v]
+        # the visit's f32 work slices (views of the copies in f32 mode)
+        Uw, Vw = Us.to(torch.float32), Vs.to(torch.float32)
         sgd_ops.sgd_block_sweep(
-            U[p * rpb_u:(p + 1) * rpb_u], V[q * rpb_v:(q + 1) * rpb_v],
-            ur, ir, vals, w, _block_omega(ur, ou_e, w, rpb_u),
+            Uw, Vw, ur, ir, vals, w, _block_omega(ur, ou_e, w, rpb_u),
             _block_omega(ir, ov_e, w, rpb_v), _rule(lr, lam), 1, minibatch,
             "mean", icu, icv)
+        if Uw is not Us:
+            Us.copy_(Uw)
+            Vs.copy_(Vw)
     return U, V

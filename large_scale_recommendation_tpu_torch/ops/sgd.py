@@ -166,9 +166,13 @@ def dsgd_train(
     runs continue the schedule). The k blocks of a stratum are disjoint in
     users and items, so the stratum is swept as one flat block. Returns
     trained copies of ``U`` and ``V``.
+
+    bf16 tables (the JAX XLA route's semantics): the whole call runs on
+    one f32 upcast of each table and rounds back to bf16 once on exit.
     """
-    U = U.clone()
-    V = V.clone()
+    store = U.dtype
+    U = U.to(torch.float32, copy=True)
+    V = V.to(torch.float32, copy=True)
     k = num_blocks
     b = su.shape[-1]
     flat = (k, k * b)
@@ -185,7 +189,7 @@ def dsgd_train(
             None if icu_f is None else icu_f[s],
             None if icv_f is None else icv_f[s],
         )
-    return U, V
+    return U.to(store), V.to(store)
 
 
 def predict_rows(U: torch.Tensor, V: torch.Tensor, u_rows: torch.Tensor,

@@ -6,7 +6,10 @@ need a CUDA device and skip without one; on the machine with the card run
 (``--noconftest``: the suite's conftest imports the JAX package, which that
 machine does not have). Tolerance: the scatter adds duplicate rows with f32
 atomics in a varying order, so kernel and plain agree to max-abs 1e-5 per
-stratum, not bit for bit.
+stratum, not bit for bit; with bf16 tables, to one bf16 ulp per element (an
+f32 difference in the last place can flip one rounding; magnitudes below
+2^-16 count as 2^-16, where one bf16 ulp is the size of that f32
+difference). The cast kernels are exact against ``Tensor.to``.
 """
 
 import numpy as np
@@ -16,7 +19,12 @@ import torch
 from large_scale_recommendation_tpu_torch.core.generators import (
     SyntheticMFGenerator,
 )
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    keyed_uniform_rows,
+)
+from large_scale_recommendation_tpu_torch.core.types import Ratings
 from large_scale_recommendation_tpu_torch.data import blocking
+from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 
@@ -78,7 +86,9 @@ def test_stratum_kernels_match_plain(dev, k, rank, mb):
         assert float((Vk - Vr).abs().max()) <= TOL
     n_mb = su.shape[-1] // mb
     assert cuda_sgd.LAUNCHES == {"sgd_delta_kernel": k * n_mb,
-                                 "sgd_scatter_kernel": k * n_mb}
+                                 "sgd_scatter_kernel": k * n_mb,
+                                 "bf16_to_f32_kernel": 0,
+                                 "f32_to_bf16_kernel": 0}
 
 
 def test_delta_kernel_matches_plain_exactly_shaped(dev):
@@ -141,3 +151,135 @@ def test_fit_on_card_matches_cpu_fit(dev):
     assert abs(on_card.rmse(test) - on_cpu.rmse(test)) < 1e-4
     with pytest.raises(ValueError, match="collision"):
         DSGD(DSGDConfig(collision_mode="sum")).fit(train, num_blocks=2)
+
+
+def _bf16_ulps(a, b):
+    """max over elements of |a − b| in units of one bf16 ulp there, the
+    magnitude counted at no less than 2^-16: below it a bf16 ulp is smaller
+    than the f32 atomics-order difference (~1e-7) it rounds from."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -16)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("k,rank,mb", [(4, 128, 512), (3, 8, 1024)])
+def test_bf16_stratum_through_the_kernels_matches_plain_twin(dev, k, rank,
+                                                             mb):
+    """Upcast kernel, the f32 steps, downcast kernel: each stratum from the
+    same bf16 tables, against ``stratum_sweep_reference`` on them."""
+    problem, args, U, V = _problem(dev, k, rank, mb, seed=3)
+    su, si, sv, sw, ou, ov, icu, icv = args
+    idx, streams = cuda_sgd.build_stratum_operands(
+        su, si, sv, sw, icu, icv, ou, ov, num_blocks=k,
+        rpb_u=problem.users.rows_per_block,
+        rpb_v=problem.items.rows_per_block, minibatch=mb)
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
+    Uw, Vw = torch.empty_like(U), torch.empty_like(V)
+    cuda_sgd.reset_launch_counts()
+    for s in range(k):
+        Uk, Vk = Ub.clone(), Vb.clone()
+        cuda_sgd.bf16_to_f32(Uk, Vk, Uw, Vw)
+        cuda_sgd.stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, ou, ov, s,
+                               du, dv, lr=0.5, lam=0.1, minibatch=mb)
+        cuda_sgd.f32_to_bf16(Uw, Vw, Uk, Vk)
+        Ur, Vr = cuda_sgd.stratum_sweep_reference(
+            Ub, Vb, idx, streams, s, lr=0.5, lam=0.1, minibatch=mb,
+            num_blocks=k)
+        torch.cuda.synchronize()
+        assert Ur.dtype == torch.bfloat16
+        assert _bf16_ulps(Uk, Ur) <= 1.0 and _bf16_ulps(Vk, Vr) <= 1.0
+    n_mb = su.shape[-1] // mb
+    assert cuda_sgd.LAUNCHES == {
+        "sgd_delta_kernel": k * n_mb, "sgd_scatter_kernel": k * n_mb,
+        "bf16_to_f32_kernel": k, "f32_to_bf16_kernel": k}
+    # the whole loop: the rounding points of the plain twin, 3 sweeps
+    kw = dict(lr=0.3, lam=0.1, minibatch=mb, num_blocks=k, iterations=3)
+    Uk, Vk = cuda_sgd.dsgd_train_cuda(Ub, Vb, *args, **kw)
+    Ur, Vr = cuda_sgd.dsgd_train_reference(Ub, Vb, *args, **kw)
+    torch.cuda.synchronize()
+    assert Uk.dtype == torch.bfloat16 and Ub.dtype == torch.bfloat16
+    assert float((Uk.float() - Ur.float()).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("n_u,n_v", [(4096 * 128, 1000 * 128), (37, 1001)])
+def test_cast_kernels_are_exact(dev, n_u, n_v):
+    g = torch.Generator(device=dev).manual_seed(0)
+    U = torch.randn(n_u, generator=g, device=dev) * 3
+    V = torch.randn(n_v, generator=g, device=dev) * 1e-3
+    Ub, Vb = (torch.empty_like(t, dtype=torch.bfloat16) for t in (U, V))
+    cuda_sgd.reset_launch_counts()
+    cuda_sgd.f32_to_bf16(U, V, Ub, Vb)
+    Uf, Vf = torch.empty_like(U), torch.empty_like(V)
+    cuda_sgd.bf16_to_f32(Ub, Vb, Uf, Vf)
+    torch.cuda.synchronize()
+    assert torch.equal(Ub.view(torch.int16),
+                       U.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(Vb.view(torch.int16),
+                       V.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(Uf, Ub.float()) and torch.equal(Vf, Vb.float())
+    assert cuda_sgd.LAUNCHES["f32_to_bf16_kernel"] == 1
+    assert cuda_sgd.LAUNCHES["bf16_to_f32_kernel"] == 1
+
+
+def test_bf16_table_never_reaches_an_f32_kernel(dev):
+    k, rank, mb = 2, 32, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=4000)
+    su, si, sv, sw, ou, ov, icu, icv = args
+    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
+    planes = [a[0] for a in (su, si, sv, sw, icu, icv)]
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_sgd.sgd_delta(Ub, Vb, *planes, ou, ov, 0, du, dv, lr=0.1,
+                           lam=0.1, minibatch=mb)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_sgd.sgd_scatter(Ub, Vb, planes[0], planes[1], planes[3], 0, du,
+                             dv, minibatch=mb)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_sgd.bf16_to_f32(U, V, U.clone(), V.clone())
+
+
+def test_keyed_init_is_the_same_on_the_card_and_the_host(dev):
+    ids = torch.cat([torch.arange(5000), torch.tensor([2**40 + 7, 0])])
+    host = keyed_uniform_rows(ids, 128, 0.08)
+    card = keyed_uniform_rows(ids.to(dev), 128, 0.08)
+    assert torch.equal(card.cpu(), host)
+
+
+def test_fit_device_on_card_matches_its_cpu_run(dev):
+    rng = np.random.default_rng(5)
+    nu, ni, n = 500, 400, 30_000
+    Ut = rng.normal(0, 0.5, (nu, 4)).astype(np.float32)
+    Vt = rng.normal(0, 0.5, (ni, 4)).astype(np.float32)
+    u = np.minimum(rng.exponential(nu / 4, n), nu - 1).astype(np.int64)
+    i = np.minimum(rng.exponential(ni / 4, n), ni - 1).astype(np.int64)
+    r = ((Ut[u] * Vt[i]).sum(-1) + rng.normal(0, 0.1, n)).astype(np.float32)
+    hold = Ratings.from_arrays(u[:2000], i[:2000], r[:2000])
+    kw = dict(num_factors=32, lambda_=0.05, iterations=3, learning_rate=0.1,
+              lr_schedule="warm_boost", minibatch_size=512, init_scale=0.1)
+    problem = device_blocking.device_block_problem(
+        u, i, r, nu, ni, num_blocks=4, minibatch_multiple=512, seed=0,
+        device="cpu")
+    rmse = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = DSGDConfig(**kw, factor_dtype=dtype)
+        cuda_sgd.reset_launch_counts()
+        on_card = DSGD(cfg)._fit_problem(problem.to(dev))
+        assert on_card.U.device.type == "cuda"
+        assert cuda_sgd.LAUNCHES["sgd_delta_kernel"] > 0
+        assert (cuda_sgd.LAUNCHES["f32_to_bf16_kernel"] > 0) == (
+            dtype == "bfloat16")
+        on_cpu = DSGD(cfg, device="cpu")._fit_problem(problem)
+        rmse[dtype] = on_card.rmse(hold)
+        if dtype == "float32":
+            assert abs(rmse[dtype] - on_cpu.rmse(hold)) < 1e-4
+    assert abs(rmse["bfloat16"] - rmse["float32"]) < 0.05 * rmse["float32"]
+    # the public entry point: blocking on the card, then the kernels
+    cuda_sgd.reset_launch_counts()
+    model = DSGD(DSGDConfig(**kw)).fit_device(
+        torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev),
+        torch.from_numpy(r).to(dev), nu, ni, num_blocks=4)
+    assert cuda_sgd.LAUNCHES["sgd_scatter_kernel"] > 0
+    # another layout (the card's own draws), the same learning problem
+    assert abs(model.rmse(hold) - rmse["float32"]) < 0.05 * rmse["float32"]

@@ -4,7 +4,9 @@ them, and the port's plain ``ops.sgd`` route against the JAX one.
 
 Tolerances: rtol 1e-5 / atol 1e-6 after one stratum (the f32 dot is reduced
 in another order); rtol 2e-4 / atol 2e-5 after 3 sweeps (the bounds the JAX
-package holds between its own two routes, tests/test_pallas_sgd.py).
+package holds between its own two routes, tests/test_pallas_sgd.py). bf16
+tables: every element within one bf16 ulp after one stratum (an f32
+difference in the last place can flip one rounding).
 On the card the scatter's atomics add duplicate rows in a varying order;
 that tolerance is checked by chip_smoke.py and tests marked ``cuda``.
 """
@@ -31,6 +33,26 @@ from large_scale_recommendation_tpu_torch.ops import sgd as tsgd
 
 ONE = dict(rtol=1e-5, atol=1e-6)
 SWEEPS = dict(rtol=2e-4, atol=2e-5)
+BF16 = jnp.bfloat16
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (f32 spacing × 2^16)."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * 2.0 ** 16
+
+
+def assert_within_bf16_ulps(torch_pair, jax_pair, ulps=1):
+    for a, b in zip(torch_pair, jax_pair):
+        assert a.dtype == torch.bfloat16
+        a = a.float().numpy()
+        b = np.asarray(b, np.float32)
+        bound = ulps * np.maximum(bf16_ulp(a), bf16_ulp(b))
+        assert (np.abs(a - b) <= bound).all(), float(np.abs(a - b).max())
+
+
+def _bf(a):
+    """An f32 numpy table as a bf16 torch table (round to nearest even)."""
+    return _t(a).to(torch.bfloat16)
 
 
 def _t(a):
@@ -108,6 +130,43 @@ def test_stratum_reference_matches_pallas_stratum_kernel(k, rank, divisor):
     _close((tU, tV), (jU, jV), SWEEPS)
 
 
+@pytest.mark.parametrize("k,rank,divisor", [(2, 8, 1), (3, 8, 4),
+                                            (2, 32, 3)])
+def test_bf16_stratum_reference_matches_pallas_stratum_kernel(k, rank,
+                                                               divisor):
+    """The ``half=True`` branch of ``_stratum_kernel``: bf16 tables, one f32
+    work pair per visit, one downcast at the visit's end."""
+    a, U, V, mb, rpb_u, rpb_v = _blocked(k, rank, divisor, seed=k + 10)
+    (jidx, jstr), (tidx, tstr) = _operands(a, k, rpb_u, rpb_v, mb)
+    kw = dict(lr=0.1, lam=0.05, minibatch=mb, num_blocks=k)
+    pallas = jax.jit(functools.partial(jp.pallas_stratum_sweep,
+                                       interpret=True, **kw))
+    jU, jV = jnp.asarray(U).astype(BF16), jnp.asarray(V).astype(BF16)
+    for s in range(k):
+        got = tc.stratum_sweep_reference(_bf(U), _bf(V), tidx, tstr, s, **kw)
+        want = pallas(jU, jV, jidx, jstr, s)
+        assert want[0].dtype == BF16
+        assert_within_bf16_ulps(got, want)
+
+
+@pytest.mark.parametrize("rank,pad_frac,mb", [(8, 0.0, 64), (8, 0.15, 32),
+                                              (32, 0.1, 256)])
+def test_bf16_block_reference_matches_pallas_block_kernel(rank, pad_frac,
+                                                          mb):
+    """The ``half=True`` branch of ``_sweep_kernel``."""
+    ur, ir, vals, w, icu, icv, ou, ov, U, V = _visit(rank + 1, 256, 20, 12,
+                                                     rank, pad_frac, mb)
+    kw = dict(lr=0.1, lam=0.05, minibatch=mb)
+    got = tc.block_sweep_reference(
+        _bf(U), _bf(V), *(_t(x) for x in (ur, ir, vals, w, icu, icv, ou,
+                                          ov)), **kw)
+    want = jp.pallas_block_sweep(
+        jnp.asarray(U).astype(BF16), jnp.asarray(V).astype(BF16),
+        *(jnp.asarray(x) for x in (ur, ir, vals, w, icu, icv, ou, ov)),
+        gather="loop", interpret=True, **kw)
+    assert_within_bf16_ulps(got, want)
+
+
 def _visit(seed, e, rpb_u, rpb_v, rank, pad_frac, mb):
     rng = np.random.default_rng(seed)
     ur = rng.integers(0, rpb_u, e).astype(np.int32)
@@ -163,7 +222,8 @@ def test_stratum_wrappers_on_cpu_use_plain_versions_and_count_nothing():
                                             num_blocks=k)
         np.testing.assert_allclose(Ug.numpy(), Ur.numpy(), **ONE)
         np.testing.assert_allclose(Vg.numpy(), Vr.numpy(), **ONE)
-    assert tc.LAUNCHES == {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0}
+    assert tc.LAUNCHES == {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0,
+                           "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
 
 
 def _jax_common(a, U, V):
@@ -214,6 +274,62 @@ def test_dsgd_train_cuda_matches_pallas_and_xla(sched, t0, divisor):
     np.testing.assert_array_equal(_torch_common(a, U, V)[0].numpy(), U)
 
 
+@pytest.mark.parametrize("divisor", [1, 4])
+def test_bf16_dsgd_train_cuda_matches_its_plain_twin_and_pallas(divisor):
+    """``dsgd_train_cuda`` on bf16 CPU tensors runs the kernels' semantics
+    through the wrappers' plain versions (upcast, f32 stratum, one downcast
+    per stratum); it equals ``dsgd_train_reference`` bit for bit (the same
+    arithmetic in the same order on the CPU), and tracks the JAX
+    package's bf16 ``dsgd_train_pallas`` within 2 bf16 ulps after one
+    sweep."""
+    k, rank = 2, 8
+    a, U, V, mb, _, _ = _blocked(k, rank, divisor, seed=divisor + 20)
+    lr, lam = 0.05, 0.1
+    common = _torch_common(a, U, V)
+    common = (common[0].to(torch.bfloat16), common[1].to(torch.bfloat16),
+              *common[2:])
+    sched = tu.schedule_from_name("warm_boost", lam)
+    kw = dict(lr=lr, lam=lam, minibatch=mb, num_blocks=k, schedule=sched)
+    tc.reset_launch_counts()
+    Uc, Vc = tc.dsgd_train_cuda(*common, iterations=3, **kw)
+    assert sum(tc.LAUNCHES.values()) == 0
+    assert Uc.dtype == torch.bfloat16 and common[0].dtype == torch.bfloat16
+    Ur, Vr = tc.dsgd_train_reference(*common, iterations=3, **kw)
+    assert torch.equal(Uc, Ur) and torch.equal(Vc, Vr)
+    one = tc.dsgd_train_cuda(*common, iterations=1, **kw)
+    jcommon = _jax_common(a, U, V)
+    want = jp.dsgd_train_pallas(
+        jcommon[0].astype(BF16), jcommon[1].astype(BF16), *jcommon[2:],
+        lr=lr, lam=lam, minibatch=mb, num_blocks=k, iterations=1,
+        interpret=True, schedule=ju.schedule_from_name("warm_boost", lam))
+    assert_within_bf16_ulps(one, want, ulps=2)
+    assert_within_bf16_ulps(tc.dsgd_train_reference(*common, iterations=1,
+                                                    **kw), want, ulps=2)
+
+
+def test_cast_wrappers_on_cpu_are_exact_and_count_nothing():
+    rng = np.random.default_rng(0)
+    U32 = torch.from_numpy(rng.normal(0, 1, (40, 8)).astype(np.float32))
+    V32 = torch.from_numpy(rng.normal(0, 1, (24, 8)).astype(np.float32))
+    Ub, Vb = torch.empty_like(U32, dtype=torch.bfloat16), \
+        torch.empty_like(V32, dtype=torch.bfloat16)
+    tc.reset_launch_counts()
+    tc.f32_to_bf16(U32, V32, Ub, Vb)
+    assert torch.equal(Ub, U32.to(torch.bfloat16))
+    assert torch.equal(Vb, V32.to(torch.bfloat16))
+    np.testing.assert_array_equal(  # the rounding of jnp.astype
+        Ub.view(torch.int16).numpy(),
+        np.asarray(jnp.asarray(U32.numpy()).astype(BF16)).view(np.int16))
+    back_u, back_v = torch.empty_like(U32), torch.empty_like(V32)
+    tc.bf16_to_f32(Ub, Vb, back_u, back_v)
+    assert torch.equal(back_u, Ub.float()) and torch.equal(back_v, Vb.float())
+    assert sum(tc.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="dtype"):
+        tc.bf16_to_f32(U32, V32, back_u, back_v)
+    with pytest.raises(ValueError, match="shapes"):
+        tc.f32_to_bf16(U32, V32, Vb, Ub)
+
+
 def test_dsgd_train_cuda_rejects_bad_layouts():
     a, U, V, mb, _, _ = _blocked(2, 8, 2)
     common = list(_torch_common(a, U, V))
@@ -227,6 +343,10 @@ def test_dsgd_train_cuda_rejects_bad_layouts():
         tc.dsgd_train_cuda(*bad, **kw)
     with pytest.raises(ValueError, match="multiple"):
         tc.dsgd_train_cuda(*common, **{**kw, "minibatch": mb + 1})
+    for U_, V_ in ((common[0].half(), common[1].half()),
+                   (common[0].to(torch.bfloat16), common[1])):
+        with pytest.raises(ValueError, match="dtypes"):
+            tc.dsgd_train_cuda(U_, V_, *common[2:], **kw)
 
 
 def test_cuda_contract_matches_pallas_contract():

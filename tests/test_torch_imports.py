@@ -29,8 +29,9 @@ def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for m in ("core.types", "core.updaters", "core.initializers",
               "core.generators", "utils.shapes", "data.native",
-              "data.blocking", "data.movielens", "ops.sgd", "ops.cuda_sgd",
-              "ops._build", "models.mf", "models.dsgd", "convert"):
+              "data.blocking", "data.device_blocking", "data.movielens",
+              "ops.sgd", "ops.cuda_sgd", "ops._build", "models.mf",
+              "models.dsgd", "utils.device", "convert"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "dsgd_sweep.cu"))
 
