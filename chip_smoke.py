@@ -7,16 +7,21 @@ Phases, one line each; any failure raises and the exit code is nonzero:
 
 1. device   — the card's name and power limit (nvidia-smi), CUDA device name;
 2. build    — nvcc builds csrc/dsgd_sweep.cu (sm_90a) from the checkout;
-3. kernels  — the stratum sweep through the kernels against its plain
-              PyTorch version on the card: a small k=4, rank-128 problem
-              with duplicate rows and padding (one stratum, 3 sweeps), and
-              one stratum at the full bench geometry; max-abs ≤ 1e-5 per
-              stratum (atomic scatter order). ``[kernels.bf16]``: the same
-              with bf16 tables (upcast kernel, f32 steps, downcast kernel)
-              against the plain twin, every element within one bf16 ulp
-              (magnitudes below 2^-16 counted as 2^-16, where a bf16 ulp
-              is the size of the f32 atomics-order difference), and the
-              cast kernels bit-equal to ``Tensor.to``;
+3. kernels  — the stratum sweep through the step pair (kernel A, item
+              rows; kernel B, user rows; driven by the step plan) against
+              its plain PyTorch version on the card: a small k=4, rank-128
+              problem with duplicate rows and padding (one stratum, 3
+              sweeps), ``[kernels.skewed]`` (few, heavily skewed ids: the
+              segments longer than the 32-entry chunk, which take a block
+              each), and one stratum at the full bench geometry; max-abs
+              ≤ 1e-5 per stratum (the plain version's dot order and
+              ``index_add_`` atomics), and two kernel runs of each stratum
+              bit-equal (no atomics in the kernels). ``[kernels.bf16]``:
+              the same with bf16 tables (upcast kernel, f32 steps,
+              downcast kernel) against the plain twin, every element within
+              one bf16 ulp (magnitudes below 2^-16 counted as 2^-16, where
+              a bf16 ulp is the size of the f32 kernel-vs-plain
+              difference), and the cast kernels bit-equal to ``Tensor.to``;
 4. main     — the bench configuration at full width: ML-25M-shaped ratings
               (162,541 × 59,047, 25,000,095 ratings, 95/5 split), k=8 Gemulla
               strata, rank 128, minibatch 32,768, warm_boost schedule, 3
@@ -25,9 +30,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               host→device copies) are timed apart, and the sweeps inside
               ``fit`` with CUDA events (``DSGD.segment_ms``); holdout RMSE
               after every sweep must be finite and fall, every stratum step
-              must have launched both kernels, and the same 3 sweeps
-              through the plain route on the card must end within 1e-4 of
-              its RMSE;
+              must have launched both kernels, the plan's build is timed
+              apart, and the same 3 sweeps through the plain route on the
+              card must end within 1e-4 of its RMSE;
 5. main.device — the bench's device pipeline (``bench.py:254-363``):
               ``synthetic_like_device`` on the card, device blocking and the
               per-id init timed apart, then ``DSGD().fit_device`` at f32 and
@@ -37,7 +42,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               must end within 5% of f32, and the plain twin's replay on the
               card within 1e-4 (f32) / 1e-3 (bf16) of each fit;
 6. timing   — each kernel against its plain version at the main path's
-              shapes (CUDA events), with its bound on this card.
+              shapes (CUDA events), with its bound on this card; per step:
+              the plan, the longest segments, the design's bytes, and the
+              host time of the launch loop beside the device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -78,8 +85,8 @@ SOURCE = "large_scale_recommendation_tpu_torch/csrc/dsgd_sweep.cu"
 # same launches, the per-visit _sweep_kernel at pallas_sgd.py:172); the cast
 # pair its half=True upcast and downcast
 _PALLAS = "large_scale_recommendation_tpu/ops/pallas_sgd.py"
-REPLACES = {"sgd_delta_kernel": f"{_PALLAS}:440",
-            "sgd_scatter_kernel": f"{_PALLAS}:440",
+REPLACES = {"sgd_item_rows_kernel": f"{_PALLAS}:440",
+            "sgd_user_rows_kernel": f"{_PALLAS}:440",
             "bf16_to_f32_kernel": f"{_PALLAS}:552",
             "f32_to_bf16_kernel": f"{_PALLAS}:604"}
 # the bench configuration (bench.py:190-202), 3 sweeps
@@ -88,11 +95,13 @@ BENCH = dict(num_factors=128, lambda_=0.1, iterations=3, learning_rate=0.3,
              init_scale=0.08, collision_mode="mean", minibatch_sort="item")
 K = 8
 RMSE_TARGET = 0.155
-STRATUM_TOL = 1e-5  # max-abs per stratum: atomics add duplicates in any order
+# max-abs per stratum, kernels vs plain: the plain version reduces the dot in
+# another order and its index_add_ adds duplicates with atomics in any order
+STRATUM_TOL = 1e-5
 BF16_ULPS = 1.0  # bf16 per stratum: an f32 last-place difference may flip
 #                  one rounding
 # below this magnitude a bf16 ulp (≤ 1.2e-7) is smaller than the f32
-# atomics-order difference it rounds from; ulps count at no less than it
+# kernel-vs-plain difference it rounds from; ulps count at no less than it
 ULP_FLOOR = 2.0 ** -16
 
 
@@ -142,26 +151,39 @@ def max_abs(pairs) -> float:
     return max(float((a - b).abs().max()) for a, b in pairs)
 
 
-def check_strata(U, V, args, problem, minibatch, lr, lam, label):
+def step_plan(args, minibatch):
+    su, si, sv, sw, _, _, icu, icv = args
+    return cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
+                                    minibatch=minibatch)
+
+
+def check_strata(U, V, args, problem, plan, lr, lam, label):
     """Kernel vs plain for every stratum of one sweep, each from the same
-    tables; returns the largest max-abs difference."""
+    tables, and a second kernel run of each stratum bit-equal to the first;
+    returns the largest max-abs difference."""
     k = problem.ratings.num_blocks
-    su, si, sv, sw, ou, ov, icu, icv = args
-    idx, streams = stratum_operands(args, problem, minibatch)
-    du, dv = cuda_sgd.alloc_scratch(k, minibatch, U.shape[-1], U.device)
+    ou, ov = args[4], args[5]
+    idx, streams = stratum_operands(args, problem, plan.minibatch)
+    work = plan.new_work(U.shape[-1])
     worst = 0.0
     for s in range(k):
-        Uk, Vk = U.clone(), V.clone()
-        cuda_sgd.stratum_sweep(Uk, Vk, su, si, sv, sw, icu, icv, ou, ov, s,
-                               du, dv, lr=lr, lam=lam, minibatch=minibatch)
+        runs = []
+        for _ in range(2):
+            Uk, Vk = U.clone(), V.clone()
+            cuda_sgd.stratum_sweep(Uk, Vk, ou, ov, plan, s, work, lr=lr,
+                                   lam=lam)
+            runs.append((Uk, Vk))
         Ur, Vr = cuda_sgd.stratum_sweep_reference(
-            U, V, idx, streams, s, lr=lr, lam=lam, minibatch=minibatch,
+            U, V, idx, streams, s, lr=lr, lam=lam, minibatch=plan.minibatch,
             num_blocks=k)
         torch.cuda.synchronize()
         err = max_abs([(Uk, Ur), (Vk, Vr)])
         if not (err <= STRATUM_TOL and torch.isfinite(Uk).all()):
             raise AssertionError(f"{label}: stratum {s} max-abs {err:.3e} > "
                                  f"{STRATUM_TOL:.0e}")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{label}: stratum {s}: two kernel runs "
+                                 "differ")
         worst = max(worst, err)
     return worst
 
@@ -174,7 +196,7 @@ def bf16_ulps(a, b, floor=ULP_FLOOR) -> torch.Tensor:
     return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def check_strata_bf16(U, V, args, problem, minibatch, lr, lam, label):
+def check_strata_bf16(U, V, args, problem, plan, lr, lam, label):
     """bf16 tables: upcast kernel, the stratum's f32 steps, downcast kernel,
     against the plain twin (``stratum_sweep_reference`` on the bf16 tables)
     for every stratum of one sweep, each from the same tables. Returns the
@@ -182,17 +204,18 @@ def check_strata_bf16(U, V, args, problem, minibatch, lr, lam, label):
     (how many, largest magnitude) of those beyond one ulp only when counted
     below ``ULP_FLOOR``."""
     k = problem.ratings.num_blocks
-    su, si, sv, sw, ou, ov, icu, icv = args
+    ou, ov = args[4], args[5]
+    minibatch = plan.minibatch
     idx, streams = stratum_operands(args, problem, minibatch)
-    du, dv = cuda_sgd.alloc_scratch(k, minibatch, U.shape[-1], U.device)
+    work = plan.new_work(U.shape[-1])
     Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
     Uw, Vw = torch.empty_like(U), torch.empty_like(V)
     worst, differ, total, tiny, tiny_mag = 0.0, 0, 0, 0, 0.0
     for s in range(k):
         Uk, Vk = Ub.clone(), Vb.clone()
         cuda_sgd.bf16_to_f32(Uk, Vk, Uw, Vw)
-        cuda_sgd.stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, ou, ov, s,
-                               du, dv, lr=lr, lam=lam, minibatch=minibatch)
+        cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, lr=lr,
+                               lam=lam)
         cuda_sgd.f32_to_bf16(Uw, Vw, Uk, Vk)
         Ur, Vr = cuda_sgd.stratum_sweep_reference(
             Ub, Vb, idx, streams, s, lr=lr, lam=lam, minibatch=minibatch,
@@ -247,7 +270,8 @@ def phase_small(dev):
                           device=dev)
     V = 0.08 * torch.rand((problem.items.num_rows, rank), generator=g,
                           device=dev)
-    one = check_strata(U, V, args, problem, mb, 0.75, lam, "small")
+    plan = step_plan(args, mb)
+    one = check_strata(U, V, args, problem, plan, 0.75, lam, "small")
     sched = schedule_from_name("warm_boost", lam)
     Uk, Vk = cuda_sgd.dsgd_train_cuda(U, V, *args, lr=0.3, lam=lam,
                                       minibatch=mb, num_blocks=k,
@@ -265,9 +289,13 @@ def phase_small(dev):
         raise AssertionError(f"small: 3 sweeps max-abs {err3:.3e}")
     say("kernels.small", k=k, rank=rank, minibatch=mb,
         pad_fraction=round(float((sw == 0).mean()), 4),
+        longest_segment_u=max(plan.longest_u),
+        longest_segment_v=max(plan.longest_v), chunk=plan.chunk,
+        long_segments=len(plan.u_long) + len(plan.v_long),
+        two_runs_bit_equal=True,
         one_stratum_max_abs=f"{one:.3e}", three_sweeps_max_abs=f"{err3:.3e}",
         tol_per_stratum=STRATUM_TOL)
-    ulps, share, below = check_strata_bf16(U, V, args, problem, mb, 0.75,
+    ulps, share, below = check_strata_bf16(U, V, args, problem, plan, 0.75,
                                            lam, "small")
     kw = dict(lr=0.3, lam=lam, minibatch=mb, num_blocks=k, iterations=3,
               schedule=sched)
@@ -280,6 +308,36 @@ def phase_small(dev):
         beyond_one_ulp_below_floor=below[0], their_max_magnitude=below[1],
         three_sweeps_max_abs=f"{max_abs([(Uk.float(), Ur.float()), (Vk.float(), Vr.float())]):.3e}",
         cast_elements_bit_equal=check_casts(U, V), tol_ulps=BF16_ULPS)
+
+
+def phase_skewed(dev):
+    """Few, heavily skewed ids: segments many times the chunk long run on
+    blocks of their own. Kernel vs plain per stratum, and bit-equal
+    reruns."""
+    gen = SyntheticMFGenerator(num_users=24, num_items=16, rank=8,
+                               noise=0.1, seed=6, skew_lam=3.0)
+    mb, k, rank = 2048, 2, 128
+    problem = blocking.block_problem(gen.generate(20_000), num_blocks=k,
+                                     seed=0, minibatch_multiple=mb)
+    args = device_args(problem,
+                       *blocking.minibatch_inv_counts(problem.ratings, mb),
+                       dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    U = 0.1 * torch.rand((problem.users.num_rows, rank), generator=g,
+                         device=dev)
+    V = 0.1 * torch.rand((problem.items.num_rows, rank), generator=g,
+                         device=dev)
+    plan = step_plan(args, mb)
+    longest = (max(plan.longest_u), max(plan.longest_v))
+    if min(longest) <= plan.chunk:
+        raise AssertionError(f"skewed: longest segments {longest} do not "
+                             f"exceed the chunk {plan.chunk}")
+    err = check_strata(U, V, args, problem, plan, 0.05, 0.1, "skewed")
+    say("kernels.skewed", k=k, rank=rank, minibatch=mb,
+        longest_segment_u=longest[0], longest_segment_v=longest[1],
+        chunk=plan.chunk, long_segments=len(plan.u_long) + len(plan.v_long),
+        one_stratum_max_abs=f"{err:.3e}", two_runs_bit_equal=True,
+        tol_per_stratum=STRATUM_TOL)
 
 
 class HoldoutEval:
@@ -321,10 +379,12 @@ def main() -> int:
     _build.load_library("dsgd_sweep")
     say("build", seconds=round(time.perf_counter() - t0, 2))
     for line in _build.nvcc_output.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
             print("  ptxas:", line.strip(), flush=True)
 
     phase_small(dev)
+    phase_skewed(dev)
 
     # -- main path data: bench.py's host pipeline --------------------------
     t0 = time.perf_counter()
@@ -368,12 +428,17 @@ def main() -> int:
         + U0.nbytes + V0.nbytes)
     lam = cfg.lambda_
     sched = schedule_from_name(cfg.lr_schedule, lam)
-    full = check_strata(U0, V0, args, problem, mb, sched(cfg.learning_rate, 1),
-                        lam, "full")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = step_plan(args, mb)  # ends in a host read
+    plan_s = time.perf_counter() - t0
+    full = check_strata(U0, V0, args, problem, plan,
+                        sched(cfg.learning_rate, 1), lam, "full")
     say("kernels.full", k=K, rank=cfg.num_factors, minibatch=mb,
-        one_stratum_max_abs=f"{full:.3e}", tol_per_stratum=STRATUM_TOL)
+        one_stratum_max_abs=f"{full:.3e}", two_runs_bit_equal=True,
+        tol_per_stratum=STRATUM_TOL)
     ulps, share, below = check_strata_bf16(
-        U0, V0, args, problem, mb, sched(cfg.learning_rate, 1), lam, "full")
+        U0, V0, args, problem, plan, sched(cfg.learning_rate, 1), lam, "full")
     say("kernels.bf16", problem="full", k=K, rank=cfg.num_factors,
         minibatch=mb, one_stratum_max_ulps=ulps,
         one_stratum_share_differ=share, beyond_one_ulp_below_floor=below[0],
@@ -394,7 +459,8 @@ def main() -> int:
     curve = solver.evaluator.rmse
     sweep_ms = solver.segment_ms  # one segment = one sweep, inside fit
     nnz = problem.ratings.nnz
-    say("main.fit", wall_s=round(fit_s, 2), sweep_ms=sweep_ms,
+    say("main.fit", wall_s=round(fit_s, 2), plan_build_s=solver.plan_s,
+        sweep_ms=sweep_ms,
         ratings_per_s=nnz * len(sweep_ms) / (sum(sweep_ms) / 1e3),
         rmse_per_sweep=curve, rmse=rmse, launches=launches)
     if not all(math.isfinite(x) for x in curve) or len(curve) != 3:
@@ -423,30 +489,30 @@ def main() -> int:
         ev = solver.evaluator
         return out, math.sqrt(float(sgd_ops.sse_rows(U, V, *ev.rows)) / ev.n)
 
-    scratch = cuda_sgd.alloc_scratch(K, mb, cfg.num_factors, dev)
     upd = RegularizedSGDUpdater(learning_rate=cfg.learning_rate, lambda_=lam,
                                 schedule=sched)
     replay_ms, rmse_replay = replay(lambda U, V, sweep: cuda_sgd.dsgd_train_cuda(
         U, V, *args, lr=cfg.learning_rate, lam=lam, minibatch=mb,
-        num_blocks=K, iterations=1, schedule=sched, t0=sweep,
-        scratch=scratch))
+        num_blocks=K, iterations=1, schedule=sched, t0=sweep, plan=plan))
     plain_ms, rmse_plain = replay(lambda U, V, sweep: sgd_ops.dsgd_train(
         U, V, *args, updater=upd, minibatch=mb, num_blocks=K, iterations=1,
         t0=sweep))
     say("main.replay", kernel_ms=replay_ms, plain_ms=plain_ms,
         model_bytes_per_sweep=sgd_ops.dsgd_bytes_per_sweep(
-            nnz, cfg.num_factors, kernel="cuda"),
+            nnz, cfg.num_factors, kernel="cuda",
+            user_rows=sum(plan.u_segments),
+            item_rows=sum(plan.v_segments)),
         rmse_kernel_replay=rmse_replay, rmse_plain=rmse_plain)
     if not abs(rmse_plain - rmse) <= 1e-4:
         raise AssertionError(f"plain route RMSE {rmse_plain} vs kernel "
                              f"{rmse}: differ by more than 1e-4")
     say("main.target", rmse=rmse, target=RMSE_TARGET,
         reached=rmse <= RMSE_TARGET)
-    del train, holdout, model, solver, scratch
+    del train, holdout, model, solver
 
     device_runs, (Ud, Vd) = phase_device(dev, cfg)
     paths = {"fit": launches, **device_runs}
-    kernels = time_kernels(U0, V0, args, problem, mb, lam, paths)
+    kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -460,7 +526,7 @@ def check_launches(launches, n_mb, iterations, half):
     launched one upcast and one downcast, in f32 none."""
     steps = n_mb * K * iterations
     casts = K * iterations if half else 0
-    want = {"sgd_delta_kernel": steps, "sgd_scatter_kernel": steps,
+    want = {"sgd_item_rows_kernel": steps, "sgd_user_rows_kernel": steps,
             "bf16_to_f32_kernel": casts, "f32_to_bf16_kernel": casts}
     if launches != want:
         raise AssertionError(
@@ -552,7 +618,8 @@ def phase_device(dev, cfg):
         e.record()
         e.synchronize()
         rmse_plain = solver.evaluator.of(Ur, Vr)
-        say(f"main.device.{dtype}", wall_s=wall, sweep_ms=solver.segment_ms,
+        say(f"main.device.{dtype}", wall_s=wall, plan_build_s=solver.plan_s,
+            sweep_ms=solver.segment_ms,
             ratings_per_s=problem.nnz * len(solver.segment_ms)
             / (sum(solver.segment_ms) / 1e3),
             rmse_per_sweep=curve, launches=launches,
@@ -646,84 +713,108 @@ def time_casts(U, V, paths):
     return out
 
 
-def time_kernels(U0, V0, args, problem, mb, lam, paths):
-    """Each kernel against its plain version on stratum 0, minibatch 0 of
-    the main path (k visits × mb entries), with its bound from this data."""
+def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
+    """Kernel A and kernel B against their plain versions on step 0 of the
+    main path (stratum 0, minibatch 0: k visits × mb entries), each with
+    its share of the step's bound from this data; then stratum 0's launch
+    loop on the host clock beside its device time."""
     su, si, sv, sw, ou, ov, icu, icv = args
-    k = problem.ratings.num_blocks
+    k, mb, t = plan.num_blocks, plan.minibatch, 0
     rank = U0.shape[-1]
-    s, g = 0, 0
-    planes = [a[s] for a in (su, si, sv, sw, icu, icv)]
     lr = schedule_from_name("warm_boost", lam)(0.3, 1)
-    dk = cuda_sgd.alloc_scratch(k, mb, rank, U0.device)
-    dp = cuda_sgd.alloc_scratch(k, mb, rank, U0.device)
+    kw = dict(lr=lr, lam=lam)
+    wk, wp = plan.new_work(rank), plan.new_work(rank)
+    n_e = plan.entry_base[t + 1] - plan.entry_base[t]  # real entries
+    n_v, n_u = plan.v_segments[t], plan.u_segments[t]  # distinct rows
+    touched = cuda_sgd.plan_rows(plan.v_prow[plan.entry_base[t]:
+                                             plan.entry_base[t + 1]])
 
-    def delta(fn, d):
-        return lambda: fn(U0, V0, *planes, ou, ov, g, *d, lr=lr, lam=lam,
-                          minibatch=mb)
-
-    delta(cuda_sgd.sgd_delta, dk)()
-    delta(cuda_sgd.sgd_delta_reference, dp)()
-    torch.cuda.synchronize()
-    delta_err = max_abs([(dk[0], dp[0]), (dk[1], dp[1])])
-    delta_ms = cuda_ms(delta(cuda_sgd.sgd_delta, dk), reps=20)
-    delta_plain_ms = cuda_ms(delta(cuda_sgd.sgd_delta_reference, dp), reps=5)
-
+    # each kernel against its plain version from the same inputs (kernel B
+    # from the plain kernel A's e and snapshot)
     Uk, Vk, Up, Vp = U0.clone(), V0.clone(), U0.clone(), V0.clone()
-    cuda_sgd.sgd_scatter(Uk, Vk, planes[0], planes[1], planes[3], g, *dp,
-                         minibatch=mb)
-    cuda_sgd.sgd_scatter_reference(Up, Vp, planes[0], planes[1], planes[3],
-                                   g, *dp, minibatch=mb)
+    cuda_sgd.sgd_item_rows(Uk, Vk, ou, ov, plan, t, wk, **kw)
+    cuda_sgd.sgd_item_rows_reference(Up, Vp, ov, plan, t, wp, **kw)
+    cuda_sgd.sgd_user_rows(Uk, Vk, ou, ov, plan, t, wp, **kw)
+    cuda_sgd.sgd_user_rows_reference(Up, ou, plan, t, wp, **kw)
     torch.cuda.synchronize()
-    scatter_err = max_abs([(Uk, Up), (Vk, Vp)])
-    scatter_ms = cuda_ms(lambda: cuda_sgd.sgd_scatter(
-        Uk, Vk, planes[0], planes[1], planes[3], g, *dp, minibatch=mb),
-        reps=20)
-    scatter_plain_ms = cuda_ms(lambda: cuda_sgd.sgd_scatter_reference(
-        Up, Vp, planes[0], planes[1], planes[3], g, *dp, minibatch=mb),
-        reps=5)
-    ur = planes[0][:, :mb].reshape(-1).long()
-    ir = planes[1][:, :mb].reshape(-1).long()
-    du_flat, dv_flat = dp[0].reshape(-1, rank), dp[1].reshape(-1, rank)
-    # one index_add_ per table: padding rows add exact zeros
-    lib_ms = cuda_ms(lambda: (Up.index_add_(0, ur, du_flat),
-                              Vp.index_add_(0, ir, dv_flat)), reps=20)
+    a_err = max_abs([(Vk, Vp), (wk[0][:n_e], wp[0][:n_e]),
+                     (wk[1][touched], wp[1][touched])])
+    b_err = max_abs([(Uk, Up)])
+    a_ms = cuda_ms(lambda: cuda_sgd.sgd_item_rows(
+        Uk, Vk, ou, ov, plan, t, wk, **kw), reps=20)
+    b_ms = cuda_ms(lambda: cuda_sgd.sgd_user_rows(
+        Uk, Vk, ou, ov, plan, t, wk, **kw), reps=20)
+    a_plain_ms = cuda_ms(lambda: cuda_sgd.sgd_item_rows_reference(
+        Up, Vp, ov, plan, t, wp, **kw), reps=5)
+    b_plain_ms = cuda_ms(lambda: cuda_sgd.sgd_user_rows_reference(
+        Up, ou, plan, t, wp, **kw), reps=5)
+    # the library yardstick of kernel B: one index_add_ per table of the
+    # step's deltas (padding rows add exact zeros)
+    ur = su[0][:, :mb].reshape(-1).long()
+    ir = si[0][:, :mb].reshape(-1).long()
+    rule = RegularizedSGDUpdater(learning_rate=lr, lambda_=lam,
+                                 schedule=schedule_from_name("constant"))
+    du, dv = rule.delta(sv[0][:, :mb].reshape(-1), U0[ur], V0[ir],
+                        weights=sw[0][:, :mb].reshape(-1), omega_u=ou[ur],
+                        omega_v=ov[ir])
+    lib_ms = cuda_ms(lambda: (Up.index_add_(0, ur, du),
+                              Vp.index_add_(0, ir, dv)), reps=20)
+
+    # the launch loop of stratum 0: host time to enqueue its n_mb steps
+    # beside the device time they take (best of 5)
+    host_us, dev_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        h0 = time.perf_counter()
+        cuda_sgd.stratum_sweep(Uk, Vk, ou, ov, plan, 0, wk, **kw)
+        h1 = time.perf_counter()
+        e.record()
+        e.synchronize()
+        host_us.append((h1 - h0) / plan.n_mb * 1e6)
+        dev_ms.append(a.elapsed_time(e) / plan.n_mb)
 
     # bounds from this step's data. The ported function is the whole step
     # (both kernels): it reads each distinct row once with its ω and 24 B of
-    # streams per entry, and writes each distinct row back once. The delta
-    # kernel's share is the reads, the scatter kernel's the writes; their
-    # sum is the step's bound. The du/dv scratch round trip is a cost of the
-    # two-launch design, reported apart and in neither bound.
-    real = planes[3][:, :mb].reshape(-1) != 0
-    n_real = int(real.sum())
-    n_all = k * mb
-    uniq_u = int(torch.unique(ur[real]).numel())
-    uniq_v = int(torch.unique(ir[real]).numel())
+    # streams per entry, and writes each distinct row back once. Kernel A's
+    # share is both sides' reads, the streams and V's writes; kernel B's is
+    # U's writes; their sum is the step's bound.
     row = rank * 4
-    d_bytes = (uniq_u + uniq_v) * (row + 4) + n_all * 24
-    s_bytes = (uniq_u + uniq_v) * row
-    d_flops = n_real * 10 * rank
-    s_flops = n_real * 2 * rank
-    scratch_bytes = 2 * 2 * n_all * row  # du/dv written, then read back
-
-    step_bms, _ = bound_of(d_bytes + s_bytes, d_flops + s_flops)
-    step_ms = delta_ms + scatter_ms
+    n_all = k * mb
+    a_bytes = (n_u + n_v) * (row + 4) + n_all * 24 + n_v * row
+    b_bytes = n_u * row
+    a_flops, b_flops = n_e * 7 * rank, n_e * 5 * rank
+    step_bms, _ = bound_of(a_bytes + b_bytes, a_flops + b_flops)
+    step_ms = a_ms + b_ms
+    # what the design moves beyond the function (not in the bound)
+    design = dict(gathered_user_rows=n_e * row, snapshot_writes=n_v * row,
+                  snapshot_gathers=n_e * row, e_buffer=2 * n_e * 4,
+                  plan=2 * n_e * 20)
     out = []
     for name, err, ms, pms, bound, lib in (
-            ("sgd_delta_kernel", delta_err, delta_ms, delta_plain_ms,
-             bound_of(d_bytes, d_flops), None),
-            ("sgd_scatter_kernel", scatter_err, scatter_ms, scatter_plain_ms,
-             bound_of(s_bytes, s_flops), lib_ms)):
+            ("sgd_item_rows_kernel", a_err, a_ms, a_plain_ms,
+             bound_of(a_bytes, a_flops), None),
+            ("sgd_user_rows_kernel", b_err, b_ms, b_plain_ms,
+             bound_of(b_bytes, b_flops), lib_ms)):
         if not err <= STRATUM_TOL:
             raise AssertionError(f"{name} max-abs {err:.3e} vs plain")
         out.append(entry(name, err, ms, pms, bound, lib, paths,
                          step_ms=step_ms, step_bound_ms=step_bms))
-    say("kernels.timing", visits=k, minibatch=mb, real_entries=n_real,
-        distinct_u=uniq_u, distinct_v=uniq_v,
-        function_bytes=d_bytes + s_bytes, scratch_bytes=scratch_bytes,
-        step_ms=step_ms, step_bound_ms=step_bms,
-        step_share_of_bound=step_bms / step_ms)
+    say("kernels.timing", visits=k, minibatch=mb, real_entries=n_e,
+        distinct_u=n_u, distinct_v=n_v, plan_build_s=plan_s,
+        plan_bytes=plan.nbytes(), longest_segment_u_step0=plan.longest_u[t],
+        longest_segment_v_step0=plan.longest_v[t],
+        longest_segment_u=max(plan.longest_u),
+        longest_segment_v=max(plan.longest_v), chunk=plan.chunk,
+        kernel_a_ms=a_ms, kernel_b_ms=b_ms, step_ms=step_ms,
+        step_bound_ms=step_bms, step_share_of_bound=step_bms / step_ms,
+        function_bytes=a_bytes + b_bytes,
+        design_bytes_beyond=sum(design.values()), **design,
+        old_pair_scratch_bytes=2 * 2 * n_all * row,
+        stratum0_device_ms_per_step=min(dev_ms),
+        stratum0_host_us_per_step=min(host_us),
+        host_is_pace=min(host_us) / 1e3 >= min(dev_ms))
     return out
 
 

@@ -177,6 +177,14 @@ class RegularizedSGDUpdater:
         e = _errors(ratings, u, v)
         if weights is not None:
             e = e * weights
+        return self.delta_from_errors(e, u, v, weights=weights,
+                                      omega_u=omega_u, omega_v=omega_v, t=t)
+
+    def delta_from_errors(self, e, u, v, *, weights=None, omega_u=None,
+                          omega_v=None, t=1):
+        """``delta`` from the weighted errors ``e = (r − u·v)·w`` already
+        taken (the CUDA step pair computes them on the item side and
+        reuses them on the user side)."""
         lr = self.schedule(self.learning_rate, int(t))
         if omega_u is not None:
             reg_u = (self.lambda_ / omega_u.clamp_min(1.0))[:, None] * u

@@ -29,6 +29,7 @@ has no ``kernel``):
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
@@ -103,6 +104,8 @@ class DSGD:
         # device ms of each training segment of the last fit (CUDA events
         # around the segment's launches; hooks excluded); empty on the CPU
         self.segment_ms: list[float] = []
+        # host seconds to build the last fit's step plan (card only)
+        self.plan_s: float | None = None
 
     # -- fit ---------------------------------------------------------------
 
@@ -203,7 +206,7 @@ class DSGD:
         fdt = cfg.storage_dtype()
         U, V = U.to(fdt), V.to(fdt)
         segment = checkpoint_every or cfg.iterations
-        train = self._train_fn(args, k, int(U.shape[-1]))
+        train = self._train_fn(args, k)
         timed = self.device.type == "cuda"
         events = []
         done = 0
@@ -228,21 +231,26 @@ class DSGD:
         self.segment_ms = [a.elapsed_time(b) for a, b in events]
         return U, V
 
-    def _train_fn(self, args, k: int, rank: int):
+    def _train_fn(self, args, k: int):
         """Route by device: the CUDA kernels on a card (``fit`` has checked
-        their contract), the plain route on the CPU."""
+        their contract; the step plan is built here, once per fit), the
+        plain route on the CPU."""
         cfg = self.config
         upd = self.updater
         if self.device.type == "cuda":
-            scratch = cuda_sgd.alloc_scratch(k, cfg.minibatch_size, rank,
-                                             self.device)
+            su, si, sv, sw, _, _, icu, icv = args
+            torch.cuda.synchronize(self.device)
+            start = time.perf_counter()
+            plan = cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
+                                            minibatch=cfg.minibatch_size)
+            self.plan_s = time.perf_counter() - start  # ends in a host read
 
             def cuda(U, V, *, iterations, t0):
                 return cuda_sgd.dsgd_train_cuda(
                     U, V, *args, lr=float(upd.learning_rate),
                     lam=float(upd.lambda_), minibatch=cfg.minibatch_size,
                     num_blocks=k, iterations=iterations,
-                    schedule=upd.schedule, t0=t0, scratch=scratch)
+                    schedule=upd.schedule, t0=t0, plan=plan)
 
             return cuda
 

@@ -4,12 +4,21 @@
 Hand-written CUDA kernels (``csrc/dsgd_sweep.cu``) replace the JAX
 package's Pallas kernels ``_sweep_kernel`` and ``_stratum_kernel``. One
 stratum is ``n_mb`` minibatch steps; each step is two launches that cover
-all k row-disjoint visits of the stratum at once:
+all k row-disjoint visits of the stratum at once, driven by a step plan
+(``build_step_plan``, built once per fit) that groups each step's real
+entries by item row and by user row, so that every row of a step has one
+owning warp (or, for a long row, one thread block):
 
-- ``sgd_delta``   — ``sgd_delta_kernel``: gather, the λ/ω rule, du/dv into
-  a ``[k, mb, r]`` f32 scratch;
-- ``sgd_scatter`` — ``sgd_scatter_kernel``: atomic scatter-add of the
-  scratch into U and V.
+- ``sgd_item_rows`` — ``sgd_item_rows_kernel`` (kernel A): per item row,
+  gathers the entries' user rows, writes each entry's error ``e`` and the
+  row's old value (the snapshot, by item row), adds the item deltas into
+  the row in entry order and writes it in place;
+- ``sgd_user_rows`` — ``sgd_user_rows_kernel`` (kernel B): per user row,
+  adds the user deltas from ``e`` and the snapshot into the row in entry
+  order and writes it in place.
+
+Every row is written by one owner in a fixed order: no atomics, no
+per-entry delta scratch, and two runs give bit-equal tables.
 
 bf16 tables (the TPU kernels' ``half=True`` branch) rest in bf16 and the
 steps run on f32 work tables: per stratum, ``bf16_to_f32``
@@ -30,21 +39,22 @@ block-local rows — ``pallas_block_sweep``), ``stratum_sweep_reference``
 (one stratum from ``build_stratum_operands``' visit-major operands —
 ``pallas_stratum_sweep``) and ``dsgd_train_reference`` (the whole training
 loop of ``dsgd_train_cuda``, bf16 rounding points included). Every plain
-version applies the one λ/ω rule of ``RegularizedSGDUpdater.delta`` at a
-constant η through ``ops.sgd.sgd_block_sweep``, the CPU route of ``fit``.
-The TPU's VMEM/SMEM budget helpers have no counterpart: the wrappers'
-shape checks take their place.
+version applies the one λ/ω rule of ``RegularizedSGDUpdater`` at a
+constant η. The TPU's VMEM/SMEM budget helpers have no counterpart: the
+wrappers' shape checks take their place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.core.updaters import (
     RegularizedSGDUpdater,
+    _errors,
     constant_lr,
 )
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
@@ -52,9 +62,13 @@ from large_scale_recommendation_tpu_torch.ops._build import load_library
 
 # launches per kernel since the last reset (counted where the kernel is
 # launched, and nowhere else)
-LAUNCHES = {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0,
+LAUNCHES = {"sgd_item_rows_kernel": 0, "sgd_user_rows_kernel": 0,
             "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
 FACTOR_DTYPES = (torch.float32, torch.bfloat16)
+# a segment longer than this gets a thread block of its own, its entries
+# dealt to the block's warps in chunks of this many (at most 32: a shorter
+# segment must end inside the two 32-position windows its owner loads)
+SEGMENT_CHUNK = 32
 
 _LIB = "dsgd_sweep"
 _bound: ctypes.CDLL | None = None
@@ -74,11 +88,11 @@ def _lib() -> ctypes.CDLL:
                         ctypes.c_float)
         lib.dsgd_sweep_max_rank.restype = I
         lib.dsgd_sweep_max_rank.argtypes = []
-        lib.sgd_delta_launch.restype = I
-        lib.sgd_delta_launch.argtypes = [P] * 12 + [I64, I64, I, I, I, F, F,
-                                                     P]
-        lib.sgd_scatter_launch.restype = I
-        lib.sgd_scatter_launch.argtypes = [P] * 7 + [I64, I64, I, I, I, P]
+        step = [I, I, P, I, I, P, P, I, F, F, P]  # e0 … stream
+        lib.sgd_item_rows_launch.restype = I
+        lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
+        lib.sgd_user_rows_launch.restype = I
+        lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
         for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
             fn.restype = I
             fn.argtypes = [P, P, I64, P, P, I64, P]
@@ -125,111 +139,350 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"{tuple(shape)}")
 
 
-def _check_step(U, V, su_s, si_s, sw_s, du, dv, g, minibatch):
-    k, b = su_s.shape
-    rank = U.shape[-1]
-    if U.dim() != 2 or V.dim() != 2 or V.shape[-1] != rank:
-        raise ValueError(f"U {tuple(U.shape)} / V {tuple(V.shape)} must be "
-                         "[rows, rank] with one rank")
-    if b % minibatch or not 0 <= g < b // minibatch:
-        raise ValueError(f"minibatch {g} of {minibatch} entries is outside "
-                         f"a block of {b}")
-    _check("U", U, torch.float32)
-    _check("V", V, torch.float32)
-    _check("su", su_s, torch.int32)
-    _check("si", si_s, torch.int32, (k, b))
-    _check("sw", sw_s, torch.float32, (k, b))
-    _check("du", du, torch.float32, (k, minibatch, rank))
-    _check("dv", dv, torch.float32, (k, minibatch, rank))
-    return k, b, rank
-
-
 def _rule(lr: float, lam: float) -> RegularizedSGDUpdater:
     """The λ/ω rule the kernels inline, at a constant η = ``lr``."""
     return RegularizedSGDUpdater(learning_rate=lr, lambda_=lam,
                                  schedule=constant_lr)
 
 
-def sgd_delta_reference(U, V, su_s, si_s, sv_s, sw_s, icu_s, icv_s,
-                        omega_u, omega_v, g, du, dv, *, lr, lam, minibatch):
-    """Plain version of ``sgd_delta_kernel``: fills du/dv ``[k, mb, r]``
-    for minibatch g of every visit of the stratum."""
-    sl = slice(g * minibatch, (g + 1) * minibatch)
-    ur = su_s[:, sl].reshape(-1).long()
-    ir = si_s[:, sl].reshape(-1).long()
-    d_u, d_v = _rule(lr, lam).delta(
-        sv_s[:, sl].reshape(-1), U[ur], V[ir],
-        weights=sw_s[:, sl].reshape(-1), omega_u=omega_u[ur],
-        omega_v=omega_v[ir])
-    du.copy_((d_u * icu_s[:, sl].reshape(-1, 1)).view(du.shape))
-    dv.copy_((d_v * icv_s[:, sl].reshape(-1, 1)).view(dv.shape))
-    return du, dv
+# -- the step plan ----------------------------------------------------------
 
 
-def sgd_delta(U, V, su_s, si_s, sv_s, sw_s, icu_s, icv_s, omega_u, omega_v,
-              g: int, du, dv, *, lr: float, lam: float, minibatch: int):
-    """du/dv for minibatch ``g`` of all k visits of one stratum.
+@dataclasses.dataclass(eq=False)
+class StepPlan:
+    """Each minibatch step's real (weight ≠ 0) entries, grouped by row.
 
-    ``su_s``/``si_s``/``sv_s``/``sw_s``/``icu_s``/``icv_s`` are the
-    stratum's ``[k, b]`` planes of the stratum-major layout (global rows);
-    ``du``/``dv`` the ``[k, mb, r]`` scratch. η (``lr``) is a runtime
-    scalar."""
-    if not _on_cuda(U, V, su_s, si_s, sv_s, sw_s, icu_s, icv_s, omega_u,
-                    omega_v, du, dv):
-        return sgd_delta_reference(U, V, su_s, si_s, sv_s, sw_s, icu_s,
-                                   icv_s, omega_u, omega_v, g, du, dv,
-                                   lr=lr, lam=lam, minibatch=minibatch)
-    k, b, rank = _check_step(U, V, su_s, si_s, sw_s, du, dv, g, minibatch)
-    for name, t in (("sv", sv_s), ("icu", icu_s), ("icv", icv_s)):
-        _check(name, t, torch.float32, (k, b))
+    Step ``t = s·n_mb + g`` is minibatch g of all k visits of stratum s.
+    Its entries occupy positions ``entry_base[t]:entry_base[t+1]`` of the
+    per-entry arrays, twice over:
+
+    - in item order (``v_*``): grouped by V row, each group (an "item
+      segment": one per row and step) in the minibatch's entry order;
+    - in user order (``u_*``): the same by U row, with ``u_epos`` the
+      entry's item-order position and ``u_vrow`` its item row.
+
+    ``*_prow`` holds each position's row, as ``~row`` (negative) where its
+    segment is longer than ``chunk``; those segments get a thread block
+    each and are listed as ``[beg, end)`` position pairs in ``*_long``,
+    cut by step at ``*_long_base``. Padding entries are in no segment.
+    Host lists carry what the launches need.
+    """
+
+    num_blocks: int
+    minibatch: int
+    n_mb: int
+    chunk: int
+    rows_u: int  # the tables must hold at least these many rows
+    rows_v: int
+    v_prow: torch.Tensor  # int32[R] item row (~row: long segment)
+    v_su: torch.Tensor  # int32[R] user row of each entry, item order
+    v_r: torch.Tensor  # f32[R]
+    v_w: torch.Tensor
+    v_icv: torch.Tensor
+    v_long: torch.Tensor  # int32[Lv, 2] [beg, end) positions
+    u_prow: torch.Tensor  # int32[R] user row (~row: long segment)
+    u_epos: torch.Tensor  # int32[R] item-order position, user order
+    u_vrow: torch.Tensor  # int32[R] item row of each entry, user order
+    u_w: torch.Tensor
+    u_icu: torch.Tensor
+    u_long: torch.Tensor  # int32[Lu, 2]
+    entry_base: list[int]
+    v_long_base: list[int]
+    u_long_base: list[int]
+    v_segments: list[int]  # per step: its distinct item rows
+    u_segments: list[int]
+    longest_v: list[int]  # per step
+    longest_u: list[int]
+    _args: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def steps(self) -> int:
+        return self.num_blocks * self.n_mb
+
+    @property
+    def device(self) -> torch.device:
+        return self.v_prow.device
+
+    def check_step(self, t: int) -> None:
+        if not 0 <= t < self.steps:
+            raise ValueError(f"step {t} outside the plan's {self.steps}")
+
+    def max_entries(self) -> int:
+        return max(b - a for a, b in zip(self.entry_base,
+                                         self.entry_base[1:]))
+
+    def new_work(self, rank: int):
+        """The step pair's buffers: ``e`` f32[max entries of a step] and
+        the snapshot f32[item rows, rank] (v_old by item row)."""
+        dev = self.device
+        return (torch.empty(max(self.max_entries(), 1), dtype=torch.float32,
+                            device=dev),
+                torch.empty((max(self.rows_v, 1), rank), dtype=torch.float32,
+                            device=dev))
+
+    def nbytes(self) -> int:
+        return sum(f.nbytes for f in (getattr(self, n.name) for n in
+                                      dataclasses.fields(self))
+                   if isinstance(f, torch.Tensor))
+
+    def _step_args(self, side: str, t: int, streams) -> tuple:
+        key = (side, t)
+        if key not in self._args:
+            longs = getattr(self, f"{side}_long")
+            base = getattr(self, f"{side}_long_base")
+            self._args[key] = (
+                *(a.data_ptr() for a in streams), self.entry_base[t],
+                self.entry_base[t + 1], longs.data_ptr() + 8 * base[t],
+                base[t + 1] - base[t], self.chunk)
+        return self._args[key]
+
+    def item_args(self, t: int) -> tuple:
+        """Step ``t``'s plan arguments of ``sgd_item_rows_launch``."""
+        return self._step_args("v", t, (self.v_prow, self.v_su, self.v_r,
+                                        self.v_w, self.v_icv))
+
+    def user_args(self, t: int) -> tuple:
+        """Step ``t``'s plan arguments of ``sgd_user_rows_launch``."""
+        return self._step_args("u", t, (self.u_prow, self.u_epos,
+                                        self.u_vrow, self.u_w, self.u_icu))
+
+
+def _bases(step_of: torch.Tensor, steps: int) -> torch.Tensor:
+    """[steps + 1] start offsets of the step-sorted items ``step_of``."""
+    counts = torch.bincount(step_of, minlength=steps)
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+def _group(step, rows, steps: int, chunk: int):
+    """Group entries (``step``, ``rows`` int64, in entry order) by (step,
+    row) with a stable sort. Returns the order, each position's row
+    (``~row`` in a long segment), the long segments' [beg, end) positions
+    and their step bases, and per step the segment count and the longest
+    segment."""
+    n = step.numel()
+    dev = step.device
+    key = (step << 32) + rows  # rows < 2^31: no host read for a row count
+    order = torch.sort(key, stable=True).indices
+    skey = key[order]
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = skey[1:] != skey[:-1]
+    first = torch.nonzero(new).squeeze(1)
+    end = torch.cat([first[1:], first.new_full((1,), n)])
+    length = end - first
+    seg_step = skey[first] >> 32
+    is_long = length > chunk
+    row = skey & 0xFFFFFFFF
+    prow = torch.where(is_long.repeat_interleave(length), ~row, row)
+    longest = torch.zeros(steps, dtype=torch.int64, device=dev)
+    longest.scatter_reduce_(0, seg_step, length, "amax")
+    return (order, prow, torch.stack([first[is_long], end[is_long]], 1),
+            _bases(seg_step[is_long], steps),
+            torch.bincount(seg_step, minlength=steps), longest)
+
+
+def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
+    """The step plan of a stratum-major layout (``[k, k, b]`` global rows,
+    ``b`` a multiple of ``minibatch``), built with torch on the arrays'
+    device and read back once (the per-step bases and counts). Stable sorts
+    keep each segment in the minibatch's entry order, whatever
+    ``minibatch_sort`` the layout was built with."""
+    k, b = int(su.shape[0]), int(su.shape[-1])
+    if tuple(su.shape[:2]) != (k, k) or b % minibatch:
+        raise ValueError(f"su shape {tuple(su.shape)} is not [k, k, b] with "
+                         f"b a multiple of {minibatch}")
+    if k * k * b >= 2 ** 31:
+        raise ValueError("the plan indexes entries with int32: at most "
+                         "2^31 − 1 slots")
+    n_mb = b // minibatch
+    steps = k * n_mb
+    real = torch.nonzero(sw.reshape(-1) != 0).squeeze(1)
+    step = (real // (k * b)) * n_mb + (real % b) // minibatch
+    u_rows = su.reshape(-1)[real].long()
+    i_rows = si.reshape(-1)[real].long()
+    v_order, v_prow, v_long, v_long_base, v_segs, longest_v = _group(
+        step, i_rows, steps, SEGMENT_CHUNK)
+    u_order, u_prow, u_long, u_long_base, u_segs, longest_u = _group(
+        step, u_rows, steps, SEGMENT_CHUNK)
+    v_pos = torch.empty_like(v_order)
+    v_pos[v_order] = torch.arange(v_order.numel(), device=v_order.device)
+    w = sw.reshape(-1)[real].float()
+    top = [(r.max() + 1).reshape(1) if r.numel() else r.new_zeros(1)
+           for r in (u_rows, i_rows)]
+    parts = [_bases(step, steps), v_long_base, u_long_base, v_segs, u_segs,
+             longest_v, longest_u, *top]
+    host = torch.cat(parts).cpu().tolist()
+    lists, at = [], 0
+    for part in parts:
+        lists.append(host[at:at + part.numel()])
+        at += part.numel()
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    return StepPlan(
+        num_blocks=k, minibatch=minibatch, n_mb=n_mb, chunk=SEGMENT_CHUNK,
+        rows_u=lists[7][0], rows_v=lists[8][0],
+        v_prow=i32(v_prow),
+        v_su=i32(u_rows[v_order]), v_r=sv.reshape(-1)[real][v_order].float(),
+        v_w=w[v_order], v_icv=icv.reshape(-1)[real][v_order].float(),
+        v_long=i32(v_long), u_prow=i32(u_prow), u_epos=i32(v_pos[u_order]),
+        u_vrow=i32(i_rows[u_order]), u_w=w[u_order],
+        u_icu=icu.reshape(-1)[real][u_order].float(), u_long=i32(u_long),
+        entry_base=lists[0], v_long_base=lists[1], u_long_base=lists[2],
+        v_segments=lists[3], u_segments=lists[4], longest_v=lists[5],
+        longest_u=lists[6])
+
+
+# -- the step pair ----------------------------------------------------------
+
+
+def plan_rows(prow: torch.Tensor) -> torch.Tensor:
+    """The rows of ``*_prow`` positions (``~row`` decoded), as int64."""
+    return torch.where(prow < 0, ~prow, prow).long()
+
+
+def sgd_item_rows_reference(U, V, omega_v, plan: StepPlan, t: int, work, *,
+                            lr: float, lam: float):
+    """Plain version of ``sgd_item_rows_kernel`` for step ``t``: fills
+    ``e`` (per entry, item order) and the snapshot (each item row's old
+    value, by row), and adds the item deltas into V in entry order."""
+    e, snap = work
+    e0, e1 = plan.entry_base[t], plan.entry_base[t + 1]
+    rows = plan_rows(plan.v_prow[e0:e1])
+    u = U[plan.v_su[e0:e1].long()]
+    v = V[rows]
+    w = plan.v_w[e0:e1]
+    err = _errors(plan.v_r[e0:e1], u, v) * w
+    _, dv = _rule(lr, lam).delta_from_errors(err, u, v, weights=w,
+                                             omega_v=omega_v[rows])
+    snap[rows] = v
+    e[:e1 - e0] = err
+    V.index_add_(0, rows, dv * plan.v_icv[e0:e1, None])
+    return V
+
+
+def sgd_user_rows_reference(U, omega_u, plan: StepPlan, t: int, work, *,
+                            lr: float, lam: float):
+    """Plain version of ``sgd_user_rows_kernel`` for step ``t``: adds the
+    user deltas, from ``e`` and the snapshot, into U in entry order."""
+    e, snap = work
+    e0, e1 = plan.entry_base[t], plan.entry_base[t + 1]
+    rows = plan_rows(plan.u_prow[e0:e1])
+    u = U[rows]
+    v = snap[plan.u_vrow[e0:e1].long()]
+    err = e[plan.u_epos[e0:e1].long() - e0]
+    du, _ = _rule(lr, lam).delta_from_errors(
+        err, u, v, weights=plan.u_w[e0:e1], omega_u=omega_u[rows])
+    U.index_add_(0, rows, du * plan.u_icu[e0:e1, None])
+    return U
+
+
+def _check_step(U, V, omega_u, omega_v, plan: StepPlan, work) -> int:
+    """The step pair's operand checks (once per stratum on the sweep's
+    path); returns the rank."""
+    rank = int(U.shape[-1]) if U.dim() == 2 else -1
+    if U.dim() != 2 or V.dim() != 2 or V.shape[-1] != rank:
+        raise ValueError(f"U {tuple(U.shape)} / V {tuple(V.shape)} must be "
+                         "[rows, rank] with one rank")
+    _check("U", U, torch.float32)
+    _check("V", V, torch.float32)
     _check("omega_u", omega_u, torch.float32, (U.shape[0],))
     _check("omega_v", omega_v, torch.float32, (V.shape[0],))
-    lib = _lib()
-    if rank > lib.dsgd_sweep_max_rank():
-        raise ValueError(f"rank {rank} exceeds the kernel's "
-                         f"{lib.dsgd_sweep_max_rank()}")
-    stream = torch.cuda.current_stream(U.device).cuda_stream
-    rc = lib.sgd_delta_launch(
-        U.data_ptr(), V.data_ptr(), su_s.data_ptr(), si_s.data_ptr(),
-        sv_s.data_ptr(), sw_s.data_ptr(), icu_s.data_ptr(), icv_s.data_ptr(),
-        omega_u.data_ptr(), omega_v.data_ptr(), du.data_ptr(), dv.data_ptr(),
-        b, g * minibatch, minibatch, rank, k, float(lr), float(lam), stream)
+    if U.shape[0] < plan.rows_u or V.shape[0] < plan.rows_v:
+        raise ValueError(f"the plan reaches rows ({plan.rows_u}, "
+                         f"{plan.rows_v}) outside U/V")
+    e, snap = work
+    _check("e", e, torch.float32)
+    _check("snapshot", snap, torch.float32)
+    if (e.numel() < plan.max_entries() or snap.dim() != 2
+            or snap.shape[0] < plan.rows_v or snap.shape[1] != rank):
+        raise ValueError("work buffers smaller than the plan's steps: use "
+                         "plan.new_work(rank)")
+    if plan.device != U.device:
+        raise ValueError(f"plan on {plan.device}, tables on {U.device}")
+    top = _lib().dsgd_sweep_max_rank()
+    if rank > top:
+        raise ValueError(f"rank {rank} exceeds the kernels' {top}")
+    return rank
+
+
+def _launch(name: str, fn, args) -> None:
+    rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"sgd_delta_kernel launch failed: CUDA error {rc}")
-    LAUNCHES["sgd_delta_kernel"] += 1
-    return du, dv
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
-def sgd_scatter_reference(U, V, su_s, si_s, sw_s, g, du, dv, *, minibatch):
-    """Plain version of ``sgd_scatter_kernel``: ``index_add_`` of the
-    real (weight ≠ 0) entries' deltas."""
-    sl = slice(g * minibatch, (g + 1) * minibatch)
-    rank = U.shape[-1]
-    real = sw_s[:, sl].reshape(-1) != 0
-    U.index_add_(0, su_s[:, sl].reshape(-1)[real].long(),
-                 du.reshape(-1, rank)[real])
-    V.index_add_(0, si_s[:, sl].reshape(-1)[real].long(),
-                 dv.reshape(-1, rank)[real])
+def _launch_item(lib, U, V, omega_v, plan, t, tail):
+    _launch("sgd_item_rows_kernel", lib.sgd_item_rows_launch,
+            (U.data_ptr(), V.data_ptr(), omega_v.data_ptr())
+            + plan.item_args(t) + tail)
+
+
+def _launch_user(lib, U, omega_u, plan, t, tail):
+    _launch("sgd_user_rows_kernel", lib.sgd_user_rows_launch,
+            (U.data_ptr(), omega_u.data_ptr()) + plan.user_args(t) + tail)
+
+
+def _tail(work, rank: int, lr: float, lam: float, device) -> tuple:
+    e, snap = work
+    return (e.data_ptr(), snap.data_ptr(), rank, float(lr), float(lam),
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def sgd_item_rows(U, V, omega_u, omega_v, plan: StepPlan, t: int, work, *,
+                  lr: float, lam: float):
+    """Kernel A of step ``t``: V rows updated in place, ``e`` and the
+    snapshot filled (``work`` from ``plan.new_work``). η (``lr``) is a
+    runtime scalar."""
+    plan.check_step(t)
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+        return sgd_item_rows_reference(U, V, omega_v, plan, t, work, lr=lr,
+                                       lam=lam)
+    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+    _launch_item(_lib(), U, V, omega_v, plan, t,
+                 _tail(work, rank, lr, lam, U.device))
+    return V
+
+
+def sgd_user_rows(U, V, omega_u, omega_v, plan: StepPlan, t: int, work, *,
+                  lr: float, lam: float):
+    """Kernel B of step ``t``: U rows updated in place from ``e`` and the
+    snapshot that kernel A left in ``work`` (V is only checked)."""
+    plan.check_step(t)
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+        return sgd_user_rows_reference(U, omega_u, plan, t, work, lr=lr,
+                                       lam=lam)
+    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+    _launch_user(_lib(), U, omega_u, plan, t,
+                 _tail(work, rank, lr, lam, U.device))
+    return U
+
+
+def stratum_sweep(U, V, omega_u, omega_v, plan: StepPlan, s: int, work, *,
+                  lr: float, lam: float):
+    """Sweep stratum ``s`` (all k visits) in place: for each minibatch g,
+    kernel A then kernel B of step ``s·n_mb + g``. The operands are checked
+    once; each step is two bare launches."""
+    plan.check_step(s * plan.n_mb)
+    steps = range(s * plan.n_mb, (s + 1) * plan.n_mb)
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+        for t in steps:
+            sgd_item_rows_reference(U, V, omega_v, plan, t, work, lr=lr,
+                                    lam=lam)
+            sgd_user_rows_reference(U, omega_u, plan, t, work, lr=lr,
+                                    lam=lam)
+        return U, V
+    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+    lib = _lib()
+    tail = _tail(work, rank, lr, lam, U.device)
+    for t in steps:
+        _launch_item(lib, U, V, omega_v, plan, t, tail)
+        _launch_user(lib, U, omega_u, plan, t, tail)
     return U, V
 
 
-def sgd_scatter(U, V, su_s, si_s, sw_s, g: int, du, dv, *, minibatch: int):
-    """Scatter-add minibatch ``g``'s du/dv into U and V, in place."""
-    if not _on_cuda(U, V, su_s, si_s, sw_s, du, dv):
-        return sgd_scatter_reference(U, V, su_s, si_s, sw_s, g, du, dv,
-                                     minibatch=minibatch)
-    k, b, rank = _check_step(U, V, su_s, si_s, sw_s, du, dv, g, minibatch)
-    lib = _lib()
-    stream = torch.cuda.current_stream(U.device).cuda_stream
-    rc = lib.sgd_scatter_launch(
-        U.data_ptr(), V.data_ptr(), su_s.data_ptr(), si_s.data_ptr(),
-        sw_s.data_ptr(), du.data_ptr(), dv.data_ptr(), b, g * minibatch,
-        minibatch, rank, k, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"sgd_scatter_kernel launch failed: CUDA error {rc}")
-    LAUNCHES["sgd_scatter_kernel"] += 1
-    return U, V
+# -- the bf16 casts ---------------------------------------------------------
 
 
 def _check_cast(src, dst, src_dtype, dst_dtype):
@@ -251,11 +504,9 @@ def _cast(kernel: str, src, dst, src_dtype, dst_dtype):
     _check_cast(src, dst, src_dtype, dst_dtype)
     stream = torch.cuda.current_stream(src[0].device).cuda_stream
     launch = getattr(_lib(), kernel.replace("_kernel", "_launch"))
-    rc = launch(src[0].data_ptr(), dst[0].data_ptr(), src[0].numel(),
-                src[1].data_ptr(), dst[1].data_ptr(), src[1].numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    _launch(kernel, launch, (src[0].data_ptr(), dst[0].data_ptr(),
+                             src[0].numel(), src[1].data_ptr(),
+                             dst[1].data_ptr(), src[1].numel(), stream))
 
 
 def bf16_to_f32(Ub, Vb, U32, V32):
@@ -284,28 +535,7 @@ def f32_to_bf16(U32, V32, Ub, Vb):
     return Ub, Vb
 
 
-def stratum_sweep(U, V, su, si, sv, sw, icu, icv, omega_u, omega_v,
-                  s: int, du, dv, *, lr: float, lam: float,
-                  minibatch: int):
-    """Sweep stratum ``s`` (all k visits) in place: for each minibatch g,
-    one ``sgd_delta`` and one ``sgd_scatter``. ``su``… are the full
-    ``[k, k, b]`` stratum-major arrays."""
-    n_mb = su.shape[-1] // minibatch
-    planes = [a[s] for a in (su, si, sv, sw, icu, icv)]
-    for g in range(n_mb):
-        sgd_delta(U, V, *planes, omega_u, omega_v, g, du, dv, lr=lr,
-                  lam=lam, minibatch=minibatch)
-        sgd_scatter(U, V, planes[0], planes[1], planes[3], g, du, dv,
-                    minibatch=minibatch)
-    return U, V
-
-
-def alloc_scratch(num_blocks: int, minibatch: int, rank: int,
-                  device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``[k, mb, r]`` f32 du/dv scratch of one stratum step."""
-    shape = (num_blocks, minibatch, rank)
-    return (torch.empty(shape, dtype=torch.float32, device=device),
-            torch.empty(shape, dtype=torch.float32, device=device))
+# -- the training loop ------------------------------------------------------
 
 
 def _check_tables(U, V, su, si, minibatch: int, k: int):
@@ -349,7 +579,7 @@ def dsgd_train_cuda(
     iterations: int,
     schedule=None,
     t0: int = 0,
-    scratch: tuple[torch.Tensor, torch.Tensor] | None = None,
+    plan: StepPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full DSGD training through the stratum-sweep kernels (counterpart of
     ``dsgd_train_pallas``; same positional layout as ``ops.sgd.dsgd_train``).
@@ -357,8 +587,8 @@ def dsgd_train_cuda(
     Visit order: for each sweep, strata s = 0..k−1. The schedule is
     evaluated on the host once per sweep at ``t = sweep + 1 + t0`` and η
     enters the kernel as a runtime scalar (``schedule=None`` keeps η
-    constant). ``scratch`` is the du/dv pair from ``alloc_scratch``
-    (allocated here when absent). Returns trained copies of U and V.
+    constant). ``plan`` is ``build_step_plan`` of these arrays (built here
+    when absent). Returns trained copies of U and V.
 
     bf16 tables: the steps run on f32 work tables, filled by
     ``bf16_to_f32`` at each stratum's start and rounded back by
@@ -366,6 +596,11 @@ def dsgd_train_cuda(
     """
     k = num_blocks
     _check_tables(U, V, su, si, minibatch, k)
+    if plan is None:
+        plan = build_step_plan(su, si, sv, sw, icu, icv, minibatch=minibatch)
+    elif (plan.num_blocks, plan.minibatch) != (k, minibatch):
+        raise ValueError(f"plan of k={plan.num_blocks}, minibatch "
+                         f"{plan.minibatch}; expected {k}, {minibatch}")
     U = U.clone()
     V = V.clone()
     half = U.dtype == torch.bfloat16
@@ -373,16 +608,14 @@ def dsgd_train_cuda(
     Uw, Vw = ((torch.empty(U.shape, dtype=torch.float32, device=U.device),
                torch.empty(V.shape, dtype=torch.float32, device=V.device))
               if half else (U, V))
-    du, dv = scratch if scratch is not None else alloc_scratch(
-        k, minibatch, int(U.shape[-1]), U.device)
+    work = plan.new_work(int(U.shape[-1]))
     for sweep in range(iterations):
         lr_t = _lr_at(lr, schedule, sweep + 1 + int(t0))
         for s in range(k):
             if half:
                 bf16_to_f32(U, V, Uw, Vw)
-            stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, omega_u,
-                          omega_v, s, du, dv, lr=lr_t, lam=lam,
-                          minibatch=minibatch)
+            stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr_t,
+                          lam=lam)
             if half:
                 f32_to_bf16(Uw, Vw, U, V)
     return U, V

@@ -26,7 +26,8 @@ import torch
 
 
 def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
-                         factor_bytes: int = 4) -> int:
+                         factor_bytes: int = 4, user_rows: int | None = None,
+                         item_rows: int | None = None) -> int:
     """Bytes of device-memory traffic one full DSGD sweep moves, per route
     (a model of each route's design, not the function's bound: that counts
     distinct rows once per step and depends on the data).
@@ -34,13 +35,21 @@ def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
     - ``kernel="plain"`` (the gather route): every rating pays ~4 row
       transactions (read+write of a u row and a v row) of
       ``rank × factor_bytes`` plus ~16 B of COO stream.
-    - ``kernel="cuda"`` (``csrc/dsgd_sweep.cu``): 2 row gathers + 2 row
-      read-modify-writes + the f32 du/dv scratch written by the delta
-      kernel and read back by the scatter kernel (10 rows of traffic per
-      rating), plus 24 B of per-entry streams.
+    - ``kernel="cuda"`` (the row-owning step pair of ``csrc/dsgd_sweep.cu``
+      on f32 work tables): per rating, one gathered user row (item side) and
+      one snapshot row (user side), 20 B of plan on each side and 4 B of
+      error written and read; per item row of a step, the row read and
+      written and its snapshot written, plus ω; per user row of a step, the
+      row read and written, plus ω. ``user_rows``/``item_rows`` count
+      (step, row) pairs over the sweep; the default, ``nnz``, is the most
+      (every rating its own row).
     """
     if kernel == "cuda":
-        return int(nnz * (6 * rank * factor_bytes + 4 * rank * 4 + 24))
+        row = rank * 4
+        users = nnz if user_rows is None else user_rows
+        items = nnz if item_rows is None else item_rows
+        return int(nnz * (2 * row + 48) + items * (3 * row + 4)
+                   + users * (2 * row + 4))
     if kernel != "plain":
         raise ValueError(f"kernel must be 'plain' or 'cuda', got {kernel!r}")
     return int(nnz * (4 * rank * factor_bytes + 16))

@@ -4,12 +4,14 @@ need a CUDA device and skip without one; on the machine with the card run
     python -m pytest --noconftest -q tests/test_torch_cuda_card.py
 
 (``--noconftest``: the suite's conftest imports the JAX package, which that
-machine does not have). Tolerance: the scatter adds duplicate rows with f32
-atomics in a varying order, so kernel and plain agree to max-abs 1e-5 per
-stratum, not bit for bit; with bf16 tables, to one bf16 ulp per element (an
-f32 difference in the last place can flip one rounding; magnitudes below
-2^-16 count as 2^-16, where one bf16 ulp is the size of that f32
-difference). The cast kernels are exact against ``Tensor.to``.
+machine does not have). Tolerance: the step kernels add each row's deltas in
+a fixed order, so two kernel runs are bit-equal; against the plain version
+(whose ``index_add_`` adds duplicates with atomics in a varying order on the
+card, and whose dot reduces in another order) they agree to max-abs 1e-5 per
+stratum; with bf16 tables, to one bf16 ulp per element (an f32 difference in
+the last place can flip one rounding; magnitudes below 2^-16 count as
+2^-16, where one bf16 ulp is the size of that f32 difference). The cast
+kernels are exact against ``Tensor.to``.
 """
 
 import numpy as np
@@ -39,9 +41,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _problem(dev, k, rank, mb, n=20_000, seed=0):
-    gen = SyntheticMFGenerator(num_users=800, num_items=600, rank=8,
-                               noise=0.1, seed=seed, skew_lam=2.0)
+def _problem(dev, k, rank, mb, n=20_000, seed=0, users=800, items=600,
+             skew=2.0):
+    gen = SyntheticMFGenerator(num_users=users, num_items=items, rank=8,
+                               noise=0.1, seed=seed, skew_lam=skew)
     problem = blocking.block_problem(gen.generate(n), num_blocks=k, seed=0,
                                      minibatch_multiple=mb)
     icu, icv = blocking.minibatch_inv_counts(problem.ratings, mb)
@@ -63,75 +66,151 @@ def _problem(dev, k, rank, mb, n=20_000, seed=0):
     return problem, args, U, V
 
 
+def _plan(args, mb):
+    su, si, sv, sw, _, _, icu, icv = args
+    return cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv, minibatch=mb)
+
+
+def _operands(problem, args, k, mb):
+    su, si, sv, sw, ou, ov, icu, icv = args
+    return cuda_sgd.build_stratum_operands(
+        su, si, sv, sw, icu, icv, ou, ov, num_blocks=k,
+        rpb_u=problem.users.rows_per_block,
+        rpb_v=problem.items.rows_per_block, minibatch=mb)
+
+
+def _pair_counts(n, casts=0):
+    return {"sgd_item_rows_kernel": n, "sgd_user_rows_kernel": n,
+            "bf16_to_f32_kernel": casts, "f32_to_bf16_kernel": casts}
+
+
 @pytest.mark.parametrize("k,rank,mb", [(4, 128, 512), (2, 32, 256),
                                        (3, 8, 1024), (2, 200, 128)])
 def test_stratum_kernels_match_plain(dev, k, rank, mb):
     problem, args, U, V = _problem(dev, k, rank, mb)
-    su, si, sv, sw, ou, ov, icu, icv = args
-    idx, streams = cuda_sgd.build_stratum_operands(
-        su, si, sv, sw, icu, icv, ou, ov, num_blocks=k,
-        rpb_u=problem.users.rows_per_block,
-        rpb_v=problem.items.rows_per_block, minibatch=mb)
-    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
+    ou, ov = args[4], args[5]
+    idx, streams = _operands(problem, args, k, mb)
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
     cuda_sgd.reset_launch_counts()
     for s in range(k):
         Uk, Vk = U.clone(), V.clone()
-        cuda_sgd.stratum_sweep(Uk, Vk, su, si, sv, sw, icu, icv, ou, ov, s,
-                               du, dv, lr=0.5, lam=0.1, minibatch=mb)
+        cuda_sgd.stratum_sweep(Uk, Vk, ou, ov, plan, s, work, lr=0.5,
+                               lam=0.1)
         Ur, Vr = cuda_sgd.stratum_sweep_reference(
             U, V, idx, streams, s, lr=0.5, lam=0.1, minibatch=mb,
             num_blocks=k)
         torch.cuda.synchronize()
         assert float((Uk - Ur).abs().max()) <= TOL
         assert float((Vk - Vr).abs().max()) <= TOL
-    n_mb = su.shape[-1] // mb
-    assert cuda_sgd.LAUNCHES == {"sgd_delta_kernel": k * n_mb,
-                                 "sgd_scatter_kernel": k * n_mb,
-                                 "bf16_to_f32_kernel": 0,
-                                 "f32_to_bf16_kernel": 0}
+    assert cuda_sgd.LAUNCHES == _pair_counts(k * plan.n_mb)
 
 
 def test_delta_kernel_matches_plain_exactly_shaped(dev):
+    """Kernel A and kernel B, step by step, against their plain versions
+    from the same tables: kernel A's e, snapshot and V, kernel B's U (every
+    slot the step uses is written: the buffers start as NaN)."""
     k, rank, mb = 4, 128, 512
     problem, args, U, V = _problem(dev, k, rank, mb, seed=1)
-    su, si, sv, sw, ou, ov, icu, icv = args
-    planes = [a[1] for a in (su, si, sv, sw, icu, icv)]
-    dk = cuda_sgd.alloc_scratch(k, mb, rank, dev)
-    dp = cuda_sgd.alloc_scratch(k, mb, rank, dev)
-    for d in dk:
-        d.fill_(float("nan"))  # every slot, padding included, is written
-    for g in range(su.shape[-1] // mb):
-        cuda_sgd.sgd_delta(U, V, *planes, ou, ov, g, *dk, lr=0.3, lam=0.1,
-                           minibatch=mb)
-        cuda_sgd.sgd_delta_reference(U, V, *planes, ou, ov, g, *dp, lr=0.3,
-                                     lam=0.1, minibatch=mb)
+    ou, ov = args[4], args[5]
+    plan = _plan(args, mb)
+    wk, wp = plan.new_work(rank), plan.new_work(rank)
+    for t in range(plan.n_mb, 2 * plan.n_mb):  # stratum 1
+        for buf in wk:
+            buf.fill_(float("nan"))
+        n_e = plan.entry_base[t + 1] - plan.entry_base[t]
+        rows = cuda_sgd.plan_rows(plan.v_prow[plan.entry_base[t]:
+                                              plan.entry_base[t + 1]])
+        Uk, Vk, Up, Vp = U.clone(), V.clone(), U.clone(), V.clone()
+        cuda_sgd.sgd_item_rows(Uk, Vk, ou, ov, plan, t, wk, lr=0.3, lam=0.1)
+        cuda_sgd.sgd_item_rows_reference(Up, Vp, ov, plan, t, wp, lr=0.3,
+                                         lam=0.1)
         torch.cuda.synchronize()
-        for a, b in zip(dk, dp):
+        for a, b in ((wk[0][:n_e], wp[0][:n_e]), (wk[1][rows], wp[1][rows]),
+                     (Vk, Vp)):
             assert torch.isfinite(a).all()
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+        assert torch.equal(Uk, U)  # kernel A writes no U
+        cuda_sgd.sgd_user_rows(Uk, Vk, ou, ov, plan, t, wp, lr=0.3, lam=0.1)
+        cuda_sgd.sgd_user_rows_reference(Up, ou, plan, t, wp, lr=0.3,
+                                         lam=0.1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(Uk, Up, rtol=1e-5, atol=1e-7)
 
 
 def test_wrappers_reject_bad_operands(dev):
     k, rank, mb = 2, 32, 256
     problem, args, U, V = _problem(dev, k, rank, mb, n=4000)
-    su, si, sv, sw, ou, ov, icu, icv = args
-    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
-    planes = [a[0] for a in (su, si, sv, sw, icu, icv)]
+    ou, ov = args[4], args[5]
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
+    kw = dict(lr=0.1, lam=0.1)
     with pytest.raises(ValueError, match="dtype"):
-        cuda_sgd.sgd_delta(U, V, planes[0].long(), *planes[1:], ou, ov, 0,
-                           du, dv, lr=0.1, lam=0.1, minibatch=mb)
+        cuda_sgd.sgd_item_rows(U.double(), V, ou, ov, plan, 0, work, **kw)
     with pytest.raises(ValueError, match="shape"):
-        cuda_sgd.sgd_scatter(U, V, planes[0], planes[1], planes[3], 0,
-                             du[:-1], dv, minibatch=mb)
+        cuda_sgd.sgd_user_rows(U, V, ou[:-1], ov, plan, 0, work, **kw)
     with pytest.raises(ValueError, match="one CUDA device or all on"):
-        cuda_sgd.sgd_scatter(U.cpu(), V, planes[0], planes[1], planes[3], 0,
-                             du, dv, minibatch=mb)
+        cuda_sgd.sgd_user_rows(U.cpu(), V, ou, ov, plan, 0, work, **kw)
+    with pytest.raises(ValueError, match="work buffers"):
+        cuda_sgd.sgd_item_rows(U, V, ou, ov, plan, 0,
+                               (work[0], work[1][:, :-1].contiguous()), **kw)
+    with pytest.raises(ValueError, match="outside"):
+        cuda_sgd.stratum_sweep(U[:plan.rows_u - 1], V, ou[:plan.rows_u - 1],
+                               ov, plan, 0, work, **kw)
     with pytest.raises(ValueError, match="rank"):
         wide = torch.zeros((U.shape[0], 512), device=dev)
-        cuda_sgd.sgd_delta(wide, torch.zeros((V.shape[0], 512), device=dev),
-                           *planes, ou, ov, 0,
-                           *cuda_sgd.alloc_scratch(k, mb, 512, dev), lr=0.1,
-                           lam=0.1, minibatch=mb)
+        cuda_sgd.sgd_item_rows(wide, torch.zeros((V.shape[0], 512),
+                                                 device=dev),
+                               ou, ov, plan, 0, plan.new_work(512), **kw)
+
+
+@pytest.mark.parametrize("k,rank,mb", [(4, 128, 512), (2, 200, 128)])
+def test_step_kernels_are_deterministic(dev, k, rank, mb):
+    """One stratum through the kernels, twice from the same tables: the
+    tables come out bit-equal (no atomics; each row adds its deltas in a
+    fixed order)."""
+    problem, args, U, V = _problem(dev, k, rank, mb, seed=4)
+    plan = _plan(args, mb)
+    runs = []
+    for _ in range(2):
+        Uk, Vk = U.clone(), V.clone()
+        cuda_sgd.stratum_sweep(Uk, Vk, args[4], args[5], plan, 1,
+                               plan.new_work(rank), lr=0.5, lam=0.1)
+        runs.append((Uk, Vk))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert not torch.equal(runs[0][0], U)
+
+
+def test_long_segments_split_across_a_block(dev):
+    """Few, skewed ids: the longest user and item segments exceed the
+    chunk many times over (~500 and ~760 entries against 32), so they run
+    on blocks of their own, several chunks per warp, partials added in warp
+    order. Kernel vs plain within the stratum tolerance, and two kernel
+    runs bit-equal."""
+    k, rank, mb = 2, 128, 2048
+    problem, args, U, V = _problem(dev, k, rank, mb, n=20_000, seed=6,
+                                   users=24, items=16, skew=3.0)
+    plan = _plan(args, mb)
+    assert max(plan.longest_u) > 8 * plan.chunk
+    assert max(plan.longest_v) > 8 * plan.chunk
+    idx, streams = _operands(problem, args, k, mb)
+    for s in range(k):
+        outs = []
+        for _ in range(2):
+            Uk, Vk = U.clone(), V.clone()
+            cuda_sgd.stratum_sweep(Uk, Vk, args[4], args[5], plan, s,
+                                   plan.new_work(rank), lr=0.05, lam=0.1)
+            outs.append((Uk, Vk))
+        Ur, Vr = cuda_sgd.stratum_sweep_reference(
+            U, V, idx, streams, s, lr=0.05, lam=0.1, minibatch=mb,
+            num_blocks=k)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+        assert float((outs[0][0] - Ur).abs().max()) <= TOL
+        assert float((outs[0][1] - Vr).abs().max()) <= TOL
 
 
 def test_fit_on_card_matches_cpu_fit(dev):
@@ -145,7 +224,7 @@ def test_fit_on_card_matches_cpu_fit(dev):
     on_card = DSGD(cfg).fit(train, num_blocks=4)
     on_cpu = DSGD(cfg, device="cpu").fit(train, num_blocks=4)
     assert on_card.U.device.type == "cuda"
-    assert cuda_sgd.LAUNCHES["sgd_delta_kernel"] > 0
+    assert cuda_sgd.LAUNCHES["sgd_item_rows_kernel"] > 0
     np.testing.assert_allclose(on_card.U.cpu().numpy(), on_cpu.U.numpy(),
                                rtol=2e-4, atol=2e-5)
     assert abs(on_card.rmse(test) - on_cpu.rmse(test)) < 1e-4
@@ -169,20 +248,18 @@ def test_bf16_stratum_through_the_kernels_matches_plain_twin(dev, k, rank,
     """Upcast kernel, the f32 steps, downcast kernel: each stratum from the
     same bf16 tables, against ``stratum_sweep_reference`` on them."""
     problem, args, U, V = _problem(dev, k, rank, mb, seed=3)
-    su, si, sv, sw, ou, ov, icu, icv = args
-    idx, streams = cuda_sgd.build_stratum_operands(
-        su, si, sv, sw, icu, icv, ou, ov, num_blocks=k,
-        rpb_u=problem.users.rows_per_block,
-        rpb_v=problem.items.rows_per_block, minibatch=mb)
+    ou, ov = args[4], args[5]
+    idx, streams = _operands(problem, args, k, mb)
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
     Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
-    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
     Uw, Vw = torch.empty_like(U), torch.empty_like(V)
     cuda_sgd.reset_launch_counts()
     for s in range(k):
         Uk, Vk = Ub.clone(), Vb.clone()
         cuda_sgd.bf16_to_f32(Uk, Vk, Uw, Vw)
-        cuda_sgd.stratum_sweep(Uw, Vw, su, si, sv, sw, icu, icv, ou, ov, s,
-                               du, dv, lr=0.5, lam=0.1, minibatch=mb)
+        cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, lr=0.5,
+                               lam=0.1)
         cuda_sgd.f32_to_bf16(Uw, Vw, Uk, Vk)
         Ur, Vr = cuda_sgd.stratum_sweep_reference(
             Ub, Vb, idx, streams, s, lr=0.5, lam=0.1, minibatch=mb,
@@ -190,10 +267,7 @@ def test_bf16_stratum_through_the_kernels_matches_plain_twin(dev, k, rank,
         torch.cuda.synchronize()
         assert Ur.dtype == torch.bfloat16
         assert _bf16_ulps(Uk, Ur) <= 1.0 and _bf16_ulps(Vk, Vr) <= 1.0
-    n_mb = su.shape[-1] // mb
-    assert cuda_sgd.LAUNCHES == {
-        "sgd_delta_kernel": k * n_mb, "sgd_scatter_kernel": k * n_mb,
-        "bf16_to_f32_kernel": k, "f32_to_bf16_kernel": k}
+    assert cuda_sgd.LAUNCHES == _pair_counts(k * plan.n_mb, casts=k)
     # the whole loop: the rounding points of the plain twin, 3 sweeps
     kw = dict(lr=0.3, lam=0.1, minibatch=mb, num_blocks=k, iterations=3)
     Uk, Vk = cuda_sgd.dsgd_train_cuda(Ub, Vb, *args, **kw)
@@ -226,16 +300,19 @@ def test_cast_kernels_are_exact(dev, n_u, n_v):
 def test_bf16_table_never_reaches_an_f32_kernel(dev):
     k, rank, mb = 2, 32, 256
     problem, args, U, V = _problem(dev, k, rank, mb, n=4000)
-    su, si, sv, sw, ou, ov, icu, icv = args
-    du, dv = cuda_sgd.alloc_scratch(k, mb, rank, dev)
-    planes = [a[0] for a in (su, si, sv, sw, icu, icv)]
+    ou, ov = args[4], args[5]
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
     Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
-        cuda_sgd.sgd_delta(Ub, Vb, *planes, ou, ov, 0, du, dv, lr=0.1,
-                           lam=0.1, minibatch=mb)
+        cuda_sgd.sgd_item_rows(Ub, Vb, ou, ov, plan, 0, work, lr=0.1,
+                               lam=0.1)
     with pytest.raises(ValueError, match="dtype"):
-        cuda_sgd.sgd_scatter(Ub, Vb, planes[0], planes[1], planes[3], 0, du,
-                             dv, minibatch=mb)
+        cuda_sgd.sgd_user_rows(Ub, Vb, ou, ov, plan, 0, work, lr=0.1,
+                               lam=0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_sgd.stratum_sweep(Ub, Vb, ou, ov, plan, 0, work, lr=0.1,
+                               lam=0.1)
     with pytest.raises(ValueError, match="dtype"):
         cuda_sgd.bf16_to_f32(U, V, U.clone(), V.clone())
 
@@ -267,7 +344,7 @@ def test_fit_device_on_card_matches_its_cpu_run(dev):
         cuda_sgd.reset_launch_counts()
         on_card = DSGD(cfg)._fit_problem(problem.to(dev))
         assert on_card.U.device.type == "cuda"
-        assert cuda_sgd.LAUNCHES["sgd_delta_kernel"] > 0
+        assert cuda_sgd.LAUNCHES["sgd_item_rows_kernel"] > 0
         assert (cuda_sgd.LAUNCHES["f32_to_bf16_kernel"] > 0) == (
             dtype == "bfloat16")
         on_cpu = DSGD(cfg, device="cpu")._fit_problem(problem)
@@ -280,6 +357,6 @@ def test_fit_device_on_card_matches_its_cpu_run(dev):
     model = DSGD(DSGDConfig(**kw)).fit_device(
         torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev),
         torch.from_numpy(r).to(dev), nu, ni, num_blocks=4)
-    assert cuda_sgd.LAUNCHES["sgd_scatter_kernel"] > 0
+    assert cuda_sgd.LAUNCHES["sgd_user_rows_kernel"] > 0
     # another layout (the card's own draws), the same learning problem
     assert abs(model.rmse(hold) - rmse["float32"]) < 0.05 * rmse["float32"]

@@ -7,8 +7,9 @@ in another order); rtol 2e-4 / atol 2e-5 after 3 sweeps (the bounds the JAX
 package holds between its own two routes, tests/test_pallas_sgd.py). bf16
 tables: every element within one bf16 ulp after one stratum (an f32
 difference in the last place can flip one rounding).
-On the card the scatter's atomics add duplicate rows in a varying order;
-that tolerance is checked by chip_smoke.py and tests marked ``cuda``.
+On the CPU the step pair's wrappers run their plain versions (the step
+plan plus kernel A's and kernel B's contracts); the kernels themselves are
+checked by chip_smoke.py and the tests marked ``cuda``.
 """
 
 import functools
@@ -203,27 +204,237 @@ def test_block_reference_matches_pallas_block_kernel(rank, pad_frac, mb):
     _close(got, want, ONE)
 
 
+def _plan(a, mb):
+    return tc.build_step_plan(*(_t(a[x]) for x in ("su", "si", "sv", "sw",
+                                                   "icu", "icv")),
+                              minibatch=mb)
+
+
+def _step_pair(U, V, ou, ov, plan, s, **kw):
+    """One stratum through the step pair's wrappers on CPU tensors (the
+    plan plus the plain kernel-A and kernel-B versions)."""
+    tc.stratum_sweep(U, V, ou, ov, plan, s, plan.new_work(U.shape[-1]), **kw)
+    return U, V
+
+
 def test_stratum_wrappers_on_cpu_use_plain_versions_and_count_nothing():
-    """``stratum_sweep`` on CPU tensors equals the plain stratum reference
-    (global rows vs block-local operands) and launches no kernel."""
+    """``stratum_sweep`` on CPU tensors (the step plan plus the plain
+    versions of both step kernels) equals the plain stratum reference
+    (global rows vs block-local operands) and launches no kernel; so do
+    the per-step wrappers, step by step."""
     k, rank, divisor = 3, 8, 2
     a, U, V, mb, rpb_u, rpb_v = _blocked(k, rank, divisor, seed=5)
     _, (tidx, tstr) = _operands(a, k, rpb_u, rpb_v, mb)
     tc.reset_launch_counts()
-    du, dv = tc.alloc_scratch(k, mb, rank, "cpu")
-    args = [_t(a[x]) for x in ("su", "si", "sv", "sw", "icu", "icv", "ou",
-                               "ov")]
+    plan = _plan(a, mb)
+    ou, ov = _t(a["ou"]), _t(a["ov"])
+    work = plan.new_work(rank)
     for s in range(k):
-        Ug, Vg = _t(U), _t(V)
-        tc.stratum_sweep(Ug, Vg, *args, s, du, dv, lr=0.2, lam=0.1,
-                         minibatch=mb)
+        Ug, Vg = _step_pair(_t(U), _t(V), ou, ov, plan, s, lr=0.2, lam=0.1)
         Ur, Vr = tc.stratum_sweep_reference(_t(U), _t(V), tidx, tstr, s,
                                             lr=0.2, lam=0.1, minibatch=mb,
                                             num_blocks=k)
         np.testing.assert_allclose(Ug.numpy(), Ur.numpy(), **ONE)
         np.testing.assert_allclose(Vg.numpy(), Vr.numpy(), **ONE)
-    assert tc.LAUNCHES == {"sgd_delta_kernel": 0, "sgd_scatter_kernel": 0,
+        Us, Vs = _t(U), _t(V)
+        for t in range(s * plan.n_mb, (s + 1) * plan.n_mb):
+            tc.sgd_item_rows(Us, Vs, ou, ov, plan, t, work, lr=0.2, lam=0.1)
+            tc.sgd_user_rows(Us, Vs, ou, ov, plan, t, work, lr=0.2, lam=0.1)
+        assert torch.equal(Us, Ug) and torch.equal(Vs, Vg)
+    assert tc.LAUNCHES == {"sgd_item_rows_kernel": 0,
+                           "sgd_user_rows_kernel": 0,
                            "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
+
+
+def _layout(k, b, mb, rpb, sort, pad, seed=0):
+    """A hand-made stratum-major layout: visit p of stratum s holds users
+    of block p and items of block (p+s) mod k drawn from ``rpb`` rows each,
+    the block's first row for 70% of the slots (so each minibatch has one
+    segment longer than the 32-entry chunk per side and many short ones);
+    ``pad`` turns a quarter of the slots into weight-0 padding on global
+    row 0; ``sort`` orders each minibatch by user or item row (stable), as
+    the blockings do. The ratings are distinct, naming each entry."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(k)[None, :, None]
+    q = (np.arange(k)[None, :] + np.arange(k)[:, None])[:, :, None] % k
+
+    def rows(block):
+        hot = rng.random((k, k, b)) < 0.7
+        return (block * rpb + np.where(hot, 0, rng.integers(1, rpb, (k, k, b)))
+                ).astype(np.int32)
+
+    su, si = rows(p), rows(q)
+    sw = np.ones((k, k, b), np.float32)
+    if pad:
+        gone = rng.random((k, k, b)) < 0.25
+        sw[gone], su[gone], si[gone] = 0.0, 0, 0
+    if sort is not None:
+        key = (su if sort == "user" else si).reshape(-1, mb)
+        order = np.argsort(key, axis=-1, kind="stable")
+        su, si, sw = (np.take_along_axis(x.reshape(-1, mb), order, -1)
+                      .reshape(k, k, b) for x in (su, si, sw))
+    sv = rng.normal(0, 1, (k, k, b)).astype(np.float32)
+    icu = rng.random((k, k, b)).astype(np.float32)
+    icv = rng.random((k, k, b)).astype(np.float32)
+    return dict(su=su, si=si, sv=sv, sw=sw, icu=icu, icv=icv)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("sort", [None, "user", "item"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_step_plan_invariants(k, sort, pad):
+    """Every real entry sits in exactly one item and one user segment of
+    its own step; segments are row-homogeneous, one per row and step, in
+    entry order; padding is in none; the streams, the long marks and
+    lists and the counts agree with the layout."""
+    b, mb, rpb, chunk = 128, 64, 6, tc.SEGMENT_CHUNK
+    a = _layout(k, b, mb, rpb, sort, pad, seed=k)
+    plan = _plan(a, mb)
+    n_mb = b // mb
+    flat = {x: a[x].reshape(-1) for x in a}
+    real = np.flatnonzero(flat["sw"] != 0)
+    assert plan.steps == k * n_mb and plan.entry_base[-1] == real.size
+    assert np.unique(flat["sv"]).size == flat["sv"].size
+    v_ent = np.argsort(flat["sv"])[np.searchsorted(
+        np.sort(flat["sv"]), plan.v_r.numpy())]  # entries by their rating
+    assert len(plan.v_long) and len(plan.u_long)  # both sides have long ones
+    u_epos = plan.u_epos.long().numpy()
+    u_ent = v_ent[u_epos]
+    for ent in (v_ent, u_ent):  # each real entry once, no padding
+        np.testing.assert_array_equal(np.sort(ent), real)
+    step_of = (v_ent // (k * b)) * n_mb + (v_ent % b) // mb
+    np.testing.assert_array_equal(
+        np.repeat(np.arange(plan.steps), np.diff(plan.entry_base)), step_of)
+    np.testing.assert_array_equal(plan.v_su.numpy(), flat["su"][v_ent])
+    for name, src in (("v_r", "sv"), ("v_w", "sw"), ("v_icv", "icv")):
+        np.testing.assert_array_equal(getattr(plan, name).numpy(),
+                                      flat[src][v_ent])
+    for name, src in (("u_w", "sw"), ("u_icu", "icu")):
+        np.testing.assert_array_equal(getattr(plan, name).numpy(),
+                                      flat[src][u_ent])
+    np.testing.assert_array_equal(plan.u_vrow.numpy(), flat["si"][u_ent])
+    assert plan.rows_v == flat["si"][real].max() + 1
+    assert plan.rows_u == flat["su"][real].max() + 1
+    base = np.asarray(plan.entry_base)
+    for side, ent, rows_of in (("v", v_ent, flat["si"]),
+                               ("u", u_ent, flat["su"])):
+        prow = getattr(plan, f"{side}_prow").numpy()
+        rows = tc.plan_rows(getattr(plan, f"{side}_prow")).numpy()
+        np.testing.assert_array_equal(rows, rows_of[ent])  # row-homogeneous
+        longs = getattr(plan, f"{side}_long").numpy().reshape(-1, 2)
+        long_base = getattr(plan, f"{side}_long_base")
+        for t in range(plan.steps):
+            r, en = rows[base[t]:base[t + 1]], ent[base[t]:base[t + 1]]
+            cut = np.flatnonzero(np.diff(r)) + 1
+            starts, ends = np.r_[0, cut], np.r_[cut, r.size]
+            # one segment per row and step
+            assert np.unique(r).size == starts.size
+            assert getattr(plan, f"{side}_segments")[t] == starts.size
+            assert getattr(plan, f"longest_{side}")[t] == max(
+                (ends - starts).tolist(), default=0)
+            for a0, a1 in zip(starts, ends):
+                assert (np.diff(en[a0:a1]) > 0).all()  # entry order (stable)
+                assert ((prow[base[t] + a0:base[t] + a1] < 0)
+                        == (a1 - a0 > chunk)).all()
+            np.testing.assert_array_equal(
+                longs[long_base[t]:long_base[t + 1]],
+                np.array([[base[t] + a0, base[t] + a1]
+                          for a0, a1 in zip(starts, ends) if a1 - a0 > chunk],
+                         dtype=np.int64).reshape(-1, 2))
+    # u_epos stays inside the entry's own step
+    step_u = np.repeat(np.arange(plan.steps), np.diff(base))
+    assert ((u_epos >= base[step_u]) & (u_epos < base[step_u + 1])).all()
+    if sort == "item":  # each visit's item grouping is its stored order
+        visit = v_ent // b
+        for t in range(plan.steps):
+            sl = slice(plan.entry_base[t], plan.entry_base[t + 1])
+            for p in np.unique(visit[sl]):
+                assert (np.diff(v_ent[sl][visit[sl] == p]) > 0).all()
+
+
+@pytest.mark.parametrize("k,rank,divisor", [(2, 8, 1), (3, 8, 4),
+                                            (2, 32, 3)])
+def test_step_pair_matches_pallas_stratum_kernel(k, rank, divisor):
+    """The plan plus the plain kernel-A and kernel-B versions against
+    ``pallas_stratum_sweep(interpret=True)``: one stratum from the same
+    tables, and 3 sweeps chained."""
+    a, U, V, mb, rpb_u, rpb_v = _blocked(k, rank, divisor, seed=k)
+    (jidx, jstr), _ = _operands(a, k, rpb_u, rpb_v, mb)
+    kw = dict(lr=0.1, lam=0.05)
+    pallas = jax.jit(functools.partial(jp.pallas_stratum_sweep,
+                                       interpret=True, minibatch=mb,
+                                       num_blocks=k, **kw))
+    plan = _plan(a, mb)
+    ou, ov = _t(a["ou"]), _t(a["ov"])
+    for s in range(k):
+        _close(_step_pair(_t(U), _t(V), ou, ov, plan, s, **kw),
+               pallas(jnp.asarray(U), jnp.asarray(V), jidx, jstr, s), ONE)
+    tU, tV, jU, jV = _t(U), _t(V), jnp.asarray(U), jnp.asarray(V)
+    for _ in range(3):
+        for s in range(k):
+            tU, tV = _step_pair(tU, tV, ou, ov, plan, s, **kw)
+            jU, jV = pallas(jU, jV, jidx, jstr, s)
+    _close((tU, tV), (jU, jV), SWEEPS)
+
+
+@pytest.mark.parametrize("k,rank,divisor", [(2, 8, 1), (3, 8, 4),
+                                            (2, 32, 3)])
+def test_bf16_step_pair_matches_pallas_stratum_kernel(k, rank, divisor):
+    """bf16 tables: upcast, the step pair's plain versions, one downcast
+    per stratum, against the ``half=True`` branch of ``_stratum_kernel``
+    within one bf16 ulp."""
+    a, U, V, mb, rpb_u, rpb_v = _blocked(k, rank, divisor, seed=k + 10)
+    (jidx, jstr), _ = _operands(a, k, rpb_u, rpb_v, mb)
+    kw = dict(lr=0.1, lam=0.05)
+    pallas = jax.jit(functools.partial(jp.pallas_stratum_sweep,
+                                       interpret=True, minibatch=mb,
+                                       num_blocks=k, **kw))
+    plan = _plan(a, mb)
+    jU, jV = jnp.asarray(U).astype(BF16), jnp.asarray(V).astype(BF16)
+    for s in range(k):
+        Ub, Vb = _bf(U), _bf(V)
+        Uw, Vw = tc.bf16_to_f32(Ub, Vb, torch.empty(U.shape),
+                                torch.empty(V.shape))
+        _step_pair(Uw, Vw, _t(a["ou"]), _t(a["ov"]), plan, s, **kw)
+        tc.f32_to_bf16(Uw, Vw, Ub, Vb)
+        assert_within_bf16_ulps((Ub, Vb), pallas(jU, jV, jidx, jstr, s))
+
+
+def _one_visit_plan(ur, ir, vals, w, icu, icv, mb):
+    """A one-visit layout (k = 1, block-local rows are global) and its
+    plan."""
+    a = {x: y[None, None, :] for x, y in (("su", ur), ("si", ir),
+                                          ("sv", vals), ("sw", w),
+                                          ("icu", icu), ("icv", icv))}
+    return _plan(a, mb)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("rank,pad_frac,mb", [(8, 0.0, 64), (8, 0.15, 32),
+                                              (32, 0.1, 256)])
+def test_step_pair_matches_pallas_block_kernel(rank, pad_frac, mb, half):
+    """One visit through the plan and the step pair's plain versions
+    against ``pallas_block_sweep(interpret=True)`` (``_sweep_kernel``);
+    bf16 within one bf16 ulp."""
+    ur, ir, vals, w, icu, icv, ou, ov, U, V = _visit(rank + 2, 256, 20, 12,
+                                                     rank, pad_frac, mb)
+    plan = _one_visit_plan(ur, ir, vals, w, icu, icv, mb)
+    kw = dict(lr=0.1, lam=0.05)
+    Ut, Vt = (_bf(U), _bf(V)) if half else (_t(U), _t(V))
+    Uw, Vw = Ut.float(), Vt.float()
+    _step_pair(Uw, Vw, _t(ou), _t(ov), plan, 0, **kw)
+    jU, jV = jnp.asarray(U), jnp.asarray(V)
+    if half:
+        jU, jV = jU.astype(BF16), jV.astype(BF16)
+    want = jp.pallas_block_sweep(
+        jU, jV, *(jnp.asarray(x) for x in (ur, ir, vals, w, icu, icv, ou,
+                                           ov)),
+        gather="loop", interpret=True, minibatch=mb, **kw)
+    if half:
+        assert_within_bf16_ulps((Uw.to(torch.bfloat16),
+                                 Vw.to(torch.bfloat16)), want)
+    else:
+        _close((Uw, Vw), want, ONE)
 
 
 def _jax_common(a, U, V):
@@ -408,8 +619,13 @@ def test_traffic_models():
         jsgd.dsgd_bytes_per_sweep(1000, 128)
     assert tsgd.dsgd_flops_per_sweep(1000, 128) == \
         jsgd.dsgd_flops_per_sweep(1000, 128)
-    # 6 table rows + 4 f32 scratch rows + 24 B of streams per rating
+    # per rating: a gathered user row, a snapshot row, 48 B of plan and
+    # error; per item row: 3 rows + ω; per user row: 2 rows + ω
+    row = 128 * 4
     assert tsgd.dsgd_bytes_per_sweep(10, 128, kernel="cuda") == \
-        10 * (10 * 128 * 4 + 24)
+        10 * (2 * row + 48) + 10 * (3 * row + 4) + 10 * (2 * row + 4)
+    assert tsgd.dsgd_bytes_per_sweep(10, 128, kernel="cuda", user_rows=4,
+                                     item_rows=3) == \
+        10 * (2 * row + 48) + 3 * (3 * row + 4) + 4 * (2 * row + 4)
     with pytest.raises(ValueError):
         tsgd.dsgd_bytes_per_sweep(10, 8, kernel="pallas")
