@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's DSGD training paths on one NVIDIA GPU (an H100).
+"""Run the PyTorch port's DSGD training, serving and evaluation paths on one
+NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the exit code is nonzero:
 
 1. device   — the card's name and power limit (nvidia-smi), CUDA device name;
-2. build    — nvcc builds csrc/dsgd_sweep.cu (sm_90a) from the checkout;
+2. build    — nvcc builds csrc/dsgd_sweep.cu (sm_90a) and g++ builds
+              csrc/fastblock.cpp (the host library), both from the checkout
+              and at once;
 3. kernels  — the stratum sweep through the step pair (kernel A, item
               rows; kernel B, user rows; driven by the step plan) against
               its plain PyTorch version on the card: a small k=4, rank-128
@@ -22,10 +25,15 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               one bf16 ulp (magnitudes below 2^-16 counted as 2^-16, where
               a bf16 ulp is the size of the f32 kernel-vs-plain
               difference), and the cast kernels bit-equal to ``Tensor.to``;
-4. main     — the bench configuration at full width: ML-25M-shaped ratings
-              (162,541 × 59,047, 25,000,095 ratings, 95/5 split), k=8 Gemulla
-              strata, rank 128, minibatch 32,768, warm_boost schedule, 3
-              sweeps through ``DSGD().fit`` on the card; the host steps
+4. data/host — the bench configuration's ratings at full width:
+              ML-25M-shaped (162,541 × 59,047, 25,000,095 ratings, 95/5
+              split); ``block_problem`` and ``minibatch_inv_counts`` through
+              the native library (as ``fit`` runs them), then once more
+              through their numpy plain versions: layouts and collision
+              scales must be bit-equal; both walls printed;
+5. main     — k=8 Gemulla strata, rank 128, minibatch 32,768, warm_boost
+              schedule, 3 sweeps through ``DSGD().fit`` on the card with a
+              ``CheckpointManager`` (a snapshot per sweep); the host steps
               before the first sweep (collision scales, factor init,
               host→device copies) are timed apart, and the sweeps inside
               ``fit`` with CUDA events (``DSGD.segment_ms``); holdout RMSE
@@ -33,7 +41,22 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               must have launched both kernels, the plan's build is timed
               apart, and the same 3 sweeps through the plain route on the
               card must end within 1e-4 of its RMSE;
-5. main.device — the bench's device pipeline (``bench.py:254-363``):
+6. main.ckpt — the newest snapshot of that fit deleted, a new solver
+              resumes it (``resume=True``) from sweep 2: its tables must be
+              bit-equal to the fit's; save wall per segment and bytes
+              printed. The same for the bf16 ``fit_device`` of phase 9;
+7. serve    — ``model.recommend`` of 16,384 users, k=10, on the fitted
+              model (warmed on 2,048): users/s, TFLOP/s (2·users·item
+              rows·rank over the wall), its share of the f32 peak and the
+              bound; the lists must be well formed, agree with the same
+              call on the CPU for 256 users (scores within 1e-5, ids
+              wherever scores are not tied), and with ``train=`` hold no
+              train item of 2,048 users;
+8. eval     — ``model.ranking_quality`` (HR@10, NDCG@10) of 65,536 holdout
+              pairs with the train set excluded, and its wall; on the
+              first 4,096 pairs HR and NDCG at k = 10 and at k = 1,000
+              must agree with the CPU within 1e-3;
+9. main.device — the bench's device pipeline (``bench.py:254-363``):
               ``synthetic_like_device`` on the card, device blocking and the
               per-id init timed apart, then ``DSGD().fit_device`` at f32 and
               at bf16, 3 sweeps each, from the same layout and initial
@@ -41,7 +64,7 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               finite and fall, launch counts must equal their formulas, bf16
               must end within 5% of f32, and the plain twin's replay on the
               card within 1e-4 (f32) / 1e-3 (bf16) of each fit;
-6. timing   — each kernel against its plain version at the main path's
+10. timing  — each kernel against its plain version at the main path's
               shapes (CUDA events), with its bound on this card; per step:
               the plan, the longest segments, the design's bytes, and the
               host time of the launch loop beside the device time.
@@ -56,9 +79,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -74,8 +100,12 @@ from large_scale_recommendation_tpu_torch.data import blocking
 from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.data.movielens import synthetic_like
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
+from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+)
 
 # published H100 SXM peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -98,6 +128,9 @@ RMSE_TARGET = 0.155
 # max-abs per stratum, kernels vs plain: the plain version reduces the dot in
 # another order and its index_add_ adds duplicates with atomics in any order
 STRATUM_TOL = 1e-5
+SERVE_USERS, SERVE_WARM, SERVE_K = 16384, 2048, 10  # bench.py:659-686
+EVAL_PAIRS, EVAL_CPU_PAIRS = 65536, 4096
+SCORE_TOL = 1e-5  # top-K scores, card vs CPU (dot sums in other orders)
 BF16_ULPS = 1.0  # bf16 per stratum: an f32 last-place difference may flip
 #                  one rounding
 # below this magnitude a bf16 ulp (≤ 1.2e-7) is smaller than the f32
@@ -359,10 +392,80 @@ class HoldoutEval:
         self.rmse.append(math.sqrt(sse / self.n))
 
 
+def build_all() -> dict[str, float]:
+    """Build both native sources at once (nvcc and g++ run in parallel);
+    returns each build's seconds."""
+
+    def build(name):
+        t0 = time.perf_counter()
+        _build.load_library(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        futures = {n: pool.submit(build, n) for n in ("dsgd_sweep",
+                                                      "fastblock")}
+        return {n: f.result() for n, f in futures.items()}
+
+
+class TimedCheckpoints(CheckpointManager):
+    """A ``CheckpointManager`` that records each save's wall (the
+    device→host copy and the .npz write) and the file's size."""
+
+    def __init__(self, directory):
+        super().__init__(directory, keep=3)
+        self.saves: list[tuple[float, int]] = []
+
+    def save(self, step, arrays, meta=None):
+        t0 = time.perf_counter()
+        path = super().save(step, arrays, meta)
+        self.saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+
+def check_resume(label, manager, model, refit):
+    """Delete the newest snapshot of a finished checkpointed fit, resume
+    with a new solver (``refit(resume=True)``), and require tables
+    bit-equal to the uninterrupted fit's."""
+    newest = manager.latest_step()
+    saves = list(manager.saves)  # the fit's own (the resume saves again)
+    os.unlink(manager.path(newest))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = refit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    equal = (torch.equal(resumed.U, model.U)
+             and torch.equal(resumed.V, model.V))
+    say("main.ckpt", path=label, dtype=str(model.U.dtype).split(".")[-1],
+        saves=len(saves), save_wall_s_per_segment=[w for w, _ in saves],
+        bytes_per_save=saves[-1][1],
+        resumed_from_step=newest - 1, resume_wall_s=wall, bit_equal=equal)
+    if not equal:
+        raise AssertionError(f"{label}: resumed tables differ from the "
+                             "uninterrupted fit's")
+
+
+def same_problem(a, b) -> bool:
+    """Two host blockings give the same layout, bit for bit."""
+    for side in ("users", "items"):
+        for f in ("ids", "omega", "sorted_ids", "sorted_rows"):
+            if not np.array_equal(getattr(getattr(a, side), f),
+                                  getattr(getattr(b, side), f)):
+                return False
+    return all(np.array_equal(getattr(a.ratings, f), getattr(b.ratings, f))
+               for f in ("u_rows", "i_rows", "values", "weights"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        return run(scratch)
+
+
+def run(scratch: str) -> int:
+    """Every phase; checkpoints go under ``scratch``."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -375,10 +478,9 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
-    _build.load_library("dsgd_sweep")
-    say("build", seconds=round(time.perf_counter() - t0, 2))
-    for line in _build.nvcc_output.splitlines():
+    builds = build_all()
+    say("build", **{f"{n}_s": round(t, 2) for n, t in builds.items()})
+    for line in _build.build_log.get("dsgd_sweep", "").splitlines():
         if ("Compiling entry" in line or "registers" in line
                 or "spill" in line):
             print("  ptxas:", line.strip(), flush=True)
@@ -393,11 +495,20 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     cfg = DSGDConfig(**BENCH)
     mb = cfg.minibatch_size
-    t0 = time.perf_counter()
-    problem = blocking.block_problem(train, num_blocks=K, seed=cfg.seed,
+    walls = {}
+
+    def host_block(native):
+        t0 = time.perf_counter()
+        out = blocking.block_problem(train, num_blocks=K, seed=cfg.seed,
                                      minibatch_multiple=mb,
-                                     minibatch_sort=cfg.minibatch_sort)
-    block_s = time.perf_counter() - t0
+                                     minibatch_sort=cfg.minibatch_sort,
+                                     native=native)
+        walls["native" if native else "numpy"] = time.perf_counter() - t0
+        return out
+
+    problem = host_block(native=True)  # as fit blocks
+    if not same_problem(problem, host_block(native=False)):
+        raise AssertionError("native blocking differs from the numpy route")
     b = problem.ratings.u_rows.shape[-1]
     n_mb = b // mb
     say("data", train=train.n, holdout=holdout.n,
@@ -406,10 +517,16 @@ def main() -> int:
                        f"{problem.items.rows_per_block}",
         block_nnz=b, n_mb=n_mb, max_pad_ratio=round(
             problem.ratings.max_pad_ratio, 4),
-        gen_wall_s=round(gen_s, 2), blocking_wall_s=round(block_s, 2))
+        gen_wall_s=round(gen_s, 2), blocking_wall_s=walls["native"],
+        blocking_numpy_wall_s=walls["numpy"], native_equals_numpy=True)
     t0 = time.perf_counter()
     icu, icv = blocking.minibatch_inv_counts(problem.ratings, mb)
     inv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = blocking.minibatch_inv_counts(problem.ratings, mb, native=False)
+    inv_numpy_s = time.perf_counter() - t0
+    if not (np.array_equal(icu, ref[0]) and np.array_equal(icv, ref[1])):
+        raise AssertionError("native collision scales differ from numpy's")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     U0, V0 = DSGD(cfg)._init_factors(problem)  # keyed rows, on the card
@@ -422,7 +539,8 @@ def main() -> int:
     torch.cuda.synchronize()
     copy_s = time.perf_counter() - t0
     # the same host steps fit runs before its first sweep, timed apart
-    say("host", inv_counts_wall_s=inv_s, init_factors_wall_s=init_s,
+    say("host", inv_counts_wall_s=inv_s, inv_counts_numpy_wall_s=inv_numpy_s,
+        inv_counts_native_equals_numpy=True, init_factors_wall_s=init_s,
         host_to_device_wall_s=copy_s,
         host_to_device_bytes=sum(a.nbytes for a in args)
         + U0.nbytes + V0.nbytes)
@@ -445,13 +563,15 @@ def main() -> int:
         their_max_magnitude=below[1],
         cast_elements_bit_equal=check_casts(U0, V0), tol_ulps=BF16_ULPS)
 
-    # -- the main path: DSGD().fit on the card --------------------------------
+    # -- the main path: DSGD().fit on the card, a snapshot per sweep ---------
     solver = DSGD(cfg)
     solver.evaluator = HoldoutEval(problem, holdout, dev)
+    fit_ckpt = TimedCheckpoints(os.path.join(scratch, "fit"))
     torch.cuda.synchronize()
     cuda_sgd.reset_launch_counts()
     t0 = time.perf_counter()
-    model = solver.fit(train, num_blocks=K, checkpoint_every=1)
+    model = solver.fit(train, num_blocks=K, checkpoint_manager=fit_ckpt,
+                       checkpoint_every=1)
     rmse = model.rmse(holdout)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -508,9 +628,16 @@ def main() -> int:
                              f"{rmse}: differ by more than 1e-4")
     say("main.target", rmse=rmse, target=RMSE_TARGET,
         reached=rmse <= RMSE_TARGET)
-    del train, holdout, model, solver
+    check_resume("fit", fit_ckpt, model, lambda: DSGD(cfg).fit(
+        train, num_blocks=K, checkpoint_manager=fit_ckpt, checkpoint_every=1,
+        resume=True))
+    cpu_model = MFModel(U=model.U.cpu(), V=model.V.cpu(), users=model.users,
+                        items=model.items)
+    phase_serve(model, cpu_model, train)
+    phase_eval(model, cpu_model, train, holdout)
+    del train, holdout, model, solver, cpu_model
 
-    device_runs, (Ud, Vd) = phase_device(dev, cfg)
+    device_runs, (Ud, Vd) = phase_device(dev, cfg, scratch)
     paths = {"fit": launches, **device_runs}
     kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
@@ -551,11 +678,12 @@ class DeviceHoldoutEval:
         return math.sqrt(float(sgd_ops.sse_rows(U, V, *self.rows)) / self.n)
 
 
-def phase_device(dev, cfg):
+def phase_device(dev, cfg, scratch):
     """The bench's device pipeline at full width: generation, blocking and
     init on the card (timed apart), then ``DSGD.fit_device`` at f32 and at
     bf16, each against the plain twin's replay on the card from the same
-    layout and initial tables. Returns each fit's launch counts and the
+    layout and initial tables; the bf16 fit snapshots each sweep and is
+    resumed from its second. Returns each fit's launch counts and the
     initial f32 tables."""
 
     def timed(fn):
@@ -598,16 +726,19 @@ def phase_device(dev, cfg):
         dcfg = dataclasses.replace(cfg, factor_dtype=dtype)
         solver = DSGD(dcfg)
         solver.evaluator = DeviceHoldoutEval(ur, ir, hold[2], mask)
+        half = dtype == "bfloat16"
+        ckpt = TimedCheckpoints(os.path.join(scratch, dtype)) if half \
+            else None
         torch.cuda.synchronize()
         cuda_sgd.reset_launch_counts()
         t0 = time.perf_counter()
         model = solver.fit_device(u, i, r, nu, ni, num_blocks=K,
+                                  checkpoint_manager=ckpt,
                                   checkpoint_every=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cuda_sgd.LAUNCHES)
         curve = solver.evaluator.rmse
-        half = dtype == "bfloat16"
         # the replay: the plain twin on the card, same layout and init
         a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
@@ -640,6 +771,11 @@ def phase_device(dev, cfg):
                                  f"fit_device {curve[-1]}: beyond {bar}")
         runs[f"fit_device_{dtype}"] = launches
         final[dtype] = curve[-1]
+        if half:
+            check_resume("fit_device", ckpt, model, lambda: DSGD(
+                dcfg).fit_device(u, i, r, nu, ni, num_blocks=K,
+                                 checkpoint_manager=ckpt, checkpoint_every=1,
+                                 resume=True))
     gap = abs(final["bfloat16"] - final["float32"]) / final["float32"]
     say("main.device", rmse_f32=final["float32"], rmse_bf16=final["bfloat16"],
         bf16_relative_gap=gap, target=RMSE_TARGET)
@@ -647,6 +783,113 @@ def phase_device(dev, cfg):
         raise AssertionError(f"bf16 RMSE {final['bfloat16']} is not within "
                              f"5% of f32 {final['float32']}")
     return runs, (U0, V0)
+
+
+def topk_mismatches(ids, scores, ids_ref, scores_ref, tol=SCORE_TOL):
+    """Tie-aware top-K comparison: scores must agree position by position
+    within ``tol``; ids must be equal wherever a score stands more than
+    2·tol apart from both neighbours (near-ties may swap between devices).
+    Returns (max score difference, ids compared, ids that differ)."""
+    diff = float(np.abs(scores - scores_ref).max())
+    apart = np.ones(scores_ref.shape, bool)
+    gap = np.abs(np.diff(scores_ref, axis=1)) > 2 * tol
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    return diff, int(apart.sum()), int((ids[apart] != ids_ref[apart]).sum())
+
+
+def phase_serve(model, cpu_model, train):
+    """Top-K through ``MFModel.recommend`` on the trained ``fit`` model
+    (bench.py:659-686: 16,384 users, k = 10, no exclusions), warmed on
+    2,048 users; its bound is the f32 scoring matmul at the card's peak.
+    Then the same call on the CPU for 256 users (tie-aware), and with
+    ``train=`` exclusion no train item in 2,048 users' lists."""
+    users = model.users.sorted_ids[:SERVE_USERS]
+    n, n_items, rank = len(users), model.V.shape[0], model.rank
+    model.recommend(users[:SERVE_WARM], k=SERVE_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = model.recommend(users, k=SERVE_K)  # numpy out: synced
+    wall = time.perf_counter() - t0
+    flops = 2 * n * n_items * rank
+    nbytes = n * rank * 4 + n_items * rank * 4 + n * SERVE_K * 8
+    bound_ms, bound_by = bound_of(nbytes, flops)
+    if not (ids.shape == (n, SERVE_K) and (ids >= 0).all()
+            and np.isfinite(scores).all()
+            and (np.diff(scores, axis=1) <= 0).all()):
+        raise AssertionError("recommend: malformed top-K lists")
+    cpu_ids, cpu_scores = cpu_model.recommend(users[:256], k=SERVE_K)
+    diff, compared, differ = topk_mismatches(ids[:256], scores[:256],
+                                             cpu_ids, cpu_scores)
+    if diff > SCORE_TOL * max(1.0, float(np.abs(cpu_scores).max())) \
+            or differ:
+        raise AssertionError(f"recommend card vs CPU: score diff {diff}, "
+                             f"{differ} of {compared} ids differ")
+    sub = users[:SERVE_WARM]
+    ex_ids, _ = model.recommend(sub, k=SERVE_K, train=train)
+    tu, ti = train.users.astype(np.int64), train.items.astype(np.int64)
+    mine = np.isin(tu, sub)
+    seen = tu[mine] * (1 << 32) + ti[mine]
+    served = (np.repeat(sub.astype(np.int64), SERVE_K) * (1 << 32)
+              + ex_ids.reshape(-1))
+    leaked = int(np.isin(served, seen).sum())
+    if leaked or (ex_ids < 0).any():
+        raise AssertionError(f"recommend(train=): {leaked} train items "
+                             "served")
+    # one 2,048-user chunk's device parts (CUDA events), beside the wall
+    rows = torch.as_tensor(model.users.rows_for(users[:SERVE_WARM])[0],
+                           device=model.device)
+    Vt = model.V.float().T
+    item_w = torch.zeros(n_items, device=model.device)
+    scores_c = model.U[rows] @ Vt
+    parts = {"matmul_ms": cuda_ms(lambda: model.U[rows] @ Vt, reps=10),
+             "item_w_add_ms": cuda_ms(lambda: scores_c.add_(item_w), reps=10),
+             "topk_ms": cuda_ms(lambda: torch.topk(scores_c, SERVE_K, dim=1),
+                                reps=10)}
+    chunks = -(-n // SERVE_WARM)
+    say("serve", users=n, k=SERVE_K, item_rows=n_items, rank=rank,
+        wall_s=wall, chunks=chunks, **{f"chunk_{k}": v for k, v in
+                                       parts.items()},
+        device_parts_share_of_wall=chunks * sum(parts.values()) / 1e3 / wall,
+        users_per_s=n / wall, tflop=flops / 1e12,
+        tflop_per_s=flops / wall / 1e12,
+        share_of_f32_peak=flops / wall / F32_FLOP_PER_S,
+        bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / 1e3 / wall,
+        cpu_256_max_score_diff=diff, cpu_256_ids_compared=compared,
+        cpu_256_ids_differ=differ, excluded_users=len(sub),
+        train_pairs_of_them=int(mine.sum()), train_items_served=leaked)
+
+
+def phase_eval(model, cpu_model, train, holdout):
+    """HR@10 / NDCG@10 through ``MFModel.ranking_quality`` on 65,536
+    holdout pairs with the train set excluded; the first 4,096 pairs also
+    on the CPU at k = 10 and at k = 1,000 (where these random holdout
+    draws do hit), within 1e-3 (one pair is 2.4e-4)."""
+    hu, hi = holdout.users[:EVAL_PAIRS], holdout.items[:EVAL_PAIRS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = model.ranking_quality(hu, hi, k=SERVE_K, train=train)
+    wall = time.perf_counter() - t0
+    if not (0 < q["n"] <= len(hu) and 0 <= q["hr"] <= 1
+            and 0 <= q["ndcg"] <= q["hr"]):
+        raise AssertionError(f"ranking_quality: {q}")
+    both = {}
+    for k in (SERVE_K, 1000):
+        sub = dict(eval_u=hu[:EVAL_CPU_PAIRS], eval_i=hi[:EVAL_CPU_PAIRS],
+                   k=k, train=train)
+        card, cpu = (model.ranking_quality(**sub),
+                     cpu_model.ranking_quality(**sub))
+        both.update({f"hr{k}_4096_card": card["hr"],
+                     f"hr{k}_4096_cpu": cpu["hr"],
+                     f"ndcg{k}_4096_card": card["ndcg"],
+                     f"ndcg{k}_4096_cpu": cpu["ndcg"]})
+        if not (abs(card["hr"] - cpu["hr"]) <= 1e-3
+                and abs(card["ndcg"] - cpu["ndcg"]) <= 1e-3):
+            raise AssertionError(f"ranking_quality@{k} card {card} vs "
+                                 f"CPU {cpu}")
+    say("eval", pairs=q["n"], k=SERVE_K, hr=q["hr"], ndcg=q["ndcg"],
+        wall_s=wall, **both)
 
 
 def launch_counts(paths, name):

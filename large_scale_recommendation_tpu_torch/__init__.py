@@ -7,11 +7,14 @@ reader of the JAX package expects it. The port imports ``torch`` and never
 (ratings batches, generators, blocking) is copied here.
 
 The port carries the DSGD training path end to end, through a host and
-an on-device data pipeline, with f32 or bf16 factor tables:
+an on-device data pipeline, with f32 or bf16 factor tables, and what a
+trained model is used for:
 
     data.movielens.synthetic_like      planted low-rank ratings (numpy)
-    data.blocking.block_problem        k×k Gemulla strata (numpy, bit-equal
-                                       to the JAX package's layout)
+    data.movielens.load_ratings_file   MovieLens files (native parser)
+    data.blocking.block_problem        k×k Gemulla strata (csrc/fastblock
+                                       .cpp via data.native, bit-equal to
+                                       the JAX package's layout)
     models.dsgd.DSGD.fit               factor init + stratum sweeps
     data.device_blocking               generation + blocking in torch on
                                        the solver's device
@@ -20,6 +23,10 @@ an on-device data pipeline, with f32 or bf16 factor tables:
                                        (csrc/dsgd_sweep.cu) on a CUDA device
     ops.sgd.dsgd_train                 the plain PyTorch route (CPU tensors)
     models.mf.MFModel.rmse             holdout RMSE
+    models.mf.MFModel.recommend        top-K items per user (utils.metrics)
+    models.mf.MFModel.ranking_quality  HR@K / NDCG@K of held-out pairs
+    utils.checkpoint                   snapshots and resume (the JAX
+                                       package's file format)
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

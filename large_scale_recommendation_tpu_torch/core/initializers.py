@@ -1,7 +1,9 @@
 """Factor initializers (counterpart of
 ``large_scale_recommendation_tpu.core.initializers``).
 
-Two semantics, as in the JAX package:
+Initializers are batched functions ``ids -> [n, rank]`` tables. Two
+semantics, as in the JAX package, plus ``FunctionFactorInitializer`` around
+any such function, and ``init_table`` for ids ``[0, num_rows)``:
 
 - ``PseudoRandomFactorInitializer``: a row is a function of its id alone.
   Each entry is a counter-based hash of (id, column) in integer torch ops,
@@ -18,6 +20,7 @@ across instead (``convert.factors_from_jax``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -97,3 +100,25 @@ class PseudoRandomFactorInitializer:
         if not isinstance(ids, torch.Tensor):
             ids = torch.as_tensor(np.asarray(ids, dtype=np.int64))
         return keyed_uniform_rows(ids, self.rank, self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class FunctionFactorInitializer:
+    """Wrap an arbitrary ``ids -> [n, rank]`` function."""
+
+    rank: int
+    fn: Callable[[torch.Tensor], torch.Tensor]
+
+    def __call__(self, ids) -> torch.Tensor:
+        return self.fn(ids)
+
+    def open(self) -> "FunctionFactorInitializer":
+        return self
+
+
+def init_table(initializer, num_rows: int,
+               rank: int | None = None) -> torch.Tensor:
+    """A full factor table for ids ``[0, num_rows)`` (an int64 CPU tensor;
+    ``rank`` is the initializer's own)."""
+    del rank
+    return initializer(torch.arange(num_rows, dtype=torch.int64))

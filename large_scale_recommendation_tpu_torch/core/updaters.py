@@ -14,6 +14,7 @@ The updaters are batched over tensors: ratings ``[b]``, factor rows
     SGDUpdater             e = r − u·v;  du = η·e·v;  dv = η·e·u
     RegularizedSGDUpdater  du = −η·(λ/ω_u·u − e·v), dv symmetrically
                            (the DSGD rule, per-occurrence-weighted L2)
+    MockFactorUpdater      du = dv = 0 (for plumbing tests)
 """
 
 from __future__ import annotations
@@ -201,3 +202,18 @@ class RegularizedSGDUpdater:
         du = -lr * (reg_u - e[:, None] * v)
         dv = -lr * (reg_v - e[:, None] * u)
         return du, dv
+
+
+@dataclasses.dataclass(frozen=True)
+class MockFactorUpdater:
+    """No-op updater for plumbing tests: zero deltas, factors unchanged."""
+
+    def delta(self, ratings, u, v, *, weights=None, omega_u=None,
+              omega_v=None, t=1):
+        del ratings, weights, omega_u, omega_v, t
+        return torch.zeros_like(u), torch.zeros_like(v)
+
+    def next_factors(self, ratings, u, v, *, weights=None, omega_u=None,
+                     omega_v=None, t=1):
+        del ratings, weights, omega_u, omega_v, t
+        return u, v

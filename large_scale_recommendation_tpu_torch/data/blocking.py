@@ -2,6 +2,10 @@
 (counterpart of ``large_scale_recommendation_tpu.data.blocking``; the layout
 is bit-equal to the JAX package's for the same ratings and seed).
 
+The compaction, the bucketing and the collision scales run through the
+native library (``data.native``); ``native=False`` runs their numpy plain
+versions instead, which give the same layout bit for bit.
+
 - ids are compacted to dense rows; rows are dealt into ``num_blocks``
   equal-size blocks (block b owns rows ``[b·rpb, (b+1)·rpb)``);
 - ratings are bucketed into the k×k grid and laid out stratum-major:
@@ -18,11 +22,12 @@ import dataclasses
 import numpy as np
 
 from large_scale_recommendation_tpu_torch.core.types import Ratings
-from large_scale_recommendation_tpu_torch.data.native import (
-    compact_ids,
-    minibatch_inv_counts_flat,
-    stable_bucket,
-)
+from large_scale_recommendation_tpu_torch.data import native as _native
+
+
+def _route(name: str, native: bool):
+    """``data.native``'s native entry point, or its numpy plain version."""
+    return getattr(_native, name if native else f"{name}_reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +81,46 @@ class BlockedProblem:
     ratings: BlockedRatings
 
 
+def flat_index(ids, omega=None, sorted_pair=None,
+               pad_empty: bool = True) -> IdIndex:
+    """A row-ordered id vector as a 1-block ``IdIndex``: ``ids[j]`` is row
+    j's external id; ``omega`` defaults to 1 per row; ``sorted_pair``
+    supplies a precomputed (sorted_ids, sorted_rows) to skip the argsort.
+
+    ``pad_empty`` (default True): an empty vocabulary yields one -1/omega-0
+    padding row, the shape every factor-table producer guarantees, so a
+    gather on it stays in bounds and scores 0; False gives a true 0-row
+    index (for callers with no factor table behind it)."""
+    ids = np.asarray(ids, np.int64)
+    n = len(ids)
+    if n == 0:
+        pad = 1 if pad_empty else 0
+        return IdIndex(
+            ids=np.full(pad, -1, np.int64), num_blocks=1,
+            rows_per_block=pad,
+            omega=np.zeros(pad, np.float32),
+            sorted_ids=np.empty(0, np.int64),
+            sorted_rows=np.empty(0, np.int64),
+        )
+    if sorted_pair is None:
+        order = np.argsort(ids).astype(np.int64)
+        sorted_pair = (ids[order], order)
+    return IdIndex(
+        ids=ids, num_blocks=1, rows_per_block=n,
+        omega=(np.ones(n, np.float32) if omega is None
+               else np.asarray(omega, np.float32)),
+        sorted_ids=np.asarray(sorted_pair[0], np.int64),
+        sorted_rows=np.asarray(sorted_pair[1], np.int64),
+    )
+
+
 def build_id_index(
     ids: np.ndarray,
     num_blocks: int,
     seed: int | None,
     row_multiple: int = 8,
     return_rows: bool = False,
+    native: bool = True,
 ) -> IdIndex | tuple[IdIndex, np.ndarray]:
     """Compact ids to dense rows and deal rows into equal-size blocks:
     a seeded shuffle, a stable sort by descending count, then a serpentine
@@ -89,7 +128,7 @@ def build_id_index(
 
     With ``return_rows=True`` also returns each input occurrence's row."""
     ids = np.asarray(ids)
-    uniq, inverse, counts = compact_ids(ids)
+    uniq, inverse, counts = _route("compact_ids", native)(ids)
     order0 = np.argsort(uniq)
     uniq, counts = uniq[order0], counts[order0]
     n = len(uniq)
@@ -139,6 +178,7 @@ def block_ratings(
     seed: int | None = 0,
     precomputed_rows: tuple[np.ndarray, np.ndarray] | None = None,
     minibatch_sort: str | None = None,
+    native: bool = True,
 ) -> BlockedRatings:
     """Bucket ratings into the k×k grid in stratum-major layout.
 
@@ -178,7 +218,7 @@ def block_ratings(
 
     rng = np.random.default_rng(0 if seed is None else seed + 7919)
     perm = rng.permutation(len(urow))
-    order = stable_bucket(strat * k + ublk, perm, k * k)
+    order = _route("stable_bucket", native)(strat * k + ublk, perm, k * k)
     urow, irow = urow[order], irow[order]
     vals = np.asarray(rv, dtype=np.float32)[order]
     strat_s, ublk_s = strat[order], ublk[order]
@@ -227,15 +267,16 @@ def block_ratings(
 
 
 def minibatch_inv_counts(
-    blocked: BlockedRatings, minibatch: int
+    blocked: BlockedRatings, minibatch: int, native: bool = True
 ) -> tuple[np.ndarray, np.ndarray]:
     """Per-entry 1/(occurrences of this row in its minibatch), both sides —
     the precomputed scales of the "mean" collision mode. Padding entries
     get 1."""
     w = blocked.weights.reshape(-1)
+    flat = _route("minibatch_inv_counts_flat", native)
 
     def side(rows: np.ndarray) -> np.ndarray:
-        inv = minibatch_inv_counts_flat(rows.reshape(-1), w, minibatch)
+        inv = flat(rows.reshape(-1), w, minibatch)
         return inv.reshape(rows.shape)
 
     return side(blocked.u_rows), side(blocked.i_rows)
@@ -248,20 +289,22 @@ def block_problem(
     minibatch_multiple: int = 1,
     row_multiple: int = 8,
     minibatch_sort: str | None = None,
+    native: bool = True,
 ) -> BlockedProblem:
     """Full blocking pass: both id indices + stratum-major rating blocks.
-    Weight-0 entries neither register ids nor count toward omegas."""
+    Weight-0 entries neither register ids nor count toward omegas.
+    ``native=False`` runs the numpy plain versions (the same layout)."""
     ru, ri, rv, rw = ratings.to_numpy()
     real = rw > 0
     if not real.all():
         ru, ri, rv = ru[real], ri[real], rv[real]
     users, urow = build_id_index(ru, num_blocks, seed, row_multiple,
-                                 return_rows=True)
+                                 return_rows=True, native=native)
     items, irow = build_id_index(
         ri, num_blocks, None if seed is None else seed + 1, row_multiple,
-        return_rows=True,
+        return_rows=True, native=native,
     )
     blocked = block_ratings((ru, ri, rv), users, items, minibatch_multiple,
                             seed=seed, precomputed_rows=(urow, irow),
-                            minibatch_sort=minibatch_sort)
+                            minibatch_sort=minibatch_sort, native=native)
     return BlockedProblem(users=users, items=items, ratings=blocked)

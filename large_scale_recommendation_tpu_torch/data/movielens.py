@@ -1,13 +1,33 @@
-"""MovieLens-shaped synthetic workloads (counterpart of ``synthetic_like``
-and ``_SHAPES`` in ``large_scale_recommendation_tpu.data.movielens``; the
-file loaders come in a later slice)."""
+"""MovieLens loaders and MovieLens-shaped synthetic workloads (counterpart of
+``large_scale_recommendation_tpu.data.movielens``).
+
+- ``load_ml100k``: the ``u.data`` tab-separated format
+  (user, item, rating, timestamp);
+- ``load_ml25m``: the ``ratings.csv`` format
+  (userId,movieId,rating,timestamp with a header row);
+- ``load_ratings_file``: either, sniffed from the first line;
+- ``compact_ratings``: sparse real ids → dense ids, the seam in front of
+  ``DSGD.fit_device``;
+- ``train_test_split``: seeded holdout split;
+- ``synthetic_like``: a planted low-rank stand-in with a dataset's shape.
+
+Files are parsed by the native library (``data.native``).
+"""
 
 from __future__ import annotations
+
+import os
+
+import numpy as np
 
 from large_scale_recommendation_tpu_torch.core.generators import (
     SyntheticMFGenerator,
 )
 from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.data.native import (
+    compact_ids,
+    parse_ratings_file,
+)
 
 _SHAPES = {
     # name: (num_users, num_items, nnz)
@@ -16,6 +36,83 @@ _SHAPES = {
     "ml-25m": (162_541, 59_047, 25_000_095),
     "netflix": (480_189, 17_770, 100_480_507),
 }
+
+
+def load_ml100k(path: str) -> Ratings:
+    """Load MovieLens-100K ``u.data`` (tab-separated, no header)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "u.data")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"ML-100K not found at {path}; pass the directory containing "
+            "u.data or use synthetic_like('ml-100k')")
+    users, items, vals = parse_ratings_file(path, delimiter="\t")
+    return Ratings.from_arrays(users=users, items=items, ratings=vals)
+
+
+def load_ml25m(path: str) -> Ratings:
+    """Load MovieLens-25M ``ratings.csv`` (comma-separated, header row)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "ratings.csv")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"ML-25M not found at {path}; pass the directory containing "
+            "ratings.csv or use synthetic_like('ml-25m')")
+    users, items, vals = parse_ratings_file(path, delimiter=",",
+                                            skip_header=1)
+    return Ratings.from_arrays(users=users, items=items, ratings=vals)
+
+
+def load_ratings_file(path: str) -> Ratings:
+    """Load a ratings file, sniffing the format: ``ratings.csv``
+    (comma-separated; a header when the first line holds letters) or
+    ``u.data`` (tab-separated, no header). A directory is searched for
+    ``ratings.csv``, then ``u.data``."""
+    if os.path.isdir(path):
+        for cand in ("ratings.csv", "u.data"):
+            p = os.path.join(path, cand)
+            if os.path.exists(p):
+                path = p
+                break
+        else:
+            raise FileNotFoundError(
+                f"no ratings.csv or u.data in directory {path}")
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    with open(path, "r") as fh:
+        first = fh.readline()
+    if "," in first:
+        if any(c.isalpha() for c in first):
+            return load_ml25m(path)
+        users, items, vals = parse_ratings_file(path, delimiter=",")
+        return Ratings.from_arrays(users=users, items=items, ratings=vals)
+    return load_ml100k(path)
+
+
+def compact_ratings(ratings: Ratings):
+    """Dense-id compaction of a real-id ratings set, for ``fit_device``
+    (which needs ids in [0, num_users) × [0, num_items)).
+
+    Returns ``(u, i, vals, num_users, num_items)`` with int32 dense ids in
+    first-seen order (the JAX package's native order, so the two give the
+    same arrays)."""
+    ru, ri, rv, rw = ratings.to_numpy()
+    real = rw > 0
+    ru, ri, rv = ru[real], ri[real], rv[real]
+    _, u_dense, _ = compact_ids(ru)
+    _, i_dense, _ = compact_ids(ri)
+    return (u_dense.astype(np.int32), i_dense.astype(np.int32),
+            rv.astype(np.float32),
+            int(u_dense.max()) + 1, int(i_dense.max()) + 1)
+
+
+def vocab_overrides_from_env() -> tuple[int | None, int | None]:
+    """BENCH_USERS/BENCH_ITEMS → (num_users, num_items) overrides: a run at
+    reduced nnz must shrink the vocab with it, or the workload
+    degenerates."""
+    nu = os.environ.get("BENCH_USERS")
+    ni = os.environ.get("BENCH_ITEMS")
+    return (int(nu) if nu else None, int(ni) if ni else None)
 
 
 def synthetic_like(name: str, nnz: int | None = None, rank: int = 16,
@@ -34,3 +131,19 @@ def synthetic_like(name: str, nnz: int | None = None, rank: int = 16,
     gen = SyntheticMFGenerator(num_users=nu, num_items=ni, rank=rank,
                                noise=noise, seed=seed, skew_lam=skew_lam)
     return gen.generate(int(n * 0.95)), gen.generate(n - int(n * 0.95))
+
+
+def train_test_split(ratings: Ratings, test_fraction: float = 0.1,
+                     seed: int = 0) -> tuple[Ratings, Ratings]:
+    """Seeded random holdout split (weight-0 padding dropped)."""
+    ru, ri, rv, rw = ratings.to_numpy()
+    real = rw > 0
+    ru, ri, rv = ru[real], ri[real], rv[real]
+    rng = np.random.default_rng(seed)
+    n = len(ru)
+    test_mask = np.zeros(n, dtype=bool)
+    test_mask[rng.choice(n, int(n * test_fraction), replace=False)] = True
+    return (
+        Ratings.from_arrays(ru[~test_mask], ri[~test_mask], rv[~test_mask]),
+        Ratings.from_arrays(ru[test_mask], ri[test_mask], rv[test_mask]),
+    )

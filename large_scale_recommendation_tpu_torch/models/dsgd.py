@@ -24,6 +24,12 @@ has no ``kernel``):
   raises ``ValueError``;
 - on the CPU ``fit`` runs the plain PyTorch route (``ops.sgd.dsgd_train``)
   with the full ``collision_mode`` semantics.
+
+Checkpoints (``utils.checkpoint``): with a ``checkpoint_manager`` each
+segment of ``checkpoint_every`` sweeps ends in a snapshot of the tables,
+tagged with the fit path; ``resume=True`` picks up from the latest one.
+Blocking, init and the step plan are deterministic, and the kernels have no
+atomics, so a resumed fit is bit-equal to an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils.checkpoint import (
+    restore_segment_state,
+)
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 _FACTOR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -97,12 +106,14 @@ class DSGD:
             schedule=self.config.schedule_fn(),
         )
         self.model: MFModel | None = None
-        # segment-boundary hooks, as in the JAX package; not ported yet, so
-        # they stay None (one pointer test per segment)
+        # segment-boundary hooks (``after_segment(U, V, label=)`` and
+        # ``on_segment(U, V, label=, step=)``), run before the snapshot;
+        # None = one pointer test per segment
         self.watchdog = None
         self.evaluator = None
         # device ms of each training segment of the last fit (CUDA events
-        # around the segment's launches; hooks excluded); empty on the CPU
+        # around the segment's launches; hooks and snapshots excluded);
+        # empty on the CPU
         self.segment_ms: list[float] = []
         # host seconds to build the last fit's step plan (card only)
         self.plan_s: float | None = None
@@ -110,9 +121,13 @@ class DSGD:
     # -- fit ---------------------------------------------------------------
 
     def fit(self, ratings: Ratings, num_blocks: int | None = None,
-            checkpoint_every: int | None = None) -> MFModel:
+            checkpoint_manager=None, checkpoint_every: int | None = None,
+            resume: bool = False) -> MFModel:
         """Train. ``checkpoint_every`` runs the sweeps in segments of that
-        many iterations (the schedule continues across segments)."""
+        many iterations (the schedule continues across segments); with a
+        ``checkpoint_manager`` each segment ends in a snapshot (kind
+        ``"dsgd_segment"``), and ``resume=True`` continues from the latest
+        one (the same ratings, seed, rank and block count)."""
         cfg = self.config
         if ratings.n == 0:
             raise ValueError("cannot fit on an empty ratings set")
@@ -147,20 +162,23 @@ class DSGD:
         )
         U, V = self._train_segments(put(U, torch.float32),
                                     put(V, torch.float32), args, k,
-                                    checkpoint_every)
+                                    "dsgd_segment", checkpoint_manager,
+                                    checkpoint_every, resume)
         self.model = MFModel(U=U, V=V, users=problem.users,
                              items=problem.items)
         return self.model
 
     def fit_device(self, u, i, r, num_users: int, num_items: int,
-                   num_blocks: int | None = None,
-                   checkpoint_every: int | None = None) -> MFModel:
+                   num_blocks: int | None = None, checkpoint_manager=None,
+                   checkpoint_every: int | None = None,
+                   resume: bool = False) -> MFModel:
         """Train through the on-device data pipeline
         (``data.device_blocking``): dense ids in ``[0, num_users) ×
         [0, num_items)`` as numpy arrays or tensors; blocking, collision
         scales, init and training run on the solver's device. Init is the
         per-id keyed form (``seed=None`` blocks with seed 0). Same
-        segmentation contract as ``fit``."""
+        segmentation and checkpoint contract as ``fit``; snapshots are of
+        kind ``"dsgd_device_segment"``."""
         cfg = self.config
         k = num_blocks or cfg.num_blocks or 1
         self._check_route()
@@ -169,10 +187,13 @@ class DSGD:
             minibatch_multiple=cfg.minibatch_size,
             seed=cfg.seed if cfg.seed is not None else 0,
             minibatch_sort=cfg.minibatch_sort, device=self.device)
-        return self._fit_problem(problem, checkpoint_every)
+        return self._fit_problem(problem, checkpoint_manager,
+                                 checkpoint_every, resume)
 
     def _fit_problem(self, problem: device_blocking.DeviceBlockedProblem,
-                     checkpoint_every: int | None = None) -> MFModel:
+                     checkpoint_manager=None,
+                     checkpoint_every: int | None = None,
+                     resume: bool = False) -> MFModel:
         """Train on a device-blocked problem (the seam a test uses to train
         on a layout carried across from the JAX package)."""
         cfg = self.config
@@ -182,7 +203,9 @@ class DSGD:
         args = (p.su, p.si, p.sv, p.sw, p.omega_u, p.omega_v,
                 *((p.icu, p.icv) if use_inv else (None, None)))
         U, V = self._train_segments(U, V, args, p.num_blocks,
-                                    checkpoint_every)
+                                    "dsgd_device_segment",
+                                    checkpoint_manager, checkpoint_every,
+                                    resume)
         users, items = p.to_id_indices()
         self.model = MFModel(U=U, V=V, users=users, items=items)
         return self.model
@@ -198,18 +221,25 @@ class DSGD:
                                             use_inv)
         return use_inv
 
-    def _train_segments(self, U, V, args, k, checkpoint_every=None):
-        """The segment loop: ``checkpoint_every`` sweeps per segment, with
-        the hooks run at each boundary. The tables are cast to the storage
-        dtype first."""
+    def _train_segments(self, U, V, args, k, kind, checkpoint_manager=None,
+                        checkpoint_every=None, resume=False):
+        """The segment loop: ``checkpoint_every`` sweeps per segment; at
+        each boundary the hooks run, then the snapshot (tagged ``kind``).
+        The tables are cast to the storage dtype first; a resume replaces
+        them with the latest snapshot's, cast the same way, on the solver's
+        device."""
         cfg = self.config
         fdt = cfg.storage_dtype()
         U, V = U.to(fdt), V.to(fdt)
+        done = 0
+        if resume:
+            if checkpoint_manager is None:
+                raise ValueError("resume=True requires a checkpoint_manager")
+            U, V, done = restore_segment_state(checkpoint_manager, kind, U, V)
         segment = checkpoint_every or cfg.iterations
         train = self._train_fn(args, k)
         timed = self.device.type == "cuda"
         events = []
-        done = 0
         while done < cfg.iterations:
             seg = min(segment, cfg.iterations - done)
             if timed:
@@ -222,10 +252,15 @@ class DSGD:
                 events.append((start, end))
             done += seg
             if self.watchdog is not None:
-                self.watchdog.after_segment(U, V, label="dsgd_segment")
+                # before the snapshot: a tripped segment must not persist
+                # its tables as a resume point
+                self.watchdog.after_segment(U, V, label=kind)
             if self.evaluator is not None:
-                self.evaluator.on_segment(U, V, label="dsgd_segment",
-                                          step=done)
+                self.evaluator.on_segment(U, V, label=kind, step=done)
+            if checkpoint_manager is not None:
+                checkpoint_manager.save(
+                    done, {"U": U, "V": V},
+                    {"kind": kind, "iterations": cfg.iterations})
         if events:
             events[-1][1].synchronize()
         self.segment_ms = [a.elapsed_time(b) for a, b in events]

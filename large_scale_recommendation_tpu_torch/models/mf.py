@@ -1,10 +1,11 @@
-"""The matrix-factorization model object: factors + scoring + risk
-(counterpart of ``large_scale_recommendation_tpu.models.mf``; ``recommend``
-and ``ranking_quality`` come in a later slice).
+"""The matrix-factorization model object: factors, scoring, risk, top-K
+serving and ranking quality (counterpart of
+``large_scale_recommendation_tpu.models.mf``).
 
 Factors live as dense float32 or bfloat16 tables on the model's device;
-scoring and the factor exports compute in float32. External ids map to rows
-through the host-side ``IdIndex`` lookup tables.
+pair scoring and the factor exports compute in float32, full-catalog
+ranking as ``utils.metrics`` says. External ids map to rows through the
+host-side ``IdIndex`` lookup tables.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from large_scale_recommendation_tpu_torch.core.types import FactorVector, Ratings
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils import metrics
 
 
 def masked_scores(scores, u_mask, i_mask, return_mask: bool):
@@ -26,6 +28,22 @@ def masked_scores(scores, u_mask, i_mask, return_mask: bool):
     seen = (np.asarray(u_mask) * np.asarray(i_mask)) > 0
     out = np.asarray(scores) * seen
     return (out, seen) if return_mask else out
+
+
+def _assemble_topk(n: int, k: int, known, top_rows, top_scores,
+                   ids_of_row, return_mask: bool):
+    """Row-space top-K → external ids with the ``predict`` conventions:
+    unknown queries get -1/0.0 rows; slots below
+    ``metrics.DEAD_SLOT_THRESHOLD`` (excluded or masked rows) become -1/0.0
+    too."""
+    ids = np.full((n, k), -1, np.int64)
+    scores = np.zeros((n, k), np.float32)
+    real = top_scores > metrics.DEAD_SLOT_THRESHOLD
+    ids[known] = np.where(real, ids_of_row[top_rows], -1)
+    scores[known] = np.where(real, top_scores, 0.0)
+    if return_mask:
+        return ids, scores, known
+    return ids, scores
 
 
 @dataclasses.dataclass
@@ -40,6 +58,10 @@ class MFModel:
     @property
     def device(self) -> torch.device:
         return self.U.device
+
+    @property
+    def rank(self) -> int:
+        return int(self.U.shape[-1])
 
     def _rows(self, *arrays):
         return [torch.as_tensor(np.asarray(a), device=self.device)
@@ -79,6 +101,88 @@ class MFModel:
         sse = sgd_ops.sse_rows(self.U, self.V,
                                *self._rows(u_rows, i_rows, rv, mask))
         return float(np.sqrt(float(sse) / n))
+
+    def ranking_quality(self, eval_u, eval_i, k: int = 10,
+                        train: "Ratings | tuple | None" = None,
+                        chunk: int = 2048) -> dict:
+        """HR@K / NDCG@K of held-out (user, item) positives by full-catalog
+        ranking (``metrics.ranking_metrics``). Pairs whose user or item was
+        never seen are dropped; ``train`` (a ``Ratings`` or a
+        ``(user_ids, item_ids)`` pair) excludes already-interacted items
+        from each user's ranked list."""
+        u_rows, u_mask = self.users.rows_for(np.asarray(eval_u))
+        i_rows, i_mask = self.items.rows_for(np.asarray(eval_i))
+        keep = (u_mask * i_mask) > 0
+        tu, ti = self._train_rows(train)
+        # block-padded tables hold init rows with no item behind them;
+        # masked out of the catalog, or they rank as phantoms
+        return metrics.ranking_metrics(
+            self.U, self.V, u_rows[keep], i_rows[keep], k=k, train_u=tu,
+            train_i=ti, chunk=chunk, item_mask=self.items.ids >= 0)
+
+    def recommend_users(self, item_ids, k: int = 10,
+                        train: "Ratings | tuple | None" = None,
+                        chunk: int = 2048, return_mask: bool = False):
+        """Top-K users per item: ``recommend`` with the roles of U and V
+        swapped (``train`` pairs are still (user, item)). Returns
+        ``(user_ids int64 [n, k], scores)`` with the same unknown-id and
+        below-catalog conventions."""
+        i_rows, i_mask = self.items.rows_for(np.asarray(item_ids))
+        known = i_mask > 0
+        tu, ti = self._train_rows(train)
+        user_ids_of_row = np.asarray(self.users.ids)
+        top_rows, top_scores = metrics.top_k_recommend(
+            self.V, self.U, i_rows[known], k=k,
+            train_u=ti, train_i=tu,  # exclusion pairs swap roles too
+            chunk=chunk, item_mask=user_ids_of_row >= 0)
+        return _assemble_topk(len(i_rows), k, known, top_rows, top_scores,
+                              user_ids_of_row, return_mask)
+
+    def _train_rows(self, train: "Ratings | tuple | None"):
+        """A ``Ratings`` / ``(user_ids, item_ids)`` exclusion set in row
+        space, never-seen pairs dropped: the one copy of the exclusion
+        contract that evaluation and serving share."""
+        if train is None:
+            return None, None
+        if isinstance(train, tuple):
+            tru, tri = train
+        else:
+            tru, tri, _, _ = train.to_numpy()
+        tr_u, tr_um = self.users.rows_for(np.asarray(tru))
+        tr_i, tr_im = self.items.rows_for(np.asarray(tri))
+        tkeep = (tr_um * tr_im) > 0
+        return tr_u[tkeep], tr_i[tkeep]
+
+    def recommend(self, user_ids, k: int = 10,
+                  train: "Ratings | tuple | None" = None,
+                  chunk: int = 2048, return_mask: bool = False,
+                  mesh=None):
+        """Top-K items per user by full-catalog score, on the scoring
+        protocol of ``ranking_quality`` (``metrics.top_k_recommend``), so
+        HR@K/NDCG@K evaluate the list served here.
+
+        ``train`` (a ``Ratings`` or ``(user_ids, item_ids)`` pair) excludes
+        each user's already-interacted items. Returns ``(item_ids int64
+        [n, k], scores float32 [n, k])`` sorted by descending score. Users
+        never seen in training get ids -1 and scores 0.0 (the ``predict``
+        convention); slots beyond the effective catalog carry -1/0.0 too.
+        ``return_mask=True`` appends the per-user seen mask.
+
+        ``mesh`` (an item-sharded catalog across devices) is not ported;
+        passing one raises ``NotImplementedError``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving is not ported yet (ROADMAP.md queue A: mesh "
+                "DSGD and serving); call recommend without mesh=")
+        u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
+        known = u_mask > 0
+        tu, ti = self._train_rows(train)
+        item_ids_of_row = np.asarray(self.items.ids)
+        top_rows, top_scores = metrics.top_k_recommend(
+            self.U, self.V, u_rows[known], k=k, train_u=tu, train_i=ti,
+            chunk=chunk, item_mask=item_ids_of_row >= 0)
+        return _assemble_topk(len(u_rows), k, known, top_rows, top_scores,
+                              item_ids_of_row, return_mask)
 
     def user_factors(self) -> Iterator[FactorVector]:
         """(id, float32 factors) for every real user row."""

@@ -1,0 +1,217 @@
+"""Checkpoint / resume: durable snapshots of factor tables + step counters
+(counterpart of the single-process part of
+``large_scale_recommendation_tpu.utils.checkpoint``; the files are the same
+format, so either package restores what the other wrote).
+
+Format: one ``ckpt_<step>.npz`` per step, written to a temporary file and
+``os.replace``d into place, with keep-last-k retention. The entry
+``__meta__`` holds the meta dict as json bytes; bf16 arrays are stored as
+their uint16 bit view, tagged in the meta's ``__dtypes__``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import tempfile
+
+import numpy as np
+import torch
+
+from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
+from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.utils.device import resolve_device
+
+
+def _encode_array(v) -> tuple[np.ndarray, str | None]:
+    """(savez-safe numpy array, dtype tag or None) of a numpy array or a
+    torch tensor on any device. A bf16 tensor, or a numpy array whose
+    dtype is named ``bfloat16``, becomes its uint16 bit view."""
+    if isinstance(v, torch.Tensor):
+        t = v.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return t.numpy(), None
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.uint16), "bfloat16"
+    return a, None
+
+
+def _decode_array(a: np.ndarray, tag: str | None):
+    if not tag:
+        return a
+    if tag != "bfloat16":
+        raise ValueError(f"checkpoint dtype tag {tag!r} unsupported")
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Checkpoint:
+    """One restored snapshot. ``arrays`` holds numpy arrays, except that an
+    entry saved as bf16 comes back as a CPU ``torch.bfloat16`` tensor
+    (numpy has no bf16 dtype without ``ml_dtypes``)."""
+
+    step: int
+    arrays: dict
+    meta: dict
+
+    def __getitem__(self, k: str):
+        return self.arrays[k]
+
+
+class CheckpointManager:
+    """Directory of step-stamped snapshots with keep-last-k retention."""
+
+    _FILE = re.compile(r"^ckpt_(\d+)\.npz$")
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.npz")
+
+    # -- write ---------------------------------------------------------------
+
+    def save(self, step: int, arrays: dict, meta: dict | None = None) -> str:
+        """Atomic snapshot (temporary file + rename), then the retention
+        sweep. Values are numpy arrays or tensors on any device; bf16 ones
+        round-trip exactly through their bit view."""
+        payload = {}
+        dtype_tags: dict[str, str] = {}
+        for k, v in arrays.items():
+            payload[k], tag = _encode_array(v)
+            if tag:
+                dtype_tags[k] = tag
+        meta = dict(meta or {})
+        if dtype_tags:
+            meta["__dtypes__"] = dtype_tags
+        payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                            dtype=np.uint8)
+        path = self.path(step)
+        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **payload)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self._retain()
+        return path
+
+    def _retain(self) -> None:
+        steps = self.steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            try:
+                os.unlink(self.path(s))
+            except FileNotFoundError:
+                pass  # another writer's sweep already retired it
+
+    # -- read ----------------------------------------------------------------
+
+    def steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            m = self._FILE.match(name)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int | None = None) -> Checkpoint:
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoints in {self.directory}")
+        with np.load(self.path(step)) as z:
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+            meta = (json.loads(z["__meta__"].tobytes().decode())
+                    if "__meta__" in z.files else {})
+        tags = meta.pop("__dtypes__", {})
+        arrays = {k: _decode_array(v, tags.get(k)) for k, v in arrays.items()}
+        return Checkpoint(step=step, arrays=arrays, meta=meta)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A restored entry (numpy, or a bf16 tensor) as a CPU tensor."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+
+
+def restore_segment_state(manager: CheckpointManager, kind: str, U, V):
+    """Resume helper of the DSGD segment loop: the latest snapshot as
+    ``(U, V, done)``, the tables cast to ``U``/``V``'s dtype on their
+    device. Returns the inputs with ``done=0`` when there is no snapshot.
+
+    Refuses a snapshot of another fit path (``kind``): host-blocked (fit)
+    and device-blocked (fit_device) layouts put ids on different rows of
+    tables of the same shape. Refuses a shape mismatch too."""
+    latest = manager.latest_step()
+    if latest is None:
+        return U, V, 0
+    ck = manager.restore(latest)
+    ck_kind = ck.meta.get("kind")
+    if ck_kind != kind:
+        raise ValueError(
+            f"checkpoint kind {ck_kind!r} does not match this fit path "
+            f"({kind!r}) — host-blocked (fit) and device-blocked "
+            "(fit_device) row layouts are incompatible")
+    if (tuple(ck["U"].shape) != tuple(U.shape)
+            or tuple(ck["V"].shape) != tuple(V.shape)):
+        raise ValueError(
+            "checkpoint shape mismatch — resumed fit must use the same "
+            "ratings, seed, rank and block count")
+    return (_tensor(ck["U"]).to(device=U.device, dtype=U.dtype),
+            _tensor(ck["V"]).to(device=V.device, dtype=V.dtype), latest)
+
+
+def save_mf_model(manager: CheckpointManager, model: MFModel, step: int,
+                  extra_meta: dict | None = None) -> str:
+    """Snapshot an ``MFModel`` (factors + id layouts)."""
+    meta = {"kind": "mf_model", "rank": model.rank}
+    meta.update(extra_meta or {})
+    return manager.save(step, {
+        "U": model.U,
+        "V": model.V,
+        "user_ids": model.users.ids,
+        "item_ids": model.items.ids,
+        "user_omega": model.users.omega,
+        "item_omega": model.items.omega,
+        "user_blocks": np.asarray([model.users.num_blocks,
+                                   model.users.rows_per_block]),
+        "item_blocks": np.asarray([model.items.num_blocks,
+                                   model.items.rows_per_block]),
+    }, meta)
+
+
+def restore_mf_model(manager: CheckpointManager, step: int | None = None,
+                     device=None) -> tuple[MFModel, Checkpoint]:
+    """Rebuild an ``MFModel`` from a snapshot, its tables on ``device``
+    (``None``: the card)."""
+    dev = resolve_device(device)
+    ck = manager.restore(step)
+
+    def index(ids, omega, blocks):
+        ids = ids.astype(np.int64)
+        real = ids >= 0
+        rows = np.nonzero(real)[0]
+        order = np.argsort(ids[real])
+        return IdIndex(ids=ids, num_blocks=int(blocks[0]),
+                       rows_per_block=int(blocks[1]),
+                       omega=omega.astype(np.float32),
+                       sorted_ids=ids[real][order],
+                       sorted_rows=rows[order])
+
+    model = MFModel(
+        U=_tensor(ck["U"]).to(dev), V=_tensor(ck["V"]).to(dev),
+        users=index(ck["user_ids"], ck["user_omega"], ck["user_blocks"]),
+        items=index(ck["item_ids"], ck["item_omega"], ck["item_blocks"]))
+    return model, ck

@@ -1,0 +1,171 @@
+"""Full-catalog ranking: top-K serving and HR@K / NDCG@K (counterpart of the
+ranking part of ``large_scale_recommendation_tpu.utils.metrics``).
+
+The JAX package leaves this to XLA, so the port uses ordinary torch ops on
+the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
+the phantom-row mask ``item_w``, train-seen exclusion as a scatter-min,
+then ``torch.topk`` (serving) or compare-and-count (the rank of a held-out
+positive).
+
+- bf16 tables score as the JAX package's compiled kernel scores them: the
+  rows are upcast and the product accumulates in f32. The jitted
+  ``U_rows @ V.T + item_w`` is typed bf16 before the add, but XLA drops
+  that f32→bf16→f32 pair (excess precision is allowed), so the scores
+  are never rounded to bf16; neither are the port's.
+- f32 products run in IEEE f32: TF32 is off for the duration of a call,
+  whatever the process set.
+- Ties: ``lax.top_k`` puts the lower index first; ``torch.topk`` makes no
+  promise, so each returned list is re-sorted by (score descending, row
+  ascending). Which of several tied rows enters at the k-th place may still
+  differ from the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+# The top-K dead-slot sentinel contract shared by every scoring surface:
+# excluded/masked catalog slots get DEAD_SLOT_OFFSET (scatter-min for
+# exclusions, added for masked rows), so a surfaced dead slot scores near
+# the offset; consumers classify by ``score > DEAD_SLOT_THRESHOLD``.
+DEAD_SLOT_OFFSET = -1e30
+DEAD_SLOT_THRESHOLD = -1e29
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """f32 matmuls in IEEE f32 (no TF32) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _exclusion_builder(train_u, train_i, num_users: int):
+    """Per-chunk train-seen exclusion lists.
+
+    Returns ``build(cu) -> (rows, cols)`` (int64 numpy: chunk-local user
+    position, item row) for a chunk of user rows, or ``None`` without a
+    train set; shared by ``ranking_metrics`` and ``top_k_recommend`` so the
+    exclusion semantics cannot drift between evaluation and serving."""
+    if train_u is None:
+        return lambda cu: None
+    train_u = np.asarray(train_u, dtype=np.int64)
+    order = np.argsort(train_u, kind="stable")
+    tu = train_u[order]
+    ti = np.asarray(train_i, dtype=np.int64)[order]
+    starts = np.searchsorted(tu, np.arange(num_users + 1))
+
+    def build(cu):
+        counts = starts[cu + 1] - starts[cu]
+        e = int(counts.sum())
+        rows = np.repeat(np.arange(len(cu), dtype=np.int64), counts)
+        # absolute positions of each user's train slice, vectorized
+        offs = np.repeat(
+            starts[cu] - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+            counts)
+        return rows, ti[np.arange(e, dtype=np.int64) + offs]
+
+    return build
+
+
+class _Scorer:
+    """The score surface shared by serving and evaluation: ``U[rows] @ V.T``
+    in f32 + ``item_w``, then the chunk's exclusions scatter-min'ed to
+    ``DEAD_SLOT_OFFSET`` (idempotent under duplicate train pairs, where an
+    add would stack)."""
+
+    def __init__(self, U, V, train_u, train_i, item_mask):
+        self.U, self.device = U, U.device
+        self.Vt = V.float().T
+        self.n_items = int(V.shape[0])
+        w = np.zeros(self.n_items, np.float32)
+        if item_mask is not None:
+            w[~np.asarray(item_mask, dtype=bool)] = DEAD_SLOT_OFFSET
+        self.item_w = torch.from_numpy(w).to(self.device)
+        self.exclusions = _exclusion_builder(train_u, train_i,
+                                             int(U.shape[0]))
+
+    def __call__(self, cu: np.ndarray) -> torch.Tensor:
+        rows = torch.as_tensor(cu, dtype=torch.int64, device=self.device)
+        scores = self.U[rows].float() @ self.Vt
+        scores += self.item_w
+        excl = self.exclusions(cu)
+        if excl is not None and len(excl[0]):
+            flat = torch.from_numpy(excl[0] * self.n_items + excl[1]).to(
+                self.device)
+            dead = torch.full(flat.shape, DEAD_SLOT_OFFSET,
+                              dtype=torch.float32, device=self.device)
+            scores.view(-1).scatter_reduce_(0, flat, dead, "amin")
+        return scores
+
+
+def ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
+                    train_u=None, train_i=None, chunk: int = 2048,
+                    item_mask=None) -> dict:
+    """HR@K and NDCG@K by full-catalog ranking of held-out positives.
+
+    Each ``(eval_u, eval_i)`` pair is one positive; the user's scores
+    against every item are ranked with the items the user had in training
+    (``train_u``/``train_i``) excluded, and the positive's rank r scores
+    HR = 1[r < K], NDCG = 1/log2(r+2). Returns ``{"hr", "ndcg", "n"}``
+    (means over pairs). Eval/train ids are ROW indices into ``U``/``V``
+    (torch tables on one device); ``item_mask`` ([n_item_rows] bool, True =
+    real item) keeps padding rows out of the ranked list."""
+    eval_u = np.asarray(eval_u, dtype=np.int64)
+    eval_i = np.asarray(eval_i, dtype=np.int64)
+    n = len(eval_u)
+    if n == 0:
+        return {"hr": float("nan"), "ndcg": float("nan"), "n": 0}
+    score = _Scorer(U, V, train_u, train_i, item_mask)
+    hits = ndcg = 0.0
+    with _ieee_f32():
+        for c0 in range(0, n, chunk):
+            scores = score(eval_u[c0:c0 + chunk])
+            pos = torch.as_tensor(eval_i[c0:c0 + chunk], device=U.device)
+            st = scores.gather(1, pos[:, None])
+            rank = (scores > st).sum(dim=1)
+            hit = rank < k
+            nd = torch.where(hit, 1.0 / torch.log2(rank.float() + 2.0),
+                             torch.zeros((), device=U.device))
+            hits += float(hit.sum())
+            ndcg += float(nd.double().sum())
+    return {"hr": hits / n, "ndcg": ndcg / n, "n": n}
+
+
+def top_k_recommend(U, V, user_rows, k: int = 10,
+                    train_u=None, train_i=None, chunk: int = 2048,
+                    item_mask=None):
+    """Top-K item rows per user by full-catalog score, the serving twin of
+    ``ranking_metrics`` (same score surface).
+
+    Inputs are ROW indices into ``U``/``V``; returns ``(top_rows int32
+    [n, k], top_scores float32 [n, k])`` as numpy, sorted by descending
+    score (ties: lower row first). Excluded or masked slots that still
+    surface score below ``DEAD_SLOT_THRESHOLD``; with ``k`` above the
+    catalog size the slots past it carry row 0 and score ``-inf``."""
+    user_rows = np.asarray(user_rows, dtype=np.int64)
+    n = len(user_rows)
+    out_rows = np.zeros((n, k), np.int32)
+    out_scores = np.full((n, k), -np.inf, np.float32)
+    if n == 0:
+        return out_rows, out_scores
+    score = _Scorer(U, V, train_u, train_i, item_mask)
+    kk = min(k, score.n_items)
+    with _ieee_f32():
+        for c0 in range(0, n, chunk):
+            top, idx = torch.topk(score(user_rows[c0:c0 + chunk]), kk, dim=1)
+            # lax.top_k's order: score descending, lower row first on ties
+            idx, by_row = idx.sort(dim=1)
+            top = top.gather(1, by_row)
+            top, by_score = top.sort(dim=1, descending=True, stable=True)
+            idx = idx.gather(1, by_score)
+            c = idx.shape[0]
+            out_rows[c0:c0 + c, :kk] = idx.cpu().numpy()
+            out_scores[c0:c0 + c, :kk] = top.cpu().numpy()
+    return out_rows, out_scores

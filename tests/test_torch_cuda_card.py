@@ -11,8 +11,13 @@ card, and whose dot reduces in another order) they agree to max-abs 1e-5 per
 stratum; with bf16 tables, to one bf16 ulp per element (an f32 difference in
 the last place can flip one rounding; magnitudes below 2^-16 count as
 2^-16, where one bf16 ulp is the size of that f32 difference). The cast
-kernels are exact against ``Tensor.to``.
+kernels are exact against ``Tensor.to``. Beside them, what runs on the
+card around the kernels: top-K and ranking quality against the same model
+on the CPU, a resumed fit bit-equal to an uninterrupted one, and a bf16
+checkpoint written from the card.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -360,3 +365,106 @@ def test_fit_device_on_card_matches_its_cpu_run(dev):
     assert cuda_sgd.LAUNCHES["sgd_user_rows_kernel"] > 0
     # another layout (the card's own draws), the same learning problem
     assert abs(model.rmse(hold) - rmse["float32"]) < 0.05 * rmse["float32"]
+
+
+def _serving_model(dev, dtype="float32"):
+    gen = SyntheticMFGenerator(num_users=600, num_items=900, rank=4,
+                               noise=0.1, seed=7, skew_lam=2.0)
+    train, test = gen.generate(40_000), gen.generate(3000)
+    cfg = DSGDConfig(num_factors=64, lambda_=0.05, iterations=2,
+                     learning_rate=0.1, lr_schedule="warm_boost",
+                     minibatch_size=512, init_scale=0.1, factor_dtype=dtype)
+    return DSGD(cfg).fit(train, num_blocks=4), train, test
+
+
+def _on_cpu(model):
+    from large_scale_recommendation_tpu_torch.models.mf import MFModel
+
+    return MFModel(U=model.U.cpu(), V=model.V.cpu(), users=model.users,
+                   items=model.items)
+
+
+def _assert_topk_close(ids, scores, ids_c, scores_c, tol=1e-5):
+    """Scores at tolerance position by position; ids equal wherever a score
+    stands apart from its neighbours (the two devices sum the dots in
+    other orders, so near-ties may swap)."""
+    np.testing.assert_allclose(scores, scores_c, rtol=tol, atol=tol)
+    apart = np.ones(scores_c.shape, bool)
+    gap = np.abs(np.diff(scores_c, axis=1)) > 2 * tol
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    np.testing.assert_array_equal(ids[apart], ids_c[apart])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recommend_on_card_matches_cpu(dev, dtype):
+    model, train, test = _serving_model(dev, dtype)
+    assert model.U.device.type == "cuda"
+    cpu = _on_cpu(model)
+    users = np.concatenate([test.users[:500], [10**7]])
+    for kw in (dict(k=10), dict(k=20, train=train)):
+        ids, scores = model.recommend(users, chunk=128, **kw)
+        ids_c, scores_c = cpu.recommend(users, chunk=128, **kw)
+        _assert_topk_close(ids, scores, ids_c, scores_c)
+        assert (ids[-1] == -1).all()
+    seen = set(zip(train.users.tolist(), train.items.tolist()))
+    ids, _ = model.recommend(users, k=20, train=train)
+    assert not any((int(u), int(c)) in seen
+                   for u, row in zip(users, ids) for c in row if c >= 0)
+    got = model.ranking_quality(test.users, test.items, k=10, train=train)
+    want = cpu.ranking_quality(test.users, test.items, k=10, train=train)
+    assert got["n"] == want["n"] == test.n
+    assert abs(got["hr"] - want["hr"]) <= 2e-3
+    assert abs(got["ndcg"] - want["ndcg"]) <= 2e-3
+
+
+@pytest.mark.parametrize("path,dtype", [("fit", "float32"),
+                                        ("fit_device", "bfloat16")])
+def test_resume_on_card_is_bit_equal(dev, tmp_path, path, dtype):
+    """3 sweeps with a snapshot after each; the newest deleted, a new
+    solver resumes from sweep 2: bit-equal tables (no atomics)."""
+    from large_scale_recommendation_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    gen = SyntheticMFGenerator(num_users=500, num_items=400, rank=4,
+                               noise=0.1, seed=8, skew_lam=2.0)
+    train = gen.generate(30_000)
+    cfg = DSGDConfig(num_factors=32, lambda_=0.05, iterations=3,
+                     learning_rate=0.1, lr_schedule="warm_boost",
+                     minibatch_size=512, init_scale=0.1, factor_dtype=dtype)
+    u, i, r, _ = train.to_numpy()
+
+    def fit(**kw):
+        if path == "fit":
+            return DSGD(cfg).fit(train, num_blocks=4, checkpoint_every=1,
+                                 **kw)
+        return DSGD(cfg).fit_device(u, i, r, 500, 400, num_blocks=4,
+                                    checkpoint_every=1, **kw)
+
+    m = CheckpointManager(str(tmp_path))
+    full = fit(checkpoint_manager=m)
+    assert m.steps() == [1, 2, 3]
+    os.unlink(m.path(3))
+    cuda_sgd.reset_launch_counts()
+    resumed = fit(checkpoint_manager=m, resume=True)
+    assert cuda_sgd.LAUNCHES["sgd_item_rows_kernel"] > 0  # one sweep ran
+    assert resumed.U.device.type == "cuda" and resumed.U.dtype == full.U.dtype
+    assert torch.equal(resumed.U, full.U) and torch.equal(resumed.V, full.V)
+
+
+def test_bf16_checkpoint_round_trip_from_card(dev, tmp_path):
+    from large_scale_recommendation_tpu_torch.utils import checkpoint
+
+    model, _, test = _serving_model(dev, "bfloat16")
+    m = checkpoint.CheckpointManager(str(tmp_path))
+    checkpoint.save_mf_model(m, model, 2)
+    with np.load(m.path(2)) as z:
+        assert z["U"].dtype == np.uint16
+    back, ck = checkpoint.restore_mf_model(m)  # onto the card
+    assert back.U.device.type == "cuda" and back.U.dtype == torch.bfloat16
+    assert torch.equal(back.U.view(torch.int16), model.U.view(torch.int16))
+    assert torch.equal(back.V.view(torch.int16), model.V.view(torch.int16))
+    assert ck.meta["rank"] == 64
+    np.testing.assert_array_equal(back.predict(test.users, test.items),
+                                  model.predict(test.users, test.items))

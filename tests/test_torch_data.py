@@ -135,3 +135,92 @@ def test_rows_for_and_unknown_ids():
                            pt.users, pt.items)
     with pytest.raises(ValueError, match="minibatch_sort"):
         tblk.block_problem(tr, num_blocks=2, minibatch_sort="rating")
+
+
+# -- loaders, compaction, split, flat_index (native host library) -----------
+
+
+def _write(tmp_path, name, text):
+    p = tmp_path / name
+    p.write_text(text)
+    return str(p)
+
+
+_U_DATA = "196\t242\t3\t881250949\n186\t302\t3\t891717742\n22\t377\t1\t1\n"
+_RATINGS_CSV = ("userId,movieId,rating,timestamp\n1,296,5.0,1147880044\n"
+                "1,306,3.5,1147868817\n7,296,0.5,3")
+
+
+@pytest.mark.parametrize("loader,name,text", [
+    ("load_ml100k", "u.data", _U_DATA),
+    ("load_ml25m", "ratings.csv", _RATINGS_CSV),
+    ("load_ratings_file", "u.data", _U_DATA),
+    ("load_ratings_file", "ratings.csv", _RATINGS_CSV),
+    ("load_ratings_file", "plain.csv", "1,2,3.5\n4,5,1.0\n"),
+])
+def test_loaders_bit_equal(tmp_path, loader, name, text):
+    path = _write(tmp_path, name, text)
+    for arg in (path, str(tmp_path)) if name != "plain.csv" else (path,):
+        got = getattr(tml, loader)(arg)
+        _same_ratings(got, getattr(jml, loader)(arg))
+        assert got.n == text.strip().count("\n") + 1 - ("userId" in text)
+
+
+def test_loaders_missing_files(tmp_path):
+    for loader in ("load_ml100k", "load_ml25m", "load_ratings_file"):
+        with pytest.raises(FileNotFoundError):
+            getattr(tml, loader)(str(tmp_path / "absent"))
+        with pytest.raises(FileNotFoundError):
+            getattr(tml, loader)(str(tmp_path))  # a directory without one
+
+
+@pytest.mark.parametrize("pad", [0, 9])
+def test_compact_ratings_bit_equal(pad):
+    jr, tr = _skewed(4, pad=pad)
+    got = tml.compact_ratings(tr)
+    want = jml.compact_ratings(jr)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+    u, i, _, nu, ni = got
+    assert u.min() == 0 and u.max() == nu - 1 and i.max() == ni - 1
+    # first-seen order: the first rating's ids become dense 0
+    assert u[0] == 0 and i[0] == 0
+
+
+@pytest.mark.parametrize("frac,seed,pad", [(0.1, 0, 0), (0.25, 3, 11),
+                                           (0.0, 1, 0)])
+def test_train_test_split_bit_equal(frac, seed, pad):
+    jr, tr = _skewed(seed, n=3000, pad=pad)
+    for a, b in zip(tml.train_test_split(tr, frac, seed),
+                    jml.train_test_split(jr, frac, seed)):
+        _same_ratings(a, b)
+
+
+def test_vocab_overrides_from_env(monkeypatch):
+    monkeypatch.delenv("BENCH_USERS", raising=False)
+    monkeypatch.delenv("BENCH_ITEMS", raising=False)
+    assert tml.vocab_overrides_from_env() == (None, None)
+    monkeypatch.setenv("BENCH_USERS", "2000")
+    monkeypatch.setenv("BENCH_ITEMS", "800")
+    assert tml.vocab_overrides_from_env() == jml.vocab_overrides_from_env() \
+        == (2000, 800)
+
+
+@pytest.mark.parametrize("case", ["ids", "omega", "sorted_pair", "empty",
+                                  "empty_unpadded"])
+def test_flat_index_bit_equal(case):
+    ids = np.array([40, 7, 19, 3], np.int64)
+    kw = {"ids": dict(ids=ids),
+          "omega": dict(ids=ids, omega=[1, 5, 2, 0]),
+          "sorted_pair": dict(ids=ids, sorted_pair=(np.sort(ids),
+                                                    np.argsort(ids))),
+          "empty": dict(ids=[]),
+          "empty_unpadded": dict(ids=[], pad_empty=False)}[case]
+    a, b = tblk.flat_index(**kw), jblk.flat_index(**kw)
+    _same_index(a, b)
+    if case.startswith("empty"):
+        assert a.num_rows == (case == "empty")
+        assert a.rows_for(np.array([3]))[1].tolist() == [0.0]
+    else:
+        np.testing.assert_array_equal(a.rows_for(ids)[0], np.arange(4))

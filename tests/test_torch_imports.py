@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points run on the card unless asked for the CPU."""
+"""The PyTorch port stands alone: it imports neither JAX, nor ``ml_dtypes``
+(a JAX dependency), nor the JAX package, and its entry points run on the
+card unless asked for the CPU."""
 
 import ast
 import os
@@ -31,18 +32,22 @@ def test_port_has_the_slice_modules():
               "core.generators", "utils.shapes", "data.native",
               "data.blocking", "data.device_blocking", "data.movielens",
               "ops.sgd", "ops.cuda_sgd", "ops._build", "models.mf",
-              "models.dsgd", "utils.device", "convert"):
+              "models.dsgd", "utils.device", "convert", "utils.metrics",
+              "utils.checkpoint", "utils.config", "core.limiter"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
-    assert os.path.exists(os.path.join(PKG, "csrc", "dsgd_sweep.cu"))
+    for src in ("dsgd_sweep.cu", "fastblock.cpp"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src))
 
 
 def test_every_module_imports_with_jax_blocked():
-    """In a fresh interpreter where ``import jax`` fails, every port module
-    and chip_smoke import, and neither JAX nor the JAX package is loaded."""
+    """In a fresh interpreter where ``import jax`` and ``import ml_dtypes``
+    fail, every port module and chip_smoke import, and neither JAX nor the
+    JAX package is loaded."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
@@ -61,7 +66,8 @@ def test_ast_finds_no_jax_import(path):
     files = ([os.path.join(REPO, "chip_smoke.py")] if path != "package" else
              [os.path.join(r, f) for r, _, fs in os.walk(PKG) for f in fs
               if f.endswith(".py")])
-    forbidden = ("jax", "jaxlib", "large_scale_recommendation_tpu")
+    forbidden = ("jax", "jaxlib", "ml_dtypes",
+                 "large_scale_recommendation_tpu")
     for f in files:
         tree = ast.parse(open(f).read(), f)
         for node in ast.walk(tree):
