@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's DSGD training, serving and evaluation paths on one
-NVIDIA GPU (an H100).
+"""Run the PyTorch port's DSGD training, serving and evaluation paths, ALS
+and online MF on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -67,7 +67,29 @@ Phases, one line each; any failure raises and the exit code is nonzero:
 10. timing  — each kernel against its plain version at the main path's
               shapes (CUDA events), with its bound on this card; per step:
               the plan, the longest segments, the design's bytes, and the
-              host time of the launch loop beside the device time.
+              host time of the launch loop beside the device time;
+11. als     — the bench's ALS lines (``bench.py:736-849``) on 2,000,000
+              planted ratings at ML-25M width: device plans (rank 256
+              geometry) timed and equal, row for row, to the host plans;
+              rounds at ranks 64 × 2, 128 × 2, 256 × 1 (CUDA events per
+              round, rows/s); 4,096 solved rows of a rank-128 half-step
+              against float64 numpy within 3e-3·|x| + 3e-4, the half-step
+              split into grams, Cholesky and the rest, beside its bound;
+              ``[als.implicit]`` (α 1, rank 128, 2 rounds) with sampled
+              HR/NDCG@10 and catalog coverage, card vs CPU within 1e-5;
+              ``[als.fit_device]`` (the entry point, rank 64) within 1e-4
+              RMSE of the bench route; ``[als.fit]`` (host plans, rank 128)
+              in f32 and bf16 grams, RMSE gap < 0.01;
+12. als.conv — rank-32 time to holdout RMSE 0.155 on 25,000,095 ratings
+              (``bench.py:851-907``), up to 7 rounds; the curve must fall;
+13. online  — ``OnlineMF.partial_fit`` on the Netflix-shaped stream
+              (``bench.py:919-975``): 10 batches of 100,000 at rank 128,
+              each synchronized (ratings/s, p50/p99/max, steady half); the
+              first 3 also on the CPU (ids equal, tables within rtol 1e-4 /
+              atol 1e-5); a snapshot after batch 5 restored bit-equal into
+              a fresh model; one batch split into its host and device
+              parts; one updates-emitting batch of 20,000.
+              The ALS and online paths launch none of the four kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -92,6 +114,10 @@ import torch
 from large_scale_recommendation_tpu_torch.core.generators import (
     SyntheticMFGenerator,
 )
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    PseudoRandomFactorInitializer,
+)
+from large_scale_recommendation_tpu_torch.core.types import Ratings
 from large_scale_recommendation_tpu_torch.core.updaters import (
     RegularizedSGDUpdater,
     schedule_from_name,
@@ -99,12 +125,21 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
 from large_scale_recommendation_tpu_torch.data import blocking
 from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.data.movielens import synthetic_like
+from large_scale_recommendation_tpu_torch.models.als import ALS, ALSConfig
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.models.online import (
+    OnlineMF,
+    OnlineMFConfig,
+)
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
+from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils import metrics
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
+    restore_online_state,
+    save_online_state,
 )
 
 # published H100 SXM peaks (the bound's denominators)
@@ -641,6 +676,10 @@ def run(scratch: str) -> int:
     paths = {"fit": launches, **device_runs}
     kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
+    del U0, V0, args, plan, Ud, Vd
+    phase_als(dev)
+    phase_als_conv(dev)
+    phase_online(dev, scratch)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -685,13 +724,6 @@ def phase_device(dev, cfg, scratch):
     layout and initial tables; the bf16 fit snapshots each sweep and is
     resumed from its second. Returns each fit's launch counts and the
     initial f32 tables."""
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     (train, hold, (nu, ni)), gen_s = timed(
         lambda: device_blocking.synthetic_like_device(
@@ -890,6 +922,435 @@ def phase_eval(model, cpu_model, train, holdout):
                                  f"CPU {cpu}")
     say("eval", pairs=q["n"], k=SERVE_K, hr=q["hr"], ndcg=q["ndcg"],
         wall_s=wall, **both)
+
+
+# -- ALS and online MF (no kernel of their own: torch ops on the card) ------
+
+ALS_RANKS = ((64, 2), (128, 2), (256, 1))  # bench.py:758-762
+ALS_LAMBDA = 0.01
+IMPLICIT_PAIRS, IMPLICIT_NEGATIVES, COVERAGE_USERS = 20_000, 100, 2048
+CONV_NNZ, CONV_RANK, CONV_ROUNDS, CONV_TARGET = 25_000_095, 32, 7, 0.155
+ONLINE_BATCHES, ONLINE_BATCH, ONLINE_UPDATES = 10, 100_000, 20_000
+ONLINE_CPU_BATCHES, ONLINE_CKPT_AFTER = 3, 5
+
+
+def timed(fn):
+    """(fn(), host seconds) with the card's queue drained on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def no_dsgd_launches(label):
+    """The ALS and online paths run torch ops only: none of the four
+    kernels may have launched since the counts were reset."""
+    launches = dict(cuda_sgd.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{label}: DSGD kernels launched: {launches}")
+    return launches
+
+
+def als_rounds_timed(V, prep_u, prep_v, nu, ni, n, implicit=False):
+    """``n`` rounds of ``als_rounds`` in one call, with CUDA events per
+    round; returns (U, V, host wall of all n, device ms per round)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = []
+    U, V = als_ops.als_rounds(V, prep_u, prep_v, nu, ni, ALS_LAMBDA, n,
+                              implicit=implicit, round_ms=ms)
+    torch.cuda.synchronize()
+    return U, V, time.perf_counter() - t0, ms
+
+
+def plan_by_row(prepared, num_rows):
+    """Chunked buckets as {pad: [rows, oidx, vals, w, scale]} in row order,
+    chunk-padding rows dropped (rows are unique within a plan)."""
+    out = {}
+    for rows3, oidx3, vals3, w3, sc3 in prepared:
+        rows = rows3.reshape(-1)
+        keep = rows != num_rows
+        order = torch.sort(rows[keep]).indices
+        out[oidx3.shape[-1]] = [rows[keep][order]] + [
+            a.reshape(rows.shape[0], -1)[keep][order]
+            for a in (oidx3, vals3, w3, sc3)]
+    return out
+
+
+def same_plan(host, device, num_rows) -> bool:
+    hb, db = plan_by_row(host, num_rows), plan_by_row(device, num_rows)
+    return sorted(hb) == sorted(db) and all(
+        torch.equal(a, b) for pad in hb for a, b in zip(hb[pad], db[pad]))
+
+
+def plan_shape(prepared):
+    """(padded entries, rows incl. chunk padding, chunks, pads)."""
+    return (sum(b[1].numel() for b in prepared),
+            sum(b[0].numel() for b in prepared),
+            sum(b[0].shape[0] for b in prepared),
+            [b[1].shape[-1] for b in prepared])
+
+
+def half_step_bound(prepared, k, num_rows):
+    """The least time of one half-step on this card: the gram and solve
+    operations of these buckets (2·padded·k² + 2·padded·k for the grams and
+    right-hand sides, k³/3 + 2·k² a row for Cholesky and the two triangular
+    solves) in f32, and the bytes it must move (the gathered rows, the
+    plan's 12 B per padded entry, the solved table written)."""
+    padded, rows, _, _ = plan_shape(prepared)
+    flops = 2 * padded * k * k + 2 * padded * k + rows * (k ** 3 / 3
+                                                         + 2 * k * k)
+    nbytes = padded * (k * 4 + 12) + num_rows * k * 4
+    return bound_of(nbytes, flops), flops, nbytes
+
+
+def half_step_parts(V, prepared, num_rows):
+    """One half-step's device ms in three runs over the same chunks:
+    gather + grams only, + ``cholesky_ex``, and the whole half-step
+    (``solve_side``: + triangular solves + write-back); the parts by
+    subtraction."""
+    lam = ALS_LAMBDA
+
+    def grams():
+        with metrics._ieee_f32():
+            for rows3, oidx3, vals3, w3, sc3 in prepared:
+                for c in range(rows3.shape[0]):
+                    als_ops._gram_chunk(V, oidx3[c], vals3[c], w3[c])
+
+    def cholesky():
+        eye = torch.eye(V.shape[-1], device=V.device)
+        with metrics._ieee_f32():
+            for rows3, oidx3, vals3, w3, sc3 in prepared:
+                for c in range(rows3.shape[0]):
+                    A, _ = als_ops._gram_chunk(V, oidx3[c], vals3[c], w3[c])
+                    torch.linalg.cholesky_ex(A + lam * eye)
+
+    whole = cuda_ms(lambda: als_ops.solve_side(V, prepared, num_rows, lam),
+                    reps=3, warmup=1)
+    g = cuda_ms(grams, reps=3, warmup=1)
+    c = cuda_ms(cholesky, reps=3, warmup=1)
+    return {"half_step_ms": whole, "gather_gram_ms": g,
+            "cholesky_ms": c - g, "solves_writeback_ms": whole - c,
+            "cholesky_share": (c - g) / whole}
+
+
+def check_solved_rows(U, V, au, ai, ar, lam, n_rows=4096):
+    """``n_rows`` seeded rows of a solved side against a float64 dense
+    normal-equation solve (tests/test_als.py:382's bar)."""
+    order = np.argsort(au, kind="stable")
+    su, si, sr = au[order], ai[order], ar[order]
+    starts = np.searchsorted(su, np.arange(U.shape[0] + 1))
+    active = np.nonzero(np.diff(starts))[0]
+    rows = np.random.default_rng(0).choice(active, n_rows, replace=False)
+    got = U[torch.as_tensor(rows, device=U.device)].double().cpu().numpy()
+    Vh = V.double().cpu().numpy()
+    k = Vh.shape[1]
+    worst = 0.0
+    for j, r in enumerate(rows):
+        sl = slice(starts[r], starts[r + 1])
+        Vr = Vh[si[sl]]
+        x = np.linalg.solve(Vr.T @ Vr + lam * np.eye(k), Vr.T @ sr[sl])
+        worst = max(worst, float((np.abs(got[j] - x)
+                                  / (3e-3 * np.abs(x) + 3e-4)).max()))
+    if not worst <= 1.0:
+        raise AssertionError(f"solved rows vs float64: {worst:.3f} of the "
+                             "3e-3·|x| + 3e-4 bar")
+    return n_rows, worst
+
+
+def phase_als(dev):
+    """Paths 1, 2 and 4: the bench's ALS lines (bench.py:736-849) on
+    2,000,000 planted ratings at ML-25M width, and ``ALS.fit``."""
+    (train, hold, (nu, ni)), gen_s = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", nnz=int(2_000_000 / 0.95) + 1, rank=16, noise=0.1,
+            seed=1, skew_lam=2.0, device=dev))
+    au, ai, ar = train
+    cuda_sgd.reset_launch_counts()
+    (prep_u, prep_v), plan_s = timed(lambda: (
+        als_ops.device_prepare_side(au, ai, ar, nu, rank_for_chunking=256),
+        als_ops.device_prepare_side(ai, au, ar, ni, rank_for_chunking=256)))
+    h = [a.cpu().numpy() for a in (au, ai, ar)]
+    t0 = time.perf_counter()
+    host_u = als_ops.prepare_side(als_ops.build_solve_plan(h[0], h[1], h[2],
+                                                           nu), None, 256,
+                                  device=dev)
+    host_v = als_ops.prepare_side(als_ops.build_solve_plan(h[1], h[0], h[2],
+                                                           ni), None, 256,
+                                  device=dev)
+    host_plan_s = time.perf_counter() - t0
+    if not (same_plan(host_u, prep_u, nu) and same_plan(host_v, prep_v, ni)):
+        raise AssertionError("device plan differs from the host plan")
+    del host_u, host_v
+    shape_u, shape_v = plan_shape(prep_u), plan_shape(prep_v)
+    say("als.data", train=au.shape[0], holdout=hold[0].shape[0], users=nu,
+        items=ni, generation_wall_s=gen_s, device_plan_wall_s=plan_s,
+        host_plan_wall_s=host_plan_s, plans_equal_row_for_row=True,
+        padded_entries_u=shape_u[0], padded_entries_v=shape_v[0],
+        chunks_u=shape_u[2], chunks_v=shape_v[2], pads_u=shape_u[3],
+        pads_v=shape_v[3], linalg=str(
+            torch.backends.cuda.preferred_linalg_library()))
+    holdout = dense_holdout(*hold)
+    init = {}
+    for rank, iters in ALS_RANKS:
+        init[rank] = PseudoRandomFactorInitializer(rank, scale=0.1)(
+            torch.arange(ni, device=dev))
+        als_rounds_timed(init[rank], prep_u, prep_v, nu, ni, 1)  # warm-up
+        U, V, wall, round_ms = als_rounds_timed(init[rank], prep_u, prep_v,
+                                                nu, ni, iters)
+        line = dict(rank=rank, rounds=iters, wall_s=wall, round_ms=round_ms,
+                    rows_per_s=(nu + ni) * iters / wall,
+                    rmse=holdout.of(U, V))
+        if rank == 128:
+            U1 = als_ops.solve_side(init[rank], prep_u, nu, ALS_LAMBDA)
+            line["solved_rows_checked"], line["solved_rows_worst_of_bar"] = \
+                check_solved_rows(U1, init[rank], *h, ALS_LAMBDA)
+            (bu, fl, nb) = half_step_bound(prep_u, rank, nu)
+            line.update(half_step_parts(init[rank], prep_u, nu),
+                        half_step_bound_ms=bu[0], half_step_bound_by=bu[1],
+                        half_step_gflop=fl / 1e9, half_step_mbytes=nb / 1e6)
+            del U1
+        if not math.isfinite(line["rmse"]):
+            raise AssertionError(f"als rank {rank}: RMSE {line['rmse']}")
+        say("als", **line)
+        if rank == 128:
+            phase_als_implicit(init[rank], prep_u, prep_v, nu, ni, h, hold)
+        del U, V
+    # the entry point: ALS.fit_device (its own plans, rank 64) against the
+    # bench route's rank-64 rounds from the same keyed init
+    cfg = ALSConfig(num_factors=64, lambda_=ALS_LAMBDA, iterations=2,
+                    init_scale=0.1)
+    solver = ALS(cfg)
+    model, wall = timed(lambda: solver.fit_device(au, ai, ar, nu, ni))
+    U, V, _, _ = als_rounds_timed(init[64], prep_u, prep_v, nu, ni, 2)
+    rmse, rmse_route = holdout.of(model.U, model.V), holdout.of(U, V)
+    say("als.fit_device", rank=64, rounds=2, wall_s=wall,
+        plan_build_s=solver.plan_s, round_ms=solver.round_ms, rmse=rmse,
+        rmse_bench_route=rmse_route, launches=no_dsgd_launches("als"))
+    if not abs(rmse - rmse_route) <= 1e-4:
+        raise AssertionError(f"fit_device RMSE {rmse} vs the bench route "
+                             f"{rmse_route}")
+    del prep_u, prep_v, model, U, V, init
+    phase_als_fit(h, hold, nu, ni)
+
+
+def dense_holdout(hu, hi, hv):
+    """Holdout RMSE of dense-id tables on the card, every pair counted (as
+    bench.py's ``conv_rmse``)."""
+    return DeviceHoldoutEval(hu, hi, hv, torch.ones(hu.shape[0],
+                                                    device=hu.device))
+
+
+def phase_als_implicit(V0, prep_u, prep_v, nu, ni, h, hold):
+    """Path 2: iALS (α 1, rank 128, 2 rounds) on the same buckets through
+    ``implicit_prepared``, its sampled HR/NDCG (bench.py:793-837) and
+    catalog coverage, each also on the CPU from the same tables."""
+    iu, iv = (als_ops.implicit_prepared(p, 1.0) for p in (prep_u, prep_v))
+    als_rounds_timed(V0, iu, iv, nu, ni, 1, implicit=True)  # warm-up
+    U, V, wall, round_ms = als_rounds_timed(V0, iu, iv, nu, ni, 2,
+                                            implicit=True)
+    hu = hold[0][:IMPLICIT_PAIRS].cpu().numpy()
+    hi = hold[1][:IMPLICIT_PAIRS].cpu().numpy()
+    kw = dict(k=10, num_negatives=IMPLICIT_NEGATIVES, train_u=h[0],
+              train_i=h[1], seed=7)
+    q, q_s = timed(lambda: metrics.sampled_ranking_metrics(U, V, hu, hi,
+                                                           **kw))
+    Uc, Vc = U.cpu(), V.cpu()
+    qc = metrics.sampled_ranking_metrics(Uc, Vc, hu, hi, **kw)
+    users = np.unique(hu)
+    if len(users) > COVERAGE_USERS:
+        users = np.random.default_rng(7).choice(users, COVERAGE_USERS,
+                                                replace=False)
+    cov_kw = dict(k=10, train_u=h[0], train_i=h[1])
+    cov, cov_s = timed(lambda: metrics.catalog_coverage(U, V, users,
+                                                        **cov_kw))
+    cov_cpu = metrics.catalog_coverage(Uc, Vc, users, **cov_kw)
+    say("als.implicit", rank=128, alpha=1.0, rounds=2, wall_s=wall,
+        round_ms=round_ms, rows_per_s=(nu + ni) * 2 / wall, hr10=q["hr"],
+        ndcg10=q["ndcg"], hr10_floor=10 / (IMPLICIT_NEGATIVES + 1),
+        valid_negatives=q["valid_negatives"], hr10_cpu=qc["hr"],
+        ndcg10_cpu=qc["ndcg"], metrics_wall_s=q_s, coverage=cov,
+        coverage_cpu=cov_cpu, coverage_users=len(users),
+        coverage_wall_s=cov_s)
+    if not (abs(q["hr"] - qc["hr"]) <= 1e-5
+            and abs(q["ndcg"] - qc["ndcg"]) <= 1e-5
+            and q["valid_negatives"] == qc["valid_negatives"]):
+        raise AssertionError(f"implicit metrics card {q} vs CPU {qc}")
+    if cov != cov_cpu:
+        raise AssertionError(f"coverage card {cov} vs CPU {cov_cpu}")
+
+
+def phase_als_fit(h, hold, nu, ni):
+    """Path 4: ``ALS.fit`` (host id maps and plans) on the same 2,000,000
+    ratings at rank 128, 2 rounds, in f32 and with bf16 grams."""
+    train = Ratings.from_arrays(*h)
+    holdout = Ratings.from_arrays(*(a.cpu().numpy() for a in hold))
+    rmse = {}
+    for gram in (None, "bf16"):
+        cfg = ALSConfig(num_factors=128, lambda_=ALS_LAMBDA, iterations=2,
+                        init_scale=0.1, gram_dtype=gram)
+        solver = ALS(cfg)
+        cuda_sgd.reset_launch_counts()
+        model, wall = timed(lambda: solver.fit(train))
+        rmse[gram] = model.rmse(holdout)
+        say("als.fit", gram_dtype=gram or "f32", rank=128, rounds=2,
+            wall_s=wall, plan_build_s=solver.plan_s,
+            round_ms=solver.round_ms, rmse=rmse[gram],
+            users=model.users.num_rows, items=model.items.num_rows,
+            launches=no_dsgd_launches("als.fit"))
+        if not math.isfinite(rmse[gram]):
+            raise AssertionError(f"ALS.fit RMSE {rmse[gram]}")
+    gap = abs(rmse["bf16"] - rmse[None])
+    say("als.fit.bf16", rmse_f32=rmse[None], rmse_bf16=rmse["bf16"], gap=gap)
+    if not gap < 0.01:
+        raise AssertionError(f"bf16 gram RMSE gap {gap} ≥ 0.01")
+
+
+def phase_als_conv(dev):
+    """Path 3: rank-32 time to RMSE 0.155 (bench.py:851-907): 25,000,095
+    generated ratings, plans built on the card, up to 7 rounds with the
+    holdout RMSE after each."""
+    (train, hold, (nu, ni)), gen_s = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", nnz=CONV_NNZ, rank=16, noise=0.1, seed=4,
+            skew_lam=2.0, device=dev))
+    cu, ci, cr = train
+    cuda_sgd.reset_launch_counts()
+    (pu, pv), plan_s = timed(lambda: (
+        als_ops.device_prepare_side(cu, ci, cr, nu,
+                                    rank_for_chunking=CONV_RANK),
+        als_ops.device_prepare_side(ci, cu, cr, ni,
+                                    rank_for_chunking=CONV_RANK)))
+    V = PseudoRandomFactorInitializer(CONV_RANK, scale=0.1)(
+        torch.arange(ni, device=dev))
+    holdout = dense_holdout(*hold)
+    als_rounds_timed(V, pu, pv, nu, ni, 1)  # warm-up, not timed
+    curve, walls, dev_ms, time_to = [], [], [], None
+    for _ in range(CONV_ROUNDS):
+        U, V, wall, ms = als_rounds_timed(V, pu, pv, nu, ni, 1)
+        curve.append(holdout.of(U, V))
+        walls.append(wall)
+        dev_ms += ms
+        if curve[-1] <= CONV_TARGET:
+            time_to = sum(walls)
+            break
+    say("als.conv", train=cu.shape[0], rank=CONV_RANK, generation_wall_s=gen_s,
+        plan_wall_s=plan_s, padded_entries=plan_shape(pu)[0]
+        + plan_shape(pv)[0], rmse_per_round=curve, round_wall_s=walls,
+        round_ms=dev_ms, target=CONV_TARGET, time_to_target_s=time_to,
+        launches=no_dsgd_launches("als.conv"))
+    # falls: ends below where it started, at its lowest; round 2 may tick
+    # up, as the JAX package's own run of this path does
+    # (docs/BENCH_TPU_r5_manual.json: 0.3112, 0.3172, 0.2684, 0.1645)
+    if not (all(math.isfinite(x) for x in curve)
+            and curve[-1] < curve[0] and curve[-1] == min(curve)):
+        raise AssertionError(f"ALS holdout RMSE did not fall: {curve}")
+
+
+def online_parts(om, batch):
+    """One more batch through ``partial_fit``'s steps, each synchronized:
+    registering its ids (``acquire_rows``, both tables), staging (padding
+    and the host→device copies), and ``online_train`` (host wall beside
+    its CUDA-event time). The trained tables are not installed."""
+    cfg = om.config
+    ru, ri, rv, _ = batch.to_numpy()
+    (u_rows, i_rows), ensure_s = timed(lambda: (om.users.acquire_rows(ru),
+                                                om.items.acquire_rows(ri)))
+    staged, stage_s = timed(lambda: [
+        torch.from_numpy(a).to(om.device) for a in sgd_ops.pad_minibatches(
+            u_rows, i_rows, rv, cfg.minibatch_size)])
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    _, train_s = timed(lambda: sgd_ops.online_train(
+        om.users.array, om.items.array, *staged, updater=om.updater,
+        minibatch=cfg.minibatch_size, iterations=cfg.iterations_per_batch,
+        collision=cfg.collision_mode))
+    e.record()
+    e.synchronize()
+    say("online.parts", ratings=batch.n, padded=staged[0].shape[0],
+        ensure_s=ensure_s, stage_s=stage_s, online_train_s=train_s,
+        online_train_device_ms=a.elapsed_time(e))
+
+
+def phase_online(dev, scratch):
+    """Path 5: the Netflix-shaped online stream (bench.py:919-975) through
+    ``OnlineMF.partial_fit``: 10 batches of 100,000 (the first a warm-up),
+    each synchronized; the first 3 also on the CPU from the same keyed
+    init; a snapshot after batch 5 restored into a fresh model; then one
+    updates-emitting segment of 20,000."""
+    gen = SyntheticMFGenerator(num_users=480_189, num_items=17_770, rank=16,
+                               noise=0.1, seed=2, skew_lam=2.0)
+    batches = [gen.generate(ONLINE_BATCH) for _ in range(ONLINE_BATCHES)]
+    cfg = OnlineMFConfig(num_factors=128, learning_rate=0.05,
+                         minibatch_size=16384, init_capacity=1 << 19)
+    cuda_sgd.reset_launch_counts()
+    om = OnlineMF(cfg)
+    cpu = OnlineMF(cfg, device="cpu")
+    worst = 0.0
+    lat = []
+    manager = CheckpointManager(os.path.join(scratch, "online"))
+    for n, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        om.partial_fit(b, emit_updates=False)
+        torch.cuda.synchronize()
+        if n:  # the first batch is the warm-up
+            lat.append(time.perf_counter() - t1)
+        if n < ONLINE_CPU_BATCHES:
+            cpu.partial_fit(b, emit_updates=False)
+            for a, c in ((om.users, cpu.users), (om.items, cpu.items)):
+                if not (a.capacity == c.capacity
+                        and np.array_equal(a.id_array(), c.id_array())):
+                    raise AssertionError("online ids → rows differ between "
+                                         "the card and the CPU")
+                got, want = a.array[:a.num_rows].cpu(), c.array[:c.num_rows]
+                if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+                    raise AssertionError("online tables: card vs CPU beyond "
+                                         "rtol 1e-4 / atol 1e-5")
+                worst = max(worst, float((got - want).abs().max()))
+        if n == ONLINE_CKPT_AFTER:
+            save_s = timed(lambda: save_online_state(manager, om, n))[1]
+    del cpu
+    restored = OnlineMF(cfg)
+    restore_s = timed(lambda: restore_online_state(manager, restored))[1]
+    saved = manager.restore()
+    equal = all(
+        np.array_equal(t.id_array(), saved[ids])
+        and torch.equal(t.array[:t.num_rows].cpu(), torch.from_numpy(saved[a]))
+        for t, ids, a in ((restored.users, "user_ids", "U"),
+                          (restored.items, "item_ids", "V")))
+    if not (equal and restored.step == ONLINE_CKPT_AFTER + 1):
+        raise AssertionError("restored online tables differ from the saved")
+    b = batches[1]
+    nu_b, ni_b = len(np.unique(b.users)), len(np.unique(b.items))
+    row = cfg.num_factors * 4
+    bound = bound_of(2 * (nu_b + ni_b) * row + b.n * 16,
+                     b.n * 6 * cfg.num_factors)
+    half = lat[len(lat) // 2:]
+    say("online", batches=len(lat), batch=ONLINE_BATCH, rank=cfg.num_factors,
+        ratings_per_s=ONLINE_BATCH * len(lat) / sum(lat),
+        batch_ms_p50=float(np.percentile(lat, 50)) * 1e3,
+        batch_ms_p99=float(np.percentile(lat, 99)) * 1e3,
+        batch_ms_max=max(lat) * 1e3,
+        ratings_per_s_steady=ONLINE_BATCH * len(half) / sum(half),
+        batch_ms=[x * 1e3 for x in lat], users=om.users.num_rows,
+        items=om.items.num_rows, capacity_u=om.users.capacity,
+        capacity_i=om.items.capacity, batch_distinct_u=nu_b,
+        batch_distinct_i=ni_b, batch_bound_ms=bound[0],
+        batch_bound_by=bound[1], card_vs_cpu_batches=ONLINE_CPU_BATCHES,
+        card_vs_cpu_max_abs=worst, ckpt_after_batch=ONLINE_CKPT_AFTER,
+        save_s=save_s, restore_s=restore_s, restored_bit_equal=True)
+    online_parts(om, gen.generate(ONLINE_BATCH))
+    up = [gen.generate(ONLINE_UPDATES) for _ in range(2)]
+    om.partial_fit(up[0])  # warm the updates-emitting path
+    ups, wall = timed(lambda: om.partial_fit(up[1]))
+    rows = len(ups.user_arrays[0]) + len(ups.item_arrays[0])
+    if rows != len(np.unique(up[1].users)) + len(np.unique(up[1].items)):
+        raise AssertionError(f"updates-only output has {rows} rows")
+    say("online.updates", ratings=ONLINE_UPDATES, wall_s=wall,
+        ratings_per_s=ONLINE_UPDATES / wall, rows_emitted=rows,
+        launches=no_dsgd_launches("online"))
 
 
 def launch_counts(paths, name):

@@ -1,4 +1,5 @@
-"""Carry weights and layouts from the JAX package into the port.
+"""Carry weights, layouts and online state from the JAX package into the
+port.
 
 All take plain numpy arrays (``np.asarray`` of the JAX arrays) and duck-typed
 ``IdIndex``-like objects, so nothing here imports JAX. bf16 tables may come
@@ -16,6 +17,11 @@ from large_scale_recommendation_tpu_torch.data.device_blocking import (
     DeviceBlockedProblem,
 )
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.models.online import (
+    OnlineMF,
+    OnlineMFConfig,
+)
+from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 
 def _table(a, device) -> torch.Tensor:
@@ -69,3 +75,37 @@ def device_problem_from_jax(p, device="cpu") -> DeviceBlockedProblem:
         rows_per_block_u=int(p.rows_per_block_u),
         rows_per_block_v=int(p.rows_per_block_v), nnz=int(p.nnz),
         max_pad_ratio=float(p.max_pad_ratio), minibatch=int(p.minibatch))
+
+
+def _adopt_table(table, jt, device) -> None:
+    """A JAX ``GrowableFactorTable``'s state (capacity, ids in row order,
+    the whole array, unregistered rows included) into a port table."""
+    ids = np.asarray(jt.id_array(), np.int64)
+    table.capacity = int(jt.capacity)
+    table._ids_buf = np.empty(table.capacity, np.int64)
+    table._ids_buf[:len(ids)] = ids
+    table._n = len(ids)
+    table._sorted_cache = None
+    table.array = torch.from_numpy(
+        np.array(jt.array, dtype=np.float32)).to(device)
+
+
+def online_from_jax(jax_online, device=None, user_initializer=None,
+                    item_initializer=None) -> OnlineMF:
+    """A port ``OnlineMF`` carrying a JAX ``OnlineMF``'s state: its config,
+    both tables (ids in row order, capacities, arrays), step and consumed
+    offsets, on ``device`` (``None``: the card; raises without one). Ids
+    registered later are initialized by the port's initializers (``None``:
+    the port's keyed defaults)."""
+    device = resolve_device(device)  # before reading the JAX model
+    jc = jax_online.config
+    cfg = OnlineMFConfig(**{f: getattr(jc, f) for f in
+                            OnlineMFConfig.__dataclass_fields__})
+    online = OnlineMF(cfg, user_initializer=user_initializer,
+                      item_initializer=item_initializer, device=device)
+    _adopt_table(online.users, jax_online.users, online.device)
+    _adopt_table(online.items, jax_online.items, online.device)
+    online.step = int(jax_online.step)
+    online.consumed_offsets = {int(k): int(v) for k, v in
+                               jax_online.consumed_offsets.items()}
+    return online

@@ -84,3 +84,17 @@ class FactorVector:
         object.__setattr__(
             self, "factors", np.asarray(self.factors, dtype=np.float32)
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class UserUpdate:
+    """One updated user vector of the online updates-only output."""
+
+    vector: FactorVector
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemUpdate:
+    """One updated item vector of the online updates-only output."""
+
+    vector: FactorVector

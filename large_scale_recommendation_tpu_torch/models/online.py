@@ -1,0 +1,271 @@
+"""Online (streaming) matrix factorization on growable tables (counterpart
+of ``large_scale_recommendation_tpu.models.online``).
+
+Each micro-batch is one gather → update → scatter pass
+(``ops.sgd.online_train``, torch ops on the tables' device) over the
+batch's ratings, on ``data.tables.GrowableFactorTable``s that register
+unseen ids on the way in. ``partial_fit`` returns the updates-only output:
+exactly the user and item vectors the batch touched.
+
+The serial path is ported. The concurrent-apply mode of the JAX package
+(snapshot/commit under a row-conflict gate) belongs with the streams
+slice: ``enable_concurrent_applies(True)`` raises ``NotImplementedError``.
+The JAX package's observability hooks (metrics, tracer, transfer ledger,
+event journal, contention lock) are not ported; ``watchdog`` is the one
+seam, ``None`` by default.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    PseudoRandomFactorInitializer,
+)
+from large_scale_recommendation_tpu_torch.core.limiter import ThroughputLimiter
+from large_scale_recommendation_tpu_torch.core.types import (
+    FactorVector,
+    ItemUpdate,
+    Ratings,
+    UserUpdate,
+)
+from large_scale_recommendation_tpu_torch.core.updaters import SGDUpdater
+from large_scale_recommendation_tpu_torch.data.blocking import flat_index
+from large_scale_recommendation_tpu_torch.data.tables import (
+    GrowableFactorTable,
+)
+from large_scale_recommendation_tpu_torch.models.mf import MFModel, masked_scores
+from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.utils.device import resolve_device
+from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
+
+
+@dataclasses.dataclass(frozen=True)
+class OnlineMFConfig:
+    """Defaults: plain unregularized SGD, one iteration per micro-batch,
+    rank 10."""
+
+    num_factors: int = 10
+    learning_rate: float = 0.01
+    iterations_per_batch: int = 1
+    minibatch_size: int = 256
+    init_capacity: int = 1024
+    init_scale: float = 0.1
+    collision_mode: str = "mean"  # minibatch row-collision handling (ops.sgd)
+
+
+class BatchUpdates:
+    """Updates-only output of one micro-batch: the touched vectors, as
+    arrays (ids int64[n], vectors float32[n, k]) from one bulk device pull
+    per side; the per-row ``UserUpdate``/``ItemUpdate`` objects are built
+    only when a consumer iterates them."""
+
+    def __init__(self, user_arrays: tuple[np.ndarray, np.ndarray],
+                 item_arrays: tuple[np.ndarray, np.ndarray]):
+        self.user_arrays = user_arrays
+        self.item_arrays = item_arrays
+        self._user_list = None
+        self._item_list = None
+
+    @property
+    def user_updates(self) -> list[UserUpdate]:
+        if self._user_list is None:
+            ids, vecs = self.user_arrays
+            self._user_list = [UserUpdate(FactorVector(int(i), vecs[j]))
+                               for j, i in enumerate(ids.tolist())]
+        return self._user_list
+
+    @property
+    def item_updates(self) -> list[ItemUpdate]:
+        if self._item_list is None:
+            ids, vecs = self.item_arrays
+            self._item_list = [ItemUpdate(FactorVector(int(i), vecs[j]))
+                               for j, i in enumerate(ids.tolist())]
+        return self._item_list
+
+    def __iter__(self):
+        yield from self.user_updates
+        yield from self.item_updates
+
+
+class OnlineMF:
+    """Streaming MF on growable tables: construct with pluggable
+    initializers and updater, then feed micro-batches (``partial_fit``) or
+    a paced stream (``run``). ``device=None`` runs on the card."""
+
+    def __init__(
+        self,
+        config: OnlineMFConfig | None = None,
+        updater: Any = None,
+        user_initializer: Any = None,
+        item_initializer: Any = None,
+        device=None,
+    ):
+        self.config = cfg = config or OnlineMFConfig()
+        self.device = resolve_device(device)
+        self.updater = updater or SGDUpdater(learning_rate=cfg.learning_rate)
+        init_u = user_initializer or PseudoRandomFactorInitializer(
+            cfg.num_factors, scale=cfg.init_scale)
+        init_v = item_initializer or PseudoRandomFactorInitializer(
+            cfg.num_factors, scale=cfg.init_scale)
+        self.users = GrowableFactorTable(init_u, capacity=cfg.init_capacity,
+                                         device=self.device)
+        self.items = GrowableFactorTable(init_v, capacity=cfg.init_capacity,
+                                         device=self.device)
+        self.step = 0
+        # stream position consumed, per partition: {partition: next
+        # unconsumed offset}; stamped by ``partial_fit(offset=...)`` and
+        # checkpointed with the tables (utils.checkpoint.save_online_state)
+        self.consumed_offsets: dict[int, int] = {}
+        # divergence guard: ``after_batch(model, U, V, u_rows, i_rows)``
+        # before the offset stamp; None = one pointer test per batch
+        self.watchdog = None
+
+    # -- training ----------------------------------------------------------
+
+    def enable_concurrent_applies(self, enabled: bool = True) -> None:
+        """The concurrent snapshot/commit apply path is not ported yet."""
+        if enabled:
+            raise NotImplementedError(
+                "concurrent applies are not ported yet (ROADMAP.md queue A: "
+                "streams); partial_fit runs the serial path")
+
+    @property
+    def concurrent_applies(self) -> bool:
+        return False
+
+    def partial_fit(self, batch: Ratings,
+                    iterations: int | None = None,
+                    emit_updates: bool = True,
+                    offset: tuple[int, int] | None = None,
+                    ) -> BatchUpdates | None:
+        """Apply one micro-batch; return the touched vectors.
+
+        ``emit_updates=False`` skips the updates-only output (returns
+        ``None``): ingest mode, for callers that read the tables instead.
+        ``offset=(partition, end_offset)`` stamps the batch's stream
+        position into ``consumed_offsets`` once the batch is applied (also
+        for an all-padding batch: the position advanced)."""
+        cfg = self.config
+        ru, ri, rv, rw = batch.to_numpy()
+        real = rw > 0
+        ru, ri, rv = ru[real], ri[real], rv[real]
+        if len(ru) == 0:
+            if offset is not None:
+                self.consumed_offsets[int(offset[0])] = int(offset[1])
+            none = (np.zeros(0, np.int64),
+                    np.zeros((0, cfg.num_factors), np.float32))
+            return BatchUpdates(none, none) if emit_updates else None
+
+        u_rows = self.users.acquire_rows(ru)
+        i_rows = self.items.acquire_rows(ri)
+        try:
+            staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
+                                             cfg.minibatch_size)
+            ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
+                               for a in staged)
+            U, V = sgd_ops.online_train(
+                self.users.array, self.items.array, ur, ir, vals, w,
+                updater=self.updater, minibatch=cfg.minibatch_size,
+                iterations=(iterations if iterations is not None
+                            else cfg.iterations_per_batch),
+                collision=cfg.collision_mode)
+            self.users.install_trained(U, u_rows)
+            self.items.install_trained(V, i_rows)
+        finally:
+            self.users.release_rows(u_rows)
+            self.items.release_rows(i_rows)
+        self.step += 1
+        if self.watchdog is not None:
+            # before the offset stamp: a tripped batch never claims its
+            # stream position
+            self.watchdog.after_batch(self, U, V, u_rows, i_rows)
+        if offset is not None:
+            self.consumed_offsets[int(offset[0])] = int(offset[1])
+        if not emit_updates:
+            return None
+
+        # one bulk gather of the touched rows per side, through a
+        # pow2-padded index (repeating row 0)
+        uniq_u, first_u = np.unique(ru, return_index=True)
+        uniq_i, first_i = np.unique(ri, return_index=True)
+
+        def gather(table, rows):
+            n = len(rows)
+            idx = np.zeros(pow2_pad(n), np.int64)
+            idx[:n] = rows
+            return table[torch.from_numpy(idx).to(self.device)].cpu() \
+                .numpy()[:n]
+
+        return BatchUpdates(
+            (uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
+            (uniq_i.astype(np.int64), gather(V, i_rows[first_i])))
+
+    def run(self, batches: Iterable[Ratings],
+            limiter: ThroughputLimiter | None = None,
+            ) -> Iterator[BatchUpdates]:
+        """Drive a paced stream of micro-batches through the model."""
+        for batch in batches:
+            if limiter is not None:
+                limiter.emit_batch_or_wait(int(batch.n))
+            yield self.partial_fit(batch)
+
+    # -- scoring -----------------------------------------------------------
+
+    def _rows(self, *arrays):
+        return [torch.as_tensor(np.asarray(a), device=self.device)
+                for a in arrays]
+
+    def predict(self, user_ids, item_ids, return_mask: bool = False):
+        """Score pairs against the live model; unseen ids score 0.
+        ``return_mask=True`` → ``(scores, seen)``."""
+        u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
+        i_rows, i_mask = self.items.rows_for(np.asarray(item_ids))
+        scores = sgd_ops.predict_rows(
+            self.users.full_table(), self.items.full_table(),
+            *self._rows(u_rows, i_rows)).cpu().numpy()
+        return masked_scores(scores, u_mask, i_mask, return_mask)
+
+    def rmse(self, data: Ratings) -> float:
+        ru, ri, rv, rw = data.to_numpy()
+        u_rows, u_mask = self.users.rows_for(ru)
+        i_rows, i_mask = self.items.rows_for(ri)
+        mask = (u_mask * i_mask * rw).astype(np.float32)
+        n = mask.sum()
+        if n == 0:
+            return float("nan")
+        sse = sgd_ops.sse_rows(self.users.full_table(),
+                               self.items.full_table(),
+                               *self._rows(u_rows, i_rows, rv, mask))
+        return float(np.sqrt(float(sse) / n))
+
+    # -- export ------------------------------------------------------------
+
+    def to_model(self) -> MFModel:
+        """The live state as a standard ``MFModel`` (copies of the rows seen
+        so far, on the model's device): serving, ranking quality and
+        ``save_mf_model`` for stream-trained factors. Rows ingested later do
+        not appear."""
+
+        def side(table):
+            n = table.num_rows
+            idx = flat_index(table.id_array(),
+                             sorted_pair=table.sorted_index())
+            if n == 0:  # flat_index's 1-row empty-vocab shape
+                return torch.zeros((1, table.rank), dtype=torch.float32,
+                                   device=self.device), idx
+            return table.full_table()[:n].clone(), idx
+
+        U, users = side(self.users)
+        V, items = side(self.items)
+        return MFModel(U=U, V=V, users=users, items=items)
+
+    def user_factors(self) -> dict[int, np.ndarray]:
+        return self.users.as_dict()
+
+    def item_factors(self) -> dict[int, np.ndarray]:
+        return self.items.as_dict()

@@ -14,15 +14,19 @@ The minibatch loop is a host loop over eager PyTorch ops. This is the route
 ``models.dsgd.DSGD.fit`` takes on the CPU, and the oracle the CUDA kernels
 (``ops.cuda_sgd``) are held against. It runs on any device the tensors lie
 on. Unlike the JAX package's pure functions, the sweeps update the tables
-in place: ``dsgd_train`` copies its input tables once and returns the
-trained copies.
+in place: ``dsgd_train`` and ``online_train`` copy their input tables once
+and return the trained copies. ``online_train`` is the online micro-batch
+route (``models.online``) on every device: the JAX package runs it in XLA.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
+
+from large_scale_recommendation_tpu_torch.utils.shapes import next_pow2
 
 
 def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
@@ -199,6 +203,51 @@ def dsgd_train(
             None if icv_f is None else icv_f[s],
         )
     return U.to(store), V.to(store)
+
+
+def online_train(
+    U: torch.Tensor,
+    V: torch.Tensor,
+    u_rows: torch.Tensor,  # int[e], e divisible by minibatch
+    i_rows: torch.Tensor,
+    values: torch.Tensor,
+    weights: torch.Tensor,
+    *,
+    updater: Any,
+    minibatch: int,
+    iterations: int = 1,
+    collision: str = "mean",
+    t0: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Online micro-batch update: sweep one micro-batch ``iterations``
+    times in minibatch chunks, without ω (regularized updaters fall back to
+    plain λ). Sweep ``s`` (0-based) runs at schedule step ``t = t0 + s + 1``.
+
+    The sweeps write in place, so this trains copies of ``U`` and ``V``
+    (one copy of each per call, as the JAX route pays): tables a caller
+    holds keep their values. Returns the trained copies."""
+    U, V = U.clone(), V.clone()
+    for s in range(iterations):
+        sgd_block_sweep(U, V, u_rows, i_rows, values, weights, None, None,
+                        updater, int(t0) + s + 1, minibatch, collision)
+    return U, V
+
+
+def pad_minibatches(u_rows, i_rows, values, minibatch: int):
+    """Pad COO arrays (numpy) with weight-0 no-op entries to a power-of-2
+    number of ``minibatch``-sized chunks: the divisibility contract of
+    ``online_train``. Returns fresh ``(ur, ir, vals, w)`` int32/int32/
+    float32/float32 numpy arrays of the padded length (fresh per call: a
+    tensor made with ``torch.from_numpy`` shares their memory)."""
+    n = len(u_rows)
+    n_mb = max(1, -(-n // minibatch))
+    padded = next_pow2(n_mb) * minibatch  # pow2 minibatch-count buckets
+    ur = np.zeros(padded, np.int32)
+    ir = np.zeros(padded, np.int32)
+    vals_out = np.zeros(padded, np.float32)
+    w = np.zeros(padded, np.float32)
+    ur[:n], ir[:n], vals_out[:n], w[:n] = u_rows, i_rows, values, 1.0
+    return ur, ir, vals_out, w
 
 
 def predict_rows(U: torch.Tensor, V: torch.Tensor, u_rows: torch.Tensor,

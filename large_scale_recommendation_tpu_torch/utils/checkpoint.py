@@ -215,3 +215,50 @@ def restore_mf_model(manager: CheckpointManager, step: int | None = None,
         users=index(ck["user_ids"], ck["user_omega"], ck["user_blocks"]),
         items=index(ck["item_ids"], ck["item_omega"], ck["item_blocks"]))
     return model, ck
+
+
+def snapshot_online_state(online) -> tuple[dict, dict]:
+    """One consistent ``(arrays, meta)`` view of an ``OnlineMF``: the id
+    layouts (host copies), the registered rows of both tables (views: the
+    tables are never written in place), the step and the consumed stream
+    offsets."""
+    u_ids = np.asarray(online.users.id_array(), dtype=np.int64)
+    i_ids = np.asarray(online.items.id_array(), dtype=np.int64)
+    meta = {"kind": "online_state", "step": int(online.step),
+            "offsets": {str(k): int(v)
+                        for k, v in online.consumed_offsets.items()}}
+    arrays = {"user_ids": u_ids, "item_ids": i_ids,
+              "U": online.users.snapshot_rows(len(u_ids)),
+              "V": online.items.snapshot_rows(len(i_ids))}
+    return arrays, meta
+
+
+def save_online_state(manager: CheckpointManager, online, step: int,
+                      extra_meta: dict | None = None) -> str:
+    """Snapshot an ``OnlineMF``'s tables (ids + factors) with its step and
+    consumed stream offsets, in one file: factors and stream position are
+    one atomic snapshot. JSON makes the offset keys strings; restore
+    converts them back."""
+    arrays, meta = snapshot_online_state(online)
+    meta.update(extra_meta or {})
+    return manager.save(step, arrays, meta)
+
+
+def restore_online_state(manager: CheckpointManager, online,
+                         step: int | None = None) -> Checkpoint:
+    """Load a snapshot into an ``OnlineMF``: ids are registered in saved
+    order (so rows are assigned as they were), then the saved rows are
+    written, on the model's device; step and offsets are restored. Returns
+    the ``Checkpoint``."""
+    ck = manager.restore(step)
+    for key_ids, key_arr, table in (("user_ids", "U", online.users),
+                                    ("item_ids", "V", online.items)):
+        ids = ck[key_ids]
+        if len(ids) == 0:
+            continue
+        rows = table.ensure(ids)
+        table.load_rows(rows, ck[key_arr])
+    online.step = int(ck.meta.get("step", 0))
+    online.consumed_offsets = {
+        int(k): int(v) for k, v in ck.meta.get("offsets", {}).items()}
+    return ck

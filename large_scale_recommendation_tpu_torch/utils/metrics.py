@@ -1,5 +1,7 @@
 """Full-catalog ranking: top-K serving and HR@K / NDCG@K (counterpart of the
-ranking part of ``large_scale_recommendation_tpu.utils.metrics``).
+ranking part of ``large_scale_recommendation_tpu.utils.metrics``), and the
+sampled-negatives HR/NDCG and catalog coverage of
+``large_scale_recommendation_tpu.obs.quality``.
 
 The JAX package leaves this to XLA, so the port uses ordinary torch ops on
 the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
@@ -26,6 +28,8 @@ import contextlib
 
 import numpy as np
 import torch
+
+from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
 
 # The top-K dead-slot sentinel contract shared by every scoring surface:
 # excluded/masked catalog slots get DEAD_SLOT_OFFSET (scatter-min for
@@ -169,3 +173,105 @@ def top_k_recommend(U, V, user_rows, k: int = 10,
             out_rows[c0:c0 + c, :kk] = idx.cpu().numpy()
             out_scores[c0:c0 + c, :kk] = top.cpu().numpy()
     return out_rows, out_scores
+
+
+def sampled_ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
+                            num_negatives: int = 100,
+                            train_u=None, train_i=None, item_mask=None,
+                            seed: int = 0, chunk: int = 1024) -> dict:
+    """HR@K / NDCG@K of held-out positives against sampled negatives.
+
+    Each ``(eval_u, eval_i)`` pair (ROW indices into the torch tables
+    ``U``/``V``) is one positive; ``num_negatives`` item rows are drawn
+    uniformly from the real catalog (``item_mask`` True rows); negatives
+    equal to the positive or train-seen by that user (``train_u``/
+    ``train_i``) are masked out of the comparison, and the positive's rank
+    r among the rest scores HR = 1[r < K], NDCG = 1/log2(r+2). A random
+    model scores HR ≈ k/(n+1).
+
+    The negatives come from ``np.random.default_rng(seed)`` in chunks of
+    the JAX package's padded size, so both packages rank against the same
+    draws. Returns ``{"hr", "ndcg", "n", "num_negatives",
+    "valid_negatives"}`` (means over pairs; ``valid_negatives`` is the
+    mean surviving pool size)."""
+    eval_u = np.asarray(eval_u)
+    eval_i = np.asarray(eval_i, dtype=np.int64)
+    n = len(eval_u)
+    empty = {"hr": float("nan"), "ndcg": float("nan"), "n": 0,
+             "num_negatives": int(num_negatives),
+             "valid_negatives": float("nan")}
+    if n == 0:
+        return empty
+    n_rows = int(V.shape[0])
+    if item_mask is not None:
+        pool = np.nonzero(np.asarray(item_mask))[0].astype(np.int64)
+    else:
+        pool = np.arange(n_rows, dtype=np.int64)
+    if len(pool) == 0:
+        return empty
+
+    # train-seen membership via one sorted (user, item) key array
+    train_keys = None
+    if train_u is not None and len(np.asarray(train_u)):
+        tu = np.asarray(train_u, dtype=np.int64)
+        ti = np.asarray(train_i, dtype=np.int64)
+        train_keys = np.sort(tu * n_rows + ti)
+
+    rng = np.random.default_rng(seed)
+    dev = U.device
+    hits = ndcg = valid_total = 0.0
+    # the JAX package's fixed chunk shape (the draws depend on it)
+    chunk = min(chunk, pow2_pad(max(1, n)))
+    with _ieee_f32():
+        for c0 in range(0, n, chunk):
+            cu = eval_u[c0:c0 + chunk]
+            ci = eval_i[c0:c0 + chunk]
+            c = len(cu)
+            if c < chunk:  # pad the tail chunk to the fixed shape
+                cu = np.concatenate([cu, np.zeros(chunk - c, cu.dtype)])
+                ci = np.concatenate([ci, np.zeros(chunk - c, ci.dtype)])
+            neg = pool[rng.integers(0, len(pool), (chunk, num_negatives))]
+            valid = neg != ci[:, None]
+            if train_keys is not None:
+                keys = (cu[:, None].astype(np.int64) * n_rows + neg).ravel()
+                pos = np.searchsorted(train_keys, keys)
+                pos_c = np.minimum(pos, len(train_keys) - 1)
+                seen = (train_keys[pos_c] == keys).reshape(chunk,
+                                                           num_negatives)
+                valid &= ~seen
+            valid_total += float(valid[:c].sum())
+            u_rows = U[torch.as_tensor(cu[:c], device=dev)].float()
+            v_pos = V[torch.as_tensor(ci[:c], device=dev)].float()
+            v_neg = V[torch.as_tensor(neg[:c], device=dev)].float()
+            p = (u_rows * v_pos).sum(dim=1)
+            sn = torch.bmm(v_neg, u_rows[:, :, None])[..., 0]
+            ok = torch.as_tensor(valid[:c], device=dev)
+            rank = ((sn > p[:, None]) & ok).sum(dim=1)
+            hit = rank < k
+            nd = torch.where(hit, 1.0 / torch.log2(rank.float() + 2.0),
+                             torch.zeros((), device=dev))
+            hits += float(hit.sum())
+            ndcg += float(nd.double().sum())
+    return {"hr": hits / n, "ndcg": ndcg / n, "n": n,
+            "num_negatives": int(num_negatives),
+            "valid_negatives": valid_total / n}
+
+
+def catalog_coverage(U, V, user_rows, k: int = 10, train_u=None,
+                     train_i=None, item_mask=None,
+                     chunk: int = 2048) -> float:
+    """Fraction of the real catalog surfaced across the top-k lists of
+    ``user_rows`` (``top_k_recommend``, so coverage measures what users
+    would be shown)."""
+    user_rows = np.asarray(user_rows)
+    if item_mask is not None:
+        n_items = int(np.asarray(item_mask).sum())
+    else:
+        n_items = int(V.shape[0])
+    if len(user_rows) == 0 or n_items == 0:
+        return float("nan")
+    rows, scores = top_k_recommend(U, V, user_rows, k=k, train_u=train_u,
+                                   train_i=train_i, chunk=chunk,
+                                   item_mask=item_mask)
+    real = scores > DEAD_SLOT_THRESHOLD  # dead/below-catalog slots out
+    return float(len(np.unique(rows[real])) / n_items)

@@ -323,3 +323,119 @@ def test_bf16_round_trip_needs_no_ml_dtypes(tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "ok"
+
+
+# -- online state ------------------------------------------------------------
+
+
+def _online_pair():
+    """A JAX and a port ``OnlineMF`` fed the same 3 batches (the port
+    carried across from the JAX model after the first), with offsets."""
+    from large_scale_recommendation_tpu.models.online import (
+        OnlineMF as JOnline,
+    )
+    from large_scale_recommendation_tpu.models.online import (
+        OnlineMFConfig as JOnlineConfig,
+    )
+    from large_scale_recommendation_tpu_torch import convert
+
+    gen = SyntheticMFGenerator(num_users=300, num_items=120, rank=3,
+                               noise=0.1, seed=5, skew_lam=2.0)
+    batches = [gen.generate(400) for _ in range(3)]
+    j = JOnline(JOnlineConfig(num_factors=6, learning_rate=0.05,
+                              minibatch_size=64, init_capacity=16))
+    j.partial_fit(batches[0], offset=(0, 400))
+    p = convert.online_from_jax(j, device="cpu")
+    for k, b in enumerate(batches[1:]):
+        j.partial_fit(b, offset=(1, 10 * (k + 1)))
+        p.partial_fit(Ratings.from_arrays(*b.to_numpy()),
+                      offset=(1, 10 * (k + 1)))
+    return j, p
+
+
+def _fresh_port():
+    from large_scale_recommendation_tpu_torch.models.online import (
+        OnlineMF,
+        OnlineMFConfig,
+    )
+
+    return OnlineMF(OnlineMFConfig(num_factors=6, learning_rate=0.05,
+                                   minibatch_size=64, init_capacity=16),
+                    device="cpu")
+
+
+def _fresh_jax():
+    from large_scale_recommendation_tpu.models.online import (
+        OnlineMF as JOnline,
+    )
+    from large_scale_recommendation_tpu.models.online import (
+        OnlineMFConfig as JOnlineConfig,
+    )
+
+    return JOnline(JOnlineConfig(num_factors=6, learning_rate=0.05,
+                                 minibatch_size=64, init_capacity=16))
+
+
+def _assert_same_online(a, b):
+    """Ids in row order equal; registered rows bit-equal; step and offsets
+    equal (either package on either side)."""
+    for ta, tb in ((a.users, b.users), (a.items, b.items)):
+        np.testing.assert_array_equal(ta.id_array(), tb.id_array())
+        n = ta.num_rows
+
+        def rows(t):
+            arr = t.array[:n]
+            return arr.numpy() if isinstance(arr, torch.Tensor) \
+                else np.asarray(arr)
+
+        np.testing.assert_array_equal(rows(ta), rows(tb))
+    assert a.step == b.step
+    assert a.consumed_offsets == b.consumed_offsets
+
+
+def test_online_state_round_trip_in_the_port(tmp_path):
+    _, p = _online_pair()
+    m = ckpt.CheckpointManager(str(tmp_path))
+    path = ckpt.save_online_state(m, p, 3, extra_meta={"note": "x"})
+    assert os.path.basename(path) == "ckpt_3.npz"
+    q = _fresh_port()
+    ck = ckpt.restore_online_state(m, q)
+    assert ck.meta["kind"] == "online_state" and ck.meta["note"] == "x"
+    assert ck.meta["offsets"] == {"0": 400, "1": 20}
+    _assert_same_online(q, p)
+    assert q.consumed_offsets == {0: 400, 1: 20} and q.step == 3
+    arrays, meta = ckpt.snapshot_online_state(p)
+    assert sorted(arrays) == ["U", "V", "item_ids", "user_ids"]
+    assert meta["step"] == 3
+    # a restored model trains on exactly as the saved one
+    b = SyntheticMFGenerator(num_users=300, num_items=120, rank=3, seed=8,
+                             noise=0.1).generate(300)
+    rb = Ratings.from_arrays(*b.to_numpy())
+    p.partial_fit(rb)
+    q.partial_fit(rb)
+    assert torch.equal(p.users.array[:p.users.num_rows],
+                       q.users.array[:q.users.num_rows])
+
+
+def test_online_state_jax_written_restores_in_the_port(tmp_path):
+    j, _ = _online_pair()
+    jckpt.save_online_state(jckpt.CheckpointManager(str(tmp_path)), j, 5)
+    q = _fresh_port()
+    ckpt.restore_online_state(ckpt.CheckpointManager(str(tmp_path)), q)
+    _assert_same_online(q, j)
+
+
+def test_online_state_port_written_restores_in_jax(tmp_path):
+    _, p = _online_pair()
+    ckpt.save_online_state(ckpt.CheckpointManager(str(tmp_path)), p, 5)
+    jq = _fresh_jax()
+    jckpt.restore_online_state(jckpt.CheckpointManager(str(tmp_path)), jq)
+    _assert_same_online(jq, p)
+
+
+def test_online_state_of_an_empty_model(tmp_path):
+    m = ckpt.CheckpointManager(str(tmp_path))
+    ckpt.save_online_state(m, _fresh_port(), 1)
+    q = _fresh_port()
+    ckpt.restore_online_state(m, q)
+    assert q.users.num_rows == 0 and q.step == 0 and q.consumed_offsets == {}

@@ -468,3 +468,132 @@ def test_bf16_checkpoint_round_trip_from_card(dev, tmp_path):
     assert ck.meta["rank"] == 64
     np.testing.assert_array_equal(back.predict(test.users, test.items),
                                   model.predict(test.users, test.items))
+
+
+# -- ALS and online MF on the card (torch ops; no kernel of their own) ------
+
+
+def _als_data(n=30_000, users=900, items=500, seed=12):
+    gen = SyntheticMFGenerator(num_users=users, num_items=items, rank=4,
+                               noise=0.05, seed=seed, skew_lam=2.0)
+    return gen.generate(n), gen.generate(3_000)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_als_device_plan_and_half_step_on_card_match_cpu(dev, implicit):
+    """Device plans on the card bit-equal to the CPU's; one rank-64
+    half-step within rtol 2e-4 / atol 2e-5 (implicit: 3e-3 / 3e-4)."""
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    train, _ = _als_data()
+    u, i, r, _ = train.to_numpy()
+    if implicit:
+        r = np.abs(r)
+    plans = {}
+    for d in ("cpu", dev):
+        p = als_ops.device_prepare_side(
+            torch.as_tensor(u, device=d), torch.as_tensor(i, device=d),
+            torch.as_tensor(r, device=d), 900, rank_for_chunking=64)
+        plans[str(d)] = (als_ops.implicit_prepared(p, 2.0) if implicit
+                         else p)
+    for bc, bg in zip(plans["cpu"], plans[str(dev)]):
+        for a, b in zip(bc, bg):
+            assert torch.equal(a, b.cpu())
+    F = keyed_uniform_rows(torch.arange(500), 64, 0.1)
+    G = F.T @ F if implicit else None
+    want = als_ops.solve_side(F, plans["cpu"], 900, 0.05, G)
+    got = als_ops.solve_side(F.to(dev), plans[str(dev)], 900, 0.05,
+                             None if G is None else G.to(dev))
+    tol = dict(rtol=3e-3, atol=3e-4) if implicit else dict(rtol=2e-4,
+                                                           atol=2e-5)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    got16 = als_ops.solve_side(F.to(dev), plans[str(dev)], 900, 0.05,
+                               None if G is None else G.to(dev),
+                               dtype=torch.bfloat16)
+    assert (got16 - got).abs().max() <= 0.05 * got.abs().max()
+
+
+@pytest.mark.parametrize("path", ["fit", "fit_device"])
+def test_als_fit_on_card_matches_cpu(dev, path):
+    """The keyed init is bit-equal on the card and the CPU, so the two fits
+    start alike: tables within rtol 2e-3 / atol 2e-4, RMSE within 1e-4;
+    one CUDA-event time per round on the card."""
+    from large_scale_recommendation_tpu_torch.models.als import (
+        ALS,
+        ALSConfig,
+    )
+
+    train, test = _als_data()
+    cfg = ALSConfig(num_factors=8, lambda_=0.1, iterations=3)
+    u, i, r, _ = train.to_numpy()
+    models = {}
+    for d in ("cpu", None):
+        solver = ALS(cfg, device=d)
+        models[d] = (solver.fit(train) if path == "fit"
+                     else solver.fit_device(u, i, r, 900, 500))
+        assert len(solver.round_ms) == (3 if d is None else 0)
+    card, cpu = models[None], models["cpu"]
+    assert card.U.device.type == "cuda"
+    np.testing.assert_array_equal(card.users.ids, cpu.users.ids)
+    torch.testing.assert_close(card.U.cpu(), cpu.U, rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(card.V.cpu(), cpu.V, rtol=2e-3, atol=2e-4)
+    assert abs(card.rmse(test) - cpu.rmse(test)) <= 1e-4
+    assert card.rmse(test) < 0.2  # 0.165 on the CPU
+
+
+def test_sampled_metrics_on_card_match_cpu(dev):
+    from large_scale_recommendation_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(0)
+    U = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32))
+    V = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32))
+    eu, ei = rng.integers(0, 300, 900), rng.integers(0, 200, 900)
+    tu, ti = rng.integers(0, 300, 4000), rng.integers(0, 200, 4000)
+    kw = dict(k=10, num_negatives=100, train_u=tu, train_i=ti, seed=7)
+    got = metrics.sampled_ranking_metrics(U.to(dev), V.to(dev), eu, ei, **kw)
+    want = metrics.sampled_ranking_metrics(U, V, eu, ei, **kw)
+    assert abs(got["hr"] - want["hr"]) <= 1e-5
+    assert abs(got["ndcg"] - want["ndcg"]) <= 1e-5
+    assert got["valid_negatives"] == want["valid_negatives"]
+    users = np.unique(eu)[:128]
+    assert abs(metrics.catalog_coverage(U.to(dev), V.to(dev), users)
+               - metrics.catalog_coverage(U, V, users)) <= 1e-2
+
+
+def test_online_on_card_matches_cpu_and_restores_bit_equal(dev, tmp_path):
+    """Four batches on the card and the CPU from the same keyed init: ids →
+    rows equal, tables within rtol 1e-4 / atol 1e-5 after each; a card
+    snapshot restores bit-equal, on the CPU and on the card."""
+    from large_scale_recommendation_tpu_torch.models.online import (
+        OnlineMF,
+        OnlineMFConfig,
+    )
+    from large_scale_recommendation_tpu_torch.utils import checkpoint
+
+    gen = SyntheticMFGenerator(num_users=5000, num_items=700, rank=4,
+                               noise=0.1, seed=3, skew_lam=2.0)
+    cfg = OnlineMFConfig(num_factors=64, learning_rate=0.05,
+                         minibatch_size=1024, init_capacity=1024)
+    card, cpu = OnlineMF(cfg), OnlineMF(cfg, device="cpu")
+    assert card.users.array.device.type == "cuda"
+    for n in range(4):
+        b = gen.generate(6000)
+        ups = card.partial_fit(b, offset=(0, n))
+        cpu_ups = cpu.partial_fit(b, offset=(0, n))
+        np.testing.assert_array_equal(ups.user_arrays[0],
+                                      cpu_ups.user_arrays[0])
+        for a, c in ((card.users, cpu.users), (card.items, cpu.items)):
+            assert a.capacity == c.capacity
+            np.testing.assert_array_equal(a.id_array(), c.id_array())
+            torch.testing.assert_close(a.array.cpu(), c.array, rtol=1e-4,
+                                       atol=1e-5)
+    m = checkpoint.CheckpointManager(str(tmp_path))
+    checkpoint.save_online_state(m, card, 4)
+    for d in ("cpu", None):
+        back = OnlineMF(cfg, device=d)
+        checkpoint.restore_online_state(m, back)
+        assert back.step == 4 and back.consumed_offsets == {0: 3}
+        for a, c in ((back.users, card.users), (back.items, card.items)):
+            np.testing.assert_array_equal(a.id_array(), c.id_array())
+            assert torch.equal(a.array[:a.num_rows].cpu(),
+                               c.array[:c.num_rows].cpu())

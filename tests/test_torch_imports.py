@@ -33,7 +33,8 @@ def test_port_has_the_slice_modules():
               "data.blocking", "data.device_blocking", "data.movielens",
               "ops.sgd", "ops.cuda_sgd", "ops._build", "models.mf",
               "models.dsgd", "utils.device", "convert", "utils.metrics",
-              "utils.checkpoint", "utils.config", "core.limiter"):
+              "utils.checkpoint", "utils.config", "core.limiter",
+              "ops.als", "models.als", "data.tables", "models.online"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -81,15 +82,22 @@ def test_ast_finds_no_jax_import(path):
 
 
 def test_default_device_is_the_card(monkeypatch):
+    from large_scale_recommendation_tpu_torch import convert
+    from large_scale_recommendation_tpu_torch.models.als import ALS
     from large_scale_recommendation_tpu_torch.models.dsgd import (
         DSGD,
         DSGDConfig,
         resolve_device,
     )
+    from large_scale_recommendation_tpu_torch.models.online import OnlineMF
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        DSGD(DSGDConfig())
+    for entry in (lambda: DSGD(DSGDConfig()), ALS, OnlineMF,
+                  lambda: als_ops.device_prepare_side([0], [0], [1.0], 1),
+                  lambda: convert.online_from_jax(None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     with pytest.raises(RuntimeError):
         DSGD(DSGDConfig(), device="cuda")
     assert DSGD(DSGDConfig(), device="cpu").device.type == "cpu"
