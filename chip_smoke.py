@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's DSGD training, serving and evaluation paths, ALS
-and online MF on one NVIDIA GPU (an H100).
+"""Run the PyTorch port's DSGD training, serving and evaluation paths, ALS,
+online MF and the serving engine on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -90,6 +90,26 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               a fresh model; one batch split into its host and device
               parts; one updates-emitting batch of 20,000.
               The ALS and online paths launch none of the four kernels.
+14. serve.engine — ``ServingEngine`` on the trained ``fit`` model: the
+              16,384 users of [serve] in seeded requests of 1–32 users,
+              max_batch 1,024 (users/s, flush p50/p99, buckets, shapes, the
+              share of the bound beside [serve]'s); lists equal to
+              ``model.recommend``'s (tie-aware) and the CPU engine's for
+              256 users; ``train=`` serves no train item; a flush of 8
+              micro-batches of 1,024 rows in host staging and device
+              scoring per micro-batch beside its walls;
+              the bf16 engine within 2e-2; the flat int8 two-stage engine
+              recall@10 ≥ 0.95; ``apply_delta`` of 1,024 item rows equal to
+              a fresh engine (codes bit-equal). ``[serve.admission]``: an
+              unmeetable SLO target climbs the ladder to ``degrade``
+              (results flagged) and, with default thresholds, to ``shed``
+              (``serve`` returns each rejection in its request's place);
+15. serve.two_stage — SERVING_r03.json's geometry on the card (20,000 ×
+              1,048,576, rank 64, 512 clusters, 16 probes): build wall,
+              index, fast and exact users/s, recall@10 ≥ 0.95, one
+              256-row bucket split into routing, probes, overflow, top-kc
+              and stage 2 beside their bounds. No serving path launches a
+              DSGD kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -124,6 +144,7 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
 )
 from large_scale_recommendation_tpu_torch.data import blocking
 from large_scale_recommendation_tpu_torch.data import device_blocking
+from large_scale_recommendation_tpu_torch.data.blocking import flat_index
 from large_scale_recommendation_tpu_torch.data.movielens import synthetic_like
 from large_scale_recommendation_tpu_torch.models.als import ALS, ALSConfig
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
@@ -135,6 +156,17 @@ from large_scale_recommendation_tpu_torch.models.online import (
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
+from large_scale_recommendation_tpu_torch.parallel import serving as psrv
+from large_scale_recommendation_tpu_torch.serving import (
+    AdmissionConfig,
+    AdmissionController,
+    AdmissionRejectedError,
+    RetrievalConfig,
+    ServingEngine,
+    recall_at_k,
+)
+from large_scale_recommendation_tpu_torch.serving import retrieval as ret_ops
 from large_scale_recommendation_tpu_torch.utils import metrics
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -668,9 +700,11 @@ def run(scratch: str) -> int:
         resume=True))
     cpu_model = MFModel(U=model.U.cpu(), V=model.V.cpu(), users=model.users,
                         items=model.items)
-    phase_serve(model, cpu_model, train)
+    serve_share = phase_serve(model, cpu_model, train)
+    phase_serve_engine(model, cpu_model, train, serve_share)
     phase_eval(model, cpu_model, train, holdout)
     del train, holdout, model, solver, cpu_model
+    phase_serve_two_stage(dev)
 
     device_runs, (Ud, Vd) = phase_device(dev, cfg, scratch)
     paths = {"fit": launches, **device_runs}
@@ -859,12 +893,7 @@ def phase_serve(model, cpu_model, train):
                              f"{differ} of {compared} ids differ")
     sub = users[:SERVE_WARM]
     ex_ids, _ = model.recommend(sub, k=SERVE_K, train=train)
-    tu, ti = train.users.astype(np.int64), train.items.astype(np.int64)
-    mine = np.isin(tu, sub)
-    seen = tu[mine] * (1 << 32) + ti[mine]
-    served = (np.repeat(sub.astype(np.int64), SERVE_K) * (1 << 32)
-              + ex_ids.reshape(-1))
-    leaked = int(np.isin(served, seen).sum())
+    leaked, mine = train_items_served(train, sub, ex_ids)
     if leaked or (ex_ids < 0).any():
         raise AssertionError(f"recommend(train=): {leaked} train items "
                              "served")
@@ -890,7 +919,19 @@ def phase_serve(model, cpu_model, train):
         share_of_bound=bound_ms / 1e3 / wall,
         cpu_256_max_score_diff=diff, cpu_256_ids_compared=compared,
         cpu_256_ids_differ=differ, excluded_users=len(sub),
-        train_pairs_of_them=int(mine.sum()), train_items_served=leaked)
+        train_pairs_of_them=mine, train_items_served=leaked)
+    return bound_ms / 1e3 / wall
+
+
+def train_items_served(train, users, ids):
+    """(train pairs of ``users`` found in their served lists ``ids``, the
+    number of train pairs those users have)."""
+    tu, ti = train.users.astype(np.int64), train.items.astype(np.int64)
+    mine = np.isin(tu, users)
+    seen = tu[mine] * (1 << 32) + ti[mine]
+    served = (np.repeat(users.astype(np.int64), ids.shape[1]) * (1 << 32)
+              + ids.reshape(-1))
+    return int(np.isin(served, seen).sum()), int(mine.sum())
 
 
 def phase_eval(model, cpu_model, train, holdout):
@@ -922,6 +963,433 @@ def phase_eval(model, cpu_model, train, holdout):
                                  f"CPU {cpu}")
     say("eval", pairs=q["n"], k=SERVE_K, hr=q["hr"], ndcg=q["ndcg"],
         wall_s=wall, **both)
+
+
+# -- the serving engine (no kernel of its own: torch ops on the card) -------
+
+SERVE_REQ_MAX, SERVE_MAX_BATCH = 32, 1024  # scripts/serving_bench.py:382
+# SERVING_r03.json's geometry and index (serving_bench.py:382-409)
+TWO_STAGE = dict(num_users=20_000, num_items=1_048_576, rank=64,
+                 n_centers=256, seed=0)
+TWO_STAGE_CFG = dict(overfetch=4, n_clusters=512, n_probe=16,
+                     kmeans_sample=65536, seed=0)
+TWO_STAGE_REQUESTS, RECALL_USERS, RECALL_MIN = 400, 256, 0.95
+BF16_SCORE_TOL = 2e-2  # tests/test_serving_engine.py:137
+DELTA_ROWS, OVERLAP_CHUNKS = 1024, 8
+
+
+def cut_requests(users, rng, req_max=SERVE_REQ_MAX):
+    """``users`` cut in order into requests of 1..``req_max`` users."""
+    out, i = [], 0
+    while i < len(users):
+        n = int(rng.integers(1, req_max + 1))
+        out.append(users[i:i + n])
+        i += n
+    return out
+
+
+def served(results):
+    """Per-request (ids, scores) results stacked row-wise."""
+    return (np.concatenate([r[0] for r in results]),
+            np.concatenate([r[1] for r in results]))
+
+
+def best_serve(eng, requests, reps=2):
+    """A warm pass, then the best of ``reps`` passes of ``eng.serve``
+    (results are host arrays: each pass is synchronized). Returns (the
+    last pass's results, best users/s, every flush wall of the timed
+    passes)."""
+    eng.serve(requests)
+    walls, flush = [], eng.flush
+
+    def timed_flush(return_mask=False):
+        t0 = time.perf_counter()
+        out = flush(return_mask=return_mask)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    eng.flush = timed_flush
+    rows, best = sum(len(r) for r in requests), 0.0
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.serve(requests)
+            best = max(best, rows / (time.perf_counter() - t0))
+    finally:
+        del eng.flush  # the method again
+    return out, best, walls
+
+
+def ms_quantiles(walls):
+    return {"flush_ms_p50": float(np.percentile(walls, 50)) * 1e3,
+            "flush_ms_p99": float(np.percentile(walls, 99)) * 1e3}
+
+
+def check_topk(label, ids, scores, ids_ref, scores_ref):
+    """``topk_mismatches`` as a check; returns (diff, compared, differ)."""
+    out = topk_mismatches(ids, scores, ids_ref, scores_ref)
+    if out[0] > SCORE_TOL * max(1.0, float(np.abs(scores_ref).max())) \
+            or out[2]:
+        raise AssertionError(f"{label}: score diff {out[0]}, {out[2]} of "
+                             f"{out[1]} ids differ")
+    return out
+
+
+def pipeline_overlap(eng, users):
+    """The two-deep pipeline on one flush of ``OVERLAP_CHUNKS`` micro-batches
+    of 1,024 rows, in parts: per micro-batch the host's staging (exclusion
+    build, pinned copies, gather dispatch; host clock, no sync) and the
+    device's scoring (CUDA events), beside the flush's synced wall, the
+    part of it inside ``_serve_rows`` (the pipeline), and the wall of a
+    one-micro-batch flush."""
+    dev, cat = eng._device, eng._catalog
+    n, reps = OVERLAP_CHUNKS, 3
+    sub = users[:n * SERVE_MAX_BATCH]
+    rows = eng.model.users.rows_for(sub)[0]
+    host, device = [], []
+    for i in range(n):
+        cu = rows[i * SERVE_MAX_BATCH:(i + 1) * SERVE_MAX_BATCH]
+
+        def stage():
+            excl = tuple(psrv.to_device(a, dev) for a in eng._build_excl(
+                cu, len(cu)))
+            return excl, eng._U.index_select(0, psrv.to_device(cu, dev))
+
+        stage()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            excl, U_chunk = stage()
+        host.append((time.perf_counter() - t0) / reps * 1e3)
+        torch.cuda.synchronize()
+        device.append(cuda_ms(lambda: psrv.topk_step(
+            U_chunk, cat.V_sh, cat.w_sh, *excl, k_out=eng._k_out), reps=reps))
+    eng.recommend(sub)
+    flush_ms = timed(lambda: eng.recommend(sub))[1] * 1e3
+    pipe_ms = timed(lambda: eng._serve_rows(rows))[1] * 1e3
+    one = sub[:SERVE_MAX_BATCH]
+    one_ms = timed(lambda: eng.recommend(one))[1] * 1e3
+    return {"chunk_rows": SERVE_MAX_BATCH,
+            "chunk_host_ms": host, "chunk_device_ms": device,
+            "flush_1_chunk_ms": one_ms,
+            "flush_1_serial_ms": host[0] + device[0],
+            f"flush_{n}_chunks_ms": flush_ms,
+            f"flush_{n}_pipeline_ms": pipe_ms,
+            f"flush_{n}_serial_ms": sum(host) + sum(device),
+            # two deep: micro-batch i's scoring hides under i+1's staging
+            f"flush_{n}_overlapped_ms": host[0] + max(sum(host[1:]),
+                                                      sum(device[:-1]))
+            + device[-1]}
+
+
+def check_bf16(model, requests, ids32, scores32):
+    """The bf16 engine against the f32 one (test_bf16_catalog_parity's
+    bound): scores within 2e-2 (rtol and atol) position by position, and
+    the id sets equal except for users whose f32 10th and 11th scores lie
+    within twice that of each other (where a swap at the boundary is
+    within the bound)."""
+    eng = ServingEngine(model, k=SERVE_K, max_batch=SERVE_MAX_BATCH,
+                        dtype="bfloat16")
+    ids16, scores16 = served(eng.serve(requests))
+    users = np.concatenate(requests)
+    _, s11 = model.recommend(users, k=SERVE_K + 1)
+    tol = BF16_SCORE_TOL * np.maximum(1.0, np.abs(s11[:, SERVE_K - 1]))
+    near = s11[:, SERVE_K - 1] - s11[:, SERVE_K] <= 2 * tol
+    differ = np.array([set(a) != set(b) for a, b in zip(ids32, ids16)])
+    close = np.abs(scores16 - scores32) <= BF16_SCORE_TOL * (
+        1 + np.abs(scores32))
+    if (differ & ~near).any() or not close.all():
+        raise AssertionError(
+            f"bf16 engine: {int((differ & ~near).sum())} users' id sets "
+            f"differ away from a near-tie; scores beyond 2e-2: "
+            f"{int((~close).sum())}")
+    return {"bf16_sets_differ": int(differ.sum()),
+            "bf16_sets_differ_at_near_ties": int((differ & near).sum()),
+            "bf16_max_score_diff": float(np.abs(scores16 - scores32).max())}
+
+
+def check_delta(model, users):
+    """``apply_delta`` of ``DELTA_ROWS`` item rows on a flat two-stage
+    engine against a fresh engine over the patched model: int8 codes,
+    scales and the f32 rescore table bit-equal, served lists equal."""
+    rng = np.random.default_rng(3)
+    dmodel = dataclasses.replace(model)  # the fit model keeps its tables
+    eng = ServingEngine(dmodel, k=SERVE_K, retrieval=RetrievalConfig(),
+                        max_batch=SERVE_MAX_BATCH)
+    v0 = eng.version
+    rows = rng.choice(model.V.shape[0], DELTA_ROWS, replace=False)
+    vals = rng.normal(0, 0.1, (DELTA_ROWS, model.rank)).astype(np.float32)
+    v1, wall = timed(lambda: eng.apply_delta(item_rows=rows, V_rows=vals))
+    fresh = ServingEngine(dmodel, k=SERVE_K, retrieval=RetrievalConfig(),
+                          max_batch=SERVE_MAX_BATCH)
+    a, b = eng.retriever, fresh.retriever
+    same = (torch.equal(a.catalog.q, b.catalog.q)
+            and torch.equal(a.catalog.scale, b.catalog.scale)
+            and torch.equal(a.V, b.V) and not torch.equal(model.V, dmodel.V))
+    ra, rb = eng.recommend(users), fresh.recommend(users)
+    if not (same and v1 != v0 and np.array_equal(ra[0], rb[0])
+            and np.array_equal(ra[1], rb[1])):
+        raise AssertionError("apply_delta differs from a fresh engine over "
+                             "the patched model")
+    return {"delta_rows": DELTA_ROWS, "delta_wall_s": wall,
+            "delta_codes_bit_equal": True, "delta_lists_equal": True}
+
+
+def phase_serve_engine(model, cpu_model, train, serve_share):
+    """``[serve.engine]`` on the trained ``fit`` model: the exact f32
+    ``ServingEngine`` (max_batch 1,024, k 10) serves the 16,384 users of
+    ``[serve]`` cut into seeded requests of 1–32 users (run_traffic's
+    shape); its lists must equal ``model.recommend``'s (tie-aware) and the
+    CPU engine's for 256 users; with ``train=`` no train item may be
+    served; the bf16 engine holds the 2e-2 bound, the flat two-stage
+    engine recall@10 ≥ 0.95, a delta swap equals a fresh engine. Then
+    ``[serve.admission]`` on the flat engine."""
+    users = model.users.sorted_ids[:SERVE_USERS]
+    requests = cut_requests(users, np.random.default_rng(1))
+    n, n_items, rank = len(users), model.V.shape[0], model.rank
+    cuda_sgd.reset_launch_counts()
+    exact = ServingEngine(model, k=SERVE_K, max_batch=SERVE_MAX_BATCH)
+    out, ups, walls = best_serve(exact, requests)
+    ids, scores = served(out)
+    flops = 2 * n * n_items * rank
+    bound_ms, bound_by = bound_of(
+        n * rank * 4 + n_items * rank * 4 + n * SERVE_K * 8, flops)
+    ref = model.recommend(users, k=SERVE_K)
+    rec = check_topk("engine vs recommend", ids, scores, *ref)
+    cpu_ids, cpu_scores = ServingEngine(cpu_model, k=SERVE_K).recommend(
+        users[:256])
+    cpu = check_topk("engine card vs CPU", ids[:256], scores[:256], cpu_ids,
+                     cpu_scores)
+    sub = users[:SERVE_WARM]
+    ex = ServingEngine(model, k=SERVE_K, train=train,
+                       max_batch=SERVE_MAX_BATCH)
+    ex_ids, _ = served(ex.serve(cut_requests(sub, np.random.default_rng(2))))
+    leaked, mine = train_items_served(train, sub, ex_ids)
+    if leaked or (ex_ids < 0).any():
+        raise AssertionError(f"engine(train=): {leaked} train items served")
+    overlap = pipeline_overlap(ex, users)
+    bf16 = check_bf16(model, requests, ids, scores)
+    flat = ServingEngine(model, k=SERVE_K, retrieval=RetrievalConfig(),
+                         max_batch=SERVE_MAX_BATCH)
+    fl_out, fl_ups, fl_walls = best_serve(flat, requests)
+    recall = recall_at_k(served(fl_out)[0], ids)
+    if recall < RECALL_MIN:
+        raise AssertionError(f"flat two-stage recall@10 {recall} < "
+                             f"{RECALL_MIN}")
+    delta = check_delta(model, users[:SERVE_WARM])
+    say("serve.engine", users=n, requests=len(requests), k=SERVE_K,
+        item_rows=n_items, rank=rank, max_batch=SERVE_MAX_BATCH,
+        users_per_s=ups, **ms_quantiles(walls),
+        flushes_per_pass=len(walls) // 2,
+        microbatches_per_pass=exact.stats["microbatches"] // 3,
+        buckets_per_pass={b_: c // 3 for b_, c in
+                          sorted(exact.stats["buckets"].items())},
+        executable_variants=exact.executable_variants,
+        bucket_family=list(exact.bucket_family), bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / 1e3 * ups / n,
+        serve_share_of_bound=serve_share,
+        recommend_max_score_diff=rec[0], recommend_ids_compared=rec[1],
+        cpu_256_max_score_diff=cpu[0], cpu_256_ids_differ=cpu[2],
+        excluded_users=len(sub), train_pairs_of_them=mine,
+        train_items_served=leaked, **overlap, **bf16,
+        flat_users_per_s=fl_ups, flat_recall_at_10=recall,
+        **{f"flat_{k_}": v for k_, v in ms_quantiles(fl_walls).items()},
+        flat_variants=flat.executable_variants,
+        flat_catalog_bytes=flat.retriever.catalog.nbytes(), **delta,
+        launches=no_dsgd_launches("serve.engine"))
+    phase_serve_admission(flat, requests)
+
+
+def phase_serve_admission(eng, requests):
+    """``[serve.admission]``: an ``SLOTracker`` whose target no flush can
+    meet drives the ladder. First with shedding out of reach: after the
+    8-sample warmup it climbs to ``degrade`` and the flushes serve
+    stage-1-only results flagged ``.degraded``. Then with the default
+    thresholds: it sheds, and ``serve`` returns each shed request's
+    ``AdmissionRejectedError`` in its place, every other request its own
+    answer (against the same engine's exact or degraded lists)."""
+    cuda_sgd.reset_launch_counts()
+    head, tail = requests[:16], requests[16:400]
+    eng.attach_admission(None)
+    exact_ref = eng.serve(tail)
+    slo = SLOTracker(target_s=1e-9, objective=0.9, window=32)
+    climb = AdmissionController(slo, AdmissionConfig(shed_burn=1e9))
+    eng.attach_admission(climb)
+    levels = []
+    for r in head:
+        eng.recommend(r)
+        levels.append(climb.level)
+    degraded_ref = eng.serve(tail)
+    if not (climb.level == "degrade" and all(r.degraded
+                                             for r in degraded_ref)):
+        raise AssertionError(f"admission: level {climb.level}, degraded "
+                             f"flags {[r.degraded for r in degraded_ref]}")
+    shed = AdmissionController(SLOTracker(target_s=1e-9, objective=0.9,
+                                          window=32), AdmissionConfig())
+    eng.attach_admission(shed)
+    out = eng.serve(tail)
+    rejected = [i for i, r in enumerate(out)
+                if isinstance(r, AdmissionRejectedError)]
+    kept = [i for i, r in enumerate(out)
+            if not isinstance(r, AdmissionRejectedError)]
+    for i in kept:
+        want = degraded_ref[i] if out[i].degraded else exact_ref[i]
+        if out[i][0].shape != (len(tail[i]), SERVE_K):
+            raise AssertionError(f"admission: request {i} misaligned")
+        check_topk(f"admission request {i}", out[i][0], out[i][1], want[0],
+                   want[1])
+    if not (rejected and kept and shed.level == "shed"
+            and all(r.level == "shed" for r in
+                    (out[i] for i in rejected))):
+        raise AssertionError(f"admission: {len(rejected)} shed, "
+                             f"{len(kept)} served, level {shed.level}")
+    eng.attach_admission(None)
+    say("serve.admission", target_s=1e-9, objective=0.9, window=32,
+        climb_levels=levels, climb_final=climb.level,
+        degraded_requests=climb.degraded, shed_requests=len(rejected),
+        served_requests=len(kept),
+        served_degraded=sum(out[i].degraded for i in kept),
+        shed_final=shed.level, shed_transitions=shed.transitions,
+        in_order=True, launches=no_dsgd_launches("serve.admission"))
+
+
+def build_structured_model(dev, num_users, num_items, rank, n_centers=256,
+                           spread=2.0, noise=0.3, seed=0):
+    """scripts/serving_bench.py:251's catalog on the card: items drawn
+    around ``n_centers`` Gaussian centers, isotropic Gaussian users, the
+    same numpy draws."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_centers, rank)) * spread
+    V = (centers[rng.integers(0, n_centers, num_items)]
+         + noise * rng.normal(size=(num_items, rank))).astype(np.float32)
+    U = rng.normal(size=(num_users, rank)).astype(np.float32)
+    return MFModel(U=torch.from_numpy(U).to(dev),
+                   V=torch.from_numpy(V).to(dev),
+                   users=flat_index(np.arange(num_users, dtype=np.int64)),
+                   items=flat_index(np.arange(num_items, dtype=np.int64)))
+
+
+def two_stage_parts(ret, U_chunk, reps=5):
+    """One bucket of the clustered fast path split with CUDA events into
+    routing, the probe loop, the overflow block, the top-kc and stage 2,
+    each beside its bound (each input byte read once, each output written
+    once; probed slabs and gathered rows counted once per distinct one)."""
+    cat, dev = ret.catalog, U_chunk.device
+    b, r = U_chunk.shape
+    C, m, _ = cat.slab_q.shape
+    p, O = min(ret.config.n_probe, C), cat.ovf_q.shape[0]
+    kc = ret.candidate_count(SERVE_K)
+    excl = tuple(torch.from_numpy(a).to(dev) for a in
+                 metrics._exclusion_builder(None, None, 1)(np.zeros(b), b))
+    names = ("route", "probes", "overflow", "topkc", "stage2")
+    ms = dict.fromkeys(names, 0.0)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        cid = ret_ops._route(U_chunk, cat.centroids, p)
+        ev[1].record()
+        scores = torch.empty((b, p * m + O), device=dev)
+        rows = torch.empty((b, p * m + O), dtype=torch.int64, device=dev)
+        for pi in range(p):
+            c = cid[:, pi]
+            scores[:, pi * m:(pi + 1) * m] = ret_ops._score_probe(
+                U_chunk, c, cat.slab_q, cat.slab_scale, cat.slab_w)
+            rows[:, pi * m:(pi + 1) * m] = cat.slab_rows[c]
+        ev[2].record()
+        scores[:, p * m:] = ret_ops._score_overflow(
+            U_chunk, cat.ovf_q, cat.ovf_scale, cat.ovf_w)
+        rows[:, p * m:] = cat.ovf_rows[None, :]
+        ev[3].record()
+        v, pos = metrics.lax_top_k(scores, kc)
+        cand = rows.gather(1, pos)
+        ev[4].record()
+        out = ret_ops._stage2(U_chunk, ret.V, cat.item_w, v, cand, *excl,
+                              k=SERVE_K, exact=True)
+        ev[5].record()
+        ev[5].synchronize()
+        if rep:  # the first pass warms
+            for i, name in enumerate(names):
+                ms[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    whole = ret.topk(U_chunk, excl, k=SERVE_K)
+    if not (torch.equal(whole[0], out[0]) and torch.equal(whole[1], out[1])):
+        raise AssertionError("two-stage parts differ from TwoStageRetriever"
+                             ".topk")
+    dc = int(torch.unique(cid).numel())
+    dr = int(torch.unique(cand).numel())
+    del out
+    bounds = {
+        "route": bound_of(b * r * 4 + C * r * 4 + b * p * 8, 2 * b * C * r),
+        "probes": bound_of(dc * m * (r + 16) + b * r * 4 + b * p * m * 12,
+                           2 * b * p * m * r),
+        "overflow": bound_of(O * (r + 16) + b * r * 4 + b * O * 12,
+                             2 * b * O * r),
+        "topkc": bound_of(b * (p * m + O) * 12 + b * kc * 12, 0),
+        "stage2": bound_of(dr * (r * 4 + 4) + b * kc * 12 + b * r * 4
+                           + b * SERVE_K * 12, 2 * b * kc * r)}
+    res = {"bucket": b, "probed_clusters": dc, "candidates": kc,
+           "distinct_candidate_rows": dr}
+    for name in names:
+        res[f"{name}_ms"] = ms[name]
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bounds[name]
+    return res
+
+
+def phase_serve_two_stage(dev):
+    """``[serve.two_stage]`` at SERVING_r03.json's geometry: 20,000 users ×
+    1,048,576 items at rank 64 around 256 centers (seed 0); the clustered
+    index (512 clusters, 16 probes, overfetch 4, a 65,536-row k-means
+    sample) and the exact engine serve 400 seeded requests of 1–32 users
+    (max_batch 1,024), best of 2 after warming the bucket family; recall@10
+    of 256 users ≥ 0.95; one 256-row bucket split into its parts."""
+    cuda_sgd.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model, gen_s = timed(lambda: build_structured_model(dev, **TWO_STAGE))
+    nu, rank = TWO_STAGE["num_users"], TWO_STAGE["rank"]
+    rng = np.random.default_rng(TWO_STAGE["seed"] + 1)
+    requests = [rng.integers(0, nu, int(sz)).astype(np.int64) for sz in
+                rng.integers(1, SERVE_REQ_MAX + 1, TWO_STAGE_REQUESTS)]
+    cfg = RetrievalConfig(**TWO_STAGE_CFG)
+    fast, build_s = timed(lambda: ServingEngine(
+        model, k=SERVE_K, retrieval=cfg, max_batch=SERVE_MAX_BATCH))
+    exact = ServingEngine(model, k=SERVE_K, max_batch=SERVE_MAX_BATCH)
+    empty = tuple(torch.from_numpy(a).to(dev) for a in
+                  metrics._exclusion_builder(None, None, 1)(np.zeros(8), 8))
+    bucket = 8
+    while bucket <= min(SERVE_MAX_BATCH, cfg.max_bucket):
+        for stage1_only in (False, True):
+            fast.retriever.topk(torch.zeros((bucket, rank), device=dev),
+                                empty, k=SERVE_K, stage1_only=stage1_only)
+        exact.recommend(np.zeros(bucket, np.int64))
+        bucket <<= 1
+    rates, walls = {}, {}
+    for name, eng in (("fast", fast), ("exact", exact)):
+        _, rates[name], walls[name] = best_serve(eng, requests)
+    sample = rng.integers(0, nu, RECALL_USERS).astype(np.int64)
+    recall = recall_at_k(fast.recommend(sample)[0],
+                         exact.recommend(sample)[0])
+    if recall < RECALL_MIN:
+        raise AssertionError(f"clustered two-stage recall@10 {recall} < "
+                             f"{RECALL_MIN}")
+    parts = two_stage_parts(fast.retriever, model.U[torch.from_numpy(
+        sample).to(dev)])
+    n_items = TWO_STAGE["num_items"]
+    say("serve.two_stage", users=nu, items=n_items, rank=rank,
+        requests=len(requests),
+        request_rows=sum(len(r) for r in requests), k=SERVE_K,
+        generation_wall_s=gen_s, build_wall_s=build_s,
+        index=fast.retriever.catalog.stats,
+        fast_users_per_s=rates["fast"], exact_users_per_s=rates["exact"],
+        fast_vs_exact=rates["fast"] / rates["exact"],
+        fast_variants=fast.executable_variants,
+        **{f"fast_{k}": v for k, v in ms_quantiles(walls["fast"]).items()},
+        **{f"exact_{k}": v for k, v in ms_quantiles(walls["exact"]).items()},
+        recall_at_10=recall, recall_users=RECALL_USERS,
+        f32_catalog_gb=n_items * rank * 4 / 1e9,
+        int8_catalog_gb=fast.retriever.catalog.nbytes() / 1e9,
+        exact_chunk_gb=SERVE_MAX_BATCH * n_items * 4 / 1e9,
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, **parts,
+        launches=no_dsgd_launches("serve.two_stage"))
 
 
 # -- ALS and online MF (no kernel of their own: torch ops on the card) ------

@@ -27,6 +27,11 @@ trained model is used for:
     models.mf.MFModel.ranking_quality  HR@K / NDCG@K of held-out pairs
     utils.checkpoint                   snapshots and resume (the JAX
                                        package's file format)
+    models.als.ALS / models.online     ALS and online MF (torch ops)
+    serving.ServingEngine              micro-batched top-K over a
+                                       versioned catalog, the int8
+                                       two-stage retriever, admission
+                                       control, delta swaps (torch ops)
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -21,6 +21,10 @@ from large_scale_recommendation_tpu_torch.models.online import (
     OnlineMF,
     OnlineMFConfig,
 )
+from large_scale_recommendation_tpu_torch.serving.retrieval import (
+    RANK_SHARDED_NOT_PORTED,
+    QuantizedCatalog,
+)
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 
@@ -109,3 +113,26 @@ def online_from_jax(jax_online, device=None, user_initializer=None,
     online.consumed_offsets = {int(k): int(v) for k, v in
                                jax_online.consumed_offsets.items()}
     return online
+
+
+def quantized_catalog_from_jax(cat, device=None) -> QuantizedCatalog:
+    """A JAX ``QuantizedCatalog`` (flat or clustered; arrays read through
+    ``np.asarray``) → the port's, on ``device`` (``None``: the card):
+    codes, scales, weights and layout as they are, row ids as int64. The
+    port's stages then run on the JAX package's own layout."""
+    if getattr(cat, "partitioner", None) is not None:
+        raise NotImplementedError(RANK_SHARDED_NOT_PORTED)
+    device = resolve_device(device)
+    arrays = {}
+    for f in QuantizedCatalog._ARRAY_FIELDS:
+        a = getattr(cat, f)
+        if a is not None:
+            a = np.array(a)
+            if f.endswith("_rows"):
+                a = a.astype(np.int64)
+            arrays[f] = torch.from_numpy(a).to(device)
+    pos = cat.pos_of_row
+    return QuantizedCatalog(
+        n_rows=int(cat.n_rows), rank=int(cat.rank), version=int(cat.version),
+        pos_of_row=None if pos is None else np.asarray(pos, np.int64),
+        stats=dict(cat.stats), **arrays)

@@ -87,6 +87,9 @@ class RandomFactorInitializer:
             self.seed * _SALT_STRIDE + self.salt)
         return torch.rand((n, self.rank), generator=gen).mul_(self.scale)
 
+    def open(self) -> "RandomFactorInitializer":
+        return self
+
 
 @dataclasses.dataclass(frozen=True)
 class PseudoRandomFactorInitializer:
@@ -100,6 +103,9 @@ class PseudoRandomFactorInitializer:
         if not isinstance(ids, torch.Tensor):
             ids = torch.as_tensor(np.asarray(ids, dtype=np.int64))
         return keyed_uniform_rows(ids, self.rank, self.scale)
+
+    def open(self) -> "PseudoRandomFactorInitializer":
+        return self
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,11 @@ class Ratings:
     def n(self) -> int:
         return self.users.shape[0]
 
+    @property
+    def num_real(self) -> np.float32:
+        """Σ weights: the count of real (non-padding) entries."""
+        return np.sum(self.weights, dtype=np.float32)
+
     @staticmethod
     def from_arrays(
         users: Any, items: Any, ratings: Any, weights: Any | None = None

@@ -203,6 +203,12 @@ class RegularizedSGDUpdater:
         dv = -lr * (reg_v - e[:, None] * u)
         return du, dv
 
+    def next_factors(self, ratings, u, v, *, weights=None, omega_u=None,
+                     omega_v=None, t=1):
+        du, dv = self.delta(ratings, u, v, weights=weights, omega_u=omega_u,
+                            omega_v=omega_v, t=t)
+        return u + du, v + dv
+
 
 @dataclasses.dataclass(frozen=True)
 class MockFactorUpdater:

@@ -18,6 +18,7 @@ versions instead, which give the same layout bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -45,6 +46,12 @@ class IdIndex:
     @property
     def num_rows(self) -> int:
         return self.ids.shape[0]
+
+    @functools.cached_property
+    def row_of(self) -> dict:
+        """id → global row as a dict, built on first use (the hot paths
+        use the sorted arrays)."""
+        return dict(zip(self.sorted_ids.tolist(), self.sorted_rows.tolist()))
 
     def rows_for(self, ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Map external ids to rows; unknown ids get row 0 with mask 0."""

@@ -59,32 +59,58 @@ class OnlineMFConfig:
 
 
 class BatchUpdates:
-    """Updates-only output of one micro-batch: the touched vectors, as
-    arrays (ids int64[n], vectors float32[n, k]) from one bulk device pull
-    per side; the per-row ``UserUpdate``/``ItemUpdate`` objects are built
-    only when a consumer iterates them."""
+    """Updates-only output of one micro-batch: the touched vectors.
 
-    def __init__(self, user_arrays: tuple[np.ndarray, np.ndarray],
-                 item_arrays: tuple[np.ndarray, np.ndarray]):
-        self.user_arrays = user_arrays
-        self.item_arrays = item_arrays
-        self._user_list = None
-        self._item_list = None
+    Built either from the per-row ``UserUpdate``/``ItemUpdate`` lists
+    (positional) or, on the hot path, from arrays (``user_arrays=`` /
+    ``item_arrays=``: ids int64[n], vectors float32[n, k], one bulk device
+    pull per side); each form is derived from the other only when read.
+    An empty side's vectors have shape ``(0, rank)``."""
+
+    def __init__(self, user_updates=None, item_updates=None, *,
+                 user_arrays: tuple[np.ndarray, np.ndarray] | None = None,
+                 item_arrays: tuple[np.ndarray, np.ndarray] | None = None,
+                 rank: int | None = None):
+        self._user_list = user_updates
+        self._item_list = item_updates
+        self._user_arrays = user_arrays
+        self._item_arrays = item_arrays
+        self._rank = rank
+
+    def _as_arrays(self, ups):
+        ids = np.asarray([u.vector.id for u in ups], dtype=np.int64)
+        if ups:
+            return ids, np.stack([u.vector.factors for u in ups])
+        return ids, np.zeros((0, self._rank or 0), np.float32)
+
+    @property
+    def user_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._user_arrays is None:
+            self._user_arrays = self._as_arrays(self._user_list or [])
+        return self._user_arrays
+
+    @property
+    def item_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._item_arrays is None:
+            self._item_arrays = self._as_arrays(self._item_list or [])
+        return self._item_arrays
+
+    @staticmethod
+    def _as_list(arrays, cls):
+        ids, vecs = arrays
+        return [cls(FactorVector(int(i), vecs[j]))
+                for j, i in enumerate(ids.tolist())]
 
     @property
     def user_updates(self) -> list[UserUpdate]:
         if self._user_list is None:
-            ids, vecs = self.user_arrays
-            self._user_list = [UserUpdate(FactorVector(int(i), vecs[j]))
-                               for j, i in enumerate(ids.tolist())]
+            self._user_list = self._as_list(self._user_arrays, UserUpdate)
         return self._user_list
 
     @property
     def item_updates(self) -> list[ItemUpdate]:
         if self._item_list is None:
-            ids, vecs = self.item_arrays
-            self._item_list = [ItemUpdate(FactorVector(int(i), vecs[j]))
-                               for j, i in enumerate(ids.tolist())]
+            self._item_list = self._as_list(self._item_arrays, ItemUpdate)
         return self._item_list
 
     def __iter__(self):
@@ -157,9 +183,8 @@ class OnlineMF:
         if len(ru) == 0:
             if offset is not None:
                 self.consumed_offsets[int(offset[0])] = int(offset[1])
-            none = (np.zeros(0, np.int64),
-                    np.zeros((0, cfg.num_factors), np.float32))
-            return BatchUpdates(none, none) if emit_updates else None
+            return (BatchUpdates([], [], rank=cfg.num_factors)
+                    if emit_updates else None)
 
         u_rows = self.users.acquire_rows(ru)
         i_rows = self.items.acquire_rows(ri)
@@ -202,8 +227,9 @@ class OnlineMF:
                 .numpy()[:n]
 
         return BatchUpdates(
-            (uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
-            (uniq_i.astype(np.int64), gather(V, i_rows[first_i])))
+            user_arrays=(uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
+            item_arrays=(uniq_i.astype(np.int64), gather(V, i_rows[first_i])),
+            rank=cfg.num_factors)
 
     def run(self, batches: Iterable[Ratings],
             limiter: ThroughputLimiter | None = None,

@@ -1,7 +1,7 @@
 """Full-catalog ranking: top-K serving and HR@K / NDCG@K (counterpart of the
-ranking part of ``large_scale_recommendation_tpu.utils.metrics``), and the
+ranking part of ``large_scale_recommendation_tpu.utils.metrics``), the
 sampled-negatives HR/NDCG and catalog coverage of
-``large_scale_recommendation_tpu.obs.quality``.
+``large_scale_recommendation_tpu.obs.quality``, and ``ThroughputMeter``.
 
 The JAX package leaves this to XLA, so the port uses ordinary torch ops on
 the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
@@ -25,6 +25,7 @@ positive).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -50,39 +51,96 @@ def _ieee_f32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _exclusion_builder(train_u, train_i, num_users: int):
-    """Per-chunk train-seen exclusion lists.
+@dataclasses.dataclass
+class ThroughputMeter:
+    """Elements/second over the lifetime."""
 
-    Returns ``build(cu) -> (rows, cols)`` (int64 numpy: chunk-local user
-    position, item row) for a chunk of user rows, or ``None`` without a
-    train set; shared by ``ranking_metrics`` and ``top_k_recommend`` so the
-    exclusion semantics cannot drift between evaluation and serving."""
+    total_elements: int = 0
+    total_s: float = 0.0
+
+    def record(self, elements: int, seconds: float) -> None:
+        self.total_elements += elements
+        self.total_s += seconds
+
+    @property
+    def rate(self) -> float:
+        return self.total_elements / self.total_s if self.total_s else 0.0
+
+
+def _exclusion_builder(train_u, train_i, num_users: int):
+    """Per-chunk train-seen exclusion lists, pow2-padded.
+
+    Returns ``build(cu, c) -> (excl_rows, excl_cols, excl_w)`` (int32,
+    int32, float32 numpy, one length, a power of two ≥ 8) for a padded
+    chunk ``cu`` of user rows whose first ``c`` are real: entry j excludes
+    item row ``excl_cols[j]`` for chunk position ``excl_rows[j]`` with
+    weight ``DEAD_SLOT_OFFSET``; pads are ``(0, 0, +inf)``, no-ops under a
+    scatter-min, and are told apart from real entries by ``excl_w < 0``.
+    Shared by evaluation and serving so the exclusion semantics cannot
+    drift between them."""
     if train_u is None:
-        return lambda cu: None
+        ep = pow2_pad(1)  # the same padded shape as an empty train slice
+
+        def build_empty(cu, c):
+            z = np.zeros(ep, np.int32)
+            return z, z, np.full(ep, np.inf, np.float32)
+
+        return build_empty
+
     train_u = np.asarray(train_u, dtype=np.int64)
     order = np.argsort(train_u, kind="stable")
     tu = train_u[order]
-    ti = np.asarray(train_i, dtype=np.int64)[order]
+    ti = np.asarray(train_i, dtype=np.int32)[order]
     starts = np.searchsorted(tu, np.arange(num_users + 1))
 
-    def build(cu):
-        counts = starts[cu + 1] - starts[cu]
+    def build(cu, c):
+        cu = np.asarray(cu, dtype=np.int64)
+        counts = (starts[cu + 1] - starts[cu])[:c]
         e = int(counts.sum())
-        rows = np.repeat(np.arange(len(cu), dtype=np.int64), counts)
+        rows = np.repeat(np.arange(c, dtype=np.int32), counts)
         # absolute positions of each user's train slice, vectorized
         offs = np.repeat(
-            starts[cu] - np.concatenate([[0], np.cumsum(counts)[:-1]]),
+            starts[cu[:c]] - np.concatenate([[0], np.cumsum(counts)[:-1]]),
             counts)
-        return rows, ti[np.arange(e, dtype=np.int64) + offs]
+        cols = ti[np.arange(e) + offs] if e else np.zeros(0, np.int32)
+        ep = pow2_pad(max(e, 1))
+        excl_rows = np.zeros(ep, np.int32)
+        excl_cols = np.zeros(ep, np.int32)
+        excl_w = np.full(ep, np.inf, np.float32)  # pads: min() no-ops
+        excl_rows[:e], excl_cols[:e], excl_w[:e] = (
+            rows, cols, DEAD_SLOT_OFFSET)
+        return excl_rows, excl_cols, excl_w
 
     return build
+
+
+def apply_exclusions(scores: torch.Tensor, excl_rows, excl_cols,
+                     excl_w) -> torch.Tensor:
+    """Scatter-min the exclusion triple (tensors on ``scores``' device)
+    onto ``scores`` [b, n] in place: idempotent under duplicate train
+    pairs, where an add would stack."""
+    n = scores.shape[1]
+    flat = excl_rows.long() * n + excl_cols.long()
+    scores.view(-1).scatter_reduce_(0, flat, excl_w, "amin")
+    return scores
+
+
+def lax_top_k(scores: torch.Tensor, k: int):
+    """``torch.topk`` along the last axis, re-sorted to ``lax.top_k``'s
+    order: score descending, lower index first among equal scores. Which of
+    several tied indices enters at the k-th place is ``torch.topk``'s
+    choice."""
+    top, idx = torch.topk(scores, k, dim=-1)
+    idx, by_idx = idx.sort(dim=-1)
+    top = top.gather(-1, by_idx)
+    top, by_score = top.sort(dim=-1, descending=True, stable=True)
+    return top, idx.gather(-1, by_score)
 
 
 class _Scorer:
     """The score surface shared by serving and evaluation: ``U[rows] @ V.T``
     in f32 + ``item_w``, then the chunk's exclusions scatter-min'ed to
-    ``DEAD_SLOT_OFFSET`` (idempotent under duplicate train pairs, where an
-    add would stack)."""
+    ``DEAD_SLOT_OFFSET``."""
 
     def __init__(self, U, V, train_u, train_i, item_mask):
         self.U, self.device = U, U.device
@@ -99,14 +157,9 @@ class _Scorer:
         rows = torch.as_tensor(cu, dtype=torch.int64, device=self.device)
         scores = self.U[rows].float() @ self.Vt
         scores += self.item_w
-        excl = self.exclusions(cu)
-        if excl is not None and len(excl[0]):
-            flat = torch.from_numpy(excl[0] * self.n_items + excl[1]).to(
-                self.device)
-            dead = torch.full(flat.shape, DEAD_SLOT_OFFSET,
-                              dtype=torch.float32, device=self.device)
-            scores.view(-1).scatter_reduce_(0, flat, dead, "amin")
-        return scores
+        excl = self.exclusions(cu, len(cu))
+        return apply_exclusions(scores, *(torch.from_numpy(a).to(
+            self.device) for a in excl))
 
 
 def ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
@@ -163,12 +216,7 @@ def top_k_recommend(U, V, user_rows, k: int = 10,
     kk = min(k, score.n_items)
     with _ieee_f32():
         for c0 in range(0, n, chunk):
-            top, idx = torch.topk(score(user_rows[c0:c0 + chunk]), kk, dim=1)
-            # lax.top_k's order: score descending, lower row first on ties
-            idx, by_row = idx.sort(dim=1)
-            top = top.gather(1, by_row)
-            top, by_score = top.sort(dim=1, descending=True, stable=True)
-            idx = idx.gather(1, by_score)
+            top, idx = lax_top_k(score(user_rows[c0:c0 + chunk]), kk)
             c = idx.shape[0]
             out_rows[c0:c0 + c, :kk] = idx.cpu().numpy()
             out_scores[c0:c0 + c, :kk] = top.cpu().numpy()

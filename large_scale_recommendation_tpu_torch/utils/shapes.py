@@ -15,3 +15,15 @@ def next_pow2(n: int) -> int:
 def pow2_pad(n: int, floor: int = 8) -> int:
     """Pad a dynamic length to its pow2 bucket, with a minimum bucket."""
     return max(floor, next_pow2(n))
+
+
+def pow2_buckets(floor: int = 8, cap: int = 1024) -> tuple[int, ...]:
+    """The full bucket family a [floor, cap] pow2 policy can produce: the
+    static shape set a serving loop dispatches against (its size, not the
+    request count, bounds the number of distinct shapes)."""
+    out = []
+    b = pow2_pad(floor, floor)  # the caller's floor, rounded up to pow2
+    while b <= cap:
+        out.append(b)
+        b <<= 1
+    return tuple(out)

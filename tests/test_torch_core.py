@@ -100,3 +100,17 @@ def test_merge_config_and_config_to_dict():
         tconfig.merge_config(base, JConfig())
     with pytest.raises(TypeError, match="dataclass"):
         tconfig.merge_config({"a": 1}, {})
+
+
+@pytest.mark.parametrize("name,kw", [("RandomFactorInitializer",
+                                      dict(rank=3, seed=2, salt=1)),
+                                     ("PseudoRandomFactorInitializer",
+                                      dict(rank=3, scale=0.5))])
+def test_initializer_open_is_identity_like_jax(name, kw):
+    """``open()`` returns the initializer itself in both packages (the
+    descriptor/open split of the reference's API)."""
+    jobj, tobj = getattr(jinit, name)(**kw), getattr(tinit, name)(**kw)
+    assert jobj.open() is jobj
+    assert tobj.open() is tobj
+    ids = np.arange(5)
+    assert tuple(tobj.open()(ids).shape) == np.asarray(jobj(ids)).shape

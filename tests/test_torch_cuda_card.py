@@ -13,8 +13,9 @@ the last place can flip one rounding; magnitudes below 2^-16 count as
 2^-16, where one bf16 ulp is the size of that f32 difference). The cast
 kernels are exact against ``Tensor.to``. Beside them, what runs on the
 card around the kernels: top-K and ranking quality against the same model
-on the CPU, a resumed fit bit-equal to an uninterrupted one, and a bf16
-checkpoint written from the card.
+on the CPU, a resumed fit bit-equal to an uninterrupted one, a bf16
+checkpoint written from the card, ALS, online MF and the serving engine
+(exact, bf16, two-stage, deltas) against their CPU runs.
 """
 
 import os
@@ -597,3 +598,117 @@ def test_online_on_card_matches_cpu_and_restores_bit_equal(dev, tmp_path):
             np.testing.assert_array_equal(a.id_array(), c.id_array())
             assert torch.equal(a.array[:a.num_rows].cpu(),
                                c.array[:c.num_rows].cpu())
+
+
+def _engine_model(device, num_users=300, num_items=4096, rank=16, seed=0,
+                   structured=False):
+    from large_scale_recommendation_tpu_torch.data.blocking import flat_index
+    from large_scale_recommendation_tpu_torch.models.mf import MFModel
+
+    rng = np.random.default_rng(seed)
+    if structured:
+        centers = rng.normal(size=(16, rank)) * 2.0
+        V = (centers[rng.integers(0, 16, num_items)]
+             + 0.3 * rng.normal(size=(num_items, rank)))
+    else:
+        V = rng.normal(size=(num_items, rank))
+    U = rng.normal(size=(num_users, rank))
+    return MFModel(
+        U=torch.from_numpy(U.astype(np.float32)).to(device),
+        V=torch.from_numpy(V.astype(np.float32)).to(device),
+        users=flat_index(np.arange(num_users, dtype=np.int64)),
+        items=flat_index(np.arange(num_items, dtype=np.int64)))
+
+
+@pytest.mark.parametrize("retrieval,dtype", [(None, None),
+                                             (None, "bfloat16"),
+                                             ("flat", None)])
+def test_serving_engine_on_card_matches_cpu(dev, retrieval, dtype):
+    """The engine on the card (pinned staging, two-deep dispatch) against
+    the same engine on the CPU: scores within 1e-5·max(1,|s|), ids equal
+    where scores stand apart; the flat two-stage int8 codes bit-equal."""
+    from large_scale_recommendation_tpu_torch.serving import (
+        RetrievalConfig,
+        ServingEngine,
+    )
+
+    cfg = RetrievalConfig(overfetch=4) if retrieval else None
+    rng = np.random.default_rng(1)
+    train = (rng.integers(0, 300, 5000), rng.integers(0, 4096, 5000))
+    card = ServingEngine(_engine_model(dev), k=10, train=train,
+                         max_batch=64, retrieval=cfg, dtype=dtype)
+    cpu = ServingEngine(_engine_model("cpu"), k=10, train=train,
+                        max_batch=64, retrieval=cfg, dtype=dtype)
+    reqs = [rng.integers(0, 300, int(n)) for n in rng.integers(1, 40, 30)]
+    for a, b in zip(card.serve(reqs), cpu.serve(reqs)):
+        s_ref = b[1]
+        assert np.all(np.abs(a[1] - s_ref)
+                      <= 1e-5 * np.maximum(1.0, np.abs(s_ref)))
+        apart = np.ones(s_ref.shape, bool)
+        gap = np.abs(np.diff(s_ref, axis=1)) > 2e-5 * np.maximum(
+            1.0, np.abs(s_ref[:, 1:]))
+        apart[:, 1:] &= gap
+        apart[:, :-1] &= gap
+        np.testing.assert_array_equal(a[0][apart], b[0][apart])
+    assert card.stats["buckets"] == cpu.stats["buckets"]
+    if retrieval:
+        assert torch.equal(card.retriever.catalog.q.cpu(),
+                           cpu.retriever.catalog.q)
+        assert torch.equal(card.retriever.catalog.scale.cpu(),
+                           cpu.retriever.catalog.scale)
+
+
+def test_clustered_retriever_on_card(dev):
+    """The clustered build and stages on the card: recall@10 ≥ 0.95
+    against the exact engine (the CPU pin), every row placed once."""
+    from large_scale_recommendation_tpu_torch.serving import (
+        RetrievalConfig,
+        ServingEngine,
+        recall_at_k,
+    )
+
+    model = _engine_model(dev, num_users=256, structured=True, seed=2)
+    exact = ServingEngine(model, k=10)
+    fast = ServingEngine(model, k=10, retrieval=RetrievalConfig(
+        overfetch=4, n_clusters=32, n_probe=12, kmeans_sample=4096))
+    cat = fast.retriever.catalog
+    assert cat.slab_q.device.type == "cuda"
+    assert len(np.unique(cat.pos_of_row)) == 4096
+    uids = np.arange(256)
+    assert recall_at_k(fast.recommend(uids)[0],
+                       exact.recommend(uids)[0]) >= 0.95
+
+
+def test_int8_product_exact_on_card(dev):
+    from large_scale_recommendation_tpu_torch.serving.retrieval import (
+        int8_scores,
+    )
+
+    rng = np.random.default_rng(3)
+    a = rng.integers(-127, 128, (256, 1039)).astype(np.int8)
+    b = rng.integers(-127, 128, (300, 1039)).astype(np.int8)
+    a[0], b[0] = 127, -127
+    got = int8_scores(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64),
+                                  a.astype(np.int64) @ b.astype(np.int64).T)
+
+
+def test_engine_delta_on_card_equals_fresh_engine(dev):
+    from large_scale_recommendation_tpu_torch.serving import (
+        RetrievalConfig,
+        ServingEngine,
+    )
+
+    rng = np.random.default_rng(4)
+    model = _engine_model(dev, seed=4)
+    eng = ServingEngine(model, k=10, retrieval=RetrievalConfig())
+    v0 = eng.version
+    rows = rng.choice(4096, 256, replace=False)
+    vals = rng.normal(size=(256, 16)).astype(np.float32)
+    assert eng.apply_delta(item_rows=rows, V_rows=vals) != v0
+    fresh = ServingEngine(model, k=10, retrieval=RetrievalConfig())
+    assert torch.equal(eng.retriever.catalog.q, fresh.retriever.catalog.q)
+    uids = np.arange(300)
+    a, b = eng.recommend(uids), fresh.recommend(uids)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])

@@ -224,3 +224,27 @@ def test_flat_index_bit_equal(case):
         assert a.rows_for(np.array([3]))[1].tolist() == [0.0]
     else:
         np.testing.assert_array_equal(a.rows_for(ids)[0], np.arange(4))
+
+
+def test_num_real_matches_jax():
+    kw = dict(users=[1, 2, 3, 4], items=[5, 6, 7, 8],
+              ratings=[1.0, 2.0, 3.0, 4.0], weights=[1.0, 0.0, 1.0, 1.0])
+    j, t = JRatings.from_arrays(**kw), TRatings.from_arrays(**kw)
+    assert float(t.num_real) == float(j.num_real) == 3.0
+    assert float(t.pad_to(9).num_real) == float(j.pad_to(9).num_real) == 3.0
+    assert float(TRatings.from_arrays([], [], []).num_real) == 0.0
+
+
+def test_row_of_matches_jax():
+    gen = jgen.SyntheticMFGenerator(num_users=40, num_items=30, rank=3,
+                                    seed=5)
+    train = gen.generate(500)
+    jp = jblk.block_problem(train, num_blocks=3, seed=1)
+    tp = tblk.block_problem(TRatings.from_arrays(*train.to_numpy()),
+                            num_blocks=3, seed=1)
+    for side in ("users", "items"):
+        jidx, tidx = getattr(jp, side), getattr(tp, side)
+        assert tidx.row_of == jidx.row_of
+        assert tidx.row_of is tidx.row_of  # built once
+        for ident, row in tidx.row_of.items():
+            assert tidx.ids[row] == ident

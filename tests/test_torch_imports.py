@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +35,9 @@ def test_port_has_the_slice_modules():
               "ops.sgd", "ops.cuda_sgd", "ops._build", "models.mf",
               "models.dsgd", "utils.device", "convert", "utils.metrics",
               "utils.checkpoint", "utils.config", "core.limiter",
-              "ops.als", "models.als", "data.tables", "models.online"):
+              "ops.als", "models.als", "data.tables", "models.online",
+              "obs.health", "parallel.serving", "serving",
+              "serving.retrieval", "serving.admission", "serving.engine"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -91,11 +94,16 @@ def test_default_device_is_the_card(monkeypatch):
     )
     from large_scale_recommendation_tpu_torch.models.online import OnlineMF
     from large_scale_recommendation_tpu_torch.ops import als as als_ops
+    from large_scale_recommendation_tpu_torch.serving import retrieval
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (lambda: DSGD(DSGDConfig()), ALS, OnlineMF,
                   lambda: als_ops.device_prepare_side([0], [0], [1.0], 1),
-                  lambda: convert.online_from_jax(None)):
+                  lambda: convert.online_from_jax(None),
+                  lambda: convert.quantized_catalog_from_jax(None),
+                  lambda: retrieval.TwoStageRetriever(np.zeros((4, 2))),
+                  lambda: retrieval.kmeans_fit(np.ones((4, 2), np.float32),
+                                               2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):

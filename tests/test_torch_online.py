@@ -42,6 +42,7 @@ from large_scale_recommendation_tpu_torch.core.initializers import (
     PseudoRandomFactorInitializer,
 )
 from large_scale_recommendation_tpu_torch.core.types import (
+    FactorVector,
     ItemUpdate,
     Ratings,
     UserUpdate,
@@ -411,3 +412,41 @@ def test_online_from_jax_carries_the_state():
         j.partial_fit(b)
         p.partial_fit(_port(b))
         _assert_close_model(p, j)
+
+
+def test_batch_updates_builds_both_ways_like_jax():
+    """``BatchUpdates`` takes the JAX signature: object lists positional,
+    arrays and rank keyword-only (``models/adaptive.py:228`` builds it from
+    lists with ``rank=``), each form derived from the other on read, an
+    empty side shaped ``(0, rank)``."""
+    from large_scale_recommendation_tpu.core.types import (
+        FactorVector as JVec,
+    )
+    from large_scale_recommendation_tpu.core.types import (
+        UserUpdate as JUserUpdate,
+    )
+    from large_scale_recommendation_tpu.models.online import (
+        BatchUpdates as JBatchUpdates,
+    )
+
+    vecs = np.arange(6, dtype=np.float32).reshape(2, 3)
+    users = [UserUpdate(FactorVector(7, vecs[0])),
+             UserUpdate(FactorVector(9, vecs[1]))]
+    jusers = [JUserUpdate(JVec(7, vecs[0])), JUserUpdate(JVec(9, vecs[1]))]
+    t = BatchUpdates(users, [], rank=3)
+    j = JBatchUpdates(jusers, [], rank=3)
+    for side in ("user_arrays", "item_arrays"):
+        (ti, tv), (ji, jv) = getattr(t, side), getattr(j, side)
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(tv, jv)
+        assert ti.dtype == np.int64 and tv.dtype == np.float32
+    assert t.item_arrays[1].shape == (0, 3)
+    assert list(t) == users
+    a = BatchUpdates(user_arrays=(np.array([7, 9]), vecs),
+                     item_arrays=(np.zeros(0, np.int64),
+                                  np.zeros((0, 3), np.float32)), rank=3)
+    assert [u.vector.id for u in a.user_updates] == [7, 9]
+    np.testing.assert_array_equal(a.user_updates[1].vector.factors, vecs[1])
+    assert a.item_updates == []
+    with pytest.raises(TypeError):
+        BatchUpdates(users, [], 3)  # rank is keyword-only

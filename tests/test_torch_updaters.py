@@ -102,3 +102,24 @@ def test_plain_sgd_delta_and_next_factors(t):
     for a, b in zip(jr, tr):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
                                    atol=1e-8)
+
+
+@pytest.mark.parametrize("with_omega", [True, False])
+def test_regularized_next_factors_parity(with_omega):
+    ratings, u, v, w, ou, ov = _batch(21)
+    kw = dict(learning_rate=0.05, lambda_=0.1)
+    jn = ju.RegularizedSGDUpdater(**kw).next_factors(
+        jnp.asarray(ratings), jnp.asarray(u), jnp.asarray(v),
+        weights=jnp.asarray(w),
+        omega_u=jnp.asarray(ou) if with_omega else None,
+        omega_v=jnp.asarray(ov) if with_omega else None, t=3)
+    tn = tu.RegularizedSGDUpdater(**kw).next_factors(
+        torch.from_numpy(ratings), torch.from_numpy(u), torch.from_numpy(v),
+        weights=torch.from_numpy(w),
+        omega_u=torch.from_numpy(ou) if with_omega else None,
+        omega_v=torch.from_numpy(ov) if with_omega else None, t=3)
+    for a, b in zip(jn, tn):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
+                                   atol=1e-8)
+    # padding rows keep their factors exactly
+    np.testing.assert_array_equal(tn[0].numpy()[w == 0], u[w == 0])
