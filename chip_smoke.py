@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's DSGD training, serving and evaluation paths, ALS,
-online MF and the serving engine on one NVIDIA GPU (an H100).
+online MF, the serving engine and the streaming runtime on one NVIDIA GPU
+(an H100).
 
     python3 chip_smoke.py
 
@@ -109,7 +110,34 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               index, fast and exact users/s, recall@10 ≥ 0.95, one
               256-row bucket split into routing, probes, overflow, top-kc
               and stage 2 beside their bounds. No serving path launches a
-              DSGD kernel.
+              DSGD kernel;
+16. streams.log — the event log at the Netflix stream's shape: 32 ×
+              100,000 records appended over 4 partitions and read back by a
+              new instance (records/s and bytes/s each way; the re-read
+              equal to what was appended), a torn tail cut off by the next
+              append, one 8-batch ``fsync=True`` leg on its own;
+17. streams.driver — 16 batches of one partition drained by
+              ``StreamingDriver(OnlineMF)`` (rank 128, checkpoint every 4)
+              against the bare ``partial_fit`` loop over the same batches,
+              in turns (durable/bare retention, queue high-water,
+              checkpoint walls; tables within rtol 1e-4 / atol 1e-5); a
+              crash after batch 9, ``resume()`` and drain (zero loss, ≤ 4
+              batches replayed); a ``serving_engine()`` whose delta refresh
+              equals a full refresh row for row;
+18. streams.parallel — 32 stratum-routed batches (scripts/streams_bench.py's
+              ``_stratum_batch`` rule) drained by ``ParallelIngestRunner``
+              at N = 1, 2, 4 consumers on fresh models (ratings/s,
+              efficiency, gate waits, barriers; N = 2, 4 tables within
+              rtol 1e-4 / atol 1e-5 of N = 1's); a kill and resume at N = 4
+              (zero loss, per-partition duplicates ≤ the barrier cadence);
+              one refresh of 4 consumers' deltas = one catalog version;
+19. streams.adaptive — ``AdaptiveMF`` (rank 128, a background DSGD retrain
+              every 4 batches, 3 sweeps) under a ``StreamingDriver`` over 12
+              batches: retrain walls, the step pair's launches from the
+              retrain thread (> 0), buffered batches replayed after each
+              swap, one catalog version per swap, holdout RMSE beside the
+              online-only model's; then one foreground ALS retrain. The
+              log, driver and parallel phases launch none of the kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -125,6 +153,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -146,6 +175,10 @@ from large_scale_recommendation_tpu_torch.data import blocking
 from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.data.blocking import flat_index
 from large_scale_recommendation_tpu_torch.data.movielens import synthetic_like
+from large_scale_recommendation_tpu_torch.models.adaptive import (
+    AdaptiveMF,
+    AdaptiveMFConfig,
+)
 from large_scale_recommendation_tpu_torch.models.als import ALS, ALSConfig
 from large_scale_recommendation_tpu_torch.models.dsgd import DSGD, DSGDConfig
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
@@ -167,6 +200,16 @@ from large_scale_recommendation_tpu_torch.serving import (
     recall_at_k,
 )
 from large_scale_recommendation_tpu_torch.serving import retrieval as ret_ops
+from large_scale_recommendation_tpu_torch.streams import (
+    EventLog,
+    ParallelIngestRunner,
+    StreamingDriver,
+    StreamingDriverConfig,
+)
+from large_scale_recommendation_tpu_torch.streams.log import (
+    HEADER_SIZE,
+    RECORD_SIZE,
+)
 from large_scale_recommendation_tpu_torch.utils import metrics
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -714,6 +757,10 @@ def run(scratch: str) -> int:
     phase_als(dev)
     phase_als_conv(dev)
     phase_online(dev, scratch)
+    paths["streams.adaptive"] = phase_streams(scratch)
+    for k in kernels:  # the retrain thread's launches join the counts
+        k["launches"], k["launches_by_path"] = launch_counts(paths,
+                                                             k["name"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1819,6 +1866,486 @@ def phase_online(dev, scratch):
     say("online.updates", ratings=ONLINE_UPDATES, wall_s=wall,
         ratings_per_s=ONLINE_UPDATES / wall, rows_emitted=rows,
         launches=no_dsgd_launches("online"))
+
+
+# -- streams: the log, the driver, the parallel runner and the adaptive
+# model (host code and torch ops; the adaptive DSGD retrain runs the step
+# pair) ---------------------------------------------------------------------
+
+NETFLIX = dict(num_users=480_189, num_items=17_770, rank=16, noise=0.1,
+               skew_lam=2.0)  # bench.py:919-975, as [online]
+STREAM_BATCH, STREAM_CKPT_EVERY = 100_000, 4
+LOG_BATCHES, LOG_PARTS, LOG_FSYNC_BATCHES = 32, 4, 8
+DRIVER_BATCHES, DRIVER_CRASH_AFTER = 16, 9
+PAR_BATCHES, PAR_STRATA, PAR_CONSUMERS = 32, 4, (1, 2, 4)
+PAR_CRASH_AFTER = 14
+ADAPT_BATCHES, ADAPT_HOLDOUT = 12, 50_000
+ONLINE_TOL = dict(rtol=1e-4, atol=1e-5)  # [online]'s card bar
+
+
+class _Crash(RuntimeError):
+    """The simulated consumer crash of the kill/resume legs."""
+
+
+def stream_online_cfg() -> OnlineMFConfig:
+    return OnlineMFConfig(num_factors=128, learning_rate=0.05,
+                          minibatch_size=16384, init_capacity=1 << 19)
+
+
+def netflix_batches(seed, n, holdout=0):
+    gen = SyntheticMFGenerator(seed=seed, **NETFLIX)
+    out = [gen.generate(STREAM_BATCH) for _ in range(n)]
+    return (out, gen.generate(holdout)) if holdout else out
+
+
+def same_tables(a, b, label, tol=ONLINE_TOL) -> float:
+    """Two online models hold the same ids with factors within ``tol``
+    (rows matched by id: registration order may differ between runs);
+    returns the largest difference."""
+    worst = 0.0
+    for side in ("users", "items"):
+        ta, tb = getattr(a, side), getattr(b, side)
+        ids = np.sort(ta.id_array())
+        if not np.array_equal(ids, np.sort(tb.id_array())):
+            raise AssertionError(f"{label}: {side} id sets differ")
+        x = ta.array[torch.as_tensor(ta.rows_for(ids)[0], device=ta.device)]
+        y = tb.array[torch.as_tensor(tb.rows_for(ids)[0], device=tb.device)]
+        if not torch.allclose(x, y, **tol):
+            raise AssertionError(f"{label}: {side} tables beyond {tol}")
+        worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def coverage(applied, total, label) -> int:
+    """Every record of ``[0, total)`` was applied at least once; returns
+    how many were applied more than once."""
+    covered = np.zeros(total, np.int32)
+    for lo, hi in applied:
+        covered[lo:hi] += 1
+    if not (covered >= 1).all():
+        raise AssertionError(f"{label}: lost {int((covered == 0).sum())} "
+                             "records")
+    return int((covered > 1).sum())
+
+
+def same_serving(engine, model, label, users=4096):
+    """An engine's tables equal ``model.to_model()``'s row for row, and its
+    lists equal a fresh engine's for ``users`` users."""
+    ref = model.to_model()
+    if not (torch.equal(engine.model.U, ref.U)
+            and torch.equal(engine.model.V, ref.V)):
+        raise AssertionError(f"{label}: engine tables differ from the live "
+                             "model's")
+    ids = model.users.id_array()[:users]
+    a, b = engine.recommend(ids), ServingEngine(ref, k=engine.k).recommend(ids)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError(f"{label}: lists differ from a fresh engine's")
+
+
+def phase_streams_log(scratch):
+    """The WAL at the stream's shape: 32 × 100,000 records over 4
+    partitions (append and read rates; the re-read by a new instance equal
+    to what was appended), a torn tail cut off by the next append, and one
+    8-batch ``fsync=True`` leg."""
+    batches = netflix_batches(3, LOG_BATCHES)
+    path = os.path.join(scratch, "wal")
+    log = EventLog(path, num_partitions=LOG_PARTS, fsync=False)
+    t0 = time.perf_counter()
+    for k, b in enumerate(batches):
+        log.append(k % LOG_PARTS, b)
+    append_s = time.perf_counter() - t0
+    log.close()
+    n = LOG_BATCHES * STREAM_BATCH
+    reader = EventLog(path, num_partitions=LOG_PARTS, fsync=False)
+    got = {p: [] for p in range(LOG_PARTS)}
+    t0 = time.perf_counter()
+    for p in range(LOG_PARTS):
+        off = 0
+        while True:
+            r, nxt = reader.read(p, off, STREAM_BATCH)
+            if nxt == off:
+                break
+            got[p].append(r)
+            off = nxt
+    read_s = time.perf_counter() - t0
+    for p in range(LOG_PARTS):
+        for f in ("users", "items", "ratings"):
+            if not np.array_equal(
+                    np.concatenate([getattr(r, f) for r in got[p]]),
+                    np.concatenate([getattr(w, f) for w in
+                                    batches[p::LOG_PARTS]])):
+                raise AssertionError(f"log re-read of p{p} differs ({f})")
+    # a crashed append's 7 stray bytes on partition 0
+    part = reader._parts[0]
+    seg = part._seg_path(part.segments[-1][0])
+    end = reader.end_offset(0)
+    reader.close()
+    with open(seg, "ab") as f:
+        f.write(b"\x01" * 7)
+    torn = EventLog(path, num_partitions=LOG_PARTS, fsync=False)
+    if torn.end_offset(0) != end:
+        raise AssertionError("a torn tail changed the end offset")
+    if torn.append(0, batches[0]) != (end, end + STREAM_BATCH):
+        raise AssertionError("the append after a torn tail got wrong offsets")
+    base = torn._parts[0].segments[-1][0]
+    if os.path.getsize(torn._parts[0]._seg_path(base)) != \
+            HEADER_SIZE + (end + STREAM_BATCH - base) * RECORD_SIZE:
+        raise AssertionError("the torn tail was not cut off")
+    back, _ = torn.read(0, end, STREAM_BATCH)
+    if not np.array_equal(back.users, batches[0].users):
+        raise AssertionError("the append after a torn tail reads back wrong")
+    torn.close()
+    synced = EventLog(os.path.join(scratch, "wal_fsync"), fsync=True)
+    t0 = time.perf_counter()
+    for b in batches[:LOG_FSYNC_BATCHES]:
+        synced.append(0, b)
+    fsync_s = time.perf_counter() - t0
+    synced.close()
+    n_sync = LOG_FSYNC_BATCHES * STREAM_BATCH
+    say("streams.log", records=n, partitions=LOG_PARTS, batch=STREAM_BATCH,
+        bytes=n * RECORD_SIZE, append_s=append_s,
+        append_records_per_s=n / append_s,
+        append_bytes_per_s=n * RECORD_SIZE / append_s, read_s=read_s,
+        read_records_per_s=n / read_s,
+        read_bytes_per_s=n * RECORD_SIZE / read_s, reread_equal=True,
+        torn_tail_cut=True, fsync_records=n_sync, fsync_s=fsync_s,
+        fsync_records_per_s=n_sync / fsync_s,
+        launches=no_dsgd_launches("streams.log"))
+
+
+def phase_streams_driver(scratch):
+    """One partition of 16 batches drained by ``StreamingDriver(OnlineMF)``
+    against the bare ``partial_fit`` loop over the same batches, in turns
+    (bare, durable, durable, bare), tables within the online bar; a crash
+    after batch 9 resumed with zero loss; a ``serving_engine()`` refreshed
+    by a delta that equals a full refresh row for row."""
+    batches = netflix_batches(4, DRIVER_BATCHES)
+    log = EventLog(os.path.join(scratch, "drv_log"), fsync=False)
+    for b in batches:
+        log.append(0, b)
+    total = DRIVER_BATCHES * STREAM_BATCH
+    cfg = stream_online_cfg()
+    dcfg = StreamingDriverConfig(batch_records=STREAM_BATCH,
+                                 checkpoint_every=STREAM_CKPT_EVERY)
+
+    def bare():
+        om = OnlineMF(cfg)
+        return om, timed(lambda: [om.partial_fit(b, emit_updates=False)
+                                  for b in batches])[1]
+
+    def durable(k):
+        om = OnlineMF(cfg)
+        ck = os.path.join(scratch, f"drv_ck{k}")
+        drv = StreamingDriver(om, log, ck, config=dcfg)
+        drv.manager = TimedCheckpoints(ck)
+        applied, wall = timed(drv.run)
+        if (applied, drv.consumed_offset) != (DRIVER_BATCHES, total):
+            raise AssertionError(f"the driver applied {applied} batches to "
+                                 f"offset {drv.consumed_offset}")
+        return om, drv, wall
+
+    bare_model, bare1_s = bare()
+    dur_model, drv, dur1_s = durable(1)
+    dur2_s = durable(2)[2]
+    bare2_s = bare()[1]
+    worst = same_tables(dur_model, bare_model, "driver vs bare loop")
+    del bare_model, dur_model
+    tele = drv.telemetry()
+    saves = drv.manager.saves
+    if drv.checkpoints_written != DRIVER_BATCHES // STREAM_CKPT_EVERY:
+        raise AssertionError(f"{drv.checkpoints_written} checkpoints")
+    bare_rate = 2 * total / (bare1_s + bare2_s)
+    dur_rate = 2 * total / (dur1_s + dur2_s)
+    say("streams.driver", batches=DRIVER_BATCHES, batch=STREAM_BATCH,
+        bare_wall_s=[bare1_s, bare2_s], durable_wall_s=[dur1_s, dur2_s],
+        bare_ratings_per_s=bare_rate, durable_ratings_per_s=dur_rate,
+        retention=dur_rate / bare_rate,
+        queue_high_water=tele["queue"]["depth_high_water"],
+        queue_capacity=dcfg.queue_capacity,
+        blocked_puts=tele["queue"]["blocked_puts"],
+        checkpoints=drv.checkpoints_written,
+        checkpoint_wall_s=[w for w, _ in saves],
+        checkpoint_bytes=saves[-1][1], driver_vs_bare_max_abs=worst)
+    del drv
+
+    # crash after batch 9 (the checkpoint after batch 8 landed), resume
+    applied = []
+    ck = os.path.join(scratch, "drv_crash")
+
+    def crash(b):
+        applied.append((b.start_offset, b.end_offset))
+        if len(applied) == DRIVER_CRASH_AFTER:
+            raise _Crash()
+
+    d1 = StreamingDriver(OnlineMF(cfg), log, ck, config=dcfg, on_batch=crash)
+    try:
+        d1.run()
+        raise AssertionError("the crash leg did not crash")
+    except _Crash:
+        pass
+    del d1
+    m2 = OnlineMF(cfg)
+    d2 = StreamingDriver(m2, log, ck, config=dcfg, on_batch=lambda b:
+                         applied.append((b.start_offset, b.end_offset)))
+    if not d2.resume():
+        raise AssertionError("no checkpoint to resume from")
+    restored = d2.consumed_offset
+    resume_s = timed(d2.run)[1]
+    replayed = coverage(applied, total, "driver crash") // STREAM_BATCH
+    if d2.consumed_offset != log.end_offset(0) or \
+            replayed > STREAM_CKPT_EVERY:
+        raise AssertionError(f"resume ended at {d2.consumed_offset} of "
+                             f"{log.end_offset(0)}, {replayed} replayed")
+
+    # serving: one engine, one more batch over known ids, a delta refresh
+    engine = d2.serving_engine(k=SERVE_K)
+    v0 = engine.version
+    log.append(0, batches[0])
+    d2.run()
+    delta_s = timed(lambda: d2.refresh_serving(delta=True))[1]
+    if engine.version == v0 or d2.catalog_versions[-1] != engine.version:
+        raise AssertionError("the delta refresh moved no catalog version")
+    same_serving(engine, m2, "delta refresh")
+    full_s = timed(lambda: engine.refresh(m2.to_model()))[1]
+    if d2.consumed_offset != log.end_offset(0):
+        raise AssertionError("the driver stopped short of the log end")
+    say("streams.driver.crash", crash_after_batch=DRIVER_CRASH_AFTER,
+        restored_offset=restored, replayed_batches=replayed,
+        bound=STREAM_CKPT_EVERY, lost=0, resume_drain_s=resume_s,
+        consumed_offset=d2.consumed_offset, log_end=log.end_offset(0),
+        delta_rows=len(np.unique(batches[0].users))
+        + len(np.unique(batches[0].items)), delta_refresh_s=delta_s,
+        full_refresh_s=full_s, delta_equals_full=True,
+        launches=no_dsgd_launches("streams.driver"))
+
+
+def strata(seed):
+    """``PAR_STRATA`` row-disjoint streams of ``PAR_BATCHES / PAR_STRATA``
+    batches over the Netflix universe, drawn as scripts/streams_bench.py's
+    ``_stratum_batch`` draws them: stratum s holds users ≡ s (mod 4) and
+    the items of block s."""
+    rng = np.random.default_rng(seed)
+    u_blk = NETFLIX["num_users"] // PAR_STRATA
+    i_blk = NETFLIX["num_items"] // PAR_STRATA
+    return [[(rng.integers(0, u_blk, STREAM_BATCH) * PAR_STRATA + s,
+              rng.integers(0, i_blk, STREAM_BATCH) + s * i_blk,
+              rng.random(STREAM_BATCH).astype(np.float32))
+             for _ in range(PAR_BATCHES // PAR_STRATA)]
+            for s in range(PAR_STRATA)]
+
+
+def strata_log(path, streams, n_parts):
+    """Stratum s into partition s mod ``n_parts``, round by round."""
+    log = EventLog(path, num_partitions=n_parts, fsync=False)
+    for k in range(len(streams[0])):
+        for s, stream in enumerate(streams):
+            log.append_arrays(s % n_parts, *stream[k])
+    return log
+
+
+def phase_streams_parallel(scratch):
+    """The 32 stratum-routed batches drained by ``ParallelIngestRunner``
+    with N = 1, 2, 4 consumers on fresh models (stratum s on partition
+    s mod N: every N drains the same data, and the strata commute), the
+    N = 2 and 4 tables against N = 1's; a kill and resume at N = 4; one
+    refresh of 4 consumers' deltas as one catalog version."""
+    streams = strata(5)
+    total = PAR_BATCHES * STREAM_BATCH
+    cfg = stream_online_cfg()
+    dcfg = StreamingDriverConfig(batch_records=STREAM_BATCH,
+                                 checkpoint_every=STREAM_CKPT_EVERY)
+    per_n, n1 = {}, None
+    for n in PAR_CONSUMERS:
+        log = strata_log(os.path.join(scratch, f"par_log{n}"), streams, n)
+        model = OnlineMF(cfg)
+        ck = os.path.join(scratch, f"par_ck{n}")
+        runner = ParallelIngestRunner(model, log, ck, config=dcfg)
+        runner.manager = TimedCheckpoints(ck)
+        applied, wall = timed(runner.run)
+        tele = runner.telemetry()
+        if applied != PAR_BATCHES or any(tele["lag_records"].values()):
+            raise AssertionError(f"N={n}: applied {applied}, lag "
+                                 f"{tele['lag_records']}")
+        rate = total / wall
+        gate = tele.get("gate", {"grants": 0, "waits": 0})
+        per_n[n] = dict(wall_s=wall, ratings_per_s=rate,
+                        efficiency=rate / (n * per_n[1]["ratings_per_s"])
+                        if n > 1 else 1.0,
+                        gate_grants=gate["grants"], gate_waits=gate["waits"],
+                        barriers=runner.checkpoints_written,
+                        barrier_write_s=sum(w for w, _ in
+                                            runner.manager.saves),
+                        barriers_held=runner.barriers_held)
+        if n1 is None:
+            n1 = model
+        else:
+            per_n[n]["max_abs_vs_n1"] = same_tables(model, n1,
+                                                    f"N={n} vs N=1")
+        del model, runner
+    del n1
+    say("streams.parallel", batches=PAR_BATCHES, batch=STREAM_BATCH,
+        strata=PAR_STRATA, **{f"n{n}": v for n, v in per_n.items()})
+
+    # kill at N = 4 after 14 applied batches, resume on a fresh model
+    log = EventLog(os.path.join(scratch, f"par_log{PAR_CONSUMERS[-1]}"),
+                   num_partitions=PAR_STRATA, fsync=False)
+    ck = os.path.join(scratch, "par_crash")
+    applied, lock = [], threading.Lock()
+
+    def crash(b):
+        with lock:
+            applied.append((b.partition, b.start_offset, b.end_offset))
+            if len(applied) == PAR_CRASH_AFTER:
+                raise _Crash()
+
+    r1 = ParallelIngestRunner(OnlineMF(cfg), log, ck, config=dcfg,
+                              on_batch=crash)
+    try:
+        r1.run()
+        raise AssertionError("the N=4 crash leg did not crash")
+    except _Crash:
+        pass
+    frontier = r1.applied_frontier()
+    del r1
+    m2 = OnlineMF(cfg)
+    r2 = ParallelIngestRunner(m2, log, ck, config=dcfg, on_batch=lambda b:
+                              applied.append((b.partition, b.start_offset,
+                                              b.end_offset)))
+    if not r2.resume():
+        raise AssertionError("no barrier snapshot to resume from")
+    bound = STREAM_CKPT_EVERY * STREAM_BATCH
+    window = {p: frontier.get(p, 0) - m2.consumed_offsets.get(p, 0)
+              for p in range(PAR_STRATA)}
+    resume_s = timed(r2.run)[1]
+    per_part = total // PAR_STRATA
+    dups = {p: coverage([(lo, hi) for q, lo, hi in applied if q == p],
+                        per_part, f"N=4 crash p{p}")
+            for p in range(PAR_STRATA)}
+    for p in range(PAR_STRATA):
+        if not (dups[p] <= bound and 0 <= window[p] <= bound
+                and m2.consumed_offsets[p] == per_part):
+            raise AssertionError(f"p{p}: {dups[p]} records twice, window "
+                                 f"{window[p]}, offset "
+                                 f"{m2.consumed_offsets[p]}")
+
+    # one refresh of 4 consumers' deltas: one version for the engine
+    engine = r2.serving_engine(k=SERVE_K)
+    for s in range(PAR_STRATA):
+        log.append_arrays(s, *streams[s][0])  # known ids only
+    r2.run()
+    before = len(r2.catalog_versions)
+    refresh_s = timed(r2.refresh_serving)[1]
+    if (len(r2.catalog_versions) != before + 1
+            or engine.stats["delta_flushes"] != 1
+            or engine.stats["delta_swaps"] != 1):
+        raise AssertionError(
+            f"one refresh gave {len(r2.catalog_versions) - before} "
+            f"versions ({engine.stats['delta_swaps']} delta swaps)")
+    same_serving(engine, m2, "coalesced refresh")
+    say("streams.parallel.crash", consumers=PAR_STRATA,
+        crash_after_batches=PAR_CRASH_AFTER,
+        duplicate_window_records=window, duplicated_records=dups,
+        bound_records=bound, lost=0, resume_drain_s=resume_s,
+        refresh_versions=1, refresh_s=refresh_s,
+        launches=no_dsgd_launches("streams.parallel"))
+
+
+def phase_streams_adaptive(scratch):
+    """``AdaptiveMF`` (rank 128; a DSGD retrain every 4 batches on a
+    background thread) under a ``StreamingDriver`` over 12 batches: the
+    retrains launch the step pair from their thread; the batches buffered
+    during a retrain replay after its swap, and every swap moves the
+    engine's catalog version; holdout RMSE against the online-only model
+    on the same stream; then one foreground ALS retrain. Returns the
+    launch counts of the DSGD leg."""
+    batches, holdout = netflix_batches(6, ADAPT_BATCHES, ADAPT_HOLDOUT)
+    log = EventLog(os.path.join(scratch, "adapt_log"), fsync=False)
+    for b in batches:
+        log.append(0, b)
+    acfg = AdaptiveMFConfig(num_factors=128, minibatch_size=16384,
+                            learning_rate=0.05, offline_every=4,
+                            background=True, offline_algorithm="dsgd",
+                            offline_iterations=3)
+    model = AdaptiveMF(acfg)
+    walls, buffered = [], []
+    real_retrain, real_finish = model._retrain, model._finish_batch
+
+    def retrain(history):  # on the retrain thread
+        t0 = time.perf_counter()
+        out = real_retrain(history)
+        torch.cuda.synchronize()
+        walls.append((int(history.n), time.perf_counter() - t0))
+        return out
+
+    def finish():
+        buffered.append(len(model._buffer))
+        return real_finish()
+
+    model._retrain, model._finish_batch = retrain, finish
+    drv = StreamingDriver(model, log, os.path.join(scratch, "adapt_ck"),
+                          config=StreamingDriverConfig(
+                              batch_records=STREAM_BATCH,
+                              checkpoint_every=STREAM_CKPT_EVERY))
+    engine = drv.serving_engine(k=SERVE_K)
+    cuda_sgd.reset_launch_counts()
+    wall = timed(lambda: (drv.run(), model.flush()))[1]
+    launches = dict(cuda_sgd.LAUNCHES)
+    if not (launches["sgd_item_rows_kernel"] > 0
+            and launches["sgd_user_rows_kernel"] > 0):
+        raise AssertionError(f"the retrains launched no step pair: "
+                             f"{launches}")
+    if model.retrain_count < 1 or model._buffer or model.state != "Online":
+        raise AssertionError(f"{model.retrain_count} retrains, "
+                             f"{len(model._buffer)} buffered, {model.state}")
+    if (len(drv.catalog_versions) != 1 + model.retrain_count
+            or engine.version != drv.catalog_versions[-1]):
+        raise AssertionError(f"catalog versions {drv.catalog_versions} for "
+                             f"{model.retrain_count} swaps")
+    if model.online.consumed_offsets != {0: ADAPT_BATCHES * STREAM_BATCH}:
+        raise AssertionError(f"offsets {model.online.consumed_offsets}")
+    online_only = OnlineMF(OnlineMFConfig(num_factors=128, learning_rate=0.05,
+                                          minibatch_size=16384))
+    for b in batches:
+        online_only.partial_fit(b, emit_updates=False)
+    rmse_adaptive, rmse_online = model.rmse(holdout), online_only.rmse(holdout)
+    if not (math.isfinite(rmse_adaptive) and math.isfinite(rmse_online)):
+        raise AssertionError(f"holdout RMSE {rmse_adaptive} / {rmse_online}")
+    say("streams.adaptive", batches=ADAPT_BATCHES, batch=STREAM_BATCH,
+        rank=acfg.num_factors, offline_every=acfg.offline_every,
+        retrains=model.retrain_count, retrain_rows=[r for r, _ in walls],
+        retrain_wall_s=[w for _, w in walls], buffered_per_swap=buffered,
+        catalog_versions=len(drv.catalog_versions),
+        checkpoints=drv.checkpoints_written, drain_wall_s=wall,
+        step_pair_launches=launches, holdout=ADAPT_HOLDOUT,
+        rmse_adaptive=rmse_adaptive, rmse_online_only=rmse_online)
+    del model, drv, engine, online_only
+
+    # one foreground ALS retrain over the same history
+    als = AdaptiveMF(dataclasses.replace(acfg, offline_algorithm="als",
+                                         background=False,
+                                         offline_every=None))
+    for b in batches:
+        als.process(b)
+    before = dict(cuda_sgd.LAUNCHES)
+    als_s = timed(als.trigger_batch_training)[1]
+    if dict(cuda_sgd.LAUNCHES) != before or als.retrain_count != 1:
+        raise AssertionError("the ALS retrain launched a DSGD kernel or "
+                             "did not swap")
+    rmse_als = als.rmse(holdout)
+    if not math.isfinite(rmse_als):
+        raise AssertionError(f"ALS-retrained holdout RMSE {rmse_als}")
+    say("streams.adaptive.als", history=als._history_rows,
+        retrain_wall_s=als_s, rmse=rmse_als)
+    return launches
+
+
+def phase_streams(scratch):
+    """The four stream phases; returns the adaptive leg's launch counts."""
+    cuda_sgd.reset_launch_counts()
+    phase_streams_log(scratch)
+    phase_streams_driver(scratch)
+    phase_streams_parallel(scratch)
+    return phase_streams_adaptive(scratch)
 
 
 def launch_counts(paths, name):

@@ -1,5 +1,5 @@
-"""Carry weights, layouts and online state from the JAX package into the
-port.
+"""Carry weights, layouts and online and adaptive state from the JAX
+package into the port.
 
 All take plain numpy arrays (``np.asarray`` of the JAX arrays) and duck-typed
 ``IdIndex``-like objects, so nothing here imports JAX. bf16 tables may come
@@ -15,6 +15,10 @@ import torch
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.data.device_blocking import (
     DeviceBlockedProblem,
+)
+from large_scale_recommendation_tpu_torch.models.adaptive import (
+    AdaptiveMF,
+    AdaptiveMFConfig,
 )
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.models.online import (
@@ -113,6 +117,29 @@ def online_from_jax(jax_online, device=None, user_initializer=None,
     online.consumed_offsets = {int(k): int(v) for k, v in
                                jax_online.consumed_offsets.items()}
     return online
+
+
+def adaptive_from_jax(jax_adaptive, device=None) -> AdaptiveMF:
+    """A port ``AdaptiveMF`` carrying a JAX ``AdaptiveMF``'s state: its
+    config, the online model (``online_from_jax``: tables, step, consumed
+    offsets), the retrain history (rows in order) and the retrain counters,
+    on ``device`` (``None``: the card; raises without one). A model with a
+    retrain in flight (state ``Batch``) is refused: ``flush()`` it first."""
+    device = resolve_device(device)
+    if jax_adaptive.state != "Online":
+        raise ValueError("the JAX model has a retrain in flight; flush() "
+                         "it before converting")
+    jc = jax_adaptive.config
+    cfg = AdaptiveMFConfig(**{f: getattr(jc, f) for f in
+                              AdaptiveMFConfig.__dataclass_fields__})
+    model = AdaptiveMF(cfg, device=device)
+    model.online = online_from_jax(jax_adaptive.online, device=device)
+    model._history = [tuple(np.array(a) for a in h)
+                      for h in jax_adaptive._history]
+    model._history_rows = int(jax_adaptive._history_rows)
+    model._batches_since_retrain = int(jax_adaptive._batches_since_retrain)
+    model.retrain_count = int(jax_adaptive.retrain_count)
+    return model
 
 
 def quantized_catalog_from_jax(cat, device=None) -> QuantizedCatalog:

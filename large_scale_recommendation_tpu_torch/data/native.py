@@ -18,7 +18,6 @@ plain versions the native routes are held to, reachable as
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import warnings
 
@@ -31,27 +30,39 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _F32P = ctypes.POINTER(ctypes.c_float)
 
 
-@functools.lru_cache(maxsize=1)
+_LIB = "fastblock"
+_bound: ctypes.CDLL | None = None
+
+
 def _lib() -> ctypes.CDLL:
-    """The built library with every entry point's signature declared."""
-    lib = _build.load_library("fastblock")
-    lib.fb_parse_ratings.restype = ctypes.c_int64
-    lib.fb_parse_ratings.argtypes = [
-        ctypes.c_char_p, ctypes.c_char, ctypes.c_int,
-        ctypes.POINTER(_I64P), ctypes.POINTER(_I64P), ctypes.POINTER(_F32P)]
-    lib.fb_compact_ids.restype = ctypes.c_int64
-    lib.fb_compact_ids.argtypes = [_I64P, ctypes.c_int64, _I64P,
-                                   ctypes.POINTER(_I64P),
-                                   ctypes.POINTER(_I64P)]
-    lib.fb_stable_bucket.restype = None
-    lib.fb_stable_bucket.argtypes = [_I64P, _I64P, ctypes.c_int64,
-                                     ctypes.c_int64, _I64P]
-    lib.fb_minibatch_inv_counts.restype = None
-    lib.fb_minibatch_inv_counts.argtypes = [_I32P, _F32P, ctypes.c_int64,
-                                            ctypes.c_int64, _F32P]
-    lib.fb_free.restype = None
-    lib.fb_free.argtypes = [ctypes.c_void_p]
-    return lib
+    """The built library with every entry point's signature declared (the
+    first call from any thread builds it, under the library's build
+    lock)."""
+    global _bound
+    if _bound is not None:
+        return _bound
+    with _build.lock(_LIB):
+        if _bound is None:
+            lib = _build.load_library(_LIB)
+            lib.fb_parse_ratings.restype = ctypes.c_int64
+            lib.fb_parse_ratings.argtypes = [
+                ctypes.c_char_p, ctypes.c_char, ctypes.c_int,
+                ctypes.POINTER(_I64P), ctypes.POINTER(_I64P),
+                ctypes.POINTER(_F32P)]
+            lib.fb_compact_ids.restype = ctypes.c_int64
+            lib.fb_compact_ids.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                           ctypes.POINTER(_I64P),
+                                           ctypes.POINTER(_I64P)]
+            lib.fb_stable_bucket.restype = None
+            lib.fb_stable_bucket.argtypes = [_I64P, _I64P, ctypes.c_int64,
+                                             ctypes.c_int64, _I64P]
+            lib.fb_minibatch_inv_counts.restype = None
+            lib.fb_minibatch_inv_counts.argtypes = [
+                _I32P, _F32P, ctypes.c_int64, ctypes.c_int64, _F32P]
+            lib.fb_free.restype = None
+            lib.fb_free.argtypes = [ctypes.c_void_p]
+            _bound = lib
+    return _bound
 
 
 def _take(lib, ptr, n: int, dtype) -> np.ndarray:

@@ -229,10 +229,13 @@ class GrowableFactorTable:
         return self.array[:n]
 
     def load_rows(self, rows: np.ndarray, values) -> None:
-        """Restored factor rows into a new table (checkpoint restore)."""
+        """Factor rows (host values or a tensor on any device) into a new
+        table: a checkpoint restore, a retrain's install."""
+        if not isinstance(values, torch.Tensor):
+            values = np.asarray(values)
         table = self.array.clone()
         table[torch.as_tensor(rows, device=self.device)] = torch.as_tensor(
-            np.asarray(values), device=self.device, dtype=torch.float32)
+            values, device=self.device, dtype=torch.float32)
         self.array = table
 
     def full_table(self) -> torch.Tensor:

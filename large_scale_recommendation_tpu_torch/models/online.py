@@ -7,17 +7,22 @@ batch's ratings, on ``data.tables.GrowableFactorTable``s that register
 unseen ids on the way in. ``partial_fit`` returns the updates-only output:
 exactly the user and item vectors the batch touched.
 
-The serial path is ported. The concurrent-apply mode of the JAX package
-(snapshot/commit under a row-conflict gate) belongs with the streams
-slice: ``enable_concurrent_applies(True)`` raises ``NotImplementedError``.
-The JAX package's observability hooks (metrics, tracer, transfer ledger,
-event journal, contention lock) are not ported; ``watchdog`` is the one
-seam, ``None`` by default.
+``enable_concurrent_applies(True)`` routes ``partial_fit`` through the
+concurrent-apply twin (``streams.parallel.ParallelIngestRunner`` arms it for
+N > 1 consumers): table mutation serializes on ``apply_lock``, the update
+computes on a snapshot outside it, and the commit writes back only the
+batch's touched rows. A snapshot is two tensor references: a table is never
+written in place (``data/tables.py``). Every consumer thread enqueues on the
+default CUDA stream, so the card runs the work in the order it was enqueued
+under the lock. The JAX package's observability hooks (metrics, tracer,
+transfer ledger, event journal, contention lock) are not ported;
+``watchdog`` is the one seam, ``None`` by default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -147,6 +152,14 @@ class OnlineMF:
         # unconsumed offset}; stamped by ``partial_fit(offset=...)`` and
         # checkpointed with the tables (utils.checkpoint.save_online_state)
         self.consumed_offsets: dict[int, int] = {}
+        # concurrent-apply mode: off by default (the serial path takes no
+        # lock); when on, partial_fit runs _partial_fit_concurrent
+        self._concurrent = False
+        self.apply_lock = threading.RLock()
+        # optional streams.parallel.RowConflictGate: the concurrent path
+        # claims the batch's user and item ids for the snapshot → commit
+        # window, so only genuinely colliding batches serialize
+        self.apply_gate = None
         # divergence guard: ``after_batch(model, U, V, u_rows, i_rows)``
         # before the offset stamp; None = one pointer test per batch
         self.watchdog = None
@@ -154,15 +167,17 @@ class OnlineMF:
     # -- training ----------------------------------------------------------
 
     def enable_concurrent_applies(self, enabled: bool = True) -> None:
-        """The concurrent snapshot/commit apply path is not ported yet."""
-        if enabled:
-            raise NotImplementedError(
-                "concurrent applies are not ported yet (ROADMAP.md queue A: "
-                "streams); partial_fit runs the serial path")
+        """Route ``partial_fit`` through the snapshot/commit concurrent
+        path. The caller owns conflict-freedom: two applies may overlap only
+        when their (user, item) row sets are disjoint (``apply_gate``, a
+        ``streams.parallel.RowConflictGate``, guards it), because each
+        commit writes back only its own touched rows. Disjoint-row applies
+        commute, so any interleaving equals some serial order."""
+        self._concurrent = bool(enabled)
 
     @property
     def concurrent_applies(self) -> bool:
-        return False
+        return self._concurrent
 
     def partial_fit(self, batch: Ratings,
                     iterations: int | None = None,
@@ -176,6 +191,10 @@ class OnlineMF:
         ``offset=(partition, end_offset)`` stamps the batch's stream
         position into ``consumed_offsets`` once the batch is applied (also
         for an all-padding batch: the position advanced)."""
+        if self._concurrent:
+            return self._partial_fit_concurrent(
+                batch, iterations=iterations, emit_updates=emit_updates,
+                offset=offset)
         cfg = self.config
         ru, ri, rv, rw = batch.to_numpy()
         real = rw > 0
@@ -229,6 +248,103 @@ class OnlineMF:
         return BatchUpdates(
             user_arrays=(uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
             item_arrays=(uniq_i.astype(np.int64), gather(V, i_rows[first_i])),
+            rank=cfg.num_factors)
+
+    def _partial_fit_concurrent(self, batch: Ratings,
+                                iterations: int | None = None,
+                                emit_updates: bool = True,
+                                offset: tuple[int, int] | None = None,
+                                ) -> BatchUpdates | None:
+        """The concurrent-apply twin of ``partial_fit``: correct iff no
+        concurrent apply shares a row between snapshot and commit (the
+        ``apply_gate`` claim). A snapshot's other rows may go stale
+        underneath (another consumer's commit, a growth); neither matters:
+        our rows are claimed, and growth keeps row indices. The watchdog
+        scans before the commit, so a tripped batch never reaches the live
+        tables."""
+        cfg = self.config
+        ru, ri, rv, rw = batch.to_numpy()
+        real = rw > 0
+        ru, ri, rv = ru[real], ri[real], rv[real]
+        if len(ru) == 0:
+            if offset is not None:
+                with self.apply_lock:
+                    self.consumed_offsets[int(offset[0])] = int(offset[1])
+            return (BatchUpdates([], [], rank=cfg.num_factors)
+                    if emit_updates else None)
+        token = None
+        if self.apply_gate is not None:
+            token = self.apply_gate.acquire(np.unique(ru), np.unique(ri))
+        try:
+            return self._apply_concurrent(
+                ru, ri, rv, iterations=iterations,
+                emit_updates=emit_updates, offset=offset)
+        finally:
+            if token is not None:
+                self.apply_gate.release(token)
+
+    def _apply_concurrent(self, ru, ri, rv, iterations=None,
+                          emit_updates=True, offset=None):
+        cfg = self.config
+        with self.apply_lock:
+            u_rows = self.users.acquire_rows(ru)
+            i_rows = self.items.acquire_rows(ri)
+            U0 = self.users.array  # never written in place: the snapshot
+            V0 = self.items.array  # is two references, no copy
+        try:
+            staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
+                                             cfg.minibatch_size)
+            ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
+                               for a in staged)
+            U, V = sgd_ops.online_train(
+                U0, V0, ur, ir, vals, w, updater=self.updater,
+                minibatch=cfg.minibatch_size,
+                iterations=(iterations if iterations is not None
+                            else cfg.iterations_per_batch),
+                collision=cfg.collision_mode)
+            if self.watchdog is not None:
+                # before the commit and the offset stamp
+                self.watchdog.after_batch(self, U, V, u_rows, i_rows)
+            uniq_u = np.unique(u_rows)
+            uniq_i = np.unique(i_rows)
+
+            def touched_idx(rows_uniq: np.ndarray) -> torch.Tensor:
+                # pow2-padded with a repeated OWN row, never row 0: row 0
+                # may be another consumer's in-flight claim, and a
+                # duplicate index writing its stale snapshot value would
+                # corrupt it; a repeat of our own row writes our value
+                n = len(rows_uniq)
+                idx = np.full(pow2_pad(n), rows_uniq[0], np.int64)
+                idx[:n] = rows_uniq
+                return torch.from_numpy(idx).to(self.device)
+
+            ju = touched_idx(uniq_u)
+            ji = touched_idx(uniq_i)
+            with self.apply_lock:
+                self.users.commit_rows(U, ju)
+                self.items.commit_rows(V, ji)
+                self.step += 1
+                if offset is not None:
+                    # stamped only with the update committed
+                    self.consumed_offsets[int(offset[0])] = int(offset[1])
+        finally:
+            self.users.release_rows(u_rows)
+            self.items.release_rows(i_rows)
+        if not emit_updates:
+            return None
+
+        def updates_for(ids, rows, rows_uniq, src, jidx):
+            # id-aligned: rows are first-seen ordered, ids sorted, so map
+            # each sorted-unique id's row to its place in the sorted-unique
+            # ROW gather of the trained table (the committed values)
+            vals = src[jidx].cpu().numpy()
+            uniq_ids, first = np.unique(ids, return_index=True)
+            pos = np.searchsorted(rows_uniq, rows[first])
+            return uniq_ids.astype(np.int64), vals[pos]
+
+        return BatchUpdates(
+            user_arrays=updates_for(ru, u_rows, uniq_u, U, ju),
+            item_arrays=updates_for(ri, i_rows, uniq_i, V, ji),
             rank=cfg.num_factors)
 
     def run(self, batches: Iterable[Ratings],

@@ -5,10 +5,13 @@ A ``.cu`` source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -shared -Xcompiler -fPIC``, a ``.cpp`` source with ``g++ -O3 -shared -fPIC
 -std=c++17``, into ``<package>/build/`` (listed in ``.gitignore``) at first
 use, and again whenever the source is newer than its library. The library is
-written under a temporary name and renamed into place, so processes that
-build it at the same time never load a half-written file. There is no
-fallback: a missing compiler or a failed build raises with the compiler's
-last lines.
+written under a temporary name (process and thread id) and renamed into
+place, so processes that build it at the same time never load a
+half-written file. Within a process, a lock per library (``lock(name)``)
+serializes its whole check → build → load sequence, so threads that make
+first use of a library at once get one build and one ``CDLL``, while two
+libraries still build side by side. There is no fallback: a missing
+compiler or a failed build raises with the compiler's last lines.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
+_LOCKS_GUARD = threading.Lock()
+_locks: dict[str, threading.RLock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # each build's compiler output, by name
 
@@ -54,32 +60,47 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def lock(name: str) -> threading.RLock:
+    """The lock held around library ``name``'s check → build → load
+    (re-entrant: the bound-library caches of ``ops.cuda_sgd`` and
+    ``data.native`` hold it around their signature setup too)."""
+    with _LOCKS_GUARD:
+        return _locks.setdefault(name, threading.RLock())
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (g++) if its
-    library is missing or stale, and load it."""
-    if name in _loaded:
+    library is missing or stale, and load it. Safe to call from several
+    threads and processes at once."""
+    with lock(name):
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(_build(name))
         return _loaded[name]
+
+
+def _build(name: str) -> str:
+    """The library's path, built first if it is missing or stale."""
     cu, cpp = (os.path.join(CSRC, f"{name}{ext}") for ext in (".cu", ".cpp"))
     src = cu if os.path.exists(cu) else cpp
     if not os.path.exists(src):
         raise FileNotFoundError(f"no {cu} or {cpp}")
     lib = library_path(name)
-    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = ([_nvcc(), *NVCC_FLAGS] if src == cu else [_gxx(), *GXX_FLAGS])
-        try:
-            proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
-                                  text=True, check=False)
-            build_log[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"{os.path.basename(cmd[0])} failed for "
-                    f"{os.path.basename(src)} (exit {proc.returncode}):\n"
-                    f"{build_log[name][-4000:]}")
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    _loaded[name] = ctypes.CDLL(lib)
-    return _loaded[name]
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = ([_nvcc(), *NVCC_FLAGS] if src == cu else [_gxx(), *GXX_FLAGS])
+    try:
+        proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
+                              text=True, check=False)
+        build_log[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed for "
+                f"{os.path.basename(src)} (exit {proc.returncode}):\n"
+                f"{build_log[name][-4000:]}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib

@@ -58,7 +58,7 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
     constant_lr,
 )
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
-from large_scale_recommendation_tpu_torch.ops._build import load_library
+from large_scale_recommendation_tpu_torch.ops import _build
 
 # launches per kernel since the last reset (counted where the kernel is
 # launched, and nowhere else)
@@ -80,23 +80,28 @@ def reset_launch_counts() -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    """The built kernel library with its ctypes signatures declared."""
+    """The built kernel library with its ctypes signatures declared (the
+    first call from any thread builds it, under the library's build
+    lock)."""
     global _bound
-    if _bound is None:
-        lib = load_library(_LIB)
-        P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_float)
-        lib.dsgd_sweep_max_rank.restype = I
-        lib.dsgd_sweep_max_rank.argtypes = []
-        step = [I, I, P, I, I, P, P, I, F, F, P]  # e0 … stream
-        lib.sgd_item_rows_launch.restype = I
-        lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
-        lib.sgd_user_rows_launch.restype = I
-        lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
-        for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
-            fn.restype = I
-            fn.argtypes = [P, P, I64, P, P, I64, P]
-        _bound = lib
+    if _bound is not None:
+        return _bound
+    with _build.lock(_LIB):
+        if _bound is None:
+            lib = _build.load_library(_LIB)
+            P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_float)
+            lib.dsgd_sweep_max_rank.restype = I
+            lib.dsgd_sweep_max_rank.argtypes = []
+            step = [I, I, P, I, I, P, P, I, F, F, P]  # e0 … stream
+            lib.sgd_item_rows_launch.restype = I
+            lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
+            lib.sgd_user_rows_launch.restype = I
+            lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
+            for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
+                fn.restype = I
+                fn.argtypes = [P, P, I64, P, P, I64, P]
+            _bound = lib
     return _bound
 
 

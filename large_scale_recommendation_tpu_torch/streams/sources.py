@@ -1,0 +1,461 @@
+"""Streaming sources: offset-stamped micro-batches through a bounded,
+backpressure-aware ingest queue (counterpart of
+``large_scale_recommendation_tpu.streams.sources``).
+
+- **sources** produce ``StreamBatch``es, micro-batches stamped with the
+  ``[start, end)`` offsets they cover. ``LogTailSource`` tails the durable
+  ``EventLog`` (the replayable path recovery depends on);
+  ``GeneratorSource`` / ``CSVSource`` wrap the synthetic generators and
+  ratings files into the same shape (offsets = record indices in their own
+  stream; durable only once pumped through a log, ``pump_to_log``).
+- **poison quarantine**: records that would poison the update (non-finite
+  ratings, negative ids) go to a bounded dead-letter buffer instead of
+  killing the driver.
+- **IngestQueue** bounds the host buffer between producer and training
+  loop with an overflow policy: ``block`` (backpressure, the only
+  loss-free choice and the default), ``drop`` (shed the newest batch,
+  counted), ``dead_letter`` (shed into the quarantine buffer). Counters
+  live in ``utils.metrics.IngestStats``.
+
+The JAX package's trace contexts and event journal are not ported (no obs
+plane yet), so a ``StreamBatch`` carries no ``ctx``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Iterator
+
+import numpy as np
+
+from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.streams.log import EventLog
+from large_scale_recommendation_tpu_torch.utils.metrics import IngestStats
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBatch:
+    """One offset-stamped micro-batch: ``ratings`` covers records
+    ``[start_offset, end_offset)`` of ``partition``'s stream. The stamp
+    is what makes consumption checkpointable — a consumer that persists
+    ``end_offset`` with its state can replay the tail after a crash."""
+
+    ratings: Ratings
+    partition: int
+    start_offset: int
+    end_offset: int
+
+    @property
+    def n(self) -> int:
+        return self.end_offset - self.start_offset
+
+
+def split_poison(users: np.ndarray, items: np.ndarray,
+                 ratings: np.ndarray) -> np.ndarray:
+    """Boolean mask of records safe to feed the update. Poison =
+    non-finite rating or negative id: a NaN propagates through every
+    factor the batch touches, and a negative id scatters out of table
+    bounds — either corrupts the model silently, so they are quarantined
+    at the ingest boundary instead."""
+    return (np.isfinite(ratings) & (users >= 0) & (items >= 0))
+
+
+class DeadLetterBuffer:
+    """Bounded quarantine for poison records and shed batches. Keeps the
+    most recent ``capacity`` records (arrays, not objects — same reason
+    as ``BatchUpdates``) plus lifetime counters; inspection via
+    ``records()`` for offline triage/replay."""
+
+    def __init__(self, capacity: int = 4096):
+        self.capacity = capacity
+        self._chunks: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        self._rows = 0
+        self.total = 0
+        self._lock = threading.Lock()
+
+    def put(self, users, items, ratings) -> int:
+        users = np.asarray(users)
+        with self._lock:
+            self.total += len(users)
+            self._chunks.append((users.copy(), np.asarray(items).copy(),
+                                 np.asarray(ratings).copy()))
+            self._rows += len(users)
+            while self._rows > self.capacity and len(self._chunks) > 1:
+                dropped = self._chunks.pop(0)
+                self._rows -= len(dropped[0])
+            if self._rows > self.capacity:
+                # one chunk bigger than the whole buffer (a shed
+                # batch_records >> capacity): trim its front so the
+                # bound holds — "most recent capacity records", exactly
+                u, i, r = self._chunks[0]
+                excess = self._rows - self.capacity
+                # copy, not slice: a view would keep the full oversized
+                # base arrays alive, defeating the memory bound
+                self._chunks[0] = (u[excess:].copy(), i[excess:].copy(),
+                                   r[excess:].copy())
+                self._rows = self.capacity
+            return len(users)
+
+    def records(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        with self._lock:
+            if not self._chunks:
+                z = np.zeros(0)
+                return z.astype(np.int64), z.astype(np.int64), \
+                    z.astype(np.float32)
+            return (np.concatenate([c[0] for c in self._chunks]),
+                    np.concatenate([c[1] for c in self._chunks]),
+                    np.concatenate([c[2] for c in self._chunks]))
+
+    def __len__(self) -> int:
+        with self._lock:
+            return self._rows
+
+
+class IngestQueue:
+    """Bounded batch queue between producer and training loop.
+
+    Overflow policy (``policy``): ``"block"`` waits for space
+    (backpressure — the producer slows to the consumer's rate, nothing
+    is lost); ``"drop"`` sheds the incoming batch and counts it;
+    ``"dead_letter"`` sheds it into ``dead_letters`` where it can be
+    recovered. ``close()`` marks end-of-stream: ``get`` drains what is
+    queued, then returns ``None`` forever.
+    """
+
+    POLICIES = ("block", "drop", "dead_letter")
+
+    def __init__(self, capacity: int = 16, policy: str = "block",
+                 dead_letters: DeadLetterBuffer | None = None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be ≥ 1, got {capacity}")
+        if policy not in self.POLICIES:
+            raise ValueError(f"policy must be one of {self.POLICIES}, "
+                             f"got {policy!r}")
+        self.capacity = capacity
+        self.policy = policy
+        self.dead_letters = dead_letters or DeadLetterBuffer()
+        self.stats = IngestStats()
+        self._items: list[StreamBatch] = []
+        self._closed = False
+        self._cv = threading.Condition()
+
+    def put(self, batch: StreamBatch, timeout: float | None = None) -> bool:
+        """Enqueue; returns False if the batch was shed (or the queue is
+        closed / a blocking put timed out)."""
+        with self._cv:
+            if self._closed:
+                return False
+            if len(self._items) >= self.capacity:
+                if self.policy == "block":
+                    self.stats.blocked_puts += 1
+                    deadline = (None if timeout is None
+                                else time.monotonic() + timeout)
+                    while len(self._items) >= self.capacity \
+                            and not self._closed:
+                        remaining = (None if deadline is None
+                                     else deadline - time.monotonic())
+                        if remaining is not None and remaining <= 0:
+                            return False
+                        self._cv.wait(remaining)
+                    if self._closed:
+                        return False
+                elif self.policy == "dead_letter":
+                    # quarantined, not lost: recoverable from the buffer
+                    ru, ri, rv, rw = batch.ratings.to_numpy()
+                    real = rw > 0
+                    self.dead_letters.put(ru[real], ri[real], rv[real])
+                    self.stats.dead_letter_batches += 1
+                    self.stats.dead_letter_records += int(real.sum())
+                    return False
+                else:  # "drop": shed outright, counted as loss
+                    # count the batch's REAL rating rows, not its offset
+                    # span (batch.n still covers rows _quarantine already
+                    # moved to the dead-letter buffer) — matches the
+                    # dead_letter policy's accounting, no double count
+                    rw = np.asarray(batch.ratings.weights)
+                    self.stats.dropped_batches += 1
+                    self.stats.dropped_records += int((rw > 0).sum())
+                    return False
+            self._items.append(batch)
+            self.stats.enqueued_batches += 1
+            self.stats.enqueued_records += batch.n
+            self.stats.depth = len(self._items)
+            self.stats.depth_high_water = max(
+                self.stats.depth_high_water, self.stats.depth)
+            self._cv.notify_all()
+        return True
+
+    def get(self, timeout: float | None = None) -> StreamBatch | None:
+        """Dequeue the oldest batch; ``None`` on end-of-stream (closed
+        and drained) or timeout."""
+        with self._cv:
+            deadline = (None if timeout is None
+                        else time.monotonic() + timeout)
+            while not self._items and not self._closed:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    return None
+                self._cv.wait(remaining)
+            if not self._items:
+                return None  # closed and drained
+            batch = self._items.pop(0)
+            self.stats.dequeued_batches += 1
+            self.stats.dequeued_records += batch.n
+            self.stats.depth = len(self._items)
+            self._cv.notify_all()
+            return batch
+
+    @property
+    def depth(self) -> int:
+        with self._cv:
+            return len(self._items)
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        with self._cv:
+            return self._closed
+
+
+# --------------------------------------------------------------------------
+# Sources
+# --------------------------------------------------------------------------
+
+
+class LogTailSource:
+    """Tail an ``EventLog`` partition from ``start_offset`` in
+    ``batch_records``-sized micro-batches — THE replayable source: the
+    offsets it stamps are log offsets, so a consumer that checkpoints
+    them can resume exactly where it stopped (``StreamingDriver``).
+
+    ``follow=False`` stops at the current end of log (replay/catch-up
+    mode); ``follow=True`` polls every ``poll_interval_s`` for new
+    appends until ``stop()``.
+    """
+
+    def __init__(self, log: EventLog, partition: int = 0,
+                 start_offset: int | None = None,
+                 batch_records: int = 4096, follow: bool = False,
+                 poll_interval_s: float = 0.01):
+        self.log = log
+        self.partition = partition
+        self.offset = (log.start_offset(partition)
+                       if start_offset is None else start_offset)
+        self.batch_records = batch_records
+        self.follow = follow
+        self.poll_interval_s = poll_interval_s
+        self._stop = threading.Event()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def batches(self) -> Iterator[StreamBatch]:
+        while not self._stop.is_set():
+            batch, nxt = self.log.read(self.partition, self.offset,
+                                       self.batch_records)
+            if nxt == self.offset:  # caught up
+                if not self.follow:
+                    return
+                time.sleep(self.poll_interval_s)
+                continue
+            yield StreamBatch(ratings=batch, partition=self.partition,
+                              start_offset=self.offset, end_offset=nxt)
+            self.offset = nxt
+
+    def __iter__(self) -> Iterator[StreamBatch]:
+        return self.batches()
+
+
+class GeneratorSource:
+    """Wrap a rating generator (anything with ``generate(n) -> Ratings``,
+    ``core/generators.py``) into offset-stamped micro-batches. Offsets
+    count generated records — a *synthetic* stream position, NOT durable:
+    a crashed consumer cannot replay them. Pump through ``pump_to_log``
+    first when durability matters (the streaming demo does)."""
+
+    def __init__(self, generator, batch_records: int = 4096,
+                 num_batches: int | None = None, partition: int = 0):
+        self.generator = generator
+        self.batch_records = batch_records
+        self.num_batches = num_batches
+        self.partition = partition
+        self.offset = 0
+
+    def batches(self) -> Iterator[StreamBatch]:
+        produced = 0
+        while self.num_batches is None or produced < self.num_batches:
+            ratings = self.generator.generate(self.batch_records)
+            n = int(np.sum(np.asarray(ratings.weights) > 0))
+            yield StreamBatch(ratings=ratings, partition=self.partition,
+                              start_offset=self.offset,
+                              end_offset=self.offset + n)
+            self.offset += n
+            produced += 1
+
+    def __iter__(self) -> Iterator[StreamBatch]:
+        return self.batches()
+
+
+class CSVSource:
+    """Chop a ratings file (ML-25M ``ratings.csv`` / ML-100K ``u.data``
+    — same sniffing as the bench's BENCH_DATA route) into offset-stamped
+    micro-batches; offsets are row indices within the file."""
+
+    def __init__(self, path: str, batch_records: int = 4096,
+                 partition: int = 0):
+        self.path = path
+        self.batch_records = batch_records
+        self.partition = partition
+
+    def batches(self) -> Iterator[StreamBatch]:
+        from large_scale_recommendation_tpu_torch.data.movielens import (
+            load_ratings_file,
+        )
+
+        ru, ri, rv, rw = load_ratings_file(self.path).to_numpy()
+        real = rw > 0
+        ru, ri, rv = ru[real], ri[real], rv[real]
+        for b0 in range(0, len(ru), self.batch_records):
+            b1 = min(b0 + self.batch_records, len(ru))
+            yield StreamBatch(
+                ratings=Ratings.from_arrays(ru[b0:b1], ri[b0:b1],
+                                            rv[b0:b1]),
+                partition=self.partition, start_offset=b0,
+                end_offset=b1)
+
+    def __iter__(self) -> Iterator[StreamBatch]:
+        return self.batches()
+
+
+def pump_to_log(source, log: EventLog, partition: int = 0,
+                limiter=None) -> int:
+    """Drain a (non-durable) source into the log — the producer half of
+    the durable topology: generator/CSV → log → ``LogTailSource`` →
+    driver. Returns the number of records appended. ``limiter``
+    (``core.limiter.ThroughputLimiter``) paces replay like the
+    reference's source throttling."""
+    total = 0
+    for batch in source:
+        if limiter is not None:
+            limiter.emit_batch_or_wait(batch.n)
+        start, end = log.append(partition, batch.ratings)
+        total += end - start
+    return total
+
+
+class QueuedSource:
+    """Run ``source`` on a feeder thread through a bounded
+    ``IngestQueue``, yielding batches on the consumer side — the
+    producer/consumer decoupling every streaming runtime puts between
+    ingest and compute, with the queue's policy deciding what happens
+    when training falls behind.
+
+    Poison records are quarantined here (``split_poison`` →
+    ``dead_letters``), so a malformed record in the stream costs one
+    mask, not the driver's life. Offset stamps are PRESERVED through
+    quarantine: the batch still covers its full ``[start, end)`` range
+    (the poison rows are accounted as consumed — they are in the
+    dead-letter buffer, not lost).
+
+    A feeder crash (e.g. ``LogTruncatedError`` from a truncated-away
+    replay range) closes the queue and re-raises on the consumer side —
+    runtime faults must surface, only data faults are absorbed.
+    """
+
+    def __init__(self, source, capacity: int = 16, policy: str = "block",
+                 validate: bool = True,
+                 dead_letters: DeadLetterBuffer | None = None,
+                 on_enqueue=None):
+        self.source = source
+        self.queue = IngestQueue(capacity=capacity, policy=policy,
+                                 dead_letters=dead_letters)
+        self.validate = validate
+        # on_enqueue(batch): fired on the FEEDER thread after quarantine,
+        # before the (possibly blocking) queue put — the WAL-lookahead
+        # hook of a tiered store's prefetcher (not ported yet). Must be
+        # cheap and non-blocking; exceptions are the feeder's death.
+        self.on_enqueue = on_enqueue
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+
+    @property
+    def stats(self) -> IngestStats:
+        return self.queue.stats
+
+    @property
+    def dead_letters(self) -> DeadLetterBuffer:
+        return self.queue.dead_letters
+
+    def _quarantine(self, batch: StreamBatch) -> StreamBatch:
+        ru, ri, rv, rw = batch.ratings.to_numpy()
+        real = rw > 0
+        good = split_poison(ru, ri, rv)
+        bad = real & ~good
+        if not bad.any():
+            return batch
+        self.dead_letters.put(ru[bad], ri[bad], rv[bad])
+        self.queue.stats.poison_records += int(bad.sum())
+        keep = real & good
+        return StreamBatch(
+            ratings=Ratings.from_arrays(ru[keep], ri[keep], rv[keep]),
+            partition=batch.partition, start_offset=batch.start_offset,
+            end_offset=batch.end_offset)
+
+    def _feed(self) -> None:
+        try:
+            for batch in self.source:
+                if self.validate:
+                    batch = self._quarantine(batch)
+                if self.on_enqueue is not None:
+                    self.on_enqueue(batch)
+                self.queue.put(batch)
+                if self.queue.closed:
+                    return
+        except BaseException as exc:  # surfaced on the consumer side
+            self._error = exc
+        finally:
+            self.queue.close()
+
+    def start(self) -> "QueuedSource":
+        if self._thread is None:
+            part = getattr(self.source, "partition", "?")
+            self._thread = threading.Thread(
+                target=self._feed, daemon=True, name=f"wal-feed-p{part}")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if hasattr(self.source, "stop"):
+            self.source.stop()
+        self.queue.close()
+
+    def finish(self) -> None:
+        """Wind the feeder down and surface any fault it hit. A consumer
+        that stops iterating EARLY (``StreamingDriver.run``'s
+        ``max_batches``) never reaches the re-raise at the end of
+        ``batches()`` — it must call this instead, or a feeder crash is
+        silently swallowed."""
+        self.stop()
+        if self._thread is not None:
+            self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+    def batches(self) -> Iterator[StreamBatch]:
+        self.start()
+        while True:
+            batch = self.queue.get()
+            if batch is None:
+                break
+            yield batch
+        self.finish()
+
+    def __iter__(self) -> Iterator[StreamBatch]:
+        return self.batches()

@@ -1,7 +1,8 @@
 """Full-catalog ranking: top-K serving and HR@K / NDCG@K (counterpart of the
 ranking part of ``large_scale_recommendation_tpu.utils.metrics``), the
 sampled-negatives HR/NDCG and catalog coverage of
-``large_scale_recommendation_tpu.obs.quality``, and ``ThroughputMeter``.
+``large_scale_recommendation_tpu.obs.quality``, ``ThroughputMeter``, and the
+streams' ``IngestStats`` with ``publish_fields``.
 
 The JAX package leaves this to XLA, so the port uses ordinary torch ops on
 the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
@@ -65,6 +66,48 @@ class ThroughputMeter:
     @property
     def rate(self) -> float:
         return self.total_elements / self.total_s if self.total_s else 0.0
+
+
+@dataclasses.dataclass
+class IngestStats:
+    """Ingest-side counters of the streaming runtime (``streams/``): queue
+    depth and high-water mark, block/drop/dead-letter outcomes and poison
+    quarantines. Mutated under the owning queue's lock; ``snapshot()``
+    returns a plain dict with the JAX package's keys."""
+
+    enqueued_batches: int = 0
+    enqueued_records: int = 0
+    dequeued_batches: int = 0
+    dequeued_records: int = 0
+    dropped_batches: int = 0
+    dropped_records: int = 0
+    dead_letter_batches: int = 0
+    dead_letter_records: int = 0
+    poison_records: int = 0
+    blocked_puts: int = 0
+    depth: int = 0
+    depth_high_water: int = 0
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def publish(self, registry=None, prefix: str = "ingest",
+                **labels) -> None:
+        """Every field as a ``{prefix}_{field}`` gauge of ``registry``."""
+        publish_fields(dataclasses.asdict(self), registry=registry,
+                       prefix=prefix, **labels)
+
+
+def publish_fields(fields: dict, registry=None, prefix: str = "ingest",
+                   **labels) -> None:
+    """Mirror ``{field: number}`` into ``registry`` as ``{prefix}_{field}``
+    gauges with ``labels``. The port has no metrics registry yet, so
+    ``registry=None`` (the default) is a no-op; a registry is anything
+    with the JAX registry's ``enabled`` and ``gauge(name, **labels)``."""
+    if registry is None or not registry.enabled:
+        return
+    for field, value in fields.items():
+        registry.gauge(f"{prefix}_{field}", **labels).set(value)
 
 
 def _exclusion_builder(train_u, train_i, num_users: int):

@@ -37,7 +37,9 @@ def test_port_has_the_slice_modules():
               "utils.checkpoint", "utils.config", "core.limiter",
               "ops.als", "models.als", "data.tables", "models.online",
               "obs.health", "parallel.serving", "serving",
-              "serving.retrieval", "serving.admission", "serving.engine"):
+              "serving.retrieval", "serving.admission", "serving.engine",
+              "streams", "streams.log", "streams.sources", "streams.driver",
+              "streams.parallel", "models.adaptive"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -86,6 +88,9 @@ def test_ast_finds_no_jax_import(path):
 
 def test_default_device_is_the_card(monkeypatch):
     from large_scale_recommendation_tpu_torch import convert
+    from large_scale_recommendation_tpu_torch.models.adaptive import (
+        AdaptiveMF,
+    )
     from large_scale_recommendation_tpu_torch.models.als import ALS
     from large_scale_recommendation_tpu_torch.models.dsgd import (
         DSGD,
@@ -100,6 +105,7 @@ def test_default_device_is_the_card(monkeypatch):
     for entry in (lambda: DSGD(DSGDConfig()), ALS, OnlineMF,
                   lambda: als_ops.device_prepare_side([0], [0], [1.0], 1),
                   lambda: convert.online_from_jax(None),
+                  AdaptiveMF, lambda: convert.adaptive_from_jax(None),
                   lambda: convert.quantized_catalog_from_jax(None),
                   lambda: retrieval.TwoStageRetriever(np.zeros((4, 2))),
                   lambda: retrieval.kmeans_fit(np.ones((4, 2), np.float32),

@@ -182,3 +182,53 @@ def test_a_stale_library_is_rebuilt(tmp_path, monkeypatch):
     _build.load_library("two_ints")  # (dlopen keeps the old code mapped)
     assert os.path.getmtime(lib) > 1
     _build._loaded.pop("two_ints")
+
+
+def test_threads_making_first_use_get_one_build_and_one_load(tmp_path,
+                                                              monkeypatch):
+    """Eight threads make first use of ``fastblock`` at once (a consumer
+    thread and a background retrain can): one compiler run, one ``CDLL``,
+    and every thread gets that library, without an exception."""
+    import ctypes
+    import threading
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(native, "_bound", None)
+    builds, loads = [], []
+    real_run, real_cdll = _build.subprocess.run, ctypes.CDLL
+
+    def counted_run(cmd, **kw):
+        builds.append(cmd[-1])
+        return real_run(cmd, **kw)
+
+    def counted_cdll(path, *a, **kw):
+        loads.append(path)
+        return real_cdll(path, *a, **kw)
+
+    monkeypatch.setattr(_build.subprocess, "run", counted_run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", counted_cdll)
+    start = threading.Barrier(8)
+    got, errors = [None] * 8, []
+
+    def first_use(j):
+        try:
+            start.wait(timeout=30)
+            got[j] = native._lib()
+            uniq, _, _ = native.compact_ids(np.array([3, 1, 3]))
+            assert uniq.tolist() == [3, 1]
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first_use, args=(j,))
+               for j in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads), "a thread hung"
+    assert not errors, errors
+    assert len(builds) == 1 and builds[0].endswith("fastblock.cpp")
+    assert loads == [_build.library_path("fastblock")]
+    assert all(g is got[0] for g in got)
+    assert sorted(os.listdir(tmp_path / "build")) == ["libfastblock.so"]

@@ -372,14 +372,6 @@ def test_run_and_pluggable_updater():
                                   want.numpy())
 
 
-def test_concurrent_applies_wait_for_the_streams_slice():
-    _, p = _pair()
-    assert p.concurrent_applies is False
-    p.enable_concurrent_applies(False)
-    with pytest.raises(NotImplementedError, match="streams"):
-        p.enable_concurrent_applies(True)
-
-
 def test_watchdog_runs_before_the_offset_stamp():
     _, p = _pair()
     seen = []
