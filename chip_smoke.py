@@ -136,8 +136,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               batches: retrain walls, the step pair's launches from the
               retrain thread (> 0), buffered batches replayed after each
               swap, one catalog version per swap, holdout RMSE beside the
-              online-only model's; then one foreground ALS retrain. The
-              log, driver and parallel phases launch none of the kernels.
+              online-only model's; each retrain held against the plain
+              route on the card from the same initial tables (a stratum
+              at 1e-5, the fit at 1e-5 × sweeps, holdout RMSE within
+              1e-4); then one foreground ALS retrain. The log, driver and
+              parallel phases launch none of the kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -1880,6 +1883,7 @@ DRIVER_BATCHES, DRIVER_CRASH_AFTER = 16, 9
 PAR_BATCHES, PAR_STRATA, PAR_CONSUMERS = 32, 4, (1, 2, 4)
 PAR_CRASH_AFTER = 14
 ADAPT_BATCHES, ADAPT_HOLDOUT = 12, 50_000
+RETRAIN_RMSE_TOL = 1e-4  # holdout RMSE, a retrain's kernel fit vs plain
 ONLINE_TOL = dict(rtol=1e-4, atol=1e-5)  # [online]'s card bar
 
 
@@ -2250,13 +2254,55 @@ def phase_streams_parallel(scratch):
         launches=no_dsgd_launches("streams.parallel"))
 
 
+def check_retrain(solver, history, fitted, holdout, label):
+    """A DSGD retrain's fit on the step pair (``fitted``) against the plain
+    route (``ops.sgd.dsgd_train``) on the card, from the same initial
+    tables over the retrain's own problem, minibatch and schedule: each
+    stratum of the first sweep at ``STRATUM_TOL`` (``check_strata``), the
+    whole fit at ``STRATUM_TOL`` × sweeps × blocks, holdout RMSE within
+    ``RETRAIN_RMSE_TOL``. Returns (one-stratum max-abs, fit max-abs, RMSE
+    of the kernel fit, RMSE of the plain fit)."""
+    cfg, upd, dev = solver.config, solver.updater, solver.device
+    mb, k = cfg.minibatch_size, cfg.num_blocks or 1
+    problem = blocking.block_problem(history, num_blocks=k, seed=cfg.seed,
+                                     minibatch_multiple=mb,
+                                     minibatch_sort=cfg.minibatch_sort)
+    if not (np.array_equal(problem.users.ids, fitted.users.ids)
+            and np.array_equal(problem.items.ids, fitted.items.ids)):
+        raise AssertionError(f"{label}: the rebuilt problem is not the "
+                             "retrain's")
+    args = device_args(problem,
+                       *blocking.minibatch_inv_counts(problem.ratings, mb),
+                       dev)
+    U0, V0 = (torch.as_tensor(t, dtype=torch.float32).to(dev)
+              for t in solver._init_factors(problem))
+    lr, lam = float(upd.learning_rate), float(upd.lambda_)
+    one = check_strata(U0, V0, args, problem, step_plan(args, mb), lr, lam,
+                       label)
+    Up, Vp = sgd_ops.dsgd_train(U0, V0, *args, updater=upd, minibatch=mb,
+                                num_blocks=k, iterations=cfg.iterations,
+                                collision=cfg.collision_mode)
+    torch.cuda.synchronize()
+    err = max_abs([(fitted.U, Up), (fitted.V, Vp)])
+    rmse = fitted.rmse(holdout)
+    rmse_plain = MFModel(U=Up, V=Vp, users=problem.users,
+                         items=problem.items).rmse(holdout)
+    if not (err <= STRATUM_TOL * cfg.iterations * k
+            and abs(rmse - rmse_plain) <= RETRAIN_RMSE_TOL):
+        raise AssertionError(f"{label}: step pair vs plain route: max-abs "
+                             f"{err:.3e}, holdout RMSE {rmse} vs "
+                             f"{rmse_plain}")
+    return one, err, rmse, rmse_plain
+
+
 def phase_streams_adaptive(scratch):
     """``AdaptiveMF`` (rank 128; a DSGD retrain every 4 batches on a
     background thread) under a ``StreamingDriver`` over 12 batches: the
     retrains launch the step pair from their thread; the batches buffered
     during a retrain replay after its swap, and every swap moves the
     engine's catalog version; holdout RMSE against the online-only model
-    on the same stream; then one foreground ALS retrain. Returns the
+    on the same stream; each retrain held against the plain route on the
+    card (``check_retrain``); then one foreground ALS retrain. Returns the
     launch counts of the DSGD leg."""
     batches, holdout = netflix_batches(6, ADAPT_BATCHES, ADAPT_HOLDOUT)
     log = EventLog(os.path.join(scratch, "adapt_log"), fsync=False)
@@ -2267,7 +2313,7 @@ def phase_streams_adaptive(scratch):
                             background=True, offline_algorithm="dsgd",
                             offline_iterations=3)
     model = AdaptiveMF(acfg)
-    walls, buffered = [], []
+    walls, buffered, retrains = [], [], []
     real_retrain, real_finish = model._retrain, model._finish_batch
 
     def retrain(history):  # on the retrain thread
@@ -2275,6 +2321,7 @@ def phase_streams_adaptive(scratch):
         out = real_retrain(history)
         torch.cuda.synchronize()
         walls.append((int(history.n), time.perf_counter() - t0))
+        retrains.append((history, out))
         return out
 
     def finish():
@@ -2310,6 +2357,13 @@ def phase_streams_adaptive(scratch):
     rmse_adaptive, rmse_online = model.rmse(holdout), online_only.rmse(holdout)
     if not (math.isfinite(rmse_adaptive) and math.isfinite(rmse_online)):
         raise AssertionError(f"holdout RMSE {rmse_adaptive} / {rmse_online}")
+    # the retrains' kernel launches are counted above; these are not
+    held = [check_retrain(model._offline_solver(), history, fitted, holdout,
+                          f"streams.adaptive retrain {j}")
+            for j, (history, fitted) in enumerate(retrains)]
+    if len(held) != model.retrain_count:
+        raise AssertionError(f"{len(held)} of {model.retrain_count} "
+                             "retrains held against the plain route")
     say("streams.adaptive", batches=ADAPT_BATCHES, batch=STREAM_BATCH,
         rank=acfg.num_factors, offline_every=acfg.offline_every,
         retrains=model.retrain_count, retrain_rows=[r for r, _ in walls],
@@ -2317,8 +2371,13 @@ def phase_streams_adaptive(scratch):
         catalog_versions=len(drv.catalog_versions),
         checkpoints=drv.checkpoints_written, drain_wall_s=wall,
         step_pair_launches=launches, holdout=ADAPT_HOLDOUT,
-        rmse_adaptive=rmse_adaptive, rmse_online_only=rmse_online)
-    del model, drv, engine, online_only
+        rmse_adaptive=rmse_adaptive, rmse_online_only=rmse_online,
+        retrain_one_stratum_max_abs=[h[0] for h in held],
+        retrain_vs_plain_max_abs=[h[1] for h in held],
+        retrain_rmse=[h[2] for h in held],
+        retrain_rmse_plain=[h[3] for h in held],
+        tol_per_stratum=STRATUM_TOL, tol_rmse=RETRAIN_RMSE_TOL)
+    del model, drv, engine, online_only, retrains
 
     # one foreground ALS retrain over the same history
     als = AdaptiveMF(dataclasses.replace(acfg, offline_algorithm="als",

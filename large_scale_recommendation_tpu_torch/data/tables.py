@@ -202,14 +202,11 @@ class GrowableFactorTable:
     def release_rows(self, rows: np.ndarray) -> None:
         """Drop what ``acquire_rows`` pinned (nothing, on a plain table)."""
 
-    def gather_rows(self, rows: np.ndarray) -> np.ndarray:
-        """Host float32 values of ``rows``: one pow2-padded gather."""
-        n = len(rows)
-        if n == 0:
-            return np.zeros((0, self.rank), np.float32)
-        idx = np.zeros(_pow2_pad(n), np.int64)
-        idx[:n] = rows
-        return self._host_rows(idx)[:n]
+    def gather_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """float32 values of ``rows``, gathered on the table's device (a
+        copy: later commits do not reach it)."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        return self.array.index_select(0, idx)
 
     def commit_rows(self, updated: torch.Tensor, idx) -> None:
         """``updated``'s rows at ``idx`` into a new live table (``idx``

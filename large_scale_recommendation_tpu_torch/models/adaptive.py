@@ -225,9 +225,13 @@ class AdaptiveMF:
     # -- retrain machinery --------------------------------------------------
 
     def _retrain(self, history: Ratings) -> MFModel:
-        """A from-scratch fit on the whole history, on the model's device:
-        DSGD (constant lr 0.05, minibatch ≤ 1,024: the CUDA kernels'
-        contract on a card) or ALS.
+        """A from-scratch fit on the whole history (``_offline_solver``)."""
+        return self._offline_solver().fit(history)
+
+    def _offline_solver(self) -> DSGD | ALS:
+        """The retrain's solver, on the model's device: DSGD (constant lr
+        0.05, minibatch ≤ 1,024: the CUDA kernels' contract on a card) or
+        ALS.
 
         One departure from the JAX package: the DSGD retrain starts its
         factors at the online tables' ``init_scale`` (0.1), where JAX keeps
@@ -241,14 +245,14 @@ class AdaptiveMF:
             return ALS(ALSConfig(
                 num_factors=cfg.num_factors, lambda_=cfg.lambda_,
                 iterations=cfg.offline_iterations,
-            ), device=self.device).fit(history)
+            ), device=self.device)
         return DSGD(DSGDConfig(
             num_factors=cfg.num_factors, lambda_=cfg.lambda_,
             iterations=cfg.offline_iterations,
             learning_rate=0.05, lr_schedule="constant",
             minibatch_size=min(cfg.minibatch_size, 1024),
             init_scale=self.online.config.init_scale,
-        ), device=self.device).fit(history)
+        ), device=self.device)
 
     def _retrain_into_slot(self, history: Ratings) -> None:
         try:

@@ -144,9 +144,10 @@ class ServingEngine:
                       "flushes": 0, "refreshes": 0, "delta_swaps": 0,
                       "deferred_delta_rows": 0, "delta_flushes": 0,
                       "buckets": {}}
-        # apply_delta(defer=True) buffers: row → newest f32 vector
-        self._pending_items: dict[int, np.ndarray] = {}
-        self._pending_users: dict[int, np.ndarray] = {}
+        # apply_delta(defer=True) buffers: (rows, f32 values on the
+        # engine's device) in arrival order; the newest value of a row wins
+        self._pending_items: list[tuple[np.ndarray, torch.Tensor]] = []
+        self._pending_users: list[tuple[np.ndarray, torch.Tensor]] = []
         self._shapes_seen: set[tuple] = set()  # exact path's dispatches
         self.meter = ThroughputMeter()
         # an admission controller brings its own tracker: without a
@@ -212,7 +213,9 @@ class ServingEngine:
         new f32 factors. The bound model's tables are replaced by patched
         copies (so a later ``refresh()`` keeps the delta), the catalog
         version moves, and the fast path re-quantizes exactly the dirty
-        rows. Returns the new version (reported to ``on_refresh``).
+        rows. The values may be host arrays or tensors (a tensor on the
+        engine's device is never copied through the host). Returns the new
+        version (reported to ``on_refresh``).
 
         ``defer=True`` buffers the rows (newest value per row wins) until
         ``flush_deltas()`` installs everything pending as ONE swap,
@@ -224,14 +227,12 @@ class ServingEngine:
                 for rows, vals, side in sides:
                     pending = (self._pending_items if side == "item"
                                else self._pending_users)
-                    for j, r in enumerate(rows.tolist()):
-                        pending[int(r)] = vals[j]
+                    pending.append((rows, vals))
                     self.stats["deferred_delta_rows"] += len(rows)
                 return self.version
             model, dev = self.model, self._device
             for rows, vals, side in sides:
                 idx = to_device(rows.astype(np.int64), dev)
-                vals = to_device(vals, dev)
                 if side == "item":
                     model.V = model.V.index_copy(0, idx,
                                                  vals.to(model.V.dtype))
@@ -254,9 +255,10 @@ class ServingEngine:
         return version
 
     def _delta_sides(self, item_rows, V_rows, user_rows, U_rows) -> list:
-        """The non-empty sides of a delta as ``(rows, f32 values, side)``,
-        every row checked against the bound model first (vocab growth is a
-        full refresh), so a rejected delta touches neither side."""
+        """The non-empty sides of a delta as ``(rows, f32 values on the
+        engine's device, side)``, every row checked against the bound model
+        first (vocab growth is a full refresh), so a rejected delta touches
+        neither side."""
         sides = []
         for rows, vals, side, table in (
                 (item_rows, V_rows, "item", self.model.V),
@@ -269,7 +271,11 @@ class ServingEngine:
                     f"delta {side} row {int(rows.max())} outside the "
                     f"{int(table.shape[0])} {side} rows of the bound model "
                     f"— vocab grew; use refresh()")
-            sides.append((rows, np.asarray(vals, np.float32), side))
+            if isinstance(vals, torch.Tensor):
+                vals = vals.to(self._device, torch.float32)
+            else:
+                vals = to_device(np.asarray(vals, np.float32), self._device)
+            sides.append((rows, vals, side))
         return sides
 
     def flush_deltas(self) -> int:
@@ -279,8 +285,8 @@ class ServingEngine:
         ``refresh()`` cannot land in between and be overwritten by stale
         rows."""
         with self._lock:
-            items, self._pending_items = self._pending_items, {}
-            users, self._pending_users = self._pending_users, {}
+            items, self._pending_items = self._pending_items, []
+            users, self._pending_users = self._pending_users, []
             if not items and not users:
                 return self.version
             self.stats["delta_flushes"] += 1
@@ -288,8 +294,13 @@ class ServingEngine:
             def pack(pending):
                 if not pending:
                     return None, None
-                rows = np.fromiter(pending.keys(), np.int64, len(pending))
-                return rows, np.stack([pending[int(r)] for r in rows])
+                rows = np.concatenate([r for r, _ in pending])
+                # the last occurrence of each row: its newest value
+                _, first_from_end = np.unique(rows[::-1], return_index=True)
+                keep = len(rows) - 1 - first_from_end
+                vals = torch.cat([v for _, v in pending])
+                return rows[keep], vals[torch.as_tensor(keep,
+                                                        device=vals.device)]
 
             i_rows, i_vals = pack(items)
             u_rows, u_vals = pack(users)
@@ -300,7 +311,9 @@ class ServingEngine:
     def pending_delta_rows(self) -> int:
         """Rows buffered by ``apply_delta(defer=True)``."""
         with self._lock:
-            return len(self._pending_items) + len(self._pending_users)
+            return sum(len(np.unique(np.concatenate([r for r, _ in p])))
+                       for p in (self._pending_items, self._pending_users)
+                       if p)
 
     @property
     def version(self) -> int:

@@ -392,16 +392,12 @@ class ParallelIngestRunner:
         for d in self.drivers.values():
             d.stop()
 
-    def join(self, timeout: float | None = None) -> None:
-        """Wait for started consumers (each up to ``timeout`` seconds;
-        ``TimeoutError`` if one is still running), surface any fault, and
-        write the final barrier on a clean exit."""
+    def join(self) -> None:
+        """Wait for started consumers, surface any fault, and write the
+        final barrier on a clean exit."""
         threads, self._threads = self._threads, []
         for t in threads:
-            t.join(timeout)
-            if t.is_alive():
-                self._threads = threads
-                raise TimeoutError(f"consumer {t.name} still running")
+            t.join()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -25,9 +25,11 @@ from large_scale_recommendation_tpu.core.types import Ratings as JRatings
 from large_scale_recommendation_tpu.models import adaptive as jadaptive
 from large_scale_recommendation_tpu.models.als import ALS as JALS
 from large_scale_recommendation_tpu.models.dsgd import DSGD as JDSGD
+from large_scale_recommendation_tpu.models.dsgd import DSGDConfig as JDSGDConfig
 from large_scale_recommendation_tpu_torch import convert
 from large_scale_recommendation_tpu_torch.core.initializers import (
     FunctionFactorInitializer,
+    PseudoRandomFactorInitializer,
 )
 from large_scale_recommendation_tpu_torch.core.types import Ratings
 from large_scale_recommendation_tpu_torch.models.adaptive import (
@@ -305,3 +307,45 @@ def test_rank_128_retrain_stays_finite_where_the_jax_config_diverges():
     assert torch.isfinite(pm.online.items.array).all()
     test = _port(gen.generate(5000))
     assert pm.rmse(test) < 0.5
+
+
+def test_dsgd_retrain_from_its_own_init_matches_jax_at_that_scale(
+        monkeypatch):
+    """The port's DSGD retrain starts from its own keyed rows at the online
+    init scale (0.1); the JAX package's DSGD given ``init_scale=0.1`` and
+    those initial tables, on the same history, ends within the DSGD bar."""
+    pm = AdaptiveMF(AdaptiveMFConfig(num_factors=RANK, minibatch_size=64,
+                                     learning_rate=0.05, offline_every=None,
+                                     offline_iterations=2), device="cpu")
+    inits, fitted = [], []
+    real_init, real_retrain = DSGD._init_factors, pm._retrain
+
+    def port_init(self, problem):
+        U, V = real_init(self, problem)
+        inits.append((U.clone(), V.clone()))
+        return U, V
+
+    monkeypatch.setattr(DSGD, "_init_factors", port_init)
+    pm._retrain = lambda h: fitted.append(real_retrain(h)) or fitted[-1]
+    for b in _batches(3, seed=8):
+        pm.process(_port(b))
+    pm.trigger_batch_training()
+    assert pm.retrain_count == 1 and len(inits) == len(fitted) == 1
+    (U0, V0), model = inits[0], fitted[0]
+    keyed = PseudoRandomFactorInitializer(RANK, scale=0.1)
+    assert torch.equal(U0, keyed(np.maximum(model.users.ids, 0)))
+    assert torch.equal(V0, keyed(np.maximum(model.items.ids, 0)))
+
+    monkeypatch.setattr(JDSGD, "_init_factors", lambda self, problem: (
+        jnp.asarray(U0.numpy()), jnp.asarray(V0.numpy())))
+    history = JRatings.from_arrays(*pm._history_ratings().to_numpy())
+    want = JDSGD(JDSGDConfig(
+        num_factors=RANK, lambda_=pm.config.lambda_, iterations=2,
+        learning_rate=0.05, lr_schedule="constant", minibatch_size=64,
+        init_scale=0.1)).fit(history)
+    for got, ref, side in ((model.U, want.U, "users"),
+                           (model.V, want.V, "items")):
+        np.testing.assert_array_equal(getattr(model, side).ids,
+                                      np.asarray(getattr(want, side).ids))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   **BARS["dsgd"])

@@ -471,7 +471,8 @@ def test_stop_before_run_wins_and_start_join(tmp_path):
     runner.start(follow=True)
     _wait_for(lambda: model.consumed_offsets.get(1) == 900)
     runner.stop()
-    runner.join(timeout=60)
+    _join(runner._threads)
+    runner.join()
     assert model.consumed_offsets == {0: 900, 1: 900}
     assert CheckpointManager(str(tmp_path / "ckpt")).restore().meta[
         "offsets"] == {"0": 900, "1": 900}
