@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's DSGD training, serving and evaluation paths, ALS,
-online MF, the serving engine and the streaming runtime on one NVIDIA GPU
-(an H100).
+online MF, the serving engine, the streaming runtime, the parameter server,
+the estimator pipeline and the tiered store on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -140,7 +140,45 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               route on the card from the same initial tables (a stratum
               at 1e-5, the fit at 1e-5 × sweeps, holdout RMSE within
               1e-4); then one foreground ALS retrain. The log, driver and
-              parallel phases launch none of the kernels.
+              parallel phases launch none of the kernels;
+20. pipeline — ``Pipeline(IdCompactor(), MeanCenterer(), DSGD(cfg))`` on
+              2,000,000 of the [main] train ratings at the [main] config
+              (k 8, rank 128, minibatch 32,768, 3 sweeps; run after [eval]):
+              predictions on 65,536 holdout pairs bit-equal to the same
+              stages composed by hand, every stratum step launching the
+              step pair (its launches join the kernels line), the strata
+              held against the plain route (``check_strata``);
+21. ps.offline — ``PSOfflineMF`` at bench.py's PS settings
+              (``bench.py:1007-1041``: W 4, P 4, pull_limit 4, chunk 2,048,
+              minibatch 4,096, 2 iterations, lr 0.05 η/√t) at [online]'s
+              width, rank 128, on 2,000,000 ``netflix_batches`` ratings
+              (95/5): ratings/s, pulls, pushes, holdout RMSE below the
+              untrained tables'; a W = 1 / P = 1 run on 200,000 of them on
+              the card and on the CPU within the [online] bar; one answer
+              split into ``ensure``, host → card, ``online_train`` (device
+              ms), card → host and the shard's ``np.add.at``;
+22. ps.adaptive — ``PSOnlineBatchMF`` (``bench.py:1052-1086``: W 4, P 4,
+              chunk 4,096, minibatch 4,096, online chunk 4,096, 2
+              iterations) on 400,000 events with one ``BATCH_TRIGGER`` at
+              the middle: events/s, the replay wall, one batch per worker,
+              holdout RMSE below the online-only run's; the one-worker
+              replay driven in one thread on the card and on the CPU
+              within the [online] bar;
+23. store.tiered — TIERED_r01.json's geometry
+              (``scripts/streams_bench.py:282-285``: a 1,000,000-id
+              Zipf(1.25) universe, 4,000 items, rank 32, 24 batches of
+              20,000, 8,192 slots, a checkpoint every 8, queue capacity 2):
+              one WAL drained by ``StreamingDriver`` all-HBM and tiered
+              (with the prefetcher): ratings/s, retention, hit rate,
+              evictions, write-backs, prefetched rows, demand-fault wait,
+              bytes each way and the store's copy GB/s, the device budget
+              multiple; user tables within the [online] bar;
+              ``ServingEngine(user_store=)`` lists equal to the all-HBM
+              engine's (ties within ``SCORE_TOL``); a crash after batch
+              12, ``resume()`` re-warms the checkpoint's hot set and the
+              drain ends at the uninterrupted run's tables (the
+              [online] bar); an overcommitted pool raises. The PS and
+              store phases launch none of the kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -149,6 +187,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -189,11 +228,29 @@ from large_scale_recommendation_tpu_torch.models.online import (
     OnlineMF,
     OnlineMFConfig,
 )
+from large_scale_recommendation_tpu_torch.models.pipeline import (
+    IdCompactor,
+    MeanCenterer,
+    Pipeline,
+)
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
 from large_scale_recommendation_tpu_torch.parallel import serving as psrv
+from large_scale_recommendation_tpu_torch.ps import adaptive as ps_adaptive
+from large_scale_recommendation_tpu_torch.ps import core as ps_core
+from large_scale_recommendation_tpu_torch.ps import mf as ps_mf
+from large_scale_recommendation_tpu_torch.ps import server as ps_server
+from large_scale_recommendation_tpu_torch.ps.adaptive import (
+    BATCH_TRIGGER,
+    PSOnlineBatchConfig,
+    PSOnlineBatchMF,
+)
+from large_scale_recommendation_tpu_torch.ps.mf import (
+    PSOfflineMF,
+    PSOfflineMFConfig,
+)
 from large_scale_recommendation_tpu_torch.serving import (
     AdmissionConfig,
     AdmissionController,
@@ -203,6 +260,10 @@ from large_scale_recommendation_tpu_torch.serving import (
     recall_at_k,
 )
 from large_scale_recommendation_tpu_torch.serving import retrieval as ret_ops
+from large_scale_recommendation_tpu_torch.store import (
+    StoreStats,
+    TieredFactorStore,
+)
 from large_scale_recommendation_tpu_torch.streams import (
     EventLog,
     ParallelIngestRunner,
@@ -749,6 +810,7 @@ def run(scratch: str) -> int:
     serve_share = phase_serve(model, cpu_model, train)
     phase_serve_engine(model, cpu_model, train, serve_share)
     phase_eval(model, cpu_model, train, holdout)
+    pipeline_launches = phase_pipeline(train, holdout, dev)
     del train, holdout, model, solver, cpu_model
     phase_serve_two_stage(dev)
 
@@ -761,6 +823,8 @@ def run(scratch: str) -> int:
     phase_als_conv(dev)
     phase_online(dev, scratch)
     paths["streams.adaptive"] = phase_streams(scratch)
+    paths["pipeline"] = pipeline_launches
+    phase_ps_store(scratch, dev)
     for k in kernels:  # the retrain thread's launches join the counts
         k["launches"], k["launches_by_path"] = launch_counts(paths,
                                                              k["name"])
@@ -2405,6 +2469,539 @@ def phase_streams(scratch):
     phase_streams_driver(scratch)
     phase_streams_parallel(scratch)
     return phase_streams_adaptive(scratch)
+
+
+# -- the parameter server, the pipeline and the tiered store (host threads
+# and torch ops on the card; the pipeline's DSGD runs the step pair) ---------
+
+# bench.py:1007-1041 (PS offline) and :1052-1086 (PS online + batch), at
+# [online]'s Netflix width and rank
+PS_RATINGS, PS_CHECK_RATINGS = 2_000_000, 200_000
+PS_CFG = dict(num_factors=128, iterations=2, learning_rate=0.05,
+              lr_schedule="inverse_sqrt", worker_parallelism=4,
+              ps_parallelism=4, pull_limit=4, chunk_size=2048,
+              minibatch_size=4096)
+PS_AD_EVENTS, PS_AD_CHECK_EVENTS, PS_AD_HOLDOUT = 400_000, 100_000, 50_000
+PS_AD_CFG = dict(num_factors=128, iterations=2, learning_rate=0.05,
+                 lr_schedule="inverse_sqrt", worker_parallelism=4,
+                 ps_parallelism=4, chunk_size=4096, minibatch_size=4096,
+                 online_chunk_size=4096)
+PIPE_RATINGS, PIPE_PAIRS = 2_000_000, 65_536
+# scripts/streams_bench.py:282-285 (TIERED_r01.json's geometry)
+TIER = dict(num_users=1_000_000, num_items=4_000, rank=32, n_batches=24,
+            batch_records=20_000, slot_capacity=8_192, zipf_s=1.25,
+            checkpoint_every=8, queue_capacity=2, serve_requests=16)
+TIER_CRASH_AFTER = 12
+
+
+def cat_ratings(parts):
+    return Ratings.from_arrays(*(np.concatenate(a) for a in
+                                 zip(*(p.to_numpy() for p in parts))))
+
+
+def take(r, idx):
+    return Ratings.from_arrays(*(a[idx] for a in r.to_numpy()))
+
+
+def ps_netflix(n, seed):
+    """``n`` Netflix-shaped ratings (``netflix_batches``) split 95/5 by a
+    seeded permutation: (train, holdout)."""
+    r = cat_ratings(netflix_batches(seed, n // STREAM_BATCH))
+    perm = np.random.default_rng(seed).permutation(r.n)
+    return take(r, np.sort(perm[r.n // 20:])), take(r, np.sort(perm[:r.n
+                                                                   // 20]))
+
+
+def same_factor_dicts(a, b, label, tol=ONLINE_TOL) -> float:
+    """Two id → vector dicts hold the same ids with vectors within
+    ``tol``; returns the largest difference."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: id sets differ")
+    keys = sorted(a)
+    x = np.stack([a[k] for k in keys])
+    y = np.stack([b[k] for k in keys])
+    if not np.allclose(x, y, **tol) or not np.isfinite(x).all():
+        raise AssertionError(f"{label}: factors beyond {tol}")
+    return float(np.abs(x - y).max())
+
+
+def untrained_rmse(solver, data, scale):
+    """Holdout RMSE of the initial keyed rows over the pairs the trained
+    model scores (its known users and items)."""
+    ru, ri, rv, _ = data.to_numpy()
+    _, seen = solver.predict(ru, ri, return_mask=True)
+    init = PseudoRandomFactorInitializer(solver.config.num_factors,
+                                         scale=scale)
+    pred = (init(ru[seen].astype(np.int64)).numpy()
+            * init(ri[seen].astype(np.int64)).numpy()).sum(1)
+    return float(np.sqrt(np.mean((rv[seen] - pred) ** 2)))
+
+
+class _CountingShard(ps_server.SimplePSLogic):
+    """``SimplePSLogic`` counting pulls and pushes and timing the pushes'
+    merge (``np.add.at``) on the shard threads."""
+
+    lock = threading.Lock()
+    pulls = pushes = 0
+    push_s = 0.0
+
+    def on_pull(self, ids):
+        with _CountingShard.lock:
+            _CountingShard.pulls += 1
+        return super().on_pull(ids)
+
+    def on_push(self, ids, deltas, outputs, worker_id=-1):
+        t0 = time.perf_counter()
+        super().on_push(ids, deltas, outputs, worker_id)
+        with _CountingShard.lock:
+            _CountingShard.pushes += 1
+            _CountingShard.push_s += time.perf_counter() - t0
+
+
+def ps_answer_parts(cfg, train, dev):
+    """One pull answer of a one-worker ``_MFWorkerLogic`` on ``train``
+    (its first chunk), each step synchronized: the user rows' ``ensure``,
+    host → card staging (minibatch streams and the pulled chunk),
+    ``online_train`` (host wall beside CUDA-event time), the card → host
+    delta, the shard's merge."""
+    worker = ps_mf._MFWorkerLogic(cfg, 0, device=dev)
+
+    class Pulls:
+        def __init__(self):
+            self.ids = []
+
+        def pull(self, ids):
+            self.ids.append(ids)
+
+    client = Pulls()
+    ru, ri, rv, _ = train.to_numpy()
+    for x in zip(ru.tolist(), ri.tolist(), rv.tolist()):
+        worker.on_recv(x, client)
+    worker.on_input_end(client)
+    shard = ps_server.SimplePSLogic(PseudoRandomFactorInitializer(
+        cfg.num_factors, scale=cfg.init_scale), emit_updates=False)
+    items = client.ids[0]
+    V_chunk = shard.on_pull(items)
+    us, ips, vals = worker._data_by_chunk[int(items[0])]
+    u_rows, ensure_s = timed(lambda: worker.users.ensure(us))
+    mb = cfg.minibatch_size
+    host = [*sgd_ops.pad_minibatches(u_rows, ips, vals, mb), V_chunk]
+    staged, h2d_s = timed(lambda: [torch.from_numpy(a).to(dev)
+                                   for a in host])
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    (_, V_new), train_s = timed(lambda: sgd_ops.online_train(
+        worker.users.array, staged[4], *staged[:4], updater=worker.updater,
+        minibatch=mb, iterations=1))
+    e.record()
+    e.synchronize()
+    delta, d2h_s = timed(lambda: (V_new - staged[4]).cpu().numpy())
+    t0 = time.perf_counter()
+    shard.on_push(items, delta, [])
+    push_s = time.perf_counter() - t0
+    return dict(chunk_items=len(items), chunk_ratings=len(us),
+                ensure_s=ensure_s, h2d_s=h2d_s,
+                h2d_bytes=sum(x.nbytes for x in host),
+                online_train_s=train_s,
+                online_train_device_ms=a.elapsed_time(e), d2h_s=d2h_s,
+                d2h_bytes=delta.nbytes, shard_add_at_s=push_s)
+
+
+def phase_ps_offline(dev):
+    """``PSOfflineMF`` at bench.py's PS settings on 2,000,000 Netflix-shaped
+    ratings (95/5): 4 worker threads train their user tables on the card, 4
+    host shards merge the item deltas. A one-worker, one-shard run on
+    200,000 of them (a deterministic topology) on the card and on the CPU
+    within the [online] bar; one answer split into its parts."""
+    train, hold = ps_netflix(PS_RATINGS, seed=7)
+    cfg = PSOfflineMFConfig(**PS_CFG)
+    solver = PSOfflineMF(cfg)
+    real_shard = ps_mf.SimplePSLogic
+    ps_mf.SimplePSLogic = _CountingShard
+    try:
+        (users, items), wall = timed(lambda: solver.offline(train))
+    finally:
+        ps_mf.SimplePSLogic = real_shard
+    rmse = solver.rmse(hold)
+    rmse0 = untrained_rmse(solver, hold, cfg.init_scale)
+    if not (math.isfinite(rmse) and rmse < rmse0):
+        raise AssertionError(f"PS offline holdout RMSE {rmse} (untrained "
+                             f"{rmse0})")
+    sub = take(train, np.arange(PS_CHECK_RATINGS))
+    one = PSOfflineMFConfig(**dict(PS_CFG, worker_parallelism=1,
+                                   ps_parallelism=1))
+    card = PSOfflineMF(one)
+    card_s = timed(lambda: card.offline(sub))[1]
+    cpu = PSOfflineMF(one, device="cpu")
+    cpu.offline(sub)
+    worst = max(same_factor_dicts(card.user_factors, cpu.user_factors,
+                                  "ps.offline users"),
+                same_factor_dicts(card.item_factors, cpu.item_factors,
+                                  "ps.offline items"))
+    parts = ps_answer_parts(one, sub, dev)
+    say("ps.offline", ratings=train.n, holdout=hold.n, rank=cfg.num_factors,
+        workers=cfg.worker_parallelism, shards=cfg.ps_parallelism,
+        pull_limit=cfg.pull_limit, chunk=cfg.chunk_size,
+        iterations=cfg.iterations, wall_s=wall,
+        ratings_per_s=train.n * cfg.iterations / wall,
+        pulls=_CountingShard.pulls, pushes=_CountingShard.pushes,
+        shard_push_s=_CountingShard.push_s, users=len(users),
+        items=len(items), rmse=rmse, rmse_untrained=rmse0,
+        w1_ratings=sub.n, w1_card_wall_s=card_s,
+        w1_card_vs_cpu_max_abs=worst, tol=ONLINE_TOL)
+    say("ps.offline.parts", **parts)
+
+
+class _SyncClient:
+    """One worker and one shard in one thread: pushes and controls reach
+    the shard at once, pulls wait in a FIFO (a deterministic topology)."""
+
+    def __init__(self, shard):
+        self.shard, self.pending, self.rid = shard, collections.deque(), 0
+
+    def pull(self, ids):
+        self.pending.append((self.rid, np.asarray(ids, np.int64)))
+        self.rid += 1
+
+    def push(self, ids, deltas):
+        self.shard.on_push(ids, deltas, [], worker_id=0)
+
+    def control(self, shard_id, payload):
+        self.shard.on_control(0, payload, [])
+
+    def output(self, value):
+        pass
+
+
+def ps_sync_run(cfg, evs, dev, lag=2):
+    """``evs`` through one ``OnlineBatchWorkerLogic`` on ``dev`` and one
+    ``AdaptivePSLogic``, answering pulls in FIFO order with at most ``lag``
+    in flight after each event."""
+    worker = ps_adaptive.OnlineBatchWorkerLogic(cfg, 0, device=dev)
+    shard = ps_adaptive.AdaptivePSLogic(PseudoRandomFactorInitializer(
+        cfg.num_factors, scale=cfg.init_scale), 1)
+    client = _SyncClient(shard)
+
+    def pump(keep):
+        while len(client.pending) > keep:
+            rid, ids = client.pending.popleft()
+            worker.on_pull_answer(ps_core.PullAnswer(
+                ids, shard.on_pull(ids), request_id=rid), client)
+
+    for ev in evs:
+        worker.on_recv(ev, client)
+        pump(lag)
+    worker.on_input_end(client)
+    pump(0)
+    return worker, shard
+
+
+def ps_events(r, trigger_at=None):
+    ru, ri, rv, _ = r.to_numpy()
+    evs = list(zip(ru.tolist(), ri.tolist(), rv.tolist()))
+    if trigger_at is not None:
+        evs.insert(trigger_at, BATCH_TRIGGER)
+    return evs
+
+
+def phase_ps_adaptive(dev):
+    """``PSOnlineBatchMF`` at bench.py's settings: 400,000 Netflix-shaped
+    events with one ``BATCH_TRIGGER`` at the middle through 4 workers and 4
+    shards (chunked online path on the host, the batch replay on the card);
+    the same stream without the trigger; the one-worker replay on the card
+    and on the CPU (a deterministic single-thread drive) within the
+    [online] bar."""
+    batches, hold = netflix_batches(8, PS_AD_EVENTS // STREAM_BATCH,
+                                    PS_AD_HOLDOUT)
+    r = cat_ratings(batches)
+    cfg = PSOnlineBatchConfig(**PS_AD_CFG)
+    marks = []
+    W = ps_adaptive.OnlineBatchWorkerLogic
+    real_start, real_finish = W._start_batch, W._finish_batch
+
+    def start(self, ps):
+        marks.append(("start", time.perf_counter()))
+        return real_start(self, ps)
+
+    def finish(self, ps):
+        torch.cuda.synchronize()
+        marks.append(("end", time.perf_counter()))
+        return real_finish(self, ps)
+
+    W._start_batch, W._finish_batch = start, finish
+    try:
+        solver = PSOnlineBatchMF(cfg)
+        wall = timed(lambda: solver.run(ps_events(r, r.n // 2)))[1]
+    finally:
+        W._start_batch, W._finish_batch = real_start, real_finish
+    runs = sum(w.batches_run for w in solver.workers)
+    if runs != cfg.worker_parallelism or not all(
+            s.state == "online" and s.batches_seen == 1
+            for s in solver.store.shards):
+        raise AssertionError(f"{runs} batches run; shards "
+                             f"{[s.state for s in solver.store.shards]}")
+    replay_s = (max(t for k, t in marks if k == "end")
+                - min(t for k, t in marks if k == "start"))
+    online = PSOnlineBatchMF(cfg)
+    online_s = timed(lambda: online.run(ps_events(r)))[1]
+    rmse, rmse_online = solver.rmse(hold), online.rmse(hold)
+    if not (math.isfinite(rmse) and rmse < rmse_online):
+        raise AssertionError(f"holdout RMSE with the trigger {rmse}, online "
+                             f"only {rmse_online}")
+    sub = take(r, np.arange(PS_AD_CHECK_EVENTS))
+    one = PSOnlineBatchConfig(**dict(PS_AD_CFG, worker_parallelism=1,
+                                     ps_parallelism=1))
+    evs = ps_events(sub, sub.n // 2)
+    (cw, cs), card_s = timed(lambda: ps_sync_run(one, evs, dev))
+    pw, psh = ps_sync_run(one, evs, torch.device("cpu"))
+    if not (cw.batches_run == pw.batches_run == 1):
+        raise AssertionError("the one-worker drive ran no replay")
+    worst = max(same_factor_dicts(cw.users, pw.users, "ps.adaptive users"),
+                same_factor_dicts(cs.snapshot(), psh.snapshot(),
+                                  "ps.adaptive items"))
+    say("ps.adaptive", events=r.n, rank=cfg.num_factors,
+        workers=cfg.worker_parallelism, shards=cfg.ps_parallelism,
+        chunk=cfg.chunk_size, online_chunk=cfg.online_chunk_size,
+        iterations=cfg.iterations, wall_s=wall, events_per_s=r.n / wall,
+        replay_wall_s=replay_s, batches_run=runs,
+        online_only_wall_s=online_s,
+        online_only_events_per_s=r.n / online_s, holdout=hold.n,
+        rmse=rmse, rmse_online_only=rmse_online, w1_events=sub.n,
+        w1_card_wall_s=card_s, w1_card_vs_cpu_max_abs=worst, tol=ONLINE_TOL)
+
+
+def phase_pipeline(train, holdout, dev):
+    """``Pipeline(IdCompactor(), MeanCenterer(), DSGD(cfg))`` on 2,000,000
+    of the [main] train ratings at the [main] config (k 8, rank 128,
+    minibatch 32,768, 3 sweeps): its predictions on 65,536 holdout pairs
+    bit-equal to the same stages composed by hand on the card (the step
+    pair has no atomics), its strata held against the plain route, and
+    every stratum step launching both kernels. Returns the pipeline fit's
+    launch counts."""
+    cfg = dataclasses.replace(DSGDConfig(**BENCH), num_blocks=K)
+    mb = cfg.minibatch_size
+    sub = take(train, np.arange(PIPE_RATINGS))
+    hu, hi, hv, _ = (a[:PIPE_PAIRS] for a in holdout.to_numpy())
+    cuda_sgd.reset_launch_counts()
+    pm, wall = timed(lambda: Pipeline(IdCompactor(), MeanCenterer(),
+                                      DSGD(cfg)).fit(sub))
+    launches = dict(cuda_sgd.LAUNCHES)
+    fc = IdCompactor().fit(sub)
+    fm = MeanCenterer().fit(fc.transform(sub))
+    data = fm.transform(fc.transform(sub))
+    manual = DSGD(cfg).fit(data)
+    got = pm.predict(hu, hi)
+    want = manual.predict(*fc.map_ids(hu, hi)) + np.float32(fm.mean)
+    if not (np.array_equal(got, want) and np.isfinite(got).all()):
+        raise AssertionError("pipeline predictions differ from the manual "
+                             "composition's")
+    problem = blocking.block_problem(data, num_blocks=K, seed=cfg.seed,
+                                     minibatch_multiple=mb,
+                                     minibatch_sort=cfg.minibatch_sort)
+    if not (np.array_equal(problem.users.ids, pm.model.users.ids)
+            and np.array_equal(problem.items.ids, pm.model.items.ids)):
+        raise AssertionError("pipeline: the rebuilt problem is not the fit's")
+    check_launches(launches, problem.ratings.u_rows.shape[-1] // mb,
+                   cfg.iterations, half=False)
+    args = device_args(problem,
+                       *blocking.minibatch_inv_counts(problem.ratings, mb),
+                       dev)
+    U0, V0 = (t.to(dev) for t in DSGD(cfg)._init_factors(problem))
+    sched = schedule_from_name(cfg.lr_schedule, cfg.lambda_)
+    one = check_strata(U0, V0, args, problem, step_plan(args, mb),
+                       sched(cfg.learning_rate, 1), cfg.lambda_, "pipeline")
+    rmse = float(np.sqrt(np.mean((got - hv) ** 2)))
+    say("pipeline", ratings=sub.n, users=fc.num_users, items=fc.num_items,
+        mean=fm.mean, k=K, rank=cfg.num_factors, minibatch=mb,
+        sweeps=cfg.iterations, wall_s=wall, holdout_pairs=len(hu),
+        rmse=rmse, bit_equal_to_manual=True, launches=launches,
+        one_stratum_max_abs=f"{one:.3e}", tol_per_stratum=STRATUM_TOL)
+    return launches
+
+
+def zipf_batches(num_users, num_items, n_batches, batch_records, seed,
+                 zipf_s):
+    """scripts/streams_bench.py's bounded-Zipf stream: (batches, warm)."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, num_users + 1, dtype=np.float64) ** -zipf_s
+    p /= p.sum()
+
+    def draw():
+        return Ratings.from_arrays(
+            rng.choice(num_users, size=batch_records, p=p),
+            rng.integers(0, num_items, batch_records),
+            rng.uniform(1.0, 5.0, batch_records).astype(np.float32))
+
+    return [draw() for _ in range(n_batches)], draw()
+
+
+def tier_gbs(st, n_rows, reps=5):
+    """(host → card, card → host) GB/s of the store's own copies of
+    ``n_rows`` pool rows: the staged side-stream load and the pinned
+    write-back, each synchronized."""
+    rows = np.arange(n_rows, dtype=np.int64)
+    slots = np.arange(n_rows, dtype=np.int64)
+    nbytes = n_rows * st.rank * 4
+    with st._lock:
+        pool = st._pool
+        st._write_pool(slots, rows)  # warm
+        h2d = timed(lambda: [st._write_pool(slots, rows)
+                             for _ in range(reps)])[1] / reps
+        d2h = timed(lambda: [st._gather_pool(slots)
+                             for _ in range(reps)])[1] / reps
+        st._pool = pool
+    return nbytes / h2d / 1e9, nbytes / d2h / 1e9
+
+
+def phase_store_tiered(scratch, dev):
+    """TIERED_r01.json's geometry on the card: one Zipf(1.25) WAL over a
+    1,000,000-id universe drained by ``StreamingDriver`` twice, all-HBM and
+    tiered (8,192 device slots, the prefetcher on the feeder's lookahead);
+    final user tables within the [online] bar; the engine on the store
+    against the all-HBM engine (tie-aware); a crash mid-stream and a
+    ``resume()`` that re-warms the hot set and drains to the same tables;
+    an overcommitted pool raises on the card."""
+    t = TIER
+    batches, warm = zipf_batches(t["num_users"], t["num_items"],
+                                 t["n_batches"], t["batch_records"], 0,
+                                 t["zipf_s"])
+    total = t["n_batches"] * t["batch_records"]
+    cfg = OnlineMFConfig(num_factors=t["rank"], learning_rate=0.05,
+                         minibatch_size=min(16384, t["batch_records"]),
+                         init_capacity=1 << 15)
+    log = EventLog(os.path.join(scratch, "tier_log"), fsync=False)
+    _, warm_end = log.append(0, warm)
+    for b in batches:
+        log.append(0, b)
+
+    def make(tiered):
+        m = OnlineMF(cfg)
+        if tiered:
+            m.users = TieredFactorStore(
+                PseudoRandomFactorInitializer(cfg.num_factors,
+                                              scale=cfg.init_scale),
+                capacity=cfg.init_capacity,
+                slot_capacity=t["slot_capacity"])
+        return m
+
+    def driver(m, name, on_batch=None):
+        return StreamingDriver(m, log, os.path.join(scratch, name),
+                               on_batch=on_batch,
+                               config=StreamingDriverConfig(
+                                   batch_records=t["batch_records"],
+                                   checkpoint_every=t["checkpoint_every"],
+                                   queue_capacity=t["queue_capacity"]))
+
+    def drive(m, name, on_batch=None):
+        m.partial_fit(warm, emit_updates=False)
+        if hasattr(m.users, "stats"):  # the warm batch is set-up
+            m.users.stats = StoreStats()
+        drv = driver(m, name, on_batch)
+        m.consumed_offsets[0] = warm_end
+        return drv, timed(drv.run)[1]
+
+    hbm = make(False)
+    _, hbm_s = drive(hbm, "tier_hbm")
+    tier = make(True)
+    drv, tier_s = drive(tier, "tier_tiered")
+    st = tier.users
+    s = st.stats
+    rows = st.num_rows
+    if rows != hbm.users.num_rows or not np.array_equal(
+            st.id_array(), hbm.users.id_array()):
+        raise AssertionError("tiered rows differ from the all-HBM run's")
+    got, want = st.full_table()[:rows], hbm.users.array[:rows]
+    if not torch.allclose(got, want, **ONLINE_TOL):
+        raise AssertionError(f"tiered vs all-HBM user tables beyond "
+                             f"{ONLINE_TOL}")
+    worst = float((got - want).abs().max())
+    pf = drv._last_stats["prefetch"]
+    row_b = st.rank * 4
+    h2d_bytes = (s.misses + s.installs + s.prefetched) * row_b
+    d2h_bytes = s.writebacks * row_b
+    h2d_gbs, d2h_gbs = tier_gbs(st, st.slot_capacity)
+    # serving: the engine on the store against the all-HBM engine
+    rng = np.random.default_rng(1)
+    reqs = [rng.integers(0, rows, 64).astype(np.int64)
+            for _ in range(t["serve_requests"])]
+    eng_h = ServingEngine(hbm.to_model(), k=SERVE_K)
+    eng_t = ServingEngine(tier.to_model(), k=SERVE_K, user_store=st)
+    res_h, serve_h = timed(lambda: eng_h.serve(reqs))
+    res_t, serve_t = timed(lambda: eng_t.serve(reqs))
+    diff, compared, differ = 0.0, 0, 0
+    for a, b in zip(res_t, res_h):
+        if not np.array_equal(a[0] < 0, b[0] < 0):
+            raise AssertionError("store-backed engine: unknown users differ")
+        d, c, n_diff = topk_mismatches(a[0], a[1], b[0], b[1])
+        diff, compared, differ = max(diff, d), compared + c, differ + n_diff
+    if diff > SCORE_TOL or differ:
+        raise AssertionError(f"store-backed lists: scores {diff:.2e}, "
+                             f"{differ} of {compared} ids differ")
+    # a crash mid-stream: a fresh tiered model resumes from the last
+    # checkpoint with its hot set re-warmed, and drains to the same tables
+    seen = []
+
+    def crash(batch):
+        seen.append(batch.end_offset)
+        if len(seen) == TIER_CRASH_AFTER:
+            raise _Crash("simulated consumer crash")
+
+    try:
+        drive(make(True), "tier_crash", on_batch=crash)
+        raise AssertionError("the crash leg did not crash")
+    except _Crash:
+        pass
+    saved = CheckpointManager(os.path.join(scratch, "tier_crash")).restore()
+    fresh = make(True)
+    drv2 = driver(fresh, "tier_crash")
+    restore_s = timed(drv2.resume)[1]
+    hot = set(fresh.users.resident_rows().tolist())
+    if hot != set(saved["user_hot_rows"].tolist()) or not hot:
+        raise AssertionError("the restore did not re-warm the hot set")
+    replayed = drv2.run()
+    if not (fresh.consumed_offsets[0] == log.end_offset(0)
+            and np.array_equal(fresh.users.id_array(), st.id_array())
+            and torch.allclose(fresh.users.full_table()[:rows],
+                               st.full_table()[:rows], **ONLINE_TOL)):
+        raise AssertionError("the resumed tiered run lost records or "
+                             "differs from the uninterrupted one")
+    small = TieredFactorStore(PseudoRandomFactorInitializer(cfg.num_factors),
+                              slot_capacity=64)
+    try:
+        small.acquire_rows(np.arange(100))
+        raise AssertionError("an overcommitted pool did not raise")
+    except RuntimeError as e:
+        if "overcommitted" not in str(e):
+            raise
+    if small.snapshot()["hot"]["pinned"]:
+        raise AssertionError("the overcommit leaked pins")
+    say("store.tiered", ratings=total, batches=t["n_batches"],
+        rank=t["rank"], slot_capacity=st.slot_capacity, user_rows=rows,
+        device_budget_x=rows / st.slot_capacity,
+        hbm_ratings_per_s=total / hbm_s,
+        tiered_ratings_per_s=total / tier_s, retention=hbm_s / tier_s,
+        hit_rate=s.hit_rate, hits=s.hits, misses=s.misses,
+        installs=s.installs, evictions=s.evictions, writebacks=s.writebacks,
+        prefetched=s.prefetched, prefetch=pf,
+        demand_fault_s=s.demand_fault_s, h2d_bytes=h2d_bytes,
+        d2h_bytes=d2h_bytes, h2d_gbs=h2d_gbs, d2h_gbs=d2h_gbs,
+        gbs_rows=st.slot_capacity, tables_max_abs=worst, tol=ONLINE_TOL,
+        serve_hbm_wall_s=serve_h, serve_tiered_wall_s=serve_t,
+        serve_hits=s.serve_hits, serve_misses=s.serve_misses,
+        serve_max_score_diff=diff, serve_ids_compared=compared,
+        crash_after=TIER_CRASH_AFTER, restore_s=restore_s,
+        rewarmed_rows=len(hot), resumed_batches=replayed,
+        overcommit_raises=True)
+    log.close()
+
+
+def phase_ps_store(scratch, dev):
+    """The PS phases and the tiered store; none launches a DSGD kernel."""
+    cuda_sgd.reset_launch_counts()
+    phase_ps_offline(dev)
+    phase_ps_adaptive(dev)
+    phase_store_tiered(scratch, dev)
+    no_dsgd_launches("ps and store")
 
 
 def launch_counts(paths, name):

@@ -1,5 +1,5 @@
-"""Carry weights, layouts and online and adaptive state from the JAX
-package into the port.
+"""Carry weights, layouts, online, adaptive and PS state and tiered stores
+from the JAX package into the port.
 
 All take plain numpy arrays (``np.asarray`` of the JAX arrays) and duck-typed
 ``IdIndex``-like objects, so nothing here imports JAX. bf16 tables may come
@@ -12,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    PseudoRandomFactorInitializer,
+)
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.data.device_blocking import (
     DeviceBlockedProblem,
@@ -25,9 +28,17 @@ from large_scale_recommendation_tpu_torch.models.online import (
     OnlineMF,
     OnlineMFConfig,
 )
+from large_scale_recommendation_tpu_torch.ps.mf import (
+    PSOfflineMF,
+    PSOfflineMFConfig,
+)
 from large_scale_recommendation_tpu_torch.serving.retrieval import (
     RANK_SHARDED_NOT_PORTED,
     QuantizedCatalog,
+)
+from large_scale_recommendation_tpu_torch.store.tiered import (
+    StoreStats,
+    TieredFactorStore,
 )
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
@@ -44,8 +55,11 @@ def _table(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def factors_from_jax(U, V, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """JAX-package factor tables (numpy) → torch tables on ``device``."""
+def factors_from_jax(U, V, device=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX-package factor tables (numpy) → torch tables on ``device``
+    (``None``: the card; raises without one)."""
+    device = resolve_device(device)
     return _table(U, device), _table(V, device)
 
 
@@ -60,9 +74,10 @@ def _index(ix) -> IdIndex:
     )
 
 
-def model_from_jax(U, V, users, items, device="cpu") -> MFModel:
+def model_from_jax(U, V, users, items, device=None) -> MFModel:
     """The port's ``MFModel`` from a JAX model's tables and its two
-    ``IdIndex`` objects (any objects with the same fields)."""
+    ``IdIndex`` objects (any objects with the same fields), on ``device``
+    (``None``: the card; raises without one)."""
     U, V = factors_from_jax(U, V, device)
     return MFModel(U=U, V=V, users=_index(users), items=_index(items))
 
@@ -72,10 +87,12 @@ _PROBLEM_ARRAYS = ("su", "si", "sv", "sw", "icu", "icv", "omega_u", "omega_v",
                    "id_of_item_row")
 
 
-def device_problem_from_jax(p, device="cpu") -> DeviceBlockedProblem:
+def device_problem_from_jax(p, device=None) -> DeviceBlockedProblem:
     """A JAX ``DeviceBlockedProblem`` (any object with its fields; arrays
     are read through ``np.asarray``) → the port's, its arrays on
-    ``device`` in the same dtypes."""
+    ``device`` (``None``: the card; raises without one) in the same
+    dtypes."""
+    device = resolve_device(device)
     arrays = {f: torch.from_numpy(np.array(getattr(p, f))).to(device)
               for f in _PROBLEM_ARRAYS}
     return DeviceBlockedProblem(
@@ -163,3 +180,55 @@ def quantized_catalog_from_jax(cat, device=None) -> QuantizedCatalog:
         n_rows=int(cat.n_rows), rank=int(cat.rank), version=int(cat.version),
         pos_of_row=None if pos is None else np.asarray(pos, np.int64),
         stats=dict(cat.stats), **arrays)
+
+
+def ps_offline_from_jax(jax_ps, device=None) -> PSOfflineMF:
+    """A port ``PSOfflineMF`` carrying a JAX ``PSOfflineMF``'s config and
+    its trained factor dicts (copies), on ``device`` (``None``: the card;
+    raises without one)."""
+    device = resolve_device(device)
+    jc = jax_ps.config
+    cfg = PSOfflineMFConfig(**{f: getattr(jc, f) for f in
+                               PSOfflineMFConfig.__dataclass_fields__})
+    ps = PSOfflineMF(cfg, device=device)
+    ps.user_factors = {int(k): np.array(v, np.float32)
+                       for k, v in jax_ps.user_factors.items()}
+    ps.item_factors = {int(k): np.array(v, np.float32)
+                       for k, v in jax_ps.item_factors.items()}
+    return ps
+
+
+def tiered_store_from_jax(jax_store, device=None,
+                          initializer=None) -> TieredFactorStore:
+    """A port ``TieredFactorStore`` that continues exactly where a JAX
+    ``TieredFactorStore`` stopped: its capacities, the cold tier, the id
+    machinery (ids in row order), the slot maps, the pin / dirty / tick
+    arrays, the counters and the pool's values, on ``device`` (``None``:
+    the card; raises without one). Ids registered later are initialized by
+    ``initializer`` (``None``: the port's keyed rows at the JAX
+    initializer's scale)."""
+    device = resolve_device(device)
+    if initializer is None:
+        initializer = PseudoRandomFactorInitializer(
+            int(jax_store.rank),
+            scale=float(getattr(jax_store.initializer, "scale", 1.0)))
+    store = TieredFactorStore(initializer, capacity=int(jax_store.capacity),
+                              slot_capacity=int(jax_store.slot_capacity),
+                              device=device)
+    with store._lock:
+        store.cold[:] = np.asarray(jax_store.cold, np.float32)
+        ids = np.asarray(jax_store.id_array(), np.int64)
+        store._ids_buf[:len(ids)] = ids
+        store._n = len(ids)
+        store._sorted_cache = None
+        store._row_slot[:] = np.asarray(jax_store._row_slot, np.int64)
+        for f in ("_slot_row", "_slot_dirty", "_slot_pin", "_slot_tick"):
+            getattr(store, f)[:] = np.asarray(getattr(jax_store, f))
+        store._tick = int(jax_store._tick)
+        store.stats = StoreStats(**{
+            f: getattr(jax_store.stats, f)
+            for f in StoreStats.__dataclass_fields__})
+        store._pool = torch.from_numpy(
+            np.array(jax_store.array, dtype=np.float32)).to(device)
+        store._publish_host_bytes()
+    return store

@@ -31,6 +31,61 @@ def _next_exp_discrete(
 
 
 @dataclasses.dataclass
+class UniformRatingGenerator:
+    """Uniform users × uniform items, rating 1.0."""
+
+    num_users: int
+    num_items: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def generate(self, n: int) -> Ratings:
+        return Ratings.from_arrays(
+            users=self._rng.integers(0, self.num_users, n),
+            items=self._rng.integers(0, self.num_items, n),
+            ratings=np.ones(n, dtype=np.float32),
+        )
+
+
+@dataclasses.dataclass
+class ExponentialRatingGenerator:
+    """Skewed users × items through the inverse exponential CDF: low ids
+    are hot."""
+
+    num_users: int
+    num_items: int
+    lam: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def generate(self, n: int) -> Ratings:
+        return Ratings.from_arrays(
+            users=_next_exp_discrete(self._rng, self.lam, self.num_users, n),
+            items=_next_exp_discrete(self._rng, self.lam, self.num_items, n),
+            ratings=np.ones(n, dtype=np.float32),
+        )
+
+
+@dataclasses.dataclass
+class DiscreteExponentialGenerator:
+    """Bare discretized-exponential id draws in [0, n)."""
+
+    lam: float
+    n: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def gen(self, size: int = 1) -> np.ndarray:
+        return _next_exp_discrete(self._rng, self.lam, self.n, size)
+
+
+@dataclasses.dataclass
 class SyntheticMFGenerator:
     """Ratings drawn from a planted low-rank model: r = u·v + noise with
     known ground-truth factors, so RMSE targets are meaningful."""

@@ -164,6 +164,15 @@ class SGDUpdater:
         du, dv = self.delta(ratings, u, v, weights=weights, t=t)
         return u + du, v + dv
 
+    def delta_np(self, rating: float, u, v, t: int = 1):
+        """Host-side scalar twin of ``delta`` for one rating (numpy rows
+        ``u``, ``v``): the PS online path applies one rating per pull
+        answer, where a tensor op per rating would cost more than the
+        arithmetic."""
+        lr = self.schedule(self.learning_rate, int(t))
+        e = rating - float(np.dot(u, v))
+        return lr * e * v, lr * e * u
+
 
 @dataclasses.dataclass(frozen=True)
 class RegularizedSGDUpdater:

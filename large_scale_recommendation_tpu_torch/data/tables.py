@@ -42,8 +42,13 @@ class GrowableFactorTable:
         # registered ids in row order; row of _ids_buf[j] is j
         self._ids_buf = np.empty(self.capacity, np.int64)
         self._n = 0
-        self.array = torch.zeros((self.capacity, self.rank),
-                                 dtype=torch.float32, device=self.device)
+        self.array = self._make_array()
+
+    def _make_array(self):
+        """Initial storage (a subclass hook: ``HostFactorTable`` keeps
+        numpy, a tiered store its slot pool)."""
+        return torch.zeros((self.capacity, self.rank), dtype=torch.float32,
+                           device=self.device)
 
     # -- vocabulary --------------------------------------------------------
 
@@ -238,3 +243,56 @@ class GrowableFactorTable:
     def full_table(self) -> torch.Tensor:
         """The whole table (offline/eval consumers)."""
         return self.array
+
+
+class HostFactorTable(GrowableFactorTable):
+    """Host-resident twin of ``GrowableFactorTable``: numpy storage, the
+    same getOrElseUpdate semantics and id machinery.
+
+    For bookkeeping-only consumers: the PS server shards gather rows on
+    pull and add deltas on push, and no product ever touches their table,
+    so it stays on the host (a device table would cost two transfers per
+    request). Initializers run on the CPU. ``as_dict`` hands out copies:
+    pushes write the live numpy table in place."""
+
+    def __init__(self, initializer, capacity: int = 1024):
+        super().__init__(initializer, capacity=capacity, device="cpu")
+
+    def _make_array(self):
+        return np.zeros((self.capacity, self.rank), np.float32)
+
+    def as_dict(self) -> dict[int, np.ndarray]:
+        host = self.array
+        return {int(i): host[r].copy()
+                for r, i in enumerate(self._ids_buf[:self._n].tolist())}
+
+    def _install(self, fresh, base: int) -> None:
+        f = np.asarray(fresh, dtype=np.float32)
+        self.array[base:base + len(f)] = f
+
+    def _grow(self, need: int) -> None:
+        new_cap = _next_pow2(need)
+        arr = np.zeros((new_cap, self.rank), np.float32)
+        arr[:self.capacity] = self.array
+        self.array = arr
+        ids_buf = np.empty(new_cap, np.int64)
+        ids_buf[:self._n] = self._ids_buf[:self._n]
+        self._ids_buf = ids_buf
+        self.capacity = new_cap
+
+    def _host_rows(self, rows: np.ndarray) -> np.ndarray:
+        return self.array[np.asarray(rows, np.int64)].copy()
+
+    def gather_rows(self, rows: np.ndarray) -> np.ndarray:
+        return np.asarray(self.array[np.asarray(rows, np.int64)],
+                          np.float32)
+
+    def commit_rows(self, updated, idx) -> None:
+        idx = np.asarray(idx, np.int64)
+        self.array[idx] = np.asarray(updated, np.float32)[idx]
+
+    def load_rows(self, rows: np.ndarray, values) -> None:
+        if isinstance(values, torch.Tensor):
+            values = values.cpu().numpy()
+        self.array[np.asarray(rows, np.int64)] = np.asarray(values,
+                                                            np.float32)

@@ -1,0 +1,193 @@
+"""Estimator/transformer chaining, the ML-pipeline composition surface
+(counterpart of ``large_scale_recommendation_tpu_torch.models.pipeline``; host
+code around the port's estimators).
+
+    model = Pipeline(IdCompactor(), MeanCenterer(),
+                     DSGD(cfg)).fit(train, iterations=3)
+
+Contracts (duck-typed, no registry):
+
+- A **transformer** has ``fit(ratings) -> fitted``; the fitted object has
+  ``transform(ratings) -> ratings`` (fit-time data path) plus two
+  predict-time hooks: ``map_ids(u, i) -> (u, i)`` (raw ids into the
+  trained model's id space; unseen → -1, which every predict surface
+  masks) and ``adjust_scores(scores) -> scores`` (undo value transforms).
+- An **estimator** has ``fit(ratings) -> model`` and a ``config``
+  dataclass (``DSGD`` and ``ALS``; the mesh estimators are not ported);
+  fit-time keyword overlays fold into that config via ``merge_config``.
+  A rebuilt estimator keeps the caller's ``device`` and an injected
+  updater.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import numpy as np
+
+from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.data.blocking import flat_index
+from large_scale_recommendation_tpu_torch.data.native import compact_ids
+from large_scale_recommendation_tpu_torch.utils.config import merge_config
+
+
+# --------------------------------------------------------------------------
+# Transformers
+# --------------------------------------------------------------------------
+
+
+class IdCompactor:
+    """Sparse real ids → dense [0, n) ids (the parse→compact seam,
+    ``data.movielens.compact_ratings``) as a pipeline stage.
+
+    Fit learns the vocabulary from TRAINING data; predict-time ids
+    outside it map to -1 and score as unseen (masked), matching the
+    reference's inner join."""
+
+    def fit(self, ratings: Ratings) -> "FittedIdCompactor":
+        ru, ri, _, rw = ratings.to_numpy()
+        real = rw > 0
+        return FittedIdCompactor(
+            _flat_index(*compact_ids(ru[real])),
+            _flat_index(*compact_ids(ri[real])))
+
+
+def _flat_index(vocab, _inverse, counts) -> "IdIndex":
+    """A ``compact_ids`` vocabulary as a 1-block IdIndex: dense id of raw
+    id x = its first-seen position (``blocking.flat_index`` — the one
+    shared builder for flat vocabularies)."""
+    # pad_empty=False: no factor table behind this index, and
+    # num_users/num_items must honestly read 0 on degenerate input
+    return flat_index(vocab, omega=counts, pad_empty=False)
+
+
+class FittedIdCompactor:
+    def __init__(self, users: "IdIndex", items: "IdIndex"):
+        self.users = users
+        self.items = items
+        self.num_users = users.num_rows
+        self.num_items = items.num_rows
+
+    def map_ids(self, u, i):
+        ur, um = self.users.rows_for(u)
+        ir, im = self.items.rows_for(i)
+        return np.where(um > 0, ur, -1), np.where(im > 0, ir, -1)
+
+    def transform(self, ratings: Ratings) -> Ratings:
+        ru, ri, rv, rw = ratings.to_numpy()
+        du, di = self.map_ids(ru, ri)
+        keep = (du >= 0) & (di >= 0) & (rw > 0)
+        return Ratings.from_arrays(du[keep], di[keep], rv[keep], rw[keep])
+
+    def adjust_scores(self, scores):
+        return scores
+
+
+class MeanCenterer:
+    """Subtract the training mean; add it back to every prediction.
+
+    The plain bilinear model has no bias terms, so raw star ratings
+    (~3.5 mean) otherwise cost the first sweeps learning the offset,
+    or diverge at large step sizes. Predictions for unseen pairs become
+    the train mean: score 0 ("no information") + mean."""
+
+    def fit(self, ratings: Ratings) -> "FittedMeanCenterer":
+        ru, ri, rv, rw = ratings.to_numpy()
+        w = rw.sum()
+        mean = float((rv * rw).sum() / w) if w > 0 else 0.0
+        return FittedMeanCenterer(mean)
+
+
+class FittedMeanCenterer:
+    def __init__(self, mean: float):
+        self.mean = mean
+
+    def map_ids(self, u, i):
+        return u, i
+
+    def transform(self, ratings: Ratings) -> Ratings:
+        ru, ri, rv, rw = ratings.to_numpy()
+        return Ratings.from_arrays(ru, ri, rv - np.float32(self.mean), rw)
+
+    def adjust_scores(self, scores):
+        return np.asarray(scores) + np.float32(self.mean)
+
+
+# --------------------------------------------------------------------------
+# The chain
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PipelineModel:
+    """A fitted chain: predict maps raw ids forward through every fitted
+    transformer, scores with the trained model, then unwinds the value
+    transforms in reverse stage order."""
+
+    fitted_stages: Sequence[Any]
+    model: Any
+
+    def predict(self, user_ids, item_ids):
+        u, i = np.asarray(user_ids), np.asarray(item_ids)
+        for st in self.fitted_stages:
+            u, i = st.map_ids(u, i)
+        scores = self.model.predict(u, i)
+        for st in reversed(self.fitted_stages):
+            scores = st.adjust_scores(scores)
+        return scores
+
+    def rmse(self, ratings: Ratings) -> float:
+        ru, ri, rv, rw = ratings.to_numpy()
+        scores = self.predict(ru, ri)
+        w = rw.sum()
+        if w == 0:
+            return float("nan")
+        return float(np.sqrt(((scores - rv) ** 2 * rw).sum() / w))
+
+
+class Pipeline:
+    """``Pipeline(IdCompactor(), MeanCenterer(), DSGD(cfg))`` — chained
+    fit with fit-time config overlays (the ParameterMap ``++`` contract):
+
+        model = Pipeline(IdCompactor(), MeanCenterer(),
+                         ALS(als_cfg)).fit(train, iterations=3)
+
+    Overlay keywords fold into the FINAL estimator's config through
+    ``merge_config`` — later wins, unknown keys raise — without mutating
+    the estimator the caller holds (a fresh instance is fitted)."""
+
+    def __init__(self, *stages: Any):
+        if not stages:
+            raise ValueError("Pipeline needs at least a final estimator")
+        self.transformers = stages[:-1]
+        self.estimator = stages[-1]
+        if not hasattr(self.estimator, "fit"):
+            raise TypeError(
+                f"final stage {self.estimator!r} has no fit() — the chain "
+                "ends in the estimator, transformers go before it")
+
+    def fit(self, ratings: Ratings, **overrides) -> PipelineModel:
+        fitted = []
+        data = ratings
+        for tr in self.transformers:
+            ft = tr.fit(data)
+            fitted.append(ft)
+            data = ft.transform(data)
+        est = self.estimator
+        if overrides:
+            cfg = merge_config(est.config, overrides)
+            # the device lives outside the config; keep it through the
+            # rebuild
+            kw = {"device": est.device} if hasattr(est, "device") else {}
+            if hasattr(est, "updater"):
+                # an INJECTED updater (the FactorUpdater seam) must
+                # survive the rebuild; a config-derived default must NOT
+                # (it would freeze the pre-override learning rate).
+                # Distinguish by comparing against a fresh default of the
+                # OLD config — non-comparable updaters compare unequal
+                # and are conservatively preserved.
+                if est.updater != type(est)(est.config, **kw).updater:
+                    kw["updater"] = est.updater
+            est = type(est)(cfg, **kw)
+        return PipelineModel(fitted, est.fit(data))

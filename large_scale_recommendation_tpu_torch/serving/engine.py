@@ -25,12 +25,17 @@ serving loop around one model snapshot:
   SLO burn drives widen → degrade (stage-1-only, flagged) → shed
   (``serving.admission``).
 
+- **store-backed user side** (``user_store=``, a ``store
+  .TieredFactorStore`` that IS the bound model's user table): the engine
+  holds no user table; each micro-batch's user rows come through
+  ``serve_rows`` (hot slots from the device pool, misses from the cold
+  tier), so a tier miss's transfer lands inside the flush.
+
 The engine's tensors live on ``model.device``: a model on the card serves
 on the card, a CPU model on the CPU; there is no other route. ``mesh=``
-(ROADMAP.md queue A, item 5) and ``user_store=`` (item 4, the tiered
-store) raise ``NotImplementedError``. The JAX package's obs seams
-(tracer, events, lineage, budget, request plane, transfer guard, registry
-histograms) are not ported (obs comes last).
+(ROADMAP.md queue A, item 5) raises ``NotImplementedError``. The JAX
+package's obs seams (tracer, events, lineage, budget, request plane,
+transfer guard, registry histograms) are not ported (obs comes last).
 """
 
 from __future__ import annotations
@@ -71,10 +76,6 @@ from large_scale_recommendation_tpu_torch.utils.shapes import (
     pow2_pad,
 )
 
-USER_STORE_NOT_PORTED = ("store-backed serving (user_store=) is not ported "
-                         "yet (ROADMAP.md queue A, item 4: the tiered "
-                         "store)")
-
 
 class RecResult(tuple):
     """One request's result: unpacks like ``(ids, scores)`` /
@@ -101,7 +102,8 @@ class ServingEngine:
     ``obs.health.SLOTracker``: every flushed request's latency, queue wait
     plus synced flush wall, is recorded), ``retrieval`` (a
     ``RetrievalConfig`` or ``"two_stage"``), ``admission`` (an
-    ``AdmissionController``).
+    ``AdmissionController``), ``user_store`` (a tiered store sharing the
+    model's user row space: its rows are served in place of ``model.U``).
 
     Results follow ``recommend``: int64 ids, unknown users → -1/0.0 rows,
     below-catalog slots → -1/0.0. ``submit``/``flush``/``refresh`` hold one
@@ -114,8 +116,7 @@ class ServingEngine:
                  user_store=None):
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
-        if user_store is not None:
-            raise NotImplementedError(USER_STORE_NOT_PORTED)
+        self._user_store = user_store
         if max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, "
                              f"got {max_batch}")
@@ -197,10 +198,17 @@ class ServingEngine:
                                           dtype=self._dtype)
             self._k_out = min(self.k, self._catalog.n_rows)
             want = self._dtype
-        self._U = model.U.to(want, copy=True)  # the engine's own copy
-        self._device = self._U.device
+        self._want = want
+        self._device = model.V.device
+        if self._user_store is not None:
+            # no engine-held user table: the store is the live user state
+            self._U = None
+            n_users = int(self._user_store.num_rows)
+        else:
+            self._U = model.U.to(want, copy=True)  # the engine's own copy
+            n_users = int(model.U.shape[0])
         tu, ti = model._train_rows(self._train)
-        self._build_excl = _exclusion_builder(tu, ti, int(model.U.shape[0]))
+        self._build_excl = _exclusion_builder(tu, ti, n_users)
         self.stats["refreshes"] += 1
         return self.version
 
@@ -221,6 +229,10 @@ class ServingEngine:
         ``flush_deltas()`` installs everything pending as ONE swap,
         bit-equal to applying each delta eagerly in arrival order; returns
         the unchanged current version."""
+        if self._user_store is not None:
+            # serve_rows reads the store itself: nothing to install on the
+            # user side (shipped copies could only go backwards)
+            user_rows, U_rows = None, None
         with self._lock:
             sides = self._delta_sides(item_rows, V_rows, user_rows, U_rows)
             if defer:
@@ -481,9 +493,12 @@ class ServingEngine:
         user rows through pinned memory; nothing in a chunk's dispatch
         reads back."""
         dev = self._device
+        store = self._user_store
 
         def stage(cu, c):
             excl = tuple(to_device(a, dev) for a in self._build_excl(cu, c))
+            if store is not None:
+                return excl, store.serve_rows(cu).to(self._want)
             idx = to_device(cu.astype(np.int64), dev)
             return excl, self._U.index_select(0, idx)
 

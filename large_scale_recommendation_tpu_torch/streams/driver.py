@@ -25,12 +25,16 @@ Recovery contract:
   memory only; ``resume()`` rebuilds it from the retained log below the
   restored offset.
 
+WAL lookahead for a tiered user store: when the model's user table has a
+``prefetch`` seam (``store.TieredFactorStore``), the feeder announces each
+batch's user ids (``on_enqueue``) to a ``store.StorePrefetcher``, which
+stages them into the device slot pool while earlier batches train; its
+counters land in the last run's queue stats (``_last_stats["prefetch"]``).
+
 Not ported yet: the JAX driver's obs planes (registry gauges, tracer,
 event journal, lineage and critical-path marks, the timed telemetry
-export) and its tiered-store prefetch (the port's tables have no
-``prefetch`` seam, ROADMAP A4). The duck-typed ``inspector``
-(``inspect_batch(batch)``) and ``evaluator`` (``split_batch(ratings)``)
-hooks are kept.
+export). The duck-typed ``inspector`` (``inspect_batch(batch)``) and
+``evaluator`` (``split_batch(ratings)``) hooks are kept.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ from typing import Any, Callable
 
 import numpy as np
 
+from large_scale_recommendation_tpu_torch.store.prefetch import (
+    StorePrefetcher,
+)
 from large_scale_recommendation_tpu_torch.streams.log import EventLog
 from large_scale_recommendation_tpu_torch.streams.sources import (
     LogTailSource,
@@ -113,6 +120,7 @@ class StreamingDriver:
         self._dirty_lock = threading.Lock()
         self._stop = threading.Event()
         self._source: QueuedSource | None = None
+        self._prefetcher: StorePrefetcher | None = None
         self._last_stats: dict = {}
         self.batches_processed = 0
         self.records_processed = 0
@@ -196,8 +204,17 @@ class StreamingDriver:
             self.log, self.partition, start_offset=self.consumed_offset,
             batch_records=cfg.batch_records, follow=follow,
             poll_interval_s=cfg.poll_interval_s)
+        # duck-typed on the store's prefetch seam: plain tables have none,
+        # and the wiring collapses to the plain QueuedSource
+        prefetcher = None
+        if hasattr(self._online.users, "prefetch"):
+            prefetcher = StorePrefetcher(self._online.users).start()
+        self._prefetcher = prefetcher
         self._source = QueuedSource(tail, capacity=cfg.queue_capacity,
-                                    policy=cfg.queue_policy)
+                                    policy=cfg.queue_policy,
+                                    on_enqueue=(prefetcher.submit_batch
+                                                if prefetcher is not None
+                                                else None))
         applied = 0
         try:
             for batch in self._source:
@@ -212,9 +229,13 @@ class StreamingDriver:
             # and keep its counters readable; no checkpoint here (a failed
             # batch's offset may be stamped already)
             self._source.stop()
+            if prefetcher is not None:
+                prefetcher.stop()
             self._last_stats = self._source.stats.snapshot()
             self._last_stats["dead_letter_buffered"] = len(
                 self._source.dead_letters)
+            if prefetcher is not None:
+                self._last_stats["prefetch"] = prefetcher.snapshot()
         # a feeder fault surfaces even after an early exit, and before the
         # final checkpoint
         self._source.finish()

@@ -379,7 +379,7 @@ class QueuedSource:
         self.validate = validate
         # on_enqueue(batch): fired on the FEEDER thread after quarantine,
         # before the (possibly blocking) queue put — the WAL-lookahead
-        # hook of a tiered store's prefetcher (not ported yet). Must be
+        # hook of a tiered store's prefetcher (StorePrefetcher). Must be
         # cheap and non-blocking; exceptions are the feeder's death.
         self.on_enqueue = on_enqueue
         self._error: BaseException | None = None

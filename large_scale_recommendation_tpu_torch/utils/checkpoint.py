@@ -220,8 +220,10 @@ def restore_mf_model(manager: CheckpointManager, step: int | None = None,
 def snapshot_online_state(online) -> tuple[dict, dict]:
     """One consistent ``(arrays, meta)`` view of an ``OnlineMF``: the id
     layouts (host copies), the registered rows of both tables (views: the
-    tables are never written in place), the step and the consumed stream
-    offsets."""
+    tables are never written in place; a tiered store's merged host copy),
+    the step and the consumed stream offsets. A tiered store's resident
+    rows ride along as ``user_hot_rows`` / ``item_hot_rows``, so a restart
+    re-warms the hot tier it stopped with."""
     u_ids = np.asarray(online.users.id_array(), dtype=np.int64)
     i_ids = np.asarray(online.items.id_array(), dtype=np.int64)
     meta = {"kind": "online_state", "step": int(online.step),
@@ -230,6 +232,11 @@ def snapshot_online_state(online) -> tuple[dict, dict]:
     arrays = {"user_ids": u_ids, "item_ids": i_ids,
               "U": online.users.snapshot_rows(len(u_ids)),
               "V": online.items.snapshot_rows(len(i_ids))}
+    for key, table in (("user_hot_rows", online.users),
+                       ("item_hot_rows", online.items)):
+        resident = getattr(table, "resident_rows", None)
+        if resident is not None:
+            arrays[key] = np.asarray(resident(), dtype=np.int64)
     return arrays, meta
 
 
@@ -248,16 +255,21 @@ def restore_online_state(manager: CheckpointManager, online,
                          step: int | None = None) -> Checkpoint:
     """Load a snapshot into an ``OnlineMF``: ids are registered in saved
     order (so rows are assigned as they were), then the saved rows are
-    written, on the model's device; step and offsets are restored. Returns
-    the ``Checkpoint``."""
+    written, on the model's device; step and offsets are restored. A
+    tiered store re-warms the snapshot's resident rows when the file has
+    them. Returns the ``Checkpoint``."""
     ck = manager.restore(step)
-    for key_ids, key_arr, table in (("user_ids", "U", online.users),
-                                    ("item_ids", "V", online.items)):
+    for key_ids, key_arr, key_hot, table in (
+            ("user_ids", "U", "user_hot_rows", online.users),
+            ("item_ids", "V", "item_hot_rows", online.items)):
         ids = ck[key_ids]
         if len(ids) == 0:
             continue
         rows = table.ensure(ids)
         table.load_rows(rows, ck[key_arr])
+        warm = getattr(table, "warm_rows", None)
+        if warm is not None and key_hot in ck.arrays:
+            warm(ck[key_hot])
     online.step = int(ck.meta.get("step", 0))
     online.consumed_offsets = {
         int(k): int(v) for k, v in ck.meta.get("offsets", {}).items()}

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def next_pow2(n: int) -> int:
     """Smallest power of two ≥ n (n ≥ 0; 0 → 1)."""
@@ -27,3 +29,15 @@ def pow2_buckets(floor: int = 8, cap: int = 1024) -> tuple[int, ...]:
         out.append(b)
         b <<= 1
     return tuple(out)
+
+
+def pad_axis0_pow2(a, floor: int = 8):
+    """Zero-pad a numpy array's leading axis to its pow2 bucket (returned
+    as is when already there)."""
+    n = a.shape[0]
+    p = pow2_pad(n, floor)
+    if p == n:
+        return np.asarray(a)
+    out = np.zeros((p,) + a.shape[1:], a.dtype)
+    out[:n] = a
+    return out

@@ -65,9 +65,11 @@ def retrain_inits(monkeypatch):
     monkeypatch.setattr(JDSGD, "_init_factors", jax_dsgd)
     monkeypatch.setattr(JALS, "_init_factors", jax_als)
     monkeypatch.setattr(DSGD, "_init_factors", lambda self, problem:
-                        convert.factors_from_jax(*recorded["dsgd"].pop(0)))
+                        convert.factors_from_jax(*recorded["dsgd"].pop(0),
+                                                 device="cpu"))
     monkeypatch.setattr(ALS, "_init_factors", lambda self, users, items:
-                        convert.factors_from_jax(*recorded["als"].pop(0)))
+                        convert.factors_from_jax(*recorded["als"].pop(0),
+                                                 device="cpu"))
     return recorded
 
 

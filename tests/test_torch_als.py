@@ -392,7 +392,7 @@ def test_fit_matches_jax_from_its_tables(name):
     solver = ALS(ALSConfig(**CFGS[name]), device="cpu")
     # the seam: JAX's initial tables replace the port's keyed init
     solver._init_factors = lambda users, items: convert.factors_from_jax(
-        JU, JV)
+        JU, JV, device="cpu")
     model = solver.fit(_port(train))
     for f in ("ids", "omega", "sorted_ids", "sorted_rows"):
         np.testing.assert_array_equal(getattr(model.users, f),

@@ -712,3 +712,114 @@ def test_engine_delta_on_card_equals_fresh_engine(dev):
     a, b = eng.recommend(uids), fresh.recommend(uids)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+# -- the tiered store's copies on the card -------------------------------
+
+
+def _store_batches(n_batches=8, users=3000, per_batch=400, items=200,
+                   seed=21):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        u = np.repeat(rng.choice(users, per_batch, replace=False), 3)
+        out.append(Ratings.from_arrays(
+            u, rng.integers(0, items, u.size),
+            rng.random(u.size).astype(np.float32)))
+    return out
+
+
+def _store_model(device, slots=None):
+    from large_scale_recommendation_tpu_torch.core.initializers import (
+        PseudoRandomFactorInitializer,
+    )
+    from large_scale_recommendation_tpu_torch.models.online import (
+        OnlineMF,
+        OnlineMFConfig,
+    )
+    from large_scale_recommendation_tpu_torch.store import TieredFactorStore
+
+    cfg = OnlineMFConfig(num_factors=32, minibatch_size=256)
+    m = OnlineMF(cfg, device=device)
+    if slots is not None:
+        m.users = TieredFactorStore(
+            PseudoRandomFactorInitializer(32, scale=cfg.init_scale),
+            slot_capacity=slots, device=device)
+    return m
+
+
+def test_store_copies_use_pinned_buffers_and_the_side_stream(dev):
+    """Slot loads stage through pinned memory on a side stream, the pool is
+    rebound on every load (a held binding keeps its values), and loaded
+    and written-back rows are exact copies."""
+    m = _store_model(dev, slots=512)
+    st = m.users
+    assert st.array.device.type == "cuda" and st._copy_stream is not None
+    assert st._copy_stream != torch.cuda.current_stream(dev)
+    ids = np.arange(1000, 1600)
+    st.ensure(ids)
+    rows, _ = st.rows_for(ids)
+    held = st.array
+    before = held.clone()
+    assert st.prefetch(ids) == 512  # best effort: the pool is full
+    assert st._stage.is_pinned() and st._stage_idx.is_pinned()
+    assert torch.equal(held, before)  # the old binding never changed
+    hot = st._row_slot[rows] >= 0
+    got = st.array[torch.as_tensor(st._row_slot[rows[hot]], device=dev)]
+    np.testing.assert_array_equal(got.cpu().numpy(), st.cold[rows[hot]])
+    slots = st._row_slot[rows[hot]][:100]
+    back = st._gather_pool(slots)
+    assert st._wb.is_pinned()
+    np.testing.assert_array_equal(back, st.cold[rows[hot][:100]])
+
+
+def test_store_on_card_within_the_online_bar_of_the_plain_table(dev):
+    """Tiered (256 slots for 400-user batches: evictions every batch)
+    against the plain table on the card, and the tiered run on the card
+    against the tiered run on the CPU: the online bar (the card's
+    ``index_add_`` adds duplicates with atomics in any order)."""
+    bs = _store_batches()
+    runs = [_store_model(dev), _store_model(dev, slots=512),
+            _store_model("cpu", slots=512)]
+    for m in runs:
+        for b in bs:
+            m.partial_fit(b, emit_updates=False)
+    plain, tier, cpu = runs
+    n = plain.users.num_rows
+    assert np.array_equal(tier.users.id_array(), plain.users.id_array())
+    assert tier.users.stats.evictions > 0
+    a = tier.users.full_table()[:n].cpu()
+    torch.testing.assert_close(a, plain.users.array[:n].cpu(),
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a, cpu.users.full_table()[:n],
+                               rtol=1e-4, atol=1e-5)
+    assert tier.users.stats.snapshot()["misses"] == \
+        cpu.users.stats.snapshot()["misses"]
+
+
+def test_store_prefetcher_and_serving_on_card(dev):
+    from large_scale_recommendation_tpu_torch.serving import ServingEngine
+    from large_scale_recommendation_tpu_torch.store import StorePrefetcher
+
+    bs = _store_batches(seed=22)
+    m = _store_model(dev, slots=1024)
+    pf = StorePrefetcher(m.users).start()
+    try:
+        for k, b in enumerate(bs):
+            if k + 1 < len(bs):
+                pf.submit(np.unique(bs[k + 1].users))
+            m.partial_fit(b, emit_updates=False)
+        pf.drain()
+    finally:
+        pf.stop()
+    st = m.users
+    assert st.stats.prefetched > 0
+    n = st.num_rows
+    served = st.serve_rows(np.arange(n))
+    assert torch.equal(served, st.full_table()[:n])
+    ids = st.id_array()[:300]
+    model = m.to_model()
+    a = ServingEngine(model, k=10, user_store=st).recommend(ids)
+    b = ServingEngine(model, k=10).recommend(ids)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])

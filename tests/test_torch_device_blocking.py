@@ -116,7 +116,7 @@ def test_holdout_rows_and_id_indices_bit_equal(pad):
 
 def test_converted_jax_problem_equals_the_ports():
     jp, tp, _ = _both(2, "user", pad=True)
-    cp = convert.device_problem_from_jax(jp)
+    cp = convert.device_problem_from_jax(jp, device="cpu")
     for name in ARRAYS:
         assert torch.equal(getattr(cp, name), getattr(tp, name)), name
     assert (cp.nnz, cp.minibatch) == (tp.nnz, tp.minibatch)

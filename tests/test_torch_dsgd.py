@@ -65,7 +65,8 @@ def _fit_pair(name):
 
     solver = DSGD(DSGDConfig(**kw), device="cpu")
     # the seam: the JAX tables replace the port's own (Philox ≠ threefry)
-    solver._init_factors = lambda _problem: convert.factors_from_jax(U0, V0)
+    solver._init_factors = lambda _problem: convert.factors_from_jax(
+        U0, V0, device="cpu")
     model = solver.fit(_port_ratings(train), num_blocks=k, checkpoint_every=2)
     return jsolver, jmodel, solver, model, train, test
 
@@ -103,7 +104,7 @@ def test_predict_unseen_ids_and_mask():
 def test_model_from_jax_scores_like_the_jax_model():
     _, jmodel, _, _, _, test = _fit_pair("skewed_k4")
     pm = convert.model_from_jax(np.asarray(jmodel.U), np.asarray(jmodel.V),
-                                jmodel.users, jmodel.items)
+                                jmodel.users, jmodel.items, device="cpu")
     tt = _port_ratings(test)
     assert abs(pm.rmse(tt) - jmodel.rmse(test)) < 1e-5
     np.testing.assert_allclose(pm.empirical_risk(tt, 0.05),
@@ -125,12 +126,13 @@ def test_factors_from_jax_bf16_bit_views():
     U = jnp.asarray(np.linspace(-1, 1, 24, dtype=np.float32).reshape(6, 4))
     Ub = np.asarray(U.astype(jnp.bfloat16))
     for src in (Ub, Ub.view(np.uint16)):
-        t, _ = convert.factors_from_jax(src, src)
+        t, _ = convert.factors_from_jax(src, src, device="cpu")
         assert t.dtype == torch.bfloat16
         np.testing.assert_array_equal(t.float().numpy(),
                                       Ub.astype(np.float32))
     with pytest.raises(ValueError, match="dtype"):
-        convert.factors_from_jax(np.zeros((2, 2)), np.zeros((2, 2)))
+        convert.factors_from_jax(np.zeros((2, 2)), np.zeros((2, 2)),
+                                 device="cpu")
 
 
 def test_error_paths():
@@ -235,7 +237,7 @@ def test_fit_device_matches_jax_xla_fit_device(monkeypatch, dtype, sort):
                         lambda *a, **k: perms)
     solver = DSGD(DSGDConfig(**kw), device="cpu")
     solver._init_factors_device = \
-        lambda _p: convert.factors_from_jax(U0, V0)
+        lambda _p: convert.factors_from_jax(U0, V0, device="cpu")
     model = solver.fit_device(u, i, r, nu, ni, num_blocks=2,
                               checkpoint_every=2)
     _tables_close((model.U, model.V), (jmodel.U, jmodel.V), dtype)
@@ -248,7 +250,7 @@ def test_fit_device_matches_jax_xla_fit_device(monkeypatch, dtype, sort):
     # the layout seam gives the same fit from JAX's own problem
     again = DSGD(DSGDConfig(**kw), device="cpu")
     again._init_factors_device = solver._init_factors_device
-    m2 = again._fit_problem(convert.device_problem_from_jax(jp),
+    m2 = again._fit_problem(convert.device_problem_from_jax(jp, device="cpu"),
                             checkpoint_every=2)
     assert torch.equal(m2.U, model.U) and torch.equal(m2.V, model.V)
 
@@ -264,7 +266,8 @@ def test_fit_bf16_matches_jax_xla_fit():
                                  minibatch_multiple=128)
     U0, V0 = (np.asarray(a) for a in jsolver._init_factors(problem))
     solver = DSGD(DSGDConfig(**kw), device="cpu")
-    solver._init_factors = lambda _problem: convert.factors_from_jax(U0, V0)
+    solver._init_factors = lambda _problem: convert.factors_from_jax(
+        U0, V0, device="cpu")
     model = solver.fit(_port_ratings(train), num_blocks=4, checkpoint_every=2)
     _tables_close((model.U, model.V), (jmodel.U, jmodel.V), "bfloat16")
     assert abs(model.rmse(_port_ratings(test)) - jmodel.rmse(test)) < 1e-4

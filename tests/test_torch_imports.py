@@ -39,7 +39,10 @@ def test_port_has_the_slice_modules():
               "obs.health", "parallel.serving", "serving",
               "serving.retrieval", "serving.admission", "serving.engine",
               "streams", "streams.log", "streams.sources", "streams.driver",
-              "streams.parallel", "models.adaptive"):
+              "streams.parallel", "models.adaptive", "ps", "ps.core",
+              "ps.server", "ps.transform", "ps.mf", "ps.adaptive",
+              "models.pipeline", "store", "store.tiered",
+              "store.prefetch"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -88,6 +91,9 @@ def test_ast_finds_no_jax_import(path):
 
 def test_default_device_is_the_card(monkeypatch):
     from large_scale_recommendation_tpu_torch import convert
+    from large_scale_recommendation_tpu_torch.core.initializers import (
+        PseudoRandomFactorInitializer,
+    )
     from large_scale_recommendation_tpu_torch.models.adaptive import (
         AdaptiveMF,
     )
@@ -99,7 +105,12 @@ def test_default_device_is_the_card(monkeypatch):
     )
     from large_scale_recommendation_tpu_torch.models.online import OnlineMF
     from large_scale_recommendation_tpu_torch.ops import als as als_ops
+    from large_scale_recommendation_tpu_torch.ps.adaptive import (
+        PSOnlineBatchMF,
+    )
+    from large_scale_recommendation_tpu_torch.ps.mf import PSOfflineMF
     from large_scale_recommendation_tpu_torch.serving import retrieval
+    from large_scale_recommendation_tpu_torch.store import TieredFactorStore
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (lambda: DSGD(DSGDConfig()), ALS, OnlineMF,
@@ -109,7 +120,17 @@ def test_default_device_is_the_card(monkeypatch):
                   lambda: convert.quantized_catalog_from_jax(None),
                   lambda: retrieval.TwoStageRetriever(np.zeros((4, 2))),
                   lambda: retrieval.kmeans_fit(np.ones((4, 2), np.float32),
-                                               2)):
+                                               2),
+                  lambda: convert.factors_from_jax(np.zeros((2, 2),
+                                                            np.float32),
+                                                   np.zeros((2, 2),
+                                                            np.float32)),
+                  lambda: convert.model_from_jax(None, None, None, None),
+                  lambda: convert.device_problem_from_jax(None),
+                  PSOfflineMF, PSOnlineBatchMF,
+                  lambda: TieredFactorStore(PseudoRandomFactorInitializer(2)),
+                  lambda: convert.ps_offline_from_jax(None),
+                  lambda: convert.tiered_store_from_jax(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):

@@ -41,7 +41,7 @@ def _models(dtype, seed=1, rank=8):
         U, V = U.astype(jnp.bfloat16), V.astype(jnp.bfloat16)
     jm = JMFModel(U=U, V=V, users=p.users, items=p.items)
     tm = convert.model_from_jax(np.asarray(U), np.asarray(V), p.users,
-                                p.items)
+                                p.items, device="cpu")
     return jm, tm, train, test
 
 

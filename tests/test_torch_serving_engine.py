@@ -8,8 +8,9 @@ the flat two-stage engine the same (its stage 1 is bit-equal, stage 2's
 rescore at that bar). Then the engine contracts: bucket validation,
 ``serve`` alignment past pre-queued submits, the bounded shape family,
 deferred deltas equal to eager ones, vocab growth, the version moving on
-``refresh``, on ``apply_delta`` and after in-place modification, and the
-parts not ported (``mesh=``, ``user_store=``) raising.
+``refresh``, on ``apply_delta`` and after in-place modification, the part
+not ported (``mesh=``) raising, and ``user_store=`` serving a tiered
+store's rows.
 """
 
 import dataclasses
@@ -34,8 +35,12 @@ from large_scale_recommendation_tpu.serving.engine import (
 from large_scale_recommendation_tpu.utils import metrics as jmetrics
 from large_scale_recommendation_tpu.utils import shapes as jshapes
 from large_scale_recommendation_tpu_torch import convert
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    PseudoRandomFactorInitializer,
+)
 from large_scale_recommendation_tpu_torch.core.types import Ratings
 from large_scale_recommendation_tpu_torch.parallel import serving as tps
+from large_scale_recommendation_tpu_torch.store import TieredFactorStore
 from large_scale_recommendation_tpu_torch.serving import (
     RecResult,
     RetrievalConfig,
@@ -60,7 +65,7 @@ def models(num_users=60, num_items=256, rank=8, seed=0, padded=True):
         iids[::9] = -1
     jm = JMFModel(U=jnp.asarray(U), V=jnp.asarray(V),
                   users=jflat_index(uids), items=jflat_index(iids))
-    tm = convert.model_from_jax(U, V, jm.users, jm.items)
+    tm = convert.model_from_jax(U, V, jm.users, jm.items, device="cpu")
     return jm, tm
 
 
@@ -384,11 +389,26 @@ def test_bucket_policy_validation_and_family():
 
 
 def test_mesh_and_user_store_are_not_ported():
+    """``mesh=`` still raises; ``user_store=`` is ported: a tiered store
+    holding the model's user rows (a few hot, the rest cold) serves the
+    same lists as the engine's own table."""
     _, tm = models(seed=13)
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(tm, mesh=make_block_mesh(1))
-    with pytest.raises(NotImplementedError, match="tiered store"):
-        ServingEngine(tm, user_store=object())
+    ids = real_users(tm)
+    store = TieredFactorStore(PseudoRandomFactorInitializer(8), capacity=8,
+                              slot_capacity=16, device="cpu")
+    rows = store.ensure(ids)
+    np.testing.assert_array_equal(rows, np.arange(len(ids)))
+    store.load_rows(rows, tm.U[:len(ids)])
+    assert store.warm_rows(rows[:10]) == 10
+    got = ServingEngine(tm, k=6, user_store=store).recommend(ids)
+    want = ServingEngine(tm, k=6).recommend(ids)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # the micro-batch is padded to its bucket with repeated rows
+    assert store.stats.serve_hits >= 10
+    assert store.stats.serve_misses >= len(ids) - 10
 
 
 def test_refresh_moves_the_version_and_serves_the_new_model():
