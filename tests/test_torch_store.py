@@ -17,7 +17,9 @@ equal at conversion, then the same decisions, values at the online bar).
 """
 
 import os
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -201,6 +203,65 @@ def test_concurrent_disjoint_applies_match_serial(slots):
     assert conc.users.snapshot()["hot"]["pinned"] == 0
     if slots < conc.users.num_rows:
         assert conc.users.stats.evictions > 0
+
+
+def test_threads_under_a_short_switch_interval_stay_bit_equal():
+    """Two row-disjoint consumers, the prefetcher and a serving reader on
+    one 16-slot store, the interpreter switching threads every
+    microsecond: by id, the tables equal the untiered serial run's and no
+    pin leaks."""
+    streams = [batches(per_batch_users=4, part=(p, 2), seed=p + 5)
+               for p in range(2)]
+    serial = model()
+    for bs in streams:
+        train(serial, bs)
+    conc = model(slots=16)
+    conc.enable_concurrent_applies()
+    conc.apply_gate = RowConflictGate()
+    pf = StorePrefetcher(conc.users).start()
+    done, errs = threading.Event(), []
+
+    def consume(bs):
+        try:
+            for b in bs:
+                pf.submit(np.unique(b.users))
+                conc.partial_fit(b, emit_updates=False)
+        except BaseException as e:  # surfaced below
+            errs.append(e)
+
+    def serve():
+        try:
+            while not done.is_set():
+                n = conc.users.num_rows
+                if n:
+                    conc.users.serve_rows(np.arange(n))
+                time.sleep(0.001)
+        except BaseException as e:  # surfaced below
+            errs.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        consumers = [threading.Thread(target=consume, args=(bs,))
+                     for bs in streams]
+        reader = threading.Thread(target=serve)
+        for t in consumers + [reader]:
+            t.start()
+        for t in consumers:
+            t.join(60)
+        done.set()
+        reader.join(60)
+        pf.stop()
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in consumers + [reader])
+    assert not errs, errs
+    for side in ("users", "items"):
+        ids, a = by_id(serial, side)
+        cids, b = by_id(conc, side)
+        np.testing.assert_array_equal(ids, cids)
+        np.testing.assert_array_equal(a, b)
+    assert conc.users.snapshot()["hot"]["pinned"] == 0
 
 
 def test_prefetcher_racing_the_trainer_stays_bit_equal():
