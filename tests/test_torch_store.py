@@ -527,8 +527,9 @@ def test_tiered_store_from_jax_continues_the_jax_store():
                                   np.asarray(jm.users.array))
     pm = convert.online_from_jax(jm, device="cpu", item_initializer=pinit)
     pm.users = st
-    assert torch.equal(table(pm), torch.from_numpy(
-        np.asarray(jm.users.full_table())[:jm.users.num_rows]))
+    np.testing.assert_array_equal(
+        table(pm).numpy(),
+        np.asarray(jm.users.full_table())[:jm.users.num_rows])
     for b in bs[4:]:
         jm.partial_fit(JRatings.from_arrays(*b.to_numpy()),
                        emit_updates=False)
