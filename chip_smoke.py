@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's DSGD training, serving and evaluation paths, ALS,
 online MF, the serving engine, the streaming runtime, the parameter server,
-the estimator pipeline and the tiered store on one NVIDIA GPU (an H100).
+the estimator pipeline, the tiered store and the mesh on one NVIDIA GPU (an
+H100).
 
     python3 chip_smoke.py
 
@@ -178,7 +179,32 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               12, ``resume()`` re-warms the checkpoint's hot set and the
               drain ends at the uninterrupted run's tables (the
               [online] bar); an overcommitted pool raises. The PS and
-              store phases launch none of the kernels.
+              store phases launch none of the kernels;
+24. mesh.visit — the mesh's per-visit route (``block_sweep``) at the main
+              path's geometry (k 8, rank 128, minibatch 32,768), each rank
+              with the plan a k-rank ring builds (its device-major cells
+              ``[k, 1, b]``): all 64 visits of a sweep (every rank, every
+              stratum) on block-local slices, f32 and bf16; max-abs 0
+              against the stratum's launch loop (each row's entries keep
+              their order), 1e-5 / one bf16 ulp against
+              ``block_sweep_reference``; stratum 0's 8 visits (192
+              launches, counted) timed against the stratum's 24;
+25. mesh.dsgd — an NCCL process group of one rank in this process (its
+              all_reduce answers), then ``MeshDSGD.fit_device`` on the
+              device pipeline (ML-25M width, the bench settings at η 0.1:
+              ``MESH_BENCH``), f32 and bf16, 3 sweeps, a sharded snapshot
+              a sweep: tables bit-equal to ``DSGD.fit_device(
+              num_blocks=1)``, sweeps timed beside it, a resume from sweep
+              2 bit-equal, launches by formula; the fit's one visit (k 1,
+              the whole tables) through ``block_sweep`` on its own layout
+              and plan against ``block_sweep_reference`` (1e-5 / one bf16
+              ulp);
+26. mesh.serve — 16,384 users' top-10 from the mesh model's shards, through
+              ``MFModel.recommend(mesh=)`` and ``ServingEngine(mesh=)``,
+              each equal to the plain ``recommend`` (tie-aware);
+27. mesh.als — ``MeshALS.fit`` against ``ALS.fit`` on [als.fit]'s
+              2,000,000 ratings (rank 128, 2 rounds): 3e-3·|x| + 3e-4,
+              RMSE within 1e-4. Serving and ALS launch none of the kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -192,6 +218,7 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -237,7 +264,15 @@ from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
+from large_scale_recommendation_tpu_torch.parallel import als_mesh, dsgd_mesh
 from large_scale_recommendation_tpu_torch.parallel import serving as psrv
+from large_scale_recommendation_tpu_torch.parallel.distributed import (
+    DistributedConfig,
+    initialize_distributed,
+)
+from large_scale_recommendation_tpu_torch.parallel.partitioner import (
+    Partitioner,
+)
 from large_scale_recommendation_tpu_torch.ps import adaptive as ps_adaptive
 from large_scale_recommendation_tpu_torch.ps import core as ps_core
 from large_scale_recommendation_tpu_torch.ps import mf as ps_mf
@@ -277,6 +312,7 @@ from large_scale_recommendation_tpu_torch.streams.log import (
 from large_scale_recommendation_tpu_torch.utils import metrics
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
+    ShardedCheckpointManager,
     restore_online_state,
     save_online_state,
 )
@@ -818,13 +854,19 @@ def run(scratch: str) -> int:
     paths = {"fit": launches, **device_runs}
     kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
-    del U0, V0, args, plan, Ud, Vd
+    del Ud, Vd
+    # [mesh.visit]'s data (the main path's k = 8 layout), kept for the end
+    visit_args = (U0, V0, args, problem, plan,
+                  sched(cfg.learning_rate, 1), lam)
+    del U0, V0, args, plan
     phase_als(dev)
     phase_als_conv(dev)
     phase_online(dev, scratch)
     paths["streams.adaptive"] = phase_streams(scratch)
     paths["pipeline"] = pipeline_launches
     phase_ps_store(scratch, dev)
+    paths.update(phase_mesh(dev, scratch, visit_args))
+    del visit_args
     for k in kernels:  # the retrain thread's launches join the counts
         k["launches"], k["launches_by_path"] = launch_counts(paths,
                                                              k["name"])
@@ -3004,6 +3046,381 @@ def phase_ps_store(scratch, dev):
     no_dsgd_launches("ps and store")
 
 
+# -- the mesh (phases 24-27) ------------------------------------------------
+
+
+MESH_SERVE_USERS = 16384
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def rank_cells(args, p, rpb_u, rpb_v):
+    """Rank p's cells ``[k, b]`` of a stratum-major layout (cell s is
+    rating block (p, (p+s) mod k)), block-local rows: what ``MeshDSGD``
+    places on rank p of a k-rank ring."""
+    su, si, sv, sw, _, _, icu, icv = args
+    return (su[:, p] % rpb_u, si[:, p] % rpb_v, sv[:, p], sw[:, p],
+            icu[:, p], icv[:, p])
+
+
+def check_visit(U, V, ou, ov, cells, plan, p, s, rpb, work, lr, lam, label):
+    """Rank p's visit s through ``block_sweep`` over its plan (``[k, 1,
+    b]``, any s), from the given whole tables (U block p, V block (p+s)
+    mod k, f32 or bf16): twice, bit-equal; against
+    ``block_sweep_reference`` on the same slices, max-abs ≤ STRATUM_TOL in
+    f32 and within BF16_ULPS in bf16. Returns the difference (max-abs or
+    ulps) and the swept slices."""
+    k, (ru, rv) = plan.num_blocks, rpb
+    q = (p + s) % k
+    us, vs = slice(p * ru, (p + 1) * ru), slice(q * rv, (q + 1) * rv)
+    runs = []
+    for _ in range(2):
+        Ub, Vb = U[us].clone(), V[vs].clone()
+        cuda_sgd.block_sweep(Ub, Vb, ou[us], ov[vs], plan, s, work, lr=lr,
+                             lam=lam)
+        runs.append((Ub, Vb))
+    Ur, Vr = cuda_sgd.block_sweep_reference(
+        U[us], V[vs], *(a[s] for a in cells), ou[us], ov[vs], lr=lr, lam=lam,
+        minibatch=plan.minibatch)
+    torch.cuda.synchronize()
+    (Ub, Vb), again = runs
+    if not all(torch.equal(x, y) for x, y in zip((Ub, Vb), again)):
+        raise AssertionError(f"{label}: visit ({p}, {s}): two runs differ")
+    if U.dtype == torch.bfloat16:
+        err = max(float(bf16_ulps(Ub, Ur).max()),
+                  float(bf16_ulps(Vb, Vr).max()))
+        bar = BF16_ULPS
+    else:
+        err, bar = max_abs([(Ub, Ur), (Vb, Vr)]), STRATUM_TOL
+    finite = bool(torch.isfinite(Ub.float()).all()
+                  and torch.isfinite(Vb.float()).all())
+    if not (err <= bar and finite):
+        raise AssertionError(f"{label}: visit ({p}, {s}) of block_sweep "
+                             f"differs from its plain version by {err} "
+                             f"(bar {bar}; finite {finite})")
+    return err, Ub, Vb
+
+
+def phase_mesh_visit(U0, V0, args, problem, plan, lr, lam):
+    """[mesh.visit]: the per-visit route of the mesh (``block_sweep``) at
+    the main path's geometry (ML-25M width, k = 8, rank 128, minibatch
+    32,768), each rank p with the plan a k-rank ring builds for it: its
+    device-major cells ``[k, 1, b]`` (``dsgd_mesh.visit_plan``). Counted:
+    the 8 visits of stratum 0. Checked, f32 and bf16, for every rank p and
+    every stratum s of the sweep, each from the same tables: the visit
+    twice (bit-equal), against ``block_sweep_reference`` on its slices
+    (1e-5 / one bf16 ulp) and against ``stratum_sweep`` of stratum s over
+    the whole tables (the same entries in the same order per row:
+    bit-equal expected; bf16 through the stratum's casts). The per-visit
+    launches of stratum 0 are timed against the stratum's one launch loop
+    (CUDA events; interleaved). Returns the launch counts of the counted
+    runs by dtype."""
+    ou, ov = args[4], args[5]
+    k, mb = K, plan.minibatch
+    rpb = (problem.users.rows_per_block, problem.items.rows_per_block)
+    rank = U0.shape[-1]
+    kw = dict(lr=lr, lam=lam)
+    cells = [rank_cells(args, p, *rpb) for p in range(k)]
+    plans = [dsgd_mesh.visit_plan(c, mb) for c in cells]
+    works = [pl.new_work(rank) for pl in plans]
+
+    def visits(U, V, s):
+        for p in range(k):
+            q = (p + s) % k
+            us = slice(p * rpb[0], (p + 1) * rpb[0])
+            vs = slice(q * rpb[1], (q + 1) * rpb[1])
+            cuda_sgd.block_sweep(U[us], V[vs], ou[us], ov[vs], plans[p], s,
+                                 works[p], **kw)
+
+    def stratum_run(U, V, s):
+        Us, Vs = U.clone(), V.clone()
+        if U.dtype == torch.bfloat16:
+            Uw, Vw = torch.empty_like(U0), torch.empty_like(V0)
+            cuda_sgd.bf16_to_f32(Us, Vs, Uw, Vw)
+            cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, **kw)
+            cuda_sgd.f32_to_bf16(Uw, Vw, Us, Vs)
+        else:
+            cuda_sgd.stratum_sweep(Us, Vs, ou, ov, plan, s, work, **kw)
+        return Us, Vs
+
+    work = plan.new_work(rank)
+    paths, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        U, V = U0.to(dtype), V0.to(dtype)
+        Uv, Vv = U.clone(), V.clone()
+        cuda_sgd.reset_launch_counts()
+        visits(Uv, Vv, 0)
+        torch.cuda.synchronize()
+        got = dict(cuda_sgd.LAUNCHES)
+        paths[f"mesh.visit_{name}"] = got
+        want = k * plan.n_mb
+        casts = k if dtype == torch.bfloat16 else 0
+        if (got["sgd_item_rows_kernel"], got["sgd_user_rows_kernel"],
+                got["bf16_to_f32_kernel"], got["f32_to_bf16_kernel"]) != (
+                    want, want, casts, casts):
+            raise AssertionError(f"mesh.visit launches {got}")
+        # every visit of the sweep: the stratum's launch loop (a
+        # comparison: its launches are not counted) and the plain version
+        ref_err, vs_stratum = 0.0, 0.0
+        for s in range(k):
+            Us, Vs = stratum_run(U, V, s)
+            for p in range(k):
+                q = (p + s) % k
+                err, Ub, Vb = check_visit(U, V, ou, ov, cells[p], plans[p],
+                                          p, s, rpb, works[p], lr, lam,
+                                          f"mesh.visit {name}")
+                ref_err = max(ref_err, err)
+                vs_stratum = max(vs_stratum, max_abs([
+                    (Ub.float(), Us[p * rpb[0]:(p + 1) * rpb[0]].float()),
+                    (Vb.float(), Vs[q * rpb[1]:(q + 1) * rpb[1]].float())]))
+            if s == 0:  # the counted run equals the checked visits
+                vs_stratum = max(vs_stratum, max_abs([
+                    (Uv.float(), Us.float()), (Vv.float(), Vs.float())]))
+        key = "vs_plain_max_ulps" if dtype == torch.bfloat16 else \
+            "vs_plain_max_abs"
+        out[name] = {key: ref_err, "vs_stratum_max_abs": vs_stratum}
+        if vs_stratum != 0.0:
+            raise AssertionError(f"mesh.visit {name}: per-visit launches "
+                                 f"differ from the stratum's by {vs_stratum}")
+    # timing (f32): stratum 0's 8 visits against the stratum's, in turns
+    Ut, Vt = U0.clone(), V0.clone()
+    stratum = (lambda: cuda_sgd.stratum_sweep(Ut, Vt, ou, ov, plan, 0, work,
+                                              **kw))
+    visit = (lambda: visits(Ut, Vt, 0))
+    st1, vi1, vi2, st2 = (cuda_ms(stratum, 5), cuda_ms(visit, 5),
+                          cuda_ms(visit, 5), cuda_ms(stratum, 5))
+    host_us = []
+    for fn in (stratum, visit):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fn()
+        host_us.append((time.perf_counter() - h0) * 1e6)
+        torch.cuda.synchronize()
+    say("mesh.visit", k=k, rank=rank, minibatch=mb, n_mb=plan.n_mb,
+        visits_checked=k * k, launches_per_visit_run=2 * k * plan.n_mb,
+        launches_per_stratum_run=2 * plan.n_mb,
+        **{f"{d}_{key}": v for d, r in out.items() for key, v in r.items()},
+        per_visit_ms=min(vi1, vi2), stratum_ms=min(st1, st2),
+        per_visit_over_stratum=min(vi1, vi2) / min(st1, st2),
+        per_visit_host_us=host_us[1], stratum_host_us=host_us[0])
+    return paths
+
+
+# [mesh.dsgd] at world size 1 is k = 1: the bench's η 0.3 with its 2.5×
+# warm boost (tuned at k = 8) diverges there (NaN in the first sweep,
+# measured on the card); η 0.1 keeps the schedule and converges
+MESH_BENCH = dict(BENCH, learning_rate=0.1)
+
+
+def mesh_config(dtype) -> dsgd_mesh.MeshDSGDConfig:
+    return dsgd_mesh.MeshDSGDConfig(**MESH_BENCH, kernel="cuda",
+                                    factor_dtype=dtype)
+
+
+def phase_mesh_dsgd(dev, part, scratch):
+    """[mesh.dsgd]: ``MeshDSGD.fit_device`` at world size 1 (one rank of an
+    NCCL group) on the main path's device pipeline (ML-25M width, bench
+    settings but η 0.1: ``MESH_BENCH``; 3 sweeps), f32 and bf16, a sharded
+    snapshot per sweep; its
+    tables bit-equal to ``DSGD.fit_device(num_blocks=1)`` on the card (the
+    same launches), its sweeps timed beside that fit's, a resume from the
+    second snapshot bit-equal. The fit's own visit (k = 1: one cell, the
+    whole tables, 725 steps) is held against the plain version:
+    ``block_sweep`` on the fit's layout, plan and initial tables at sweep
+    1's η against ``block_sweep_reference`` (``check_visit``: max-abs
+    ≤ 1e-5 in f32, one bf16 ulp in bf16, two runs bit-equal). Returns the
+    launch counts by dtype and the f32 fits (the mesh model, the
+    single-card model) and data."""
+    (train, hold, (nu, ni)), gen_s = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", rank=16, noise=0.1, seed=0, skew_lam=2.0, device=dev))
+    u, i, r = train
+    holdout = Ratings.from_arrays(*(a.cpu().numpy() for a in hold))
+    # the fit's layout, plan and initial tables, as MeshDSGD builds them
+    cfg = mesh_config("float32")
+    mb = cfg.minibatch_size
+    prob = device_blocking.device_block_problem(
+        u, i, r, nu, ni, num_blocks=part.num_blocks, minibatch_multiple=mb,
+        seed=cfg.seed, minibatch_sort=cfg.minibatch_sort, device=dev)
+    rpb = (prob.rows_per_block_u, prob.rows_per_block_v)
+    cells = rank_cells((prob.su, prob.si, prob.sv, prob.sw, None, None,
+                        prob.icu, prob.icv), 0, *rpb)
+    plan = dsgd_mesh.visit_plan(cells, mb)
+    U0, V0 = device_blocking.init_factors_device(prob, cfg.num_factors,
+                                                 scale=cfg.init_scale)
+    lr1 = schedule_from_name(cfg.lr_schedule, cfg.lambda_)(
+        cfg.learning_rate, 1)
+    paths, keep = {}, None
+    for dtype in ("float32", "bfloat16"):
+        ckpt = ShardedCheckpointManager(os.path.join(scratch,
+                                                     f"mesh_{dtype}"))
+        solver = dsgd_mesh.MeshDSGD(mesh_config(dtype), partitioner=part)
+        cuda_sgd.reset_launch_counts()
+        model, wall = timed(lambda: solver.fit_device(
+            u, i, r, nu, ni, checkpoint_manager=ckpt, checkpoint_every=1))
+        launches = dict(cuda_sgd.LAUNCHES)
+        if not np.array_equal(model.users.ids, prob.to_id_indices()[0].ids):
+            raise AssertionError("mesh.dsgd: the fit blocked another layout")
+        visit_err, _, _ = check_visit(
+            U0.to(model.U.dtype), V0.to(model.U.dtype), prob.omega_u,
+            prob.omega_v, cells, plan, 0, 0, rpb,
+            plan.new_work(cfg.num_factors), lr1, cfg.lambda_,
+            f"mesh.dsgd {dtype}")
+        single = DSGD(dataclasses.replace(DSGDConfig(**MESH_BENCH),
+                                          factor_dtype=dtype))
+        ref, ref_wall = timed(lambda: single.fit_device(
+            u, i, r, nu, ni, num_blocks=1, checkpoint_every=1))
+        equal = (torch.equal(model.U, ref.U) and torch.equal(model.V, ref.V))
+        steps = plan.n_mb * BENCH["iterations"]  # k = 1: one visit a sweep
+        casts = BENCH["iterations"] if dtype == "bfloat16" else 0
+        rmse = model.rmse(holdout)
+        # resume: the newest snapshot never happened
+        newest = ckpt.latest_step()
+        for name in os.listdir(ckpt.directory):
+            if name.startswith(f"ckpt_{newest}."):
+                os.unlink(os.path.join(ckpt.directory, name))
+        resumed, resume_wall = timed(lambda: dsgd_mesh.MeshDSGD(
+            mesh_config(dtype), partitioner=part).fit_device(
+                u, i, r, nu, ni, checkpoint_manager=ckpt, checkpoint_every=1,
+                resume=True))
+        resumed_equal = (torch.equal(resumed.U, model.U)
+                         and torch.equal(resumed.V, model.V))
+        say(f"mesh.dsgd.{dtype}", world=part.world_size,
+            backend=torch.distributed.get_backend(), k=part.num_blocks,
+            train=u.shape[0], wall_s=wall, sweep_ms=solver.segment_ms,
+            single_sweep_ms=single.segment_ms, single_wall_s=ref_wall,
+            ratings_per_s=u.shape[0] * len(solver.segment_ms)
+            / (sum(solver.segment_ms) / 1e3), rmse=rmse,
+            bit_equal_to_single=equal, launches=launches, n_mb=plan.n_mb,
+            **{("visit_vs_plain_max_ulps" if dtype == "bfloat16" else
+                "visit_vs_plain_max_abs"): visit_err},
+            resumed_from_step=newest - 1, resume_wall_s=resume_wall,
+            resumed_bit_equal=resumed_equal, generation_wall_s=gen_s)
+        if not equal:
+            raise AssertionError(f"mesh.dsgd {dtype}: tables differ from "
+                                 "DSGD.fit_device(num_blocks=1)")
+        if not resumed_equal:
+            raise AssertionError(f"mesh.dsgd {dtype}: resume differs")
+        if not math.isfinite(rmse) or len(solver.segment_ms) != 3:
+            raise AssertionError(f"mesh.dsgd {dtype}: rmse {rmse}, "
+                                 f"{len(solver.segment_ms)} segments")
+        if launches != {"sgd_item_rows_kernel": steps,
+                        "sgd_user_rows_kernel": steps,
+                        "bf16_to_f32_kernel": casts,
+                        "f32_to_bf16_kernel": casts}:
+            raise AssertionError(f"mesh.dsgd {dtype} launches {launches}")
+        paths[f"mesh.dsgd_{dtype}"] = launches
+        if dtype == "float32":
+            keep = (model, ref, train)
+        del resumed
+    del prob, cells, plan, U0, V0
+    return paths, keep
+
+
+def phase_mesh_serve(part, model, ref, train):
+    """[mesh.serve]: top-K of 16,384 users served over the mesh at world
+    size 1 from the fitted mesh model's shards (``ShardedMFModel
+    .recommend``: its V shard as the catalog, U gathered), through
+    ``MFModel.recommend(mesh=)`` of the single-card model and through
+    ``ServingEngine(mesh=)`` (micro-batches of 1,024), against that
+    model's plain ``recommend`` (tie-aware; scores within 1e-5)."""
+    u = train[0].cpu().numpy()
+    users = np.unique(u)[:MESH_SERVE_USERS]
+    ref.recommend(users[:SERVE_WARM], k=SERVE_K)
+    model.recommend(users[:SERVE_WARM], k=SERVE_K)
+    plain, plain_s = timed(lambda: ref.recommend(users, k=SERVE_K))
+    sharded, sharded_s = timed(lambda: model.recommend(users, k=SERVE_K))
+    ref.recommend(users[:SERVE_WARM], k=SERVE_K, mesh=part)  # catalog
+    meshed, mesh_s = timed(lambda: ref.recommend(users, k=SERVE_K,
+                                                 mesh=part))
+    eng = ServingEngine(ref, k=SERVE_K, mesh=part, max_batch=1024)
+    eng.recommend(users[:SERVE_WARM])
+    engine, engine_s = timed(lambda: eng.recommend(users))
+    out = {}
+    for name, (ids, scores) in (("sharded", sharded), ("mesh", meshed),
+                                ("engine", engine)):
+        diff, compared, wrong = topk_mismatches(ids, scores, *plain)
+        out[name] = (diff, compared, wrong)
+        if not (diff <= SCORE_TOL and wrong == 0):
+            raise AssertionError(f"mesh.serve {name}: score diff {diff}, "
+                                 f"{wrong} ids differ")
+    say("mesh.serve", users=len(users), k=SERVE_K,
+        plain_users_per_s=len(users) / plain_s,
+        sharded_users_per_s=len(users) / sharded_s,
+        mesh_users_per_s=len(users) / mesh_s,
+        engine_users_per_s=len(users) / engine_s,
+        **{f"{n}_max_score_diff": v[0] for n, v in out.items()},
+        **{f"{n}_ids_compared": v[1] for n, v in out.items()},
+        launches=no_dsgd_launches("mesh.serve"))
+
+
+def phase_mesh_als(dev, part):
+    """[mesh.als]: ``MeshALS.fit`` at world size 1 against ``ALS.fit`` on
+    the card: 2,000,000 planted ratings at ML-25M width ([als.fit]'s),
+    rank 128, 2 rounds, from the same initial tables (both solvers' keyed
+    rows): every element within 3e-3·|x| + 3e-4 ([als]'s bar), holdout
+    RMSE within 1e-4."""
+    (train, hold, _), _ = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", nnz=int(2_000_000 / 0.95) + 1, rank=16, noise=0.1,
+            seed=1, skew_lam=2.0, device=dev))
+    data = Ratings.from_arrays(*(a.cpu().numpy() for a in train))
+    holdout = Ratings.from_arrays(*(a.cpu().numpy() for a in hold))
+    cfg = ALSConfig(num_factors=128, lambda_=ALS_LAMBDA, iterations=2,
+                    init_scale=0.1)
+    cuda_sgd.reset_launch_counts()
+    mesh, mesh_s = timed(lambda: als_mesh.MeshALS(cfg, partitioner=part)
+                         .fit(data))
+    single, single_s = timed(lambda: ALS(cfg).fit(data))
+    err = max_abs([(mesh.U, single.U), (mesh.V, single.V)])
+    # [als]'s bar against float64 (tests/test_als.py:382). With 64 MB
+    # chunks (the JAX mesh's) against ALS.fit's 256 MB the batched grams
+    # and Cholesky solves differed by up to 1.8e-3 (λ 0.01 at rank 128
+    # leaves rows with few ratings ill-conditioned); the mesh now cuts
+    # ALS.fit's chunks
+    close = all(bool(((a - b).abs() <= 3e-3 * b.abs() + 3e-4).all())
+                for a, b in ((mesh.U, single.U), (mesh.V, single.V)))
+    rm, rs = mesh.rmse(holdout), single.rmse(holdout)
+    say("mesh.als", world=part.world_size, rank=128, rounds=2,
+        train=data.n, mesh_wall_s=mesh_s, single_wall_s=single_s,
+        max_abs_vs_single=err, rmse=rm, rmse_single=rs,
+        launches=no_dsgd_launches("mesh.als"))
+    if not (close and abs(rm - rs) <= 1e-4 and math.isfinite(rm)):
+        raise AssertionError(f"mesh.als: max-abs {err} vs ALS.fit, RMSE "
+                             f"{rm} vs {rs}")
+
+
+def phase_mesh(dev, scratch, visit_args):
+    """Phases 24-27 over a world-size-1 NCCL process group in this process
+    (no fallback: a failed init raises)."""
+    paths = phase_mesh_visit(*visit_args)
+    initialize_distributed(DistributedConfig(
+        f"tcp://127.0.0.1:{free_port()}", 1, 0))
+    try:
+        part = Partitioner()
+        one = torch.ones(1, device=part.device)
+        torch.distributed.all_reduce(one)  # the group answers
+        say("mesh", backend=torch.distributed.get_backend(),
+            world=part.world_size, grid=tuple(part.grid.shape),
+            device=str(part.device), all_reduce_of_one=float(one))
+        if float(one) != 1.0:
+            raise AssertionError(f"all_reduce over one rank gave {one}")
+        dsgd_paths, (model, ref, train) = phase_mesh_dsgd(dev, part, scratch)
+        paths.update(dsgd_paths)
+        cuda_sgd.reset_launch_counts()
+        phase_mesh_serve(part, model, ref, train)
+        del model, ref, train
+        phase_mesh_als(dev, part)
+    finally:
+        torch.distributed.destroy_process_group()
+    return paths
+
+
 def launch_counts(paths, name):
     """A kernel's launches over every path's run, and per path."""
     by_path = {path: counts[name] for path, counts in paths.items()}
@@ -3155,7 +3572,8 @@ def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
         if not err <= STRATUM_TOL:
             raise AssertionError(f"{name} max-abs {err:.3e} vs plain")
         out.append(entry(name, err, ms, pms, bound, lib, paths,
-                         step_ms=step_ms, step_bound_ms=step_bms))
+                         step_ms=step_ms, step_bound_ms=step_bms,
+                         per_visit_replaces=f"{_PALLAS}:172"))
     say("kernels.timing", visits=k, minibatch=mb, real_entries=n_e,
         distinct_u=n_u, distinct_v=n_v, plan_build_s=plan_s,
         plan_bytes=plan.nbytes(), longest_segment_u_step0=plan.longest_u[t],

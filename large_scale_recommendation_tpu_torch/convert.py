@@ -63,6 +63,25 @@ def factors_from_jax(U, V, device=None
     return _table(U, device), _table(V, device)
 
 
+def shards_from_jax(U, V, partitioner) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX-package whole factor tables (numpy, f32 or bf16) → this rank's
+    shards under ``partitioner`` (``('users', 'rank')`` and ``('items',
+    'rank')``), on its device: what a ``MeshDSGD`` / ``MeshALS`` rank holds
+    after a fit."""
+    return (partitioner.place(_table(U, "cpu"), "users", "rank"),
+            partitioner.place(_table(V, "cpu"), "items", "rank"))
+
+
+def sharded_model_from_jax(U, V, users, items, partitioner):
+    """A ``ShardedMFModel`` (this rank's shards) from a JAX model's whole
+    tables and its two ``IdIndex`` objects."""
+    from large_scale_recommendation_tpu_torch.models.mf import ShardedMFModel
+
+    U_l, V_l = shards_from_jax(U, V, partitioner)
+    return ShardedMFModel(U=U_l, V=V_l, users=_index(users),
+                          items=_index(items), partitioner=partitioner)
+
+
 def _index(ix) -> IdIndex:
     return IdIndex(
         ids=np.asarray(ix.ids, np.int64),

@@ -135,9 +135,14 @@ def schedule_from_name(name: str, lambda_: float = 1.0,
     )
 
 
-def _errors(ratings: torch.Tensor, u: torch.Tensor,
-            v: torch.Tensor) -> torch.Tensor:
-    """e = r − u·v, batched."""
+def _errors(ratings: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            pred: torch.Tensor | None = None) -> torch.Tensor:
+    """e = r − u·v, batched. ``pred`` replaces the local dot: a rank-sharded
+    mesh holds rank slices of u and v, and the full dot is the sum of the
+    partial ones over the model group, taken outside the updater
+    (``ops.sgd.sgd_minibatch_update``)."""
+    if pred is not None:
+        return ratings - pred
     return ratings - (u * v).sum(dim=-1)
 
 
@@ -149,9 +154,9 @@ class SGDUpdater:
     schedule: LearningRateSchedule = staticmethod(constant_lr)
 
     def delta(self, ratings, u, v, *, weights=None, omega_u=None,
-              omega_v=None, t=1):
+              omega_v=None, t=1, pred=None):
         del omega_u, omega_v
-        e = _errors(ratings, u, v)
+        e = _errors(ratings, u, v, pred)
         if weights is not None:
             e = e * weights
         lr = self.schedule(self.learning_rate, int(t))
@@ -183,8 +188,8 @@ class RegularizedSGDUpdater:
     schedule: LearningRateSchedule = staticmethod(inverse_sqrt_lr)
 
     def delta(self, ratings, u, v, *, weights=None, omega_u=None,
-              omega_v=None, t=1):
-        e = _errors(ratings, u, v)
+              omega_v=None, t=1, pred=None):
+        e = _errors(ratings, u, v, pred)
         if weights is not None:
             e = e * weights
         return self.delta_from_errors(e, u, v, weights=weights,
@@ -224,8 +229,8 @@ class MockFactorUpdater:
     """No-op updater for plumbing tests: zero deltas, factors unchanged."""
 
     def delta(self, ratings, u, v, *, weights=None, omega_u=None,
-              omega_v=None, t=1):
-        del ratings, weights, omega_u, omega_v, t
+              omega_v=None, t=1, pred=None):
+        del ratings, weights, omega_u, omega_v, t, pred
         return torch.zeros_like(u), torch.zeros_like(v)
 
     def next_factors(self, ratings, u, v, *, weights=None, omega_u=None,

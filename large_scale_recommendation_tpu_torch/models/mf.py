@@ -168,19 +168,34 @@ class MFModel:
         convention); slots beyond the effective catalog carry -1/0.0 too.
         ``return_mask=True`` appends the per-user seen mask.
 
-        ``mesh`` (an item-sharded catalog across devices) is not ported;
-        passing one raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP.md queue A: mesh "
-                "DSGD and serving); call recommend without mesh=")
+        ``mesh`` (a ``parallel.partitioner.Partitioner``) serves over an
+        item-sharded catalog: each rank scores its rows of V (its columns
+        too, rank-sharded) and keeps a local top-k, then the candidates are
+        gathered and merged (``parallel.serving.mesh_top_k_recommend``).
+        Every rank calls it with the same arguments, and every rank gets
+        the lists. The sharded catalog is built once per partitioner and
+        rebuilt when ``V`` changes (its ``catalog_version``)."""
         u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
         known = u_mask > 0
         tu, ti = self._train_rows(train)
         item_ids_of_row = np.asarray(self.items.ids)
-        top_rows, top_scores = metrics.top_k_recommend(
-            self.U, self.V, u_rows[known], k=k, train_u=tu, train_i=ti,
-            chunk=chunk, item_mask=item_ids_of_row >= 0)
+        if mesh is not None:
+            from large_scale_recommendation_tpu_torch.parallel import (
+                serving as psrv,
+            )
+
+            cache = self.__dict__.setdefault("_serving_catalogs", {})
+            cat = cache.get(mesh)
+            if cat is None or cat.version != psrv.catalog_version(self.V):
+                cat = cache[mesh] = psrv.shard_catalog(
+                    self.V, mesh, item_mask=item_ids_of_row >= 0)
+            top_rows, top_scores = psrv.mesh_top_k_recommend(
+                self.U, None, u_rows[known], k=k, train_u=tu, train_i=ti,
+                chunk=chunk, catalog=cat)
+        else:
+            top_rows, top_scores = metrics.top_k_recommend(
+                self.U, self.V, u_rows[known], k=k, train_u=tu, train_i=ti,
+                chunk=chunk, item_mask=item_ids_of_row >= 0)
         return _assemble_topk(len(u_rows), k, known, top_rows, top_scores,
                               item_ids_of_row, return_mask)
 
@@ -196,3 +211,94 @@ class MFModel:
         for row, ident in enumerate(self.items.ids):
             if ident >= 0:
                 yield FactorVector(int(ident), V[row])
+
+
+@dataclasses.dataclass
+class ShardedMFModel:
+    """A factorization trained on the mesh (``MeshDSGD``, ``MeshALS``):
+    this rank's shards of U and V (``Partitioner.place`` of
+    ``('users', 'rank')`` and ``('items', 'rank')``) and the id maps. The
+    shards stay on their ranks; every method is collective (each rank
+    calls it with the same arguments).
+
+    ``recommend`` serves over the mesh from the rank's own V shard and
+    gathers U explicitly (the query side). ``gather`` assembles the whole
+    tables on every rank, and the other scoring methods (``predict``,
+    ``rmse``, ``empirical_risk``, ``ranking_quality``, ``recommend_users``)
+    run on that gathered ``MFModel``, as the JAX package reads whole
+    tables there."""
+
+    U: torch.Tensor
+    V: torch.Tensor
+    users: IdIndex
+    items: IdIndex
+    partitioner: object
+
+    @property
+    def device(self) -> torch.device:
+        return self.U.device
+
+    @property
+    def rank(self) -> int:
+        return int(self.U.shape[-1]) * self.partitioner.model_parallel
+
+    def gather(self) -> MFModel:
+        """The whole tables on every rank (a collective)."""
+        part = self.partitioner
+        return MFModel(U=part.gather(self.U, "users", "rank"),
+                       V=part.gather(self.V, "items", "rank"),
+                       users=self.users, items=self.items)
+
+    def predict(self, user_ids, item_ids, return_mask: bool = False):
+        return self.gather().predict(user_ids, item_ids,
+                                     return_mask=return_mask)
+
+    def rmse(self, data: Ratings) -> float:
+        return self.gather().rmse(data)
+
+    def empirical_risk(self, data: Ratings, lambda_: float = 1.0) -> float:
+        return self.gather().empirical_risk(data, lambda_)
+
+    def ranking_quality(self, eval_u, eval_i, k: int = 10, train=None,
+                        chunk: int = 2048) -> dict:
+        return self.gather().ranking_quality(eval_u, eval_i, k=k,
+                                             train=train, chunk=chunk)
+
+    def recommend_users(self, item_ids, k: int = 10, train=None,
+                        chunk: int = 2048, return_mask: bool = False):
+        return self.gather().recommend_users(item_ids, k=k, train=train,
+                                             chunk=chunk,
+                                             return_mask=return_mask)
+
+    def recommend(self, user_ids, k: int = 10, train=None,
+                  chunk: int = 2048, return_mask: bool = False):
+        """``MFModel.recommend(mesh=)`` on the shards: the catalog is this
+        rank's V shard as it lies, and U is gathered (every rank needs the
+        queries' full rows). Both are built on the first call and kept
+        until a shard changes (its ``catalog_version``), as
+        ``MFModel.recommend(mesh=)`` keeps its catalog; a shard written in
+        place is written on every rank, so the ranks rebuild together."""
+        from large_scale_recommendation_tpu_torch.parallel import (
+            serving as psrv,
+        )
+
+        part = self.partitioner
+        u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
+        known = u_mask > 0
+        tu, ti = self._train_rows(train)
+        item_ids_of_row = np.asarray(self.items.ids)
+        cache = self.__dict__.setdefault("_serving_cache", {})
+        if cache.get("V") != psrv.catalog_version(self.V):
+            cache["catalog"] = psrv.catalog_from_shard(
+                self.V, part, item_mask=item_ids_of_row >= 0)
+            cache["V"] = cache["catalog"].version
+        if cache.get("U") != psrv.catalog_version(self.U):
+            cache["U_all"] = part.gather(self.U, "users", "rank")
+            cache["U"] = psrv.catalog_version(self.U)
+        top_rows, top_scores = psrv.mesh_top_k_recommend(
+            cache["U_all"], None, u_rows[known], k=k, train_u=tu, train_i=ti,
+            chunk=chunk, catalog=cache["catalog"])
+        return _assemble_topk(len(u_rows), k, known, top_rows, top_scores,
+                              item_ids_of_row, return_mask)
+
+    _train_rows = MFModel._train_rows

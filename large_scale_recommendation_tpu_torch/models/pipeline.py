@@ -13,10 +13,10 @@ Contracts (duck-typed, no registry):
   trained model's id space; unseen → -1, which every predict surface
   masks) and ``adjust_scores(scores) -> scores`` (undo value transforms).
 - An **estimator** has ``fit(ratings) -> model`` and a ``config``
-  dataclass (``DSGD`` and ``ALS``; the mesh estimators are not ported);
-  fit-time keyword overlays fold into that config via ``merge_config``.
-  A rebuilt estimator keeps the caller's ``device`` and an injected
-  updater.
+  dataclass (``DSGD``, ``ALS`` and the mesh estimators ``MeshDSGD`` /
+  ``MeshALS``); fit-time keyword overlays fold into that config via
+  ``merge_config``. A rebuilt estimator keeps the caller's ``device`` (a
+  mesh estimator its ``partitioner``) and an injected updater.
 """
 
 from __future__ import annotations
@@ -177,9 +177,13 @@ class Pipeline:
         est = self.estimator
         if overrides:
             cfg = merge_config(est.config, overrides)
-            # the device lives outside the config; keep it through the
-            # rebuild
-            kw = {"device": est.device} if hasattr(est, "device") else {}
+            # the device (a mesh estimator's partitioner) lives outside
+            # the config; keep it through the rebuild
+            if hasattr(est, "partitioner"):
+                kw = {"partitioner": est.partitioner}
+            else:
+                kw = {"device": est.device} if hasattr(est,
+                                                       "device") else {}
             if hasattr(est, "updater"):
                 # an INJECTED updater (the FactorUpdater seam) must
                 # survive the rebuild; a config-derived default must NOT

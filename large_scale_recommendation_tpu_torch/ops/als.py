@@ -346,6 +346,108 @@ def solve_side(
     return out[:num_rows]
 
 
+def build_sharded_plans(
+    out_rows_local: np.ndarray,  # int64[e] LOCAL row of the solved side
+    shard_of_entry: np.ndarray,  # int64[e] owning shard of each rating
+    other_rows: np.ndarray,  # int64[e] GLOBAL rows into the gathered table
+    values: np.ndarray,
+    num_shards: int,
+    rows_per_shard: int,
+    k: int,
+    min_pad: int = 8,
+    target_bytes: int = 64 << 20,
+    implicit_alpha: float | None = None,
+):
+    """Shard-major bucketed solve plans for a SHARDED table (numpy, the JAX
+    package's code): ``build_solve_plan`` per shard, the pad classes
+    unified across shards and every shard's bucket padded to the largest
+    shard's row count with dummies on the local dummy row
+    ``rows_per_shard``, so every shard has the same shapes. Returns per pad
+    class ``(rows3 [S, C, rc], oidx3 [S, C, rc, pad], vals3, w3)``; shard
+    p's part is ``Partitioner.place(a, "ratings")``."""
+    plans = []
+    for s in range(num_shards):
+        m = shard_of_entry == s
+        p = build_solve_plan(out_rows_local[m], other_rows[m],
+                             values[m], rows_per_shard, min_pad=min_pad)
+        if implicit_alpha is not None:
+            a = np.float32(implicit_alpha)
+            p = SolvePlan(
+                buckets=tuple(
+                    (rows, oidx, (w * (1.0 + a * vals)).astype(np.float32),
+                     (w * a * vals).astype(np.float32))
+                    for (rows, oidx, vals, w) in p.buckets),
+                num_rows=p.num_rows)
+        plans.append(p)
+    pad_classes = sorted({b[1].shape[1] for p in plans for b in p.buckets})
+    out = []
+    for pad in pad_classes:
+        per_shard = []
+        for p in plans:
+            hit = [b for b in p.buckets if b[1].shape[1] == pad]
+            per_shard.append(hit[0] if hit else None)
+        nb_max = max((b[0].shape[0] if b is not None else 0)
+                     for b in per_shard)
+        if nb_max == 0:
+            continue
+        rc, n_chunks, padded_nb = _chunk_geometry(nb_max, pad, k,
+                                                  target_bytes)
+        S = num_shards
+        rows3 = np.full((S, padded_nb), rows_per_shard, np.int32)
+        oidx3 = np.zeros((S, padded_nb, pad), np.int32)
+        vals3 = np.zeros((S, padded_nb, pad), np.float32)
+        w3 = np.zeros((S, padded_nb, pad), np.float32)
+        for s, b in enumerate(per_shard):
+            if b is None:
+                continue
+            rows, oidx, vals, w = b
+            nb = rows.shape[0]
+            rows3[s, :nb] = rows
+            oidx3[s, :nb] = oidx
+            vals3[s, :nb] = vals
+            w3[s, :nb] = w
+        out.append((rows3.reshape(S, n_chunks, rc),
+                    oidx3.reshape(S, n_chunks, rc, pad),
+                    vals3.reshape(S, n_chunks, rc, pad),
+                    w3.reshape(S, n_chunks, rc, pad)))
+    return out
+
+
+def solve_side_local(
+    factors_full: torch.Tensor,  # [n_other_total, k]: the gathered side
+    chunked_buckets,  # per pad class (rows3 [C, rc], oidx3, vals3, w3)
+    rows_per_shard: int,
+    lambda_: float,
+    omega_local: torch.Tensor | None,
+    G: torch.Tensor | None = None,  # [k, k] shared gram (implicit VᵀV)
+    dtype=None,
+) -> torch.Tensor:
+    """One shard's half-step on the mesh: bucketed gram + solve + write-back
+    into its local ``[rows_per_shard (+1 dummy), k]`` table (``als_wr``
+    scales from ``omega_local``, the dummy row's scale 1). ``dtype`` casts
+    the gathered fixed side once, as ``solve_side``'s. The JAX package's
+    ``varying_zeros_fn`` (shard_map's replication typing) has no
+    counterpart."""
+    k = factors_full.shape[-1]
+    if dtype is not None:
+        factors_full = factors_full.to(dtype)
+    dev = factors_full.device
+    out = torch.zeros((rows_per_shard + 1, k), dtype=torch.float32,
+                      device=dev)
+    omega_ext = (None if omega_local is None else torch.cat(
+        [omega_local.float(), torch.ones(1, dtype=torch.float32,
+                                         device=dev)]))
+    with _ieee_f32():
+        for rows3, oidx3, vals3, w3 in chunked_buckets:
+            for c in range(rows3.shape[0]):
+                rows = rows3[c].long()
+                sc = None if omega_ext is None else omega_ext[rows]
+                x = _gram_solve_chunk(factors_full, oidx3[c], vals3[c],
+                                      w3[c], sc, lambda_, G)
+                out.index_copy_(0, rows, x)
+    return out[:rows_per_shard]
+
+
 def _full_gram(F: torch.Tensor) -> torch.Tensor:
     """FᵀF in IEEE f32."""
     with _ieee_f32():

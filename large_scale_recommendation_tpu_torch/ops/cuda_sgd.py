@@ -33,6 +33,13 @@ There is no fallback: a CUDA tensor either goes through the kernel or the
 wrapper raises (the step kernels take f32 tables only; a bf16 table reaches
 them only through the cast kernels).
 
+The same pair runs one rank's visits on the mesh (``block_sweep``, the
+counterpart of ``pallas_block_sweep``, which the JAX mesh launches per
+device per sub-step): a plan of the rank's device-major strata ``[k, 1,
+b]`` (one visit per stratum, block-local rows), built once per fit, and
+one visit's ``n_mb`` steps per call, with bf16 tables cast around each
+visit.
+
 Beside them, the plain versions of the TPU kernels' own contracts, for the
 tests and the on-card comparisons: ``block_sweep_reference`` (one visit,
 block-local rows — ``pallas_block_sweep``), ``stratum_sweep_reference``
@@ -157,7 +164,9 @@ def _rule(lr: float, lam: float) -> RegularizedSGDUpdater:
 class StepPlan:
     """Each minibatch step's real (weight ≠ 0) entries, grouped by row.
 
-    Step ``t = s·n_mb + g`` is minibatch g of all k visits of stratum s.
+    Step ``t = s·n_mb + g`` is minibatch g of all ``visits`` visits of
+    stratum s (``num_blocks`` strata; ``visits`` is k on one device, 1 for
+    one rank of the mesh).
     Its entries occupy positions ``entry_base[t]:entry_base[t+1]`` of the
     per-entry arrays, twice over:
 
@@ -173,7 +182,8 @@ class StepPlan:
     Host lists carry what the launches need.
     """
 
-    num_blocks: int
+    num_blocks: int  # strata
+    visits: int  # visits per stratum
     minibatch: int
     n_mb: int
     chunk: int
@@ -286,22 +296,24 @@ def _group(step, rows, steps: int, chunk: int):
 
 
 def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
-    """The step plan of a stratum-major layout (``[k, k, b]`` global rows,
-    ``b`` a multiple of ``minibatch``), built with torch on the arrays'
-    device and read back once (the per-step bases and counts). Stable sorts
-    keep each segment in the minibatch's entry order, whatever
-    ``minibatch_sort`` the layout was built with."""
-    k, b = int(su.shape[0]), int(su.shape[-1])
-    if tuple(su.shape[:2]) != (k, k) or b % minibatch:
-        raise ValueError(f"su shape {tuple(su.shape)} is not [k, k, b] with "
+    """The step plan of a layout ``[S, P, b]``: S strata of P row-disjoint
+    visits, ``b`` a multiple of ``minibatch`` — the single-device
+    stratum-major layout ``[k, k, b]`` (global rows), or one rank's
+    device-major strata ``[k, 1, b]`` (block-local rows). Built with torch
+    on the arrays' device and read back once (the per-step bases and
+    counts). Stable sorts keep each segment in the minibatch's entry order,
+    whatever ``minibatch_sort`` the layout was built with."""
+    if su.dim() != 3 or su.shape[-1] % minibatch:
+        raise ValueError(f"su shape {tuple(su.shape)} is not [S, P, b] with "
                          f"b a multiple of {minibatch}")
-    if k * k * b >= 2 ** 31:
+    S, P, b = (int(d) for d in su.shape)
+    if S * P * b >= 2 ** 31:
         raise ValueError("the plan indexes entries with int32: at most "
                          "2^31 − 1 slots")
     n_mb = b // minibatch
-    steps = k * n_mb
+    steps = S * n_mb
     real = torch.nonzero(sw.reshape(-1) != 0).squeeze(1)
-    step = (real // (k * b)) * n_mb + (real % b) // minibatch
+    step = (real // (P * b)) * n_mb + (real % b) // minibatch
     u_rows = su.reshape(-1)[real].long()
     i_rows = si.reshape(-1)[real].long()
     v_order, v_prow, v_long, v_long_base, v_segs, longest_v = _group(
@@ -325,7 +337,8 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
         return t.to(torch.int32).contiguous()
 
     return StepPlan(
-        num_blocks=k, minibatch=minibatch, n_mb=n_mb, chunk=SEGMENT_CHUNK,
+        num_blocks=S, visits=P, minibatch=minibatch, n_mb=n_mb,
+        chunk=SEGMENT_CHUNK,
         rows_u=lists[7][0], rows_v=lists[8][0],
         v_prow=i32(v_prow),
         v_su=i32(u_rows[v_order]), v_r=sv.reshape(-1)[real][v_order].float(),
@@ -487,6 +500,38 @@ def stratum_sweep(U, V, omega_u, omega_v, plan: StepPlan, s: int, work, *,
     return U, V
 
 
+def block_sweep(U_blk, V_blk, omega_u, omega_v, plan: StepPlan, s: int, work,
+                *, lr: float, lam: float):
+    """One rank's visit ``s`` on the mesh (counterpart of
+    ``pallas_block_sweep``): rating block (p, (p+s) mod k) swept against the
+    rank's block-local tables ``U_blk``/``V_blk`` (f32 or bf16) and their
+    per-row ω, in place; returns them. ``plan`` is ``build_step_plan`` of
+    the rank's device-major strata as ``[k, 1, b]`` (built once per fit),
+    ``work`` its ``plan.new_work(rank)``, η (``lr``) a runtime scalar.
+
+    On CUDA tensors the step pair runs the visit's ``n_mb`` steps; bf16
+    tables go through ``bf16_to_f32`` into f32 work tables first and
+    ``f32_to_bf16`` after (one downcast per visit, the TPU kernel's
+    cadence). On CPU tensors the same plan runs through the step pair's
+    and the casts' plain versions. The step pair holds full factor rows:
+    rank-sharded tables do not reach it (``MeshDSGD`` refuses them)."""
+    if plan.visits != 1:
+        raise ValueError(f"block_sweep takes a plan of one visit per stratum "
+                         f"([k, 1, b]); this one has {plan.visits}")
+    if U_blk.dtype != torch.bfloat16:
+        stratum_sweep(U_blk, V_blk, omega_u, omega_v, plan, s, work, lr=lr,
+                      lam=lam)
+        return U_blk, V_blk
+    plan.check_step(s * plan.n_mb)
+    # the visit's f32 work tables (from the caching allocator: no sync)
+    Uw = torch.empty(U_blk.shape, dtype=torch.float32, device=U_blk.device)
+    Vw = torch.empty(V_blk.shape, dtype=torch.float32, device=V_blk.device)
+    bf16_to_f32(U_blk, V_blk, Uw, Vw)
+    stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr, lam=lam)
+    f32_to_bf16(Uw, Vw, U_blk, V_blk)
+    return U_blk, V_blk
+
+
 # -- the bf16 casts ---------------------------------------------------------
 
 
@@ -603,9 +648,10 @@ def dsgd_train_cuda(
     _check_tables(U, V, su, si, minibatch, k)
     if plan is None:
         plan = build_step_plan(su, si, sv, sw, icu, icv, minibatch=minibatch)
-    elif (plan.num_blocks, plan.minibatch) != (k, minibatch):
-        raise ValueError(f"plan of k={plan.num_blocks}, minibatch "
-                         f"{plan.minibatch}; expected {k}, {minibatch}")
+    elif (plan.num_blocks, plan.visits, plan.minibatch) != (k, k, minibatch):
+        raise ValueError(f"plan of {plan.num_blocks} strata × {plan.visits} "
+                         f"visits, minibatch {plan.minibatch}; expected "
+                         f"{k} × {k}, {minibatch}")
     U = U.clone()
     V = V.clone()
     half = U.dtype == torch.bfloat16

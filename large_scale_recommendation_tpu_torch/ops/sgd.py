@@ -26,12 +26,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.parallel.collectives import (
+    group_sum,
+)
 from large_scale_recommendation_tpu_torch.utils.shapes import next_pow2
 
 
 def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
                          factor_bytes: int = 4, user_rows: int | None = None,
-                         item_rows: int | None = None) -> int:
+                         item_rows: int | None = None,
+                         model_size: int = 1) -> int:
     """Bytes of device-memory traffic one full DSGD sweep moves, per route
     (a model of each route's design, not the function's bound: that counts
     distinct rows once per step and depends on the data).
@@ -47,8 +51,20 @@ def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
       row read and written, plus ω. ``user_rows``/``item_rows`` count
       (step, row) pairs over the sweep; the default, ``nnz``, is the most
       (every rating its own row).
+
+    ``model_size`` is the model axis of a rank-sharded mesh: each rank
+    holds ``rank / model_size`` columns, so the plain route's row term
+    divides by it (the COO stream does not). The step pair holds full rows
+    and has no rank-sharded route, so ``model_size > 1`` there raises. The
+    wire bytes of the reduction are ``dsgd_collective_bytes_per_sweep``.
     """
+    if model_size < 1 or rank % model_size:
+        raise ValueError(
+            f"model_size {model_size} must be ≥1 and divide rank {rank}")
     if kernel == "cuda":
+        if model_size != 1:
+            raise ValueError("the step pair has no rank-sharded traffic "
+                             "model (model_size must be 1)")
         row = rank * 4
         users = nnz if user_rows is None else user_rows
         items = nnz if item_rows is None else item_rows
@@ -56,7 +72,21 @@ def dsgd_bytes_per_sweep(nnz: int, rank: int, *, kernel: str = "plain",
                    + users * (2 * row + 4))
     if kernel != "plain":
         raise ValueError(f"kernel must be 'plain' or 'cuda', got {kernel!r}")
-    return int(nnz * (4 * rank * factor_bytes + 16))
+    return int(nnz * (4 * (rank // model_size) * factor_bytes + 16))
+
+
+def dsgd_collective_bytes_per_sweep(nnz: int, rank: int,
+                                    model_size: int = 1) -> int:
+    """Wire bytes one DSGD sweep moves per rank for the rank reduction, as
+    a ring all-reduce: the rank-sharded route sums ONE f32 prediction per
+    rating over the model group, and a ring all-reduce of m ranks moves
+    ``2·(m−1)/m`` bytes per reduced byte per rank. 0 at ``model_size`` 1
+    (``rank`` is kept for the JAX package's signature; the sum does not
+    depend on it)."""
+    del rank
+    if model_size <= 1:
+        return 0
+    return int(nnz * 4 * 2 * (model_size - 1) / model_size)
 
 
 def dsgd_flops_per_sweep(nnz: int, rank: int) -> int:
@@ -80,6 +110,7 @@ def sgd_minibatch_update(
     collision: str = "mean",
     inv_cu: torch.Tensor | None = None,
     inv_cv: torch.Tensor | None = None,
+    pred_axis=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One minibatch, in place: gather → delta → scatter-add.
 
@@ -89,6 +120,12 @@ def sgd_minibatch_update(
       occurrence count (``inv_cu``/``inv_cv`` are the precomputed per-entry
       1/count scales; without them the counts are taken here);
     - ``collision="sum"``: raw additive accumulation.
+
+    ``pred_axis`` (a ``parallel.collectives.Axis``, the model group) is set
+    when U and V hold rank slices: the local dot is then partial, and the
+    prediction handed to the updater is its sum over the group; every other
+    term (deltas, collision scales, scatter-add) is row-space and right on
+    the slice as it is.
     """
     if collision not in ("mean", "sum"):
         raise ValueError(
@@ -98,11 +135,14 @@ def sgd_minibatch_update(
     i_rows = i_rows.long()
     u = U[u_rows]
     v = V[i_rows]
+    extra = {}
+    if pred_axis is not None:
+        extra["pred"] = group_sum(pred_axis, (u * v).sum(dim=-1))
     du, dv = updater.delta(
         values, u, v, weights=weights,
         omega_u=None if omega_u is None else omega_u[u_rows],
         omega_v=None if omega_v is None else omega_v[i_rows],
-        t=t,
+        t=t, **extra,
     )
     if collision == "mean":
         if inv_cu is not None:
@@ -135,9 +175,11 @@ def sgd_block_sweep(
     collision: str = "mean",
     inv_cu: torch.Tensor | None = None,
     inv_cv: torch.Tensor | None = None,
+    pred_axis=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sweep one rating block (or one whole stratum, flattened) in
-    minibatch chunks, in order, in place."""
+    minibatch chunks, in order, in place. ``pred_axis``: see
+    ``sgd_minibatch_update``."""
     e = u_rows.shape[0]
     if e % minibatch:
         raise ValueError(
@@ -149,6 +191,7 @@ def sgd_block_sweep(
             U, V, u_rows[sl], i_rows[sl], values[sl], weights[sl],
             omega_u, omega_v, updater, t, collision,
             inv_cu[sl] if pre else None, inv_cv[sl] if pre else None,
+            pred_axis,
         )
     return U, V
 

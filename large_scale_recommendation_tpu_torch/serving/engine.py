@@ -32,8 +32,16 @@ serving loop around one model snapshot:
   tier), so a tier miss's transfer lands inside the flush.
 
 The engine's tensors live on ``model.device``: a model on the card serves
-on the card, a CPU model on the CPU; there is no other route. ``mesh=``
-(ROADMAP.md queue A, item 5) raises ``NotImplementedError``. The JAX
+on the card, a CPU model on the CPU; there is no other route. With
+``mesh=`` (a ``parallel.partitioner.Partitioner``) the exact path serves
+over the mesh: the catalog is sharded over the ranks
+(``parallel.serving.shard_catalog``), each micro-batch runs
+``mesh_topk_step`` (local top-k, candidates gathered over the ring, one
+more top-k), on the partitioner's device; every rank holds the user table
+and calls the engine with the same requests (the step is collective). The
+two-stage path over a mesh is each rank's own replicated retriever (the
+JAX package's single-host layout); a rank-sharded one (``model_parallel >
+1``) raises ``NotImplementedError`` (ROADMAP.md queue A). The JAX
 package's obs seams (tracer, events, lineage, budget, request plane,
 transfer guard, registry histograms) are not ported (obs comes last).
 """
@@ -50,11 +58,14 @@ from large_scale_recommendation_tpu_torch.models.mf import (
     MFModel,
     _assemble_topk,
 )
+from large_scale_recommendation_tpu_torch.parallel.partitioner import (
+    as_partitioner,
+)
 from large_scale_recommendation_tpu_torch.parallel.serving import (
-    MESH_NOT_PORTED,
     _catalog_dtype,
     catalog_version,
     run_pipelined_topk,
+    mesh_topk_step,
     shard_catalog,
     to_device,
     topk_step,
@@ -114,8 +125,8 @@ class ServingEngine:
                  min_bucket: int = 8, slo=None, retrieval=None,
                  admission: AdmissionController | None = None,
                  user_store=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        self.partitioner = (None if mesh is None
+                            else as_partitioner(mesh))
         self._user_store = user_store
         if max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, "
@@ -187,25 +198,32 @@ class ServingEngine:
         self._pending_users.clear()
         self._item_ids_of_row = np.asarray(model.items.ids)
         item_mask = self._item_ids_of_row >= 0
+        part = self.partitioner
+        V = model.V if part is None else model.V.to(part.device)
         if self._retrieval_cfg is not None:
             # int8 stage 1 + f32 rescore; dtype= does not apply
             self._catalog = None
             self._retriever = TwoStageRetriever(
-                model.V, item_mask=item_mask, config=self._retrieval_cfg)
+                V, item_mask=item_mask, config=self._retrieval_cfg,
+                partitioner=part)
             want = torch.float32
         else:
-            self._catalog = shard_catalog(model.V, item_mask=item_mask,
+            self._catalog = shard_catalog(V, part, item_mask=item_mask,
                                           dtype=self._dtype)
-            self._k_out = min(self.k, self._catalog.n_rows)
+            rpb = self._catalog.rows_per_shard
+            self._k_local = min(self.k, rpb)
+            self._k_out = min(self.k, (1 if part is None else
+                                       part.num_blocks) * self._k_local)
             want = self._dtype
         self._want = want
-        self._device = model.V.device
+        self._device = V.device
         if self._user_store is not None:
             # no engine-held user table: the store is the live user state
             self._U = None
             n_users = int(self._user_store.num_rows)
         else:
-            self._U = model.U.to(want, copy=True)  # the engine's own copy
+            # the engine's own copy
+            self._U = model.U.to(self._device, want, copy=True)
             n_users = int(model.U.shape[0])
         tu, ti = model._train_rows(self._train)
         self._build_excl = _exclusion_builder(tu, ti, n_users)
@@ -514,11 +532,16 @@ class ServingEngine:
             n_rows = ret.n_rows
             slice_size = min(self.max_batch, ret.config.max_bucket)
         else:
-            cat = self._catalog
+            cat, part = self._catalog, self.partitioner
 
             def score_chunk(cu, c):
                 excl, U_chunk = stage(cu, c)
                 self._shapes_seen.add(("exact", len(cu), self._k_out))
+                if part is not None:
+                    return mesh_topk_step(
+                        part, U_chunk, cat.V_sh, cat.w_sh, *excl,
+                        k_local=self._k_local, k_out=self._k_out,
+                        rows_per_shard=cat.rows_per_shard)
                 return topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
                                  k_out=self._k_out)
 

@@ -33,8 +33,19 @@ runs them as torch ops on the tables' device:
   kept so the contract is the same.
 - Every top-k is re-sorted to ``lax.top_k``'s order.
 
-Single device only: a partitioner with ``model_parallel > 1`` (the
-rank-sharded layout) raises ``NotImplementedError``.
+Rank sharding: given a ``parallel.partitioner.Partitioner`` with
+``model_parallel > 1``, the int8 code tables (flat ``q``, clustered
+``slab_q`` / ``ovf_q``) and the f32 rescore table hold this rank's column
+slice (``'rank'`` over the model group); scales, weights, centroids and
+row maps stay whole. Codes are quantized on full rows first, so they are
+the same at every model size. Each contraction over the rank dimension is
+a partial product summed over the model group (``all_reduce``): the int8
+partials are exact integers, so stage 1's flat candidates stay bit-equal;
+the f32 rescore and the probe loop sum in another order. Routing uses the
+full query rows against the whole centroids. Every rank of a model group
+calls ``topk`` with the same queries (the sums are collective). Without a
+partitioner, or at ``model_parallel`` 1, the catalog is one device's
+(the JAX package's replicated layout).
 """
 
 from __future__ import annotations
@@ -45,6 +56,9 @@ import time
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.parallel.collectives import (
+    group_sum,
+)
 from large_scale_recommendation_tpu_torch.parallel.serving import (
     catalog_version,
 )
@@ -59,8 +73,9 @@ from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
 
 _INV_127 = float(np.float32(1.0 / 127.0))
 RANK_SHARDED_NOT_PORTED = (
-    "rank-sharded retrieval (model_parallel > 1) is not ported yet "
-    "(ROADMAP.md queue A, item 5: the mesh)")
+    "a rank-sharded JAX catalog (model_parallel > 1) is not converted: "
+    "build the port's on each rank with build_quantized_catalog(V, "
+    "partitioner=)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +114,23 @@ class RetrievalConfig:
                              f"got {self.spill_choices}")
 
 
-def _require_single_device(partitioner) -> None:
-    if getattr(partitioner, "model_parallel", 1) > 1:
-        raise NotImplementedError(RANK_SHARDED_NOT_PORTED)
+def _rank_sharded(partitioner):
+    """The partitioner when it shards the rank (``model_parallel > 1``),
+    else None (the one-device layout)."""
+    if partitioner is None or partitioner.model_parallel <= 1:
+        return None
+    return partitioner
+
+
+def _cols(X: torch.Tensor, part) -> torch.Tensor:
+    """This rank's column slice of full rows ``X`` (all of them without
+    rank sharding)."""
+    return X if part is None else part.rank_slice(X)
+
+
+def _sum(x: torch.Tensor, part) -> torch.Tensor:
+    """A partial product over the rank, summed over the model group."""
+    return x if part is None else group_sum(part.model, x)
 
 
 def _table(V, device=None) -> torch.Tensor:
@@ -280,6 +309,9 @@ class QuantizedCatalog:
     ovf_rows: torch.Tensor | None = None  # int64 [O] (n_rows pads)
     pos_of_row: np.ndarray | None = None  # int64 [n]
     stats: dict = dataclasses.field(default_factory=dict)
+    # rank-sharded (model_parallel > 1): the code tables hold this rank's
+    # column slice
+    partitioner: object = None
 
     _ARRAY_FIELDS = ("q", "scale", "centroids", "slab_q", "slab_scale",
                      "slab_w", "slab_rows", "ovf_q", "ovf_scale", "ovf_w",
@@ -306,7 +338,7 @@ class QuantizedCatalog:
         dev = self.item_w.device
         q_new, s_new = quantize_rows(torch.as_tensor(
             values, dtype=torch.float32, device=dev))
-
+        q_new = _cols(q_new, self.partitioner)  # codes of full rows
         def put(t, idx, vals):
             return t.index_copy(0, torch.as_tensor(idx, dtype=torch.int64,
                                                    device=dev), vals)
@@ -373,8 +405,15 @@ def build_quantized_catalog(V, item_mask=None,
     """Quantize ``V`` (a tensor: the catalog lives on its device) and,
     with ``config.n_clusters``, build the clustered MIPS layout.
     ``item_mask`` (True = real item) gives masked rows
-    ``DEAD_SLOT_OFFSET`` additively."""
-    _require_single_device(partitioner)
+    ``DEAD_SLOT_OFFSET`` additively. ``partitioner`` with
+    ``model_parallel > 1`` keeps this rank's column slice of the code
+    tables (quantized on full rows first)."""
+    part = _rank_sharded(partitioner)
+    if part is not None:
+        part.require_rank_divisible(int(V.shape[1]),
+                                    "build_quantized_catalog")
+        cat = build_quantized_catalog(V, item_mask, config, version)
+        return _shard_quantized(cat, part)
     cfg = config or RetrievalConfig()
     t0 = time.perf_counter()
     version = catalog_version(V) if version is None else version
@@ -429,17 +468,35 @@ def build_quantized_catalog(V, item_mask=None,
     return cat
 
 
+def _shard_quantized(cat: QuantizedCatalog, part) -> QuantizedCatalog:
+    """A built catalog's code tables cut to this rank's columns (the O(n)
+    scales, weights, centroids and row maps stay whole)."""
+    patch: dict = {"partitioner": part}
+    for name, axes in (("q", (None, "rank")),
+                       ("slab_q", (None, None, "rank")),
+                       ("ovf_q", (None, "rank"))):
+        t = getattr(cat, name)
+        if t is not None:
+            patch[name] = part.place(t, *axes)
+    out = dataclasses.replace(cat, **patch)
+    out.stats.update(rank_sharded=part.model_parallel,
+                     bytes_per_device=out.nbytes())
+    return out
+
+
 # --------------------------------------------------------------------------
 # Stages
 # --------------------------------------------------------------------------
 
 
 def _stage1_flat(qU, u_scale, Q, scale, item_w, excl_rows, excl_cols,
-                 excl_w, *, kc):
-    """Flat int8 stage 1: the exact int8 product over the whole catalog,
-    dequantized by the outer product of scales, ``+ item_w``, the
-    exclusions scatter-min'ed, top-``kc`` candidates out."""
-    scores = int8_scores(qU, Q)
+                 excl_w, *, kc, part=None):
+    """Flat int8 stage 1: the exact int8 product over the whole catalog
+    (rank-sharded: the slices' partial products summed over the model
+    group, exact), dequantized by the outer product of scales,
+    ``+ item_w``, the exclusions scatter-min'ed, top-``kc`` candidates
+    out."""
+    scores = _sum(int8_scores(_cols(qU, part), Q), part)
     scores *= u_scale[:, None] * scale[None, :]
     scores += item_w[None, :]
     apply_exclusions(scores, excl_rows, excl_cols, excl_w)
@@ -452,31 +509,33 @@ def _route(U_chunk, centroids, n_probe):
         return lax_top_k(U_chunk @ centroids.T, n_probe)[1]
 
 
-def _score_probe(U_chunk, c, slab_q, slab_scale, slab_w):
+def _score_probe(U_chunk, c, slab_q, slab_scale, slab_w, part=None):
     """One probe: each query against the slab of its cluster ``c[query]``
-    (one ``[b, m, r]`` gather, upcast to f32; queries stay f32)."""
+    (one ``[b, m, r]`` gather, upcast to f32; queries stay f32; ``U_chunk``
+    holds the slab's columns)."""
     with _ieee_f32():
         sc = torch.bmm(slab_q[c].float(), U_chunk[:, :, None])[..., 0]
-    return sc * slab_scale[c] + slab_w[c]
+    return _sum(sc, part) * slab_scale[c] + slab_w[c]
 
 
-def _score_overflow(U_chunk, ovf_q, ovf_scale, ovf_w):
+def _score_overflow(U_chunk, ovf_q, ovf_scale, ovf_w, part=None):
     """The overflow block every query scores: a plain ``[b, O]`` product."""
     with _ieee_f32():
         ov = U_chunk @ ovf_q.float().T
-    return ov * ovf_scale[None, :] + ovf_w[None, :]
+    return _sum(ov, part) * ovf_scale[None, :] + ovf_w[None, :]
 
 
 def _stage1_clustered(U_chunk, centroids, slab_q, slab_scale, slab_w,
                       slab_rows, ovf_q, ovf_scale, ovf_w, ovf_rows, *, kc,
-                      n_probe):
+                      n_probe, part=None):
     """Clustered stage 1: route each query to its top-``n_probe`` clusters,
     score ONLY those slabs, one probe at a time (peak memory one ``[b, m,
     r]`` gather), plus the overflow block; top-``kc`` candidates out, in
     probe-major position order per query (JAX's layout). Exclusions are
     left to stage 2's membership test."""
     b, m = U_chunk.shape[0], slab_q.shape[1]
-    cid = _route(U_chunk, centroids, n_probe)  # [b, p]
+    cid = _route(U_chunk, centroids, n_probe)  # [b, p], full rows
+    U_c = _cols(U_chunk, part)
     width = n_probe * m + ovf_q.shape[0]
     scores = torch.empty((b, width), dtype=torch.float32,
                          device=U_chunk.device)
@@ -484,28 +543,31 @@ def _stage1_clustered(U_chunk, centroids, slab_q, slab_scale, slab_w,
     for pi in range(n_probe):
         c = cid[:, pi]
         sl = slice(pi * m, (pi + 1) * m)
-        scores[:, sl] = _score_probe(U_chunk, c, slab_q, slab_scale, slab_w)
+        scores[:, sl] = _score_probe(U_c, c, slab_q, slab_scale, slab_w,
+                                     part)
         rows[:, sl] = slab_rows[c]
-    scores[:, n_probe * m:] = _score_overflow(U_chunk, ovf_q, ovf_scale,
-                                              ovf_w)
+    scores[:, n_probe * m:] = _score_overflow(U_c, ovf_q, ovf_scale,
+                                              ovf_w, part)
     rows[:, n_probe * m:] = ovf_rows[None, :]
     v, pos = lax_top_k(scores, kc)
     return v, rows.gather(1, pos)
 
 
 def _stage2(U_chunk, V, item_w, cand_v, cand_rows, excl_rows, excl_cols,
-            excl_w, *, k, exact):
+            excl_w, *, k, exact, part=None):
     """Candidate finalization: ``exact=True`` rescores the candidates' f32
-    rows (every surfaced score is the true score of its item),
-    ``exact=False`` passes stage 1's scores through. Either way the
-    train-seen exclusions apply exactly by a sorted-key membership test,
-    excluded candidates dropping to ``DEAD_SLOT_OFFSET``."""
+    rows (every surfaced score is the true score of its item; rank-sharded:
+    ``V`` is the column slice and the partial scores are summed over the
+    model group), ``exact=False`` passes stage 1's scores through. Either
+    way the train-seen exclusions apply exactly by a sorted-key membership
+    test, excluded candidates dropping to ``DEAD_SLOT_OFFSET``."""
     n = V.shape[0]
     safe_rows = cand_rows.clamp(max=n - 1)  # slab pads carry n
     if exact:
         with _ieee_f32():
-            sc = torch.bmm(V[safe_rows], U_chunk[:, :, None])[..., 0]
-        sc = sc + item_w[safe_rows]
+            sc = torch.bmm(V[safe_rows], _cols(U_chunk, part)[:, :, None]
+                           )[..., 0]
+        sc = _sum(sc, part) + item_w[safe_rows]
         # pads (row == n) stay dead even though row n-1 is real
         sc = torch.where(cand_rows >= n, float("-inf"), sc)
     else:
@@ -534,17 +596,22 @@ class TwoStageRetriever:
     """One catalog build's fast path: the quantized stage-1 structure and
     the f32 rescore table (its own copy), with per-chunk ``topk``. Rebuilt
     by ``ServingEngine._refresh`` on a full swap; patched by
-    ``apply_delta`` on a delta swap (new tensors, out of place)."""
+    ``apply_delta`` on a delta swap (new tensors, out of place).
+    ``partitioner`` with ``model_parallel > 1``: this rank's column slices
+    of the codes and of the rescore table (the module docstring)."""
 
     def __init__(self, V, item_mask=None,
                  config: RetrievalConfig | None = None,
                  version: int | None = None, partitioner=None):
-        _require_single_device(partitioner)
         self.config = config or RetrievalConfig()
-        self.V = _table(V).to(torch.float32, copy=True)
+        self.partitioner = _rank_sharded(partitioner)
+        V_full = _table(V).to(torch.float32, copy=True)
         self.catalog = build_quantized_catalog(
-            self.V, item_mask=item_mask, config=self.config,
-            version=catalog_version(V) if version is None else version)
+            V_full, item_mask=item_mask, config=self.config,
+            version=catalog_version(V) if version is None else version,
+            partitioner=self.partitioner)
+        self.V = (V_full if self.partitioner is None
+                  else self.partitioner.place(V_full, None, "rank"))
         self.buckets_seen: set[tuple] = set()  # dispatched shapes
 
     @property
@@ -590,16 +657,17 @@ class TwoStageRetriever:
             cand_v, cand_rows = _stage1_clustered(
                 U_chunk, cat.centroids, cat.slab_q, cat.slab_scale,
                 cat.slab_w, cat.slab_rows, cat.ovf_q, cat.ovf_scale,
-                cat.ovf_w, cat.ovf_rows, kc=kc, n_probe=n_probe)
+                cat.ovf_w, cat.ovf_rows, kc=kc, n_probe=n_probe,
+                part=self.partitioner)
         else:
-            qU, u_scale = quantize_rows(U_chunk)
+            qU, u_scale = quantize_rows(U_chunk)  # full query rows
             self.buckets_seen.add(("flat", U_chunk.shape[0], kc))
             cand_v, cand_rows = _stage1_flat(
                 qU, u_scale, cat.q, cat.scale, cat.item_w, excl_rows,
-                excl_cols, excl_w, kc=kc)
+                excl_cols, excl_w, kc=kc, part=self.partitioner)
         return _stage2(U_chunk, self.V, cat.item_w, cand_v, cand_rows,
                        excl_rows, excl_cols, excl_w, k=min(k, kc),
-                       exact=not stage1_only)
+                       exact=not stage1_only, part=self.partitioner)
 
     def apply_delta(self, rows, values, version: int) -> None:
         """Install only the touched rows: a patched copy of the f32
@@ -611,7 +679,7 @@ class TwoStageRetriever:
             vals = torch.as_tensor(values).to(dev).float()
             self.V = self.V.index_copy(
                 0, torch.as_tensor(rows, dtype=torch.int64, device=dev),
-                vals)
+                _cols(vals, self.partitioner).contiguous())
             self.catalog = self.catalog.apply_delta(rows, vals, version)
         else:
             self.catalog = dataclasses.replace(self.catalog,

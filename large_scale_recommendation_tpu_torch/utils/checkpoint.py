@@ -1,12 +1,21 @@
 """Checkpoint / resume: durable snapshots of factor tables + step counters
-(counterpart of the single-process part of
-``large_scale_recommendation_tpu.utils.checkpoint``; the files are the same
-format, so either package restores what the other wrote).
+(counterpart of ``large_scale_recommendation_tpu.utils.checkpoint``; the
+files are the same format, so either package restores what the other
+wrote).
 
 Format: one ``ckpt_<step>.npz`` per step, written to a temporary file and
 ``os.replace``d into place, with keep-last-k retention. The entry
 ``__meta__`` holds the meta dict as json bytes; bf16 arrays are stored as
 their uint16 bit view, tagged in the meta's ``__dtypes__``.
+
+Mesh tables (``ShardedCheckpointManager``): each rank writes only its own
+pieces, ``ckpt_<step>.shard<rank>of<world>.npz`` (each piece's row and
+column offsets and its data), and rank 0 writes
+``ckpt_<step>.manifest.json`` once every rank has written. Restore
+reassembles each rank's slice from whichever pieces cover it, so a resume
+on another grid (a changed ``model_parallel``) re-shards. The JAX package
+writes one file per process, holding each of its devices' pieces; either
+package restores the other's files.
 """
 
 from __future__ import annotations
@@ -16,12 +25,15 @@ import json
 import os
 import re
 import tempfile
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.parallel.partitioner import _world
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 
@@ -171,6 +183,234 @@ def restore_segment_state(manager: CheckpointManager, kind: str, U, V):
             "ratings, seed, rank and block count")
     return (_tensor(ck["U"]).to(device=U.device, dtype=U.dtype),
             _tensor(ck["V"]).to(device=V.device, dtype=V.dtype), latest)
+
+
+# -- sharded (mesh) checkpoints -----------------------------------------------
+
+
+def _write_atomic(directory: str, name: str, write) -> None:
+    """``write(file)`` into a temporary file, renamed to ``name``."""
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, os.path.join(directory, name))
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _dtype_name(v) -> str:
+    dt = v.dtype
+    return str(dt).split(".")[-1] if isinstance(dt, torch.dtype) else \
+        np.dtype(dt).name
+
+
+class ShardedCheckpointManager:
+    """Per-rank snapshots of mesh-sharded tables: no rank gathers a whole
+    table to save it. A checkpoint is complete once its manifest and every
+    shard file it names exist.
+
+    Needs a directory that every rank sees (the JAX package's assumption
+    too). ``save`` is collective when the process group has more than one
+    rank: one barrier orders the manifest after every shard, and a second
+    one holds every rank until the manifest and retention are done."""
+
+    _MANIFEST = re.compile(r"^ckpt_(\d+)\.manifest\.json$")
+    _SHARD = re.compile(
+        r"^ckpt_(\d+)\.(?:manifest\.json|shard\d+of\d+\.npz)$")
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write ---------------------------------------------------------------
+
+    def save(self, step: int, arrays: dict, meta: dict | None = None) -> str:
+        """Write this rank's pieces (+ the manifest on rank 0), then sweep
+        retention. A value is a ``parallel.partitioner.LocalShard`` (this
+        rank's piece, its offset and the whole shape: ``Partitioner
+        .local_shard``) or a whole array (numpy or tensor, offset 0)."""
+        world, rank = _world()
+        payload: dict[str, np.ndarray] = {}
+        shapes = {}
+        for key, v in arrays.items():
+            if hasattr(v, "offset"):
+                data, (r0, c0), shape = v.data, v.offset, tuple(v.shape)
+            else:
+                data, r0, c0, shape = v, 0, 0, tuple(v.shape)
+            shapes[key] = {"shape": [int(d) for d in shape],
+                           "dtype": _dtype_name(data)}
+            payload[f"{key}__starts"] = np.asarray([r0], np.int64)
+            payload[f"{key}__lens"] = np.asarray([data.shape[0]], np.int64)
+            if len(shape) > 1 and (c0 != 0 or data.shape[1] != shape[1]):
+                # column offsets only where the columns are split (the
+                # rank-sharded layout); whole-width pieces carry none
+                payload[f"{key}__cstarts"] = np.asarray([c0], np.int64)
+                payload[f"{key}__clens"] = np.asarray([data.shape[1]],
+                                                      np.int64)
+            payload[f"{key}__p0"], _ = _encode_array(data)
+        shard_name = f"ckpt_{step}.shard{rank}of{world}.npz"
+        _write_atomic(self.directory, shard_name,
+                      lambda f: np.savez(f, **payload))
+        if world > 1:
+            dist.barrier()  # the manifest names only shards on disk
+        if rank == 0:
+            manifest = {
+                "step": step, "nproc": world,
+                "shards": [f"ckpt_{step}.shard{p}of{world}.npz"
+                           for p in range(world)],
+                "arrays": shapes, "meta": meta or {}}
+            _write_atomic(self.directory, f"ckpt_{step}.manifest.json",
+                          lambda f: f.write(json.dumps(manifest).encode()))
+            self._retain()
+        if world > 1:
+            dist.barrier()  # no rank reads the directory before it is done
+        return shard_name
+
+    def _retain(self) -> None:
+        steps = self.steps()
+        retire = set(steps[: max(0, len(steps) - self.keep)])
+        for name in os.listdir(self.directory):
+            m = self._SHARD.match(name)
+            # this manager's file kinds only: a bare ckpt_<s>.npz is a
+            # single-process snapshot and survives
+            if m and int(m.group(1)) in retire:
+                try:
+                    os.unlink(os.path.join(self.directory, name))
+                except FileNotFoundError:
+                    pass
+
+    # -- read ----------------------------------------------------------------
+
+    def _manifest(self, step: int) -> dict:
+        with open(os.path.join(self.directory,
+                               f"ckpt_{step}.manifest.json")) as f:
+            return json.load(f)
+
+    def _is_complete(self, step: int) -> bool:
+        try:
+            m = self._manifest(step)
+        except (OSError, json.JSONDecodeError):
+            return False
+        return all(os.path.exists(os.path.join(self.directory, s))
+                   for s in m["shards"])
+
+    def _manifest_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in map(
+            self._MANIFEST.match, os.listdir(self.directory)) if m)
+
+    def steps(self) -> list[int]:
+        return [s for s in self._manifest_steps() if self._is_complete(s)]
+
+    def incomplete_steps(self) -> list[int]:
+        """Manifests whose shard files are missing (a crashed save)."""
+        return [s for s in self._manifest_steps()
+                if not self._is_complete(s)]
+
+    def latest_step(self) -> int | None:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def meta(self, step: int) -> dict:
+        return self._manifest(step).get("meta", {})
+
+    def restore_array(self, step: int, key: str, partitioner, shape, dtype,
+                      *logical: str | None) -> torch.Tensor:
+        """This rank's slice (``partitioner.place`` of the whole array laid
+        out as ``logical``) of array ``key``, in ``dtype`` on the
+        partitioner's device. Only the pieces that overlap the slice are
+        read; a slice the pieces do not cover raises."""
+        m = self._manifest(step)
+        want = m["arrays"].get(key)
+        if want is None:
+            raise KeyError(f"checkpoint step {step} has no array {key!r}")
+        if tuple(want["shape"]) != tuple(shape):
+            raise ValueError(
+                f"checkpoint {key} shape {want['shape']} != {list(shape)} — "
+                "resumed fit must use the same ratings, seed, rank and "
+                "block count")
+        rng = partitioner.local_range(shape, *logical)
+        (r0, r1) = rng[0]
+        (c0, c1) = rng[1] if len(shape) > 1 else (0, 1)
+        ncols = int(shape[1]) if len(shape) > 1 else 1
+        tag = "bfloat16" if want["dtype"] == "bfloat16" else None
+        out = torch.empty((r1 - r0, c1 - c0), dtype=dtype)
+        filled = 0
+        seen = set()  # (row, column) starts: duplicated pieces count once
+        for name in m["shards"]:
+            with np.load(os.path.join(self.directory, name)) as z:
+                if f"{key}__starts" not in z.files:
+                    continue
+                starts, lens = z[f"{key}__starts"], z[f"{key}__lens"]
+                if f"{key}__cstarts" in z.files:
+                    cstarts, clens = z[f"{key}__cstarts"], z[f"{key}__clens"]
+                else:
+                    cstarts = np.zeros(len(starts), np.int64)
+                    clens = np.full(len(starts), ncols, np.int64)
+                for j, (s, ln, cs, cl) in enumerate(
+                        zip(starts, lens, cstarts, clens)):
+                    s, ln, cs, cl = int(s), int(ln), int(cs), int(cl)
+                    lo, hi = max(s, r0), min(s + ln, r1)
+                    clo, chi = max(cs, c0), min(cs + cl, c1)
+                    if (s, cs) in seen or lo >= hi or clo >= chi:
+                        continue
+                    seen.add((s, cs))
+                    piece = _tensor(_decode_array(z[f"{key}__p{j}"], tag))
+                    piece = piece.reshape(ln, -1)
+                    out[lo - r0:hi - r0, clo - c0:chi - c0] = \
+                        piece[lo - s:hi - s, clo - cs:chi - cs].to(dtype)
+                    filled += (hi - lo) * (chi - clo)
+        if filled < (r1 - r0) * (c1 - c0):
+            raise ValueError(
+                f"checkpoint step {step} is missing rows [{r0},{r1}) × cols "
+                f"[{c0},{c1}) of {key} — shard layout mismatch")
+        if len(shape) < 2:
+            out = out[:, 0]
+        return out.to(partitioner.device)
+
+
+def restore_segment_state_sharded(manager: ShardedCheckpointManager,
+                                  kind: str, U, V, partitioner):
+    """Mesh twin of ``restore_segment_state``: the latest snapshot as this
+    rank's ``(U, V, done)`` slices (U as ``('users', 'rank')``, V as
+    ``('items', 'rank')``) in ``U``/``V``'s dtype on the partitioner's
+    device. ``U``/``V`` are the whole initial tables: without a snapshot
+    their slices come back with ``done=0``; with one only their shape and
+    dtype are read. The same refusal of another fit path's snapshot; a
+    newer manifest with missing shards is a crashed save and warns."""
+    latest = manager.latest_step()
+    broken = [s for s in manager.incomplete_steps()
+              if latest is None or s > latest]
+    if broken:
+        warnings.warn(
+            f"{manager.directory} holds incomplete checkpoint(s) at "
+            f"step(s) {broken} (manifest present, shard files missing — "
+            f"crashed save?); resuming from "
+            f"{'scratch' if latest is None else f'step {latest}'} instead",
+            RuntimeWarning, stacklevel=2)
+    if latest is None:
+        legacy = [n for n in os.listdir(manager.directory)
+                  if CheckpointManager._FILE.match(n)]
+        if legacy:
+            raise ValueError(
+                f"{manager.directory} holds single-process checkpoints "
+                f"({legacy[:3]}...) but no sharded manifest; restore them "
+                "with CheckpointManager.restore() and re-save, or point "
+                "the sharded manager at a fresh directory")
+        return (partitioner.place(U, "users", "rank"),
+                partitioner.place(V, "items", "rank"), 0)
+    ck_kind = manager.meta(latest).get("kind")
+    if ck_kind != kind:
+        raise ValueError(
+            f"checkpoint kind {ck_kind!r} does not match this fit path "
+            f"({kind!r}) — host-blocked (fit) and device-blocked "
+            "(fit_device) row layouts are incompatible")
+    return (manager.restore_array(latest, "U", partitioner, tuple(U.shape),
+                                  U.dtype, "users", "rank"),
+            manager.restore_array(latest, "V", partitioner, tuple(V.shape),
+                                  V.dtype, "items", "rank"), latest)
 
 
 def save_mf_model(manager: CheckpointManager, model: MFModel, step: int,

@@ -823,3 +823,100 @@ def test_store_prefetcher_and_serving_on_card(dev):
     b = ServingEngine(model, k=10).recommend(ids)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+# -- the mesh's per-visit route (block_sweep) ---------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sweep_equals_the_stratum_launch(dev, dtype):
+    """Each rank's plan as a k-rank ring builds it (its device-major cells
+    ``[k, 1, b]``, ``visit_plan``): every visit (p, s) of a sweep through
+    ``block_sweep``, from the same tables, bit-equal to the slices of
+    ``stratum_sweep`` of stratum s, and within 1e-5 (f32) / one bf16 ulp
+    of ``block_sweep_reference``; stratum 0's k visits launch the pair
+    ``n_mb`` times each (and the casts once each in bf16)."""
+    from large_scale_recommendation_tpu_torch.parallel.dsgd_mesh import (
+        visit_plan,
+    )
+
+    k, rank, mb = 4, 64, 256
+    problem, args, U, V = _problem(dev, k, rank, mb)
+    su, si, sv, sw, ou, ov, icu, icv = args
+    ru_b, rv_b = problem.users.rows_per_block, problem.items.rows_per_block
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
+    cells = [(su[:, p] % ru_b, si[:, p] % rv_b, sv[:, p], sw[:, p],
+              icu[:, p], icv[:, p]) for p in range(k)]
+    plans = [visit_plan(c, mb) for c in cells]
+    assert all((vp.num_blocks, vp.visits) == (k, 1) for vp in plans)
+    Ut, Vt = U.to(dtype), V.to(dtype)
+    for s in range(k):
+        Us, Vs = Ut.clone(), Vt.clone()
+        if dtype == torch.bfloat16:
+            Uw, Vw = torch.empty_like(U), torch.empty_like(V)
+            cuda_sgd.bf16_to_f32(Us, Vs, Uw, Vw)
+            cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, lr=0.5,
+                                   lam=0.1)
+            cuda_sgd.f32_to_bf16(Uw, Vw, Us, Vs)
+        else:
+            cuda_sgd.stratum_sweep(Us, Vs, ou, ov, plan, s, work, lr=0.5,
+                                   lam=0.1)
+        cuda_sgd.reset_launch_counts()
+        swept = []
+        for p in range(k):
+            q = (p + s) % k
+            rows_u = slice(p * ru_b, (p + 1) * ru_b)
+            rows_v = slice(q * rv_b, (q + 1) * rv_b)
+            Ub, Vb = Ut[rows_u].clone(), Vt[rows_v].clone()
+            cuda_sgd.block_sweep(Ub, Vb, ou[rows_u], ov[rows_v], plans[p], s,
+                                 plans[p].new_work(rank), lr=0.5, lam=0.1)
+            swept.append((rows_u, rows_v, Ub, Vb))
+        torch.cuda.synchronize()
+        if s == 0:
+            casts = k if dtype == torch.bfloat16 else 0
+            assert cuda_sgd.LAUNCHES == _pair_counts(k * plan.n_mb, casts)
+        for p, (rows_u, rows_v, Ub, Vb) in enumerate(swept):
+            Ur, Vr = cuda_sgd.block_sweep_reference(
+                Ut[rows_u], Vt[rows_v], *(a[s] for a in cells[p]),
+                ou[rows_u], ov[rows_v], lr=0.5, lam=0.1, minibatch=mb)
+            assert torch.equal(Ub, Us[rows_u]) and torch.equal(Vb,
+                                                               Vs[rows_v])
+            for a, b in ((Ub, Ur), (Vb, Vr)):
+                if dtype == torch.bfloat16:
+                    assert _bf16_ulps(a, b) <= 1.0
+                else:
+                    assert float((a - b).abs().max()) <= TOL
+
+
+def test_block_sweep_refuses_a_stratum_plan(dev):
+    problem, args, U, V = _problem(dev, 2, 32, 256)
+    plan = _plan(args, 256)
+    with pytest.raises(ValueError, match="one visit per stratum"):
+        cuda_sgd.block_sweep(U, V, args[4], args[5], plan, 0,
+                             plan.new_work(32), lr=0.1, lam=0.1)
+
+
+def test_mesh_dsgd_world_one_equals_dsgd_on_the_card(dev):
+    """``MeshDSGD`` on a one-rank partitioner (no process group) runs the
+    single-card fit's launches: bit-equal tables, f32 and bf16."""
+    from large_scale_recommendation_tpu_torch.parallel import (
+        MeshDSGD,
+        MeshDSGDConfig,
+        Partitioner,
+    )
+
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 500, 30_000)
+    i = rng.integers(0, 300, 30_000)
+    r = rng.normal(size=30_000).astype(np.float32)
+    kw = dict(num_factors=32, lambda_=0.05, iterations=2, learning_rate=0.1,
+              lr_schedule="constant", seed=0, minibatch_size=1024,
+              init_scale=0.1)
+    for dtype in ("float32", "bfloat16"):
+        mesh = MeshDSGD(MeshDSGDConfig(**kw, factor_dtype=dtype),
+                        partitioner=Partitioner()).fit_device(u, i, r, 500,
+                                                              300)
+        ref = DSGD(DSGDConfig(**kw, factor_dtype=dtype)).fit_device(
+            u, i, r, 500, 300, num_blocks=1)
+        assert torch.equal(mesh.U, ref.U) and torch.equal(mesh.V, ref.V)

@@ -287,13 +287,39 @@ def test_step_plan_invariants(k, sort, pad):
     its own step; segments are row-homogeneous, one per row and step, in
     entry order; padding is in none; the streams, the long marks and
     lists and the counts agree with the layout."""
-    b, mb, rpb, chunk = 128, 64, 6, tc.SEGMENT_CHUNK
-    a = _layout(k, b, mb, rpb, sort, pad, seed=k)
+    b, mb, rpb = 128, 64, 6
+    _check_plan_invariants(_layout(k, b, mb, rpb, sort, pad, seed=k), mb,
+                           sort)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("sort", [None, "user", "item"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_rank_step_plan_invariants(k, sort, pad):
+    """The same invariants for one rank's plan on the mesh: its
+    device-major strata ``[k, 1, b]`` (cell s is rating block (p,
+    (p+s) mod k)), block-local rows, as ``dsgd_mesh.visit_plan`` builds
+    it — every stratum s > 0 included."""
+    b, mb, rpb = 128, 64, 6
+    a = _layout(k, b, mb, rpb, sort, pad, seed=k + 20)
+    p = k - 1
+    rank = {x: np.ascontiguousarray(y[:, p:p + 1]) for x, y in a.items()}
+    rank["su"] %= rpb
+    rank["si"] %= rpb
+    plan = _check_plan_invariants(rank, mb, sort)
+    assert (plan.num_blocks, plan.visits) == (k, 1)
+
+
+def _check_plan_invariants(a, mb, sort):
+    """The invariants of ``build_step_plan`` over the layout ``a`` (``[S,
+    P, b]``, each minibatch sorted by ``sort``); returns the plan."""
+    S, P, b = a["su"].shape
+    chunk = tc.SEGMENT_CHUNK
     plan = _plan(a, mb)
     n_mb = b // mb
     flat = {x: a[x].reshape(-1) for x in a}
     real = np.flatnonzero(flat["sw"] != 0)
-    assert plan.steps == k * n_mb and plan.entry_base[-1] == real.size
+    assert plan.steps == S * n_mb and plan.entry_base[-1] == real.size
     assert np.unique(flat["sv"]).size == flat["sv"].size
     v_ent = np.argsort(flat["sv"])[np.searchsorted(
         np.sort(flat["sv"]), plan.v_r.numpy())]  # entries by their rating
@@ -302,7 +328,7 @@ def test_step_plan_invariants(k, sort, pad):
     u_ent = v_ent[u_epos]
     for ent in (v_ent, u_ent):  # each real entry once, no padding
         np.testing.assert_array_equal(np.sort(ent), real)
-    step_of = (v_ent // (k * b)) * n_mb + (v_ent % b) // mb
+    step_of = (v_ent // (P * b)) * n_mb + (v_ent % b) // mb
     np.testing.assert_array_equal(
         np.repeat(np.arange(plan.steps), np.diff(plan.entry_base)), step_of)
     np.testing.assert_array_equal(plan.v_su.numpy(), flat["su"][v_ent])
@@ -350,6 +376,7 @@ def test_step_plan_invariants(k, sort, pad):
             sl = slice(plan.entry_base[t], plan.entry_base[t + 1])
             for p in np.unique(visit[sl]):
                 assert (np.diff(v_ent[sl][visit[sl] == p]) > 0).all()
+    return plan
 
 
 @pytest.mark.parametrize("k,rank,divisor", [(2, 8, 1), (3, 8, 4),
@@ -435,6 +462,79 @@ def test_step_pair_matches_pallas_block_kernel(rank, pad_frac, mb, half):
                                  Vw.to(torch.bfloat16)), want)
     else:
         _close((Uw, Vw), want, ONE)
+
+
+@pytest.mark.parametrize("half", [False, True])
+def test_block_sweep_matches_pallas_block_kernel(half):
+    """``block_sweep`` (the mesh's per-visit wrapper) on CPU tensors: its
+    plain path against ``pallas_block_sweep(interpret=True)``, in place,
+    bf16 within one bf16 ulp, no launch counted; a plan of several visits
+    per stratum is refused."""
+    mb, rank = 32, 8
+    ur, ir, vals, w, icu, icv, ou, ov, U, V = _visit(7, 256, 20, 12, rank,
+                                                     0.1, mb)
+    plan = _one_visit_plan(ur, ir, vals, w, icu, icv, mb)
+    kw = dict(lr=0.1, lam=0.05)
+    Ut, Vt = (_bf(U), _bf(V)) if half else (_t(U), _t(V))
+    tc.reset_launch_counts()
+    out = tc.block_sweep(Ut, Vt, _t(ou), _t(ov), plan, 0,
+                         plan.new_work(rank), **kw)
+    assert out[0] is Ut and out[1] is Vt
+    assert not any(tc.LAUNCHES.values())
+    jU, jV = jnp.asarray(U), jnp.asarray(V)
+    if half:
+        jU, jV = jU.astype(BF16), jV.astype(BF16)
+    want = jp.pallas_block_sweep(
+        jU, jV, *(jnp.asarray(x) for x in (ur, ir, vals, w, icu, icv, ou,
+                                           ov)),
+        gather="loop", interpret=True, minibatch=mb, **kw)
+    if half:
+        assert_within_bf16_ulps((Ut, Vt), want)
+    else:
+        _close((Ut, Vt), want, ONE)
+    a, U2, V2, mb2, _, _ = _blocked(2, rank, 2, seed=3)
+    with pytest.raises(ValueError, match="one visit per stratum"):
+        full = _plan(a, mb2)
+        tc.block_sweep(_t(U2), _t(V2), _t(a["ou"]), _t(a["ov"]), full, 0,
+                       full.new_work(rank), **kw)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("k,p", [(3, 1), (4, 3)])
+def test_block_sweep_on_a_rank_plan_matches_pallas_block_kernel(k, p, half):
+    """``block_sweep`` over one rank's plan of k visits (its device-major
+    cells ``[k, 1, b]``, block-local rows, as ``dsgd_mesh.visit_plan``
+    builds it): every stratum s, from the same tables, on U block p and V
+    block (p+s) mod k, against ``pallas_block_sweep(interpret=True)`` on
+    that cell; f32 at rtol 1e-5 / atol 1e-6, bf16 within one bf16 ulp."""
+    rank = 8
+    a, U, V, mb, rpb_u, rpb_v = _blocked(k, rank, 2, seed=k + p)
+    cells = {x: np.ascontiguousarray(a[x][:, p:p + 1])
+             for x in ("su", "si", "sv", "sw", "icu", "icv")}
+    cells["su"] %= rpb_u
+    cells["si"] %= rpb_v
+    plan = _plan(cells, mb)
+    kw = dict(lr=0.1, lam=0.05)
+    for s in range(k):
+        q = (p + s) % k
+        Ub, Vb = U[p * rpb_u:(p + 1) * rpb_u], V[q * rpb_v:(q + 1) * rpb_v]
+        ou = a["ou"][p * rpb_u:(p + 1) * rpb_u]
+        ov = a["ov"][q * rpb_v:(q + 1) * rpb_v]
+        Ut, Vt = (_bf(Ub), _bf(Vb)) if half else (_t(Ub), _t(Vb))
+        tc.block_sweep(Ut, Vt, _t(ou), _t(ov), plan, s, plan.new_work(rank),
+                       **kw)
+        jU, jV = jnp.asarray(Ub), jnp.asarray(Vb)
+        if half:
+            jU, jV = jU.astype(BF16), jV.astype(BF16)
+        want = jp.pallas_block_sweep(
+            jU, jV, *(jnp.asarray(cells[x][s, 0]) for x in
+                      ("su", "si", "sv", "sw", "icu", "icv")),
+            jnp.asarray(ou), jnp.asarray(ov), gather="loop", interpret=True,
+            minibatch=mb, **kw)
+        if half:
+            assert_within_bf16_ulps((Ut, Vt), want)
+        else:
+            _close((Ut, Vt), want, ONE)
 
 
 def _jax_common(a, U, V):

@@ -42,7 +42,9 @@ def test_port_has_the_slice_modules():
               "streams.parallel", "models.adaptive", "ps", "ps.core",
               "ps.server", "ps.transform", "ps.mf", "ps.adaptive",
               "models.pipeline", "store", "store.tiered",
-              "store.prefetch"):
+              "store.prefetch", "parallel", "parallel.collectives",
+              "parallel.distributed", "parallel.partitioner",
+              "parallel.mesh", "parallel.dsgd_mesh", "parallel.als_mesh"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -89,6 +91,30 @@ def test_ast_finds_no_jax_import(path):
                 assert n.split(".")[0] not in forbidden, (f, n)
 
 
+def test_parallel_exports_resolve_lazily():
+    """The package imports no submodule until a name is touched (the JAX
+    package's PEP 562 surface), and every exported name resolves."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import large_scale_recommendation_tpu_torch.parallel as par\n"
+        "pre = 'large_scale_recommendation_tpu_torch.parallel.'\n"
+        "assert not [m for m in sys.modules if m.startswith(pre)]\n"
+        "for name in par.__all__:\n"
+        "    getattr(par, name)\n"
+        "assert set(par.__all__) <= set(dir(par))\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    import large_scale_recommendation_tpu.parallel as jpar
+    import large_scale_recommendation_tpu_torch.parallel as par
+
+    # the one JAX name without a counterpart: each rank is its own process
+    assert set(jpar.__all__) - set(par.__all__) == {"shard_map"}
+
+
 def test_default_device_is_the_card(monkeypatch):
     from large_scale_recommendation_tpu_torch import convert
     from large_scale_recommendation_tpu_torch.core.initializers import (
@@ -105,6 +131,11 @@ def test_default_device_is_the_card(monkeypatch):
     )
     from large_scale_recommendation_tpu_torch.models.online import OnlineMF
     from large_scale_recommendation_tpu_torch.ops import als as als_ops
+    from large_scale_recommendation_tpu_torch.parallel import (
+        MeshALS,
+        MeshDSGD,
+        Partitioner,
+    )
     from large_scale_recommendation_tpu_torch.ps.adaptive import (
         PSOnlineBatchMF,
     )
@@ -130,7 +161,8 @@ def test_default_device_is_the_card(monkeypatch):
                   PSOfflineMF, PSOnlineBatchMF,
                   lambda: TieredFactorStore(PseudoRandomFactorInitializer(2)),
                   lambda: convert.ps_offline_from_jax(None),
-                  lambda: convert.tiered_store_from_jax(None)):
+                  lambda: convert.tiered_store_from_jax(None),
+                  Partitioner, MeshDSGD, MeshALS):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):

@@ -151,7 +151,12 @@ def test_model_recommend_matches_jax(dtype):
             for u, row in zip(users, ids):
                 assert not any((int(u), int(c)) in seen for c in row
                                if c >= 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # over a (one-rank) mesh: the same lists; anything else is refused
+    from large_scale_recommendation_tpu_torch.parallel import Partitioner
+
+    ids, scores = tm.recommend(users, k=10, mesh=Partitioner(device="cpu"))
+    assert_topk_match(ids, scores, *tm.recommend(users, k=10))
+    with pytest.raises(TypeError, match="Partitioner"):
         tm.recommend(users, mesh=object())
 
 

@@ -204,3 +204,38 @@ def test_injected_updater_survives_overrides(monkeypatch):
                    seed=0), device="cpu")).fit(tr, iterations=4)
     # the lr override changes training (0.3 learns, 0.001 crawls)
     assert pm2.rmse(tr) < pm3.rmse(tr) - 0.05
+
+
+@pytest.mark.parametrize("est", ["mesh_dsgd", "mesh_als"])
+def test_mesh_estimators_keep_their_partitioner(est):
+    """The mesh estimators chain like the single-device ones; a rebuild for
+    fit-time overrides keeps the estimator's partitioner, and at world 1
+    the mesh chain predicts what the single-device chain does."""
+    from large_scale_recommendation_tpu_torch.parallel import (
+        MeshALS,
+        MeshDSGD,
+        MeshDSGDConfig,
+        Partitioner,
+    )
+
+    train, test = sparse_id_workload(seed=4, n=6000)
+    part = Partitioner(device="cpu")
+    if est == "mesh_dsgd":
+        kw = dict(num_factors=6, lambda_=0.02, iterations=2,
+                  learning_rate=0.2, lr_schedule="constant",
+                  minibatch_size=256, init_scale=0.2)
+        mesh = MeshDSGD(MeshDSGDConfig(**kw, kernel="torch"),
+                        partitioner=part)
+        single = DSGD(DSGDConfig(**kw), device="cpu")
+    else:
+        mesh = MeshALS(ALSConfig(num_factors=6, iterations=2),
+                       partitioner=part)
+        single = ALS(ALSConfig(num_factors=6, iterations=2), device="cpu")
+    pipe = Pipeline(IdCompactor(), MeanCenterer(), mesh)
+    model = pipe.fit(train, iterations=3)
+    assert model.model.partitioner is part
+    ref = Pipeline(IdCompactor(), MeanCenterer(), single).fit(
+        train, iterations=3)
+    ru, ri, _, _ = test.to_numpy()
+    np.testing.assert_allclose(model.predict(ru, ri), ref.predict(ru, ri),
+                               rtol=1e-5, atol=1e-5)

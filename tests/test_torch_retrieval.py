@@ -335,14 +335,25 @@ def test_topk_refuses_uint32_key_overflow():
 
 
 def test_rank_sharded_partitioner_is_not_ported():
+    """Rank-sharded retrieval is ported now (the name is kept from when it
+    raised; tests/test_torch_rank_sharding.py runs it on 4 gloo ranks): a
+    one-rank partitioner keeps the one-device layout, and a JAX catalog
+    that is rank-sharded is still not converted."""
+    from large_scale_recommendation_tpu_torch.parallel.partitioner import (
+        Partitioner,
+    )
+
     class Part:
         model_parallel = 2
 
     V = torch.from_numpy(catalog_V(64, 4, seed=1))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tret.build_quantized_catalog(V, partitioner=Part())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tret.TwoStageRetriever(V, partitioner=Part())
+    one = Partitioner(device="cpu")
+    a = tret.build_quantized_catalog(V, partitioner=one)
+    b = tret.build_quantized_catalog(V)
+    assert a.partitioner is None
+    assert torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+    ret = tret.TwoStageRetriever(V, partitioner=one)
+    assert ret.partitioner is None and torch.equal(ret.V, V)
 
     class Jcat:
         partitioner = Part()

@@ -48,6 +48,9 @@ from large_scale_recommendation_tpu_torch.serving import (
 )
 from large_scale_recommendation_tpu_torch.utils import metrics as tmetrics
 from large_scale_recommendation_tpu_torch.utils import shapes as tshapes
+from large_scale_recommendation_tpu_torch.parallel.partitioner import (
+    Partitioner,
+)
 from test_torch_retrieval import assert_topk_tie_aware
 
 
@@ -315,7 +318,7 @@ def test_shard_catalog_owns_its_table_and_checks_dtype():
     assert torch.equal(cat.V_sh, torch.ones(5, 2))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tps.shard_catalog(V, dtype="float16")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Partitioner"):
         tps.shard_catalog(V, mesh=object())
 
 
@@ -389,13 +392,21 @@ def test_bucket_policy_validation_and_family():
 
 
 def test_mesh_and_user_store_are_not_ported():
-    """``mesh=`` still raises; ``user_store=`` is ported: a tiered store
-    holding the model's user rows (a few hot, the rest cold) serves the
-    same lists as the engine's own table."""
+    """Both are ported now (the name is kept from when they raised):
+    ``mesh=`` takes the port's ``Partitioner`` (a JAX mesh is refused)
+    and, on one rank, serves the lists of the engine without one (the
+    multi-rank engine: tests/test_torch_mesh_serving.py); ``user_store=``:
+    a tiered store holding the model's user rows (a few hot, the rest
+    cold) serves the same lists as the engine's own table."""
     _, tm = models(seed=13)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Partitioner"):
         ServingEngine(tm, mesh=make_block_mesh(1))
     ids = real_users(tm)
+    one = ServingEngine(tm, k=6, mesh=Partitioner(device="cpu"),
+                        train=train_pairs(tm)).recommend(ids)
+    plain = ServingEngine(tm, k=6, train=train_pairs(tm)).recommend(ids)
+    np.testing.assert_array_equal(one[0], plain[0])
+    np.testing.assert_array_equal(one[1], plain[1])
     store = TieredFactorStore(PseudoRandomFactorInitializer(8), capacity=8,
                               slot_capacity=16, device="cpu")
     rows = store.ensure(ids)
