@@ -66,6 +66,24 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               finite and fall, launch counts must equal their formulas, bf16
               must end within 5% of f32, and the plain twin's replay on the
               card within 1e-4 (f32) / 1e-3 (bf16) of each fit;
+9a. obs.train — the f32 ``fit_device`` again with observability on
+              (``obs.enable``, the event journal, the library build hook,
+              ``enable_introspection(interval_s=0.25)``,
+              ``enable_transfers(guard="log")``), a halting
+              ``TrainingWatchdog``, an ``OnlineEvaluator`` on the holdout
+              and a snapshot per sweep: tables bit-equal to the
+              uninstrumented fit's, 3 timed segments (compile, execute,
+              execute), a valid Chrome trace, health OK; the timer's
+              steady wall beside the sweeps' CUDA-event ms and beside an
+              uninstrumented run's, the segment key's roofline row at the
+              card's peak (≤ 100%), a device-memory sample, the implicit
+              transfers counted in the fit's guard scope and the libraries'
+              build walls; one steady sweep under ``torch.profiler`` (both
+              step kernels, 96 launches each; the card's busy and idle
+              share); the k = 1 divergence (η 0.3 warm_boost) tripping the
+              watchdog with no snapshot of the poisoned sweep and health
+              CRITICAL; after ``obs.disable()`` a fit whose obs reads no
+              clock and waits on nothing (counted);
 10. timing  — each kernel against its plain version at the main path's
               shapes (CUDA events), with its bound on this card; per step:
               the plan, the longest segments, the design's bytes, and the
@@ -850,8 +868,10 @@ def run(scratch: str) -> int:
     del train, holdout, model, solver, cpu_model
     phase_serve_two_stage(dev)
 
-    device_runs, (Ud, Vd) = phase_device(dev, cfg, scratch)
+    device_runs, (Ud, Vd), obs_data = phase_device(dev, cfg, scratch)
     paths = {"fit": launches, **device_runs}
+    paths["obs.train"] = phase_obs_train(cfg, scratch, obs_data)
+    del obs_data
     kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
     del Ud, Vd
@@ -912,8 +932,9 @@ def phase_device(dev, cfg, scratch):
     init on the card (timed apart), then ``DSGD.fit_device`` at f32 and at
     bf16, each against the plain twin's replay on the card from the same
     layout and initial tables; the bf16 fit snapshots each sweep and is
-    resumed from its second. Returns each fit's launch counts and the
-    initial f32 tables."""
+    resumed from its second. Returns each fit's launch counts, the initial
+    f32 tables and what ``[obs.train]`` reruns (the data, the layout's
+    operands, the f32 fit's tables and sweep times)."""
 
     (train, hold, (nu, ni)), gen_s = timed(
         lambda: device_blocking.synthetic_like_device(
@@ -993,6 +1014,8 @@ def phase_device(dev, cfg, scratch):
                                  f"fit_device {curve[-1]}: beyond {bar}")
         runs[f"fit_device_{dtype}"] = launches
         final[dtype] = curve[-1]
+        if not half:  # the uninstrumented reference of [obs.train]
+            f32 = dict(U=model.U, V=model.V, segment_ms=solver.segment_ms)
         if half:
             check_resume("fit_device", ckpt, model, lambda: DSGD(
                 dcfg).fit_device(u, i, r, nu, ni, num_blocks=K,
@@ -1004,7 +1027,306 @@ def phase_device(dev, cfg, scratch):
     if not gap <= 0.05:
         raise AssertionError(f"bf16 RMSE {final['bfloat16']} is not within "
                              f"5% of f32 {final['float32']}")
-    return runs, (U0, V0)
+    obs_data = dict(train=(u, i, r), nu=nu, ni=ni, hold=hold,
+                    holdout_rows=(ur, ir, mask), args=args, **f32)
+    return runs, (U0, V0), obs_data
+
+
+# -- [obs.train]: DSGD.fit_device with observability on ------------------
+
+
+class WalledDSGD(DSGD):
+    """``DSGD`` with a host stopwatch around each segment's training call,
+    the card drained on both ends (outside obs: the uninstrumented steady
+    sweep's wall)."""
+
+    def _train_fn(self, args, k):
+        train = super()._train_fn(args, k)
+        self.walls = []
+
+        def walled(U, V, *, iterations, t0):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            out = train(U, V, iterations=iterations, t0=t0)
+            torch.cuda.synchronize()
+            self.walls.append(time.perf_counter() - t_a)
+            return out
+
+        return walled
+
+
+class CountingClock:
+    """Stands in for the ``time`` module inside obs: counts clock reads."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def perf_counter(self):
+        self.reads += 1
+        return time.perf_counter()
+
+    def time(self):
+        self.reads += 1
+        return time.time()
+
+
+def device_busy(trace_path):
+    """(busy ms, window ms, intervals) of the card in a profiler trace:
+    the union of its device intervals (Chrome-trace categories
+    ``kernel``, ``gpu_memcpy``, ``gpu_memset``) over the window from the
+    first one's start to the last one's end; idle share = 1 − busy /
+    window (the card waiting on the host's launches)."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    iv = sorted((e["ts"], e["ts"] + e.get("dur", 0.0))
+                for e in doc["traceEvents"]
+                if e.get("ph") == "X"
+                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not iv:
+        raise AssertionError("the profiler trace holds no device interval")
+    busy, (lo, hi) = 0.0, iv[0]
+    for a, b in iv[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = max(b for _, b in iv) - iv[0][0]
+    return busy / 1e3, window / 1e3, len(iv)
+
+
+def profiled_kernels(prof):
+    """Device time (ms) and count per op of a ``torch.profiler`` run,
+    largest device time first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((e.key, e.count, us / 1e3))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def phase_obs_train(cfg, scratch, data):
+    """``[obs.train]``: the f32 ``fit_device`` of [main.device] again with
+    observability on (registry, tracer, journal, the library build hook,
+    introspection at 0.25 s, the transfer guard in ``log`` mode), a halting
+    ``TrainingWatchdog`` and an ``OnlineEvaluator`` on the holdout, a
+    snapshot per sweep. Its tables must equal the uninstrumented fit's
+    bit for bit; 3 timed segments (compile, execute, execute); a valid
+    Chrome trace; health OK. Then one steady sweep under the profiler
+    (both step kernels, 96 launches each; the card's busy and idle
+    share), the k = 1 divergence tripping the watchdog (no snapshot of
+    the poisoned sweep, health CRITICAL), and after ``obs.disable()`` an
+    uninstrumented fit whose obs reads no clock and waits on nothing.
+    Returns the instrumented fit's launch counts."""
+    from large_scale_recommendation_tpu_torch import obs
+    from large_scale_recommendation_tpu_torch.obs import instrument
+    from large_scale_recommendation_tpu_torch.obs import trace as obs_trace
+    from large_scale_recommendation_tpu_torch.obs.introspect import (
+        TRACE_FILE,
+        profile_trace,
+    )
+
+    phase_t0 = time.perf_counter()
+    u, i, r = data["train"]
+    nu, ni = data["nu"], data["ni"]
+    args = data["args"]
+    n_mb = args[0].shape[-1] // cfg.minibatch_size
+    fit = dict(num_blocks=K, checkpoint_every=1)
+
+    # the uninstrumented steady sweep: obs off, a stopwatch outside it
+    off = WalledDSGD(cfg)
+    m_off = off.fit_device(u, i, r, nu, ni, **fit)
+    if not (torch.equal(m_off.U, data["U"]) and torch.equal(m_off.V,
+                                                          data["V"])):
+        raise AssertionError("a rerun of the f32 fit_device differs")
+
+    # -- 1. the instrumented fit
+    reg, tracer = obs.enable()
+    obs.set_events(obs.EventJournal())
+    tracer.install_build_hook(reg)
+    intro = obs.enable_introspection(interval_s=0.25)
+    ledger = obs.enable_transfers(guard="log")
+    watchdog = obs.TrainingWatchdog(policy="halt")
+    ur, ir, mask = data["holdout_rows"]
+    keep = mask > 0
+    evaluator = obs.OnlineEvaluator(source="obs.train")
+    evaluator.set_offline_holdout(ur[keep].cpu().numpy(),
+                                  ir[keep].cpu().numpy(),
+                                  data["hold"][2][keep].cpu().numpy())
+    ckpt = CheckpointManager(os.path.join(scratch, "obs_train"), keep=3)
+    monitor = obs.HealthMonitor()
+    monitor.watch_watchdog(watchdog)
+    monitor.watch_transfers(ledger)
+    monitor.watch_checkpoints(ckpt, degraded_after_s=3600.0)
+    solver = DSGD(cfg)
+    solver.watchdog, solver.evaluator = watchdog, evaluator
+    cuda_sgd.reset_launch_counts()
+    model, wall_on = timed(lambda: solver.fit_device(
+        u, i, r, nu, ni, checkpoint_manager=ckpt, **fit))
+    launches = dict(cuda_sgd.LAUNCHES)
+    check_launches(launches, n_mb, cfg.iterations, half=False)
+    equal = (torch.equal(model.U, data["U"])
+             and torch.equal(model.V, data["V"]))
+    spans = [e for e in tracer.events() if e["name"] == "train/dsgd"]
+    cats = [e["cat"] for e in spans]
+    segments = reg.counter("train_segments_total", model="dsgd").value
+    obs.validate_chrome_trace(tracer.chrome_trace())
+    health = monitor.run()
+    say("obs.train", tables_equal_uninstrumented=equal, segments=segments,
+        span_categories=cats, chrome_trace_valid=True,
+        events=[e["kind"] for e in obs.get_events().events()],
+        watchdog_tripped=watchdog.tripped, health=health["status"],
+        eval=evaluator.last_metrics, fit_wall_s=wall_on,
+        checkpoints=ckpt.steps(), launches=launches)
+    if not equal:
+        raise AssertionError("instrumented fit_device tables differ from "
+                             "the uninstrumented fit's")
+    if segments != 3 or cats != ["compile", "execute", "execute"]:
+        raise AssertionError(f"segments {segments}, spans {cats}")
+    if watchdog.tripped or health["status"] != obs.OK:
+        raise AssertionError(f"health {health}")
+
+    # -- 2. the numbers
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    timer_ms = [e["dur"] / 1e3 for e in spans]
+    steady = slice(1, None)  # the segments after the first (one sweep each)
+    on_ms = mean(timer_ms[steady])
+    dev_on = mean(solver.segment_ms[steady])
+    off_ms = mean(off.walls[steady]) * 1e3
+    dev_off = mean(off.segment_ms[steady])
+    rows = [row for row in intro.roofline()["rows"]
+            if row["module"] == "dsgd_sweep"
+            and row["key"].startswith("train_segment/dsgd_device_segment")]
+    if len(rows) != 1:
+        raise AssertionError(f"roofline rows of the segment key: {rows}")
+    roof = rows[0]
+    sample, sample_s = timed(intro.sample_device_memory)
+    card = sample["devices"][0]["stats"] or {}
+    tables = model.U.nbytes + model.V.nbytes
+    implicit = ledger.snapshot()["implicit_by_site"].get("dsgd.fit", 0)
+    builds = {dict(h.labels)["library"]: {"loads": h.count, "s": h.sum}
+              for h in reg.find("kernel_build_s")}
+    say("obs.train.numbers", steady_timer_wall_ms=timer_ms[steady],
+        steady_segment_ms=solver.segment_ms[steady],
+        timer_over_segment_ms=on_ms - dev_on,
+        steady_sweep_ms_instrumented=on_ms,
+        steady_sweep_ms_uninstrumented=off_ms,
+        instrumented_over_uninstrumented=on_ms / off_ms,
+        device_segment_ms_on=dev_on, device_segment_ms_off=dev_off,
+        roofline_key=roof["key"], achieved_gbs=roof["achieved_gbs"],
+        pct_of_hbm_peak=roof["pct_of_hbm_peak"],
+        hbm_peak_gbs=intro.peaks()[0],
+        record_bytes_per_exec=roof["xla_bytes_accessed"],
+        model_bytes_per_exec=roof["model_bytes_per_exec"],
+        record_over_model_bytes=roof["xla_vs_model_bytes"],
+        memory_supported=sample["supported"], memory=card,
+        live_tensors=sample["live_arrays"], memory_sample_s=sample_s,
+        table_bytes=tables, implicit_transfers_dsgd_fit=implicit,
+        kernel_build_s=builds)
+    if not roof["pct_of_hbm_peak"] or roof["pct_of_hbm_peak"] > 100.0:
+        raise AssertionError(f"pct_of_hbm_peak {roof['pct_of_hbm_peak']}")
+    if not sample["supported"] or card.get("bytes_in_use", 0) < tables:
+        raise AssertionError(f"device memory sample {sample['devices']}")
+
+    # -- 3. one steady sweep under the profiler
+    su, si, sv, sw, ou, ov, icu, icv = args
+    sched = schedule_from_name(cfg.lr_schedule, cfg.lambda_)
+
+    def sweep():
+        return cuda_sgd.dsgd_train_cuda(
+            model.U, model.V, *args, lr=cfg.learning_rate, lam=cfg.lambda_,
+            minibatch=cfg.minibatch_size, num_blocks=K, iterations=1,
+            schedule=sched, t0=cfg.iterations, plan=solver._plan)
+
+    sweep()  # warm
+    torch.cuda.synchronize()
+    prof_dir = os.path.join(scratch, "obs_profile")
+    with profile_trace(prof_dir) as prof:
+        _, prof_wall = timed(sweep)
+    ops = profiled_kernels(prof)
+    counts = {name: sum(c for key, c, _ in ops if name in key)
+              for name in ("sgd_item_rows_kernel", "sgd_user_rows_kernel")}
+    busy_ms, window_ms, n_iv = device_busy(os.path.join(prof_dir,
+                                                        TRACE_FILE))
+    say("obs.train.profile", top_device_ops=[
+        (key[:48], c, round(ms, 4)) for key, c, ms in ops[:6]],
+        step_kernel_launches=counts, sweep_wall_ms=prof_wall * 1e3,
+        device_busy_ms=busy_ms, device_window_ms=window_ms,
+        device_intervals=n_iv, device_busy_share=busy_ms / window_ms,
+        device_idle_share=1.0 - busy_ms / window_ms,
+        busy_over_host_wall=busy_ms / (prof_wall * 1e3),
+        how="union of the trace's kernel/memcpy/memset intervals over the "
+            "window from the first device interval's start to the last "
+            "one's end")
+    if counts != {"sgd_item_rows_kernel": n_mb * K,
+                  "sgd_user_rows_kernel": n_mb * K}:
+        raise AssertionError(f"profiled step-kernel launches {counts}, "
+                             f"expected {n_mb * K} each")
+
+    # -- 4. the k = 1 divergence trips the watchdog
+    trip = obs.TrainingWatchdog(policy="halt")
+    trip_monitor = obs.HealthMonitor()
+    trip_monitor.watch_watchdog(trip)
+    poisoned = CheckpointManager(os.path.join(scratch, "obs_diverge"))
+    diverging = DSGD(cfg)
+    diverging.watchdog = trip
+    try:
+        diverging.fit_device(u, i, r, nu, ni, num_blocks=1,
+                             checkpoint_manager=poisoned,
+                             checkpoint_every=1)
+    except obs.TrainingDivergedError as e:
+        error = repr(e)[:160]
+    else:
+        raise AssertionError("the k = 1 divergence did not trip the "
+                             "watchdog")
+    report = trip_monitor.run()
+    state = reg.gauge("watchdog_state").value
+    say("obs.train.diverge", error=error, snapshots=poisoned.steps(),
+        health=report["status"],
+        training_check=report["checks"]["training"]["status"],
+        watchdog_state=state,
+        trip_events=[e["kind"] for e in obs.get_events().events()
+                     if e["kind"].startswith(("watchdog", "health"))])
+    if (poisoned.steps() or report["status"] != obs.CRITICAL
+            or report["checks"]["training"]["status"] != obs.CRITICAL
+            or state != 2):
+        raise AssertionError(f"divergence: snapshots {poisoned.steps()}, "
+                             f"health {report}, watchdog_state {state}")
+
+    # -- 5. disabled: obs reads no clock and waits on nothing
+    obs.disable()
+    clock, blocks = CountingClock(), []
+
+    def counting_block(x):
+        blocks.append(x)
+
+    saved = (instrument.time, obs_trace.time, instrument._block,
+             obs_trace._block)
+    instrument.time = obs_trace.time = clock
+    instrument._block = obs_trace._block = counting_block
+    try:
+        quiet = DSGD(cfg)
+        m_quiet = quiet.fit_device(u, i, r, nu, ni, **fit)
+        torch.cuda.synchronize()
+    finally:
+        (instrument.time, obs_trace.time, instrument._block,
+         obs_trace._block) = saved
+    say("obs.train.disabled", obs_clock_reads=clock.reads,
+        obs_blocks=len(blocks),
+        sync_debug_mode=torch.cuda.get_sync_debug_mode(),
+        steady_segment_ms=quiet.segment_ms[steady],
+        tables_equal=torch.equal(m_quiet.U, data["U"]),
+        phase_wall_s=time.perf_counter() - phase_t0)
+    if clock.reads or blocks or torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError(f"disabled obs read the clock {clock.reads} "
+                             f"times and blocked {len(blocks)} times")
+    return launches
 
 
 def topk_mismatches(ids, scores, ids_ref, scores_ref, tol=SCORE_TOL):

@@ -32,6 +32,9 @@ from large_scale_recommendation_tpu_torch.data.device_blocking import (
     validate_dense_ids,
 )
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.obs.instrument import (
+    TrainSegmentTimer,
+)
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
@@ -97,11 +100,16 @@ class ALS:
 
         U, V = self._init_factors(users, items)
         self.round_ms = []
-        U, V = als_ops.als_train_planned(
-            U, V, user_plan, item_plan, users.omega, items.omega,
-            lambda_=cfg.lambda_, iterations=cfg.iterations,
-            reg_mode=cfg.reg_mode, implicit_alpha=cfg.implicit_alpha,
-            gram_dtype=gram_dtype, round_ms=self.round_ms)
+        timer = TrainSegmentTimer("als", "als_planned",
+                                  shape_key=(tuple(U.shape), tuple(V.shape)))
+        with timer.segment(cfg.iterations) as h:
+            U, V = als_ops.als_train_planned(
+                U, V, user_plan, item_plan, users.omega, items.omega,
+                lambda_=cfg.lambda_, iterations=cfg.iterations,
+                reg_mode=cfg.reg_mode, implicit_alpha=cfg.implicit_alpha,
+                gram_dtype=gram_dtype, round_ms=self.round_ms)
+            h.out = (U, V)
+        timer.finish(int(len(ru)))
         if self.evaluator is not None:
             self.evaluator.on_segment(U, V, label="als_planned",
                                       step=cfg.iterations)
@@ -143,10 +151,15 @@ class ALS:
 
         V = self._init_factors_device(num_items, omega_v)
         self.round_ms = []
-        U, V = als_ops.als_rounds(
-            V, prep_u, prep_v, num_users, num_items, cfg.lambda_,
-            cfg.iterations, implicit=cfg.implicit_alpha is not None,
-            gram_dtype=gram_dtype, round_ms=self.round_ms)
+        timer = TrainSegmentTimer("als", "als_device_rounds",
+                                  shape_key=((num_users, k), tuple(V.shape)))
+        with timer.segment(cfg.iterations) as h:
+            U, V = als_ops.als_rounds(
+                V, prep_u, prep_v, num_users, num_items, cfg.lambda_,
+                cfg.iterations, implicit=cfg.implicit_alpha is not None,
+                gram_dtype=gram_dtype, round_ms=self.round_ms)
+            h.out = (U, V)
+        timer.finish(int(len(u)))
         if self.evaluator is not None:
             self.evaluator.on_segment(U, V, label="als_device_rounds",
                                       step=cfg.iterations)

@@ -30,6 +30,15 @@ segment of ``checkpoint_every`` sweeps ends in a snapshot of the tables,
 tagged with the fit path; ``resume=True`` picks up from the latest one.
 Blocking, init and the step plan are deterministic, and the kernels have no
 atomics, so a resumed fit is bit-equal to an uninterrupted one.
+
+Observability (``obs.enable()`` before the solver is built): each segment
+runs inside a ``TrainSegmentTimer("dsgd", kind)`` (``train_segment_s``, a
+compile-keyed ``train/dsgd`` span that waits for the segment's CUDA work)
+and the ``"dsgd.fit"`` transfer-guard scope, and emits ``train.segment``
+/ ``train.checkpoint`` events when a journal is installed; the fit ends
+with the throughput gauges and, on the card, the step pair's byte model
+registered with the introspector. Disabled, none of it reads a clock or
+touches the card.
 """
 
 from __future__ import annotations
@@ -52,6 +61,11 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
 from large_scale_recommendation_tpu_torch.data import blocking
 from large_scale_recommendation_tpu_torch.data import device_blocking
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.instrument import (
+    TrainSegmentTimer,
+)
+from large_scale_recommendation_tpu_torch.obs.transfers import guard_scope
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
@@ -117,6 +131,12 @@ class DSGD:
         self.segment_ms: list[float] = []
         # host seconds to build the last fit's step plan (card only)
         self.plan_s: float | None = None
+        # the last fit's step plan (card only): the introspector's byte
+        # model counts its rows
+        self._plan: cuda_sgd.StepPlan | None = None
+        # structured event journal (obs.events), bound at construction:
+        # None = one pointer test per segment
+        self._events = get_events()
 
     # -- fit ---------------------------------------------------------------
 
@@ -163,7 +183,8 @@ class DSGD:
         U, V = self._train_segments(put(U, torch.float32),
                                     put(V, torch.float32), args, k,
                                     "dsgd_segment", checkpoint_manager,
-                                    checkpoint_every, resume)
+                                    checkpoint_every, resume,
+                                    n_ratings=int(ratings.n))
         self.model = MFModel(U=U, V=V, users=problem.users,
                              items=problem.items)
         return self.model
@@ -205,7 +226,7 @@ class DSGD:
         U, V = self._train_segments(U, V, args, p.num_blocks,
                                     "dsgd_device_segment",
                                     checkpoint_manager, checkpoint_every,
-                                    resume)
+                                    resume, n_ratings=int(p.nnz))
         users, items = p.to_id_indices()
         self.model = MFModel(U=U, V=V, users=users, items=items)
         return self.model
@@ -222,12 +243,14 @@ class DSGD:
         return use_inv
 
     def _train_segments(self, U, V, args, k, kind, checkpoint_manager=None,
-                        checkpoint_every=None, resume=False):
+                        checkpoint_every=None, resume=False, *,
+                        n_ratings: int):
         """The segment loop: ``checkpoint_every`` sweeps per segment; at
         each boundary the hooks run, then the snapshot (tagged ``kind``).
         The tables are cast to the storage dtype first; a resume replaces
         them with the latest snapshot's, cast the same way, on the solver's
-        device."""
+        device. ``n_ratings`` is the ratings a sweep visits (the timer's
+        unit)."""
         cfg = self.config
         fdt = cfg.storage_dtype()
         U, V = U.to(fdt), V.to(fdt)
@@ -240,16 +263,24 @@ class DSGD:
         train = self._train_fn(args, k)
         timed = self.device.type == "cuda"
         events = []
+        timer = TrainSegmentTimer(
+            "dsgd", kind, shape_key=(tuple(U.shape), tuple(V.shape),
+                                     tuple(args[0].shape)))
         while done < cfg.iterations:
             seg = min(segment, cfg.iterations - done)
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            U, V = train(U, V, iterations=seg, t0=done)
-            if timed:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                events.append((start, end))
+            with timer.segment(seg) as h:
+                if timed:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                # every operand is on the device: an armed guard counts
+                # any host read the segment makes
+                with guard_scope("dsgd.fit"):
+                    U, V = train(U, V, iterations=seg, t0=done)
+                if timed:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    events.append((start, end))
+                h.out = (U, V)
             done += seg
             if self.watchdog is not None:
                 # before the snapshot: a tripped segment must not persist
@@ -257,14 +288,40 @@ class DSGD:
                 self.watchdog.after_segment(U, V, label=kind)
             if self.evaluator is not None:
                 self.evaluator.on_segment(U, V, label=kind, step=done)
+            if self._events is not None:
+                self._events.emit("train.segment", model="dsgd", kind=kind,
+                                  iterations=int(seg), done=int(done),
+                                  total=int(cfg.iterations))
             if checkpoint_manager is not None:
                 checkpoint_manager.save(
                     done, {"U": U, "V": V},
                     {"kind": kind, "iterations": cfg.iterations})
+                if self._events is not None:
+                    self._events.emit("train.checkpoint", model="dsgd",
+                                      kind=kind, step=int(done))
         if events:
             events[-1][1].synchronize()
         self.segment_ms = [a.elapsed_time(b) for a, b in events]
+        rank = int(U.shape[-1])
+        timer.finish(n_ratings,
+                     bytes_per_iteration=self._sweep_bytes(n_ratings, rank),
+                     flops_per_iteration=sgd_ops.dsgd_flops_per_sweep(
+                         n_ratings, rank))
         return U, V
+
+    def _sweep_bytes(self, n_ratings: int, rank: int) -> int:
+        """The byte model of the route that ran: the step pair's
+        (``kernel="cuda"``, the plan's (step, row) pairs) on the card, the
+        plain route's on the CPU."""
+        plan = self._plan  # built on the card only
+        if plan is not None:
+            return sgd_ops.dsgd_bytes_per_sweep(
+                n_ratings, rank, kernel="cuda",
+                user_rows=sum(plan.u_segments),
+                item_rows=sum(plan.v_segments))
+        return sgd_ops.dsgd_bytes_per_sweep(
+            n_ratings, rank,
+            factor_bytes=self.config.storage_dtype().itemsize)
 
     def _train_fn(self, args, k: int):
         """Route by device: the CUDA kernels on a card (``fit`` has checked
@@ -279,6 +336,7 @@ class DSGD:
             plan = cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
                                             minibatch=cfg.minibatch_size)
             self.plan_s = time.perf_counter() - start  # ends in a host read
+            self._plan = plan
 
             def cuda(U, V, *, iterations, t0):
                 return cuda_sgd.dsgd_train_cuda(

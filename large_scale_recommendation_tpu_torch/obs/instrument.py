@@ -1,0 +1,134 @@
+"""Shared instrumentation helpers for the training loops (counterpart of
+``large_scale_recommendation_tpu.obs.instrument``).
+
+``TrainSegmentTimer`` is the one copy of the per-segment timing +
+warmup-excluded throughput logic used by every batch trainer
+(``models.dsgd``, ``parallel.dsgd_mesh``, ``models.als``): each segment
+gets a wall-clock measurement that waits for the segment's device work
+(``obs.trace._block``: an event on the producing stream) into
+``train_segment_s{model=}`` and a compile-keyed trace span (the first
+segment of a given kind pays the first-call costs — library load, plan
+build, allocator growth — so it labels ``compile``); ``finish()``
+publishes ``train_throughput_ratings_per_s`` gauges with the first
+segment EXCLUDED from the ``steady`` phase.
+
+Zero-cost when disabled: with the null registry/tracer every method is
+a couple of no-op calls; no clock is read and no CUDA event is made.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.trace import _block, get_tracer
+
+
+class _Holder:
+    __slots__ = ("out",)
+
+    def __init__(self):
+        self.out = None
+
+
+class TrainSegmentTimer:
+    """Times the segments of one training run.
+
+    Usage::
+
+        timer = TrainSegmentTimer("dsgd", kind)
+        while ...:
+            with timer.segment(seg_iterations) as h:
+                U, V = train(...)
+                h.out = (U, V)     # blocked before the clock stops
+        timer.finish(n_ratings)    # per-iteration unit count
+    """
+
+    def __init__(self, model_label: str, kind: str | None = None,
+                 shape_key: tuple = ()):
+        obs = get_registry()
+        self._obs = obs
+        self._on = obs.enabled
+        self._trace = get_tracer()
+        self.label = model_label
+        self._kind = kind or model_label
+        # shapes belong in the compile key: a second fit of the same
+        # kind at other table/strata shapes pays its first-call costs
+        # again (a new plan, new buffers), and without the shapes its
+        # first segment would be labeled "execute"
+        self._key = ("train_segment", self._kind) + tuple(shape_key)
+        self._hist = obs.histogram("train_segment_s", model=model_label)
+        self._segments = obs.counter("train_segments_total",
+                                     model=model_label)
+        self._walls: list[tuple[int, float]] = []
+
+    @contextlib.contextmanager
+    def segment(self, iterations: int):
+        holder = _Holder()
+        t0 = time.perf_counter() if self._on else 0.0
+        with self._trace.span(f"train/{self.label}",
+                              key=self._key,
+                              iterations=iterations) as sp:
+            yield holder
+            sp.out = holder.out
+        if self._on:
+            _block(holder.out)
+            wall = time.perf_counter() - t0
+            self._hist.observe(wall)
+            self._segments.inc()
+            self._walls.append((int(iterations), wall))
+
+    def finish(self, units_per_iteration: int | float | None,
+               bytes_per_iteration: int | float | None = None,
+               flops_per_iteration: int | float | None = None,
+               collective_bytes_per_iteration: int | float | None = None,
+               ) -> None:
+        """Publish throughput gauges: ``phase="all"`` over every segment,
+        ``phase="steady"`` excluding the first (compile-carrying) one —
+        only when at least two segments ran, so a single-segment fit
+        never reports a compile-polluted number as steady-state.
+
+        ``bytes_per_iteration`` (the model's device-memory bytes one
+        sweep moves — ``ops.sgd.dsgd_bytes_per_sweep``) additionally
+        publishes ``train_hbm_gbs`` gauges with the same phase split.
+        When an introspector is installed (``obs.enable_introspection``),
+        the hand model — ``bytes_per_iteration`` and
+        ``flops_per_iteration`` (``ops.sgd.dsgd_flops_per_sweep``) — is
+        also registered against this run's compile key, so the live
+        roofline table carries the kernel-record-vs-model column.
+        ``collective_bytes_per_iteration``
+        (``ops.sgd.dsgd_collective_bytes_per_sweep``) is the rank-sharded
+        route's interconnect term, kept apart from the device-memory
+        bytes."""
+        if not self._on or not self._walls or not units_per_iteration:
+            return
+        if (bytes_per_iteration or flops_per_iteration
+                or collective_bytes_per_iteration):
+            from large_scale_recommendation_tpu_torch.obs.introspect import (
+                get_introspector,
+            )
+
+            introspector = get_introspector()
+            if introspector is not None:
+                introspector.register_model_cost(
+                    self._key, bytes_per_iteration=bytes_per_iteration,
+                    flops_per_iteration=flops_per_iteration,
+                    collective_bytes_per_iteration=(
+                        collective_bytes_per_iteration))
+
+        def rate(walls, units):
+            iters = sum(i for i, _ in walls)
+            wall = sum(w for _, w in walls)
+            return units * iters / wall if wall > 0 else 0.0
+
+        def publish(name, units, scale=1.0):
+            self._obs.gauge(name, model=self.label, phase="all").set(
+                rate(self._walls, units) * scale)
+            if len(self._walls) > 1:
+                self._obs.gauge(name, model=self.label, phase="steady").set(
+                    rate(self._walls[1:], units) * scale)
+
+        publish("train_throughput_ratings_per_s", units_per_iteration)
+        if bytes_per_iteration:
+            publish("train_hbm_gbs", bytes_per_iteration, 1e-9)

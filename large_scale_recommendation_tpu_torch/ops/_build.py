@@ -12,6 +12,13 @@ serializes its whole check → build → load sequence, so threads that make
 first use of a library at once get one build and one ``CDLL``, while two
 libraries still build side by side. There is no fallback: a missing
 compiler or a failed build raises with the compiler's last lines.
+
+Each build or load is recorded in ``loads`` (per library: its wall and
+whether it compiled; two clock reads per library and process) and, when
+``obs.Tracer.install_build_hook`` has set a hook, reported to it;
+``LibraryWatch`` exposes a library's count to the transfer ledger's
+retrace watch (a rebuild or reload after warmup is the port's counterpart
+of a retrace).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,6 +41,28 @@ _LOCKS_GUARD = threading.Lock()
 _locks: dict[str, threading.RLock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # each build's compiler output, by name
+# per library, (seconds, built) of each build or load in this process
+loads: dict[str, list[tuple[float, bool]]] = {}
+# hook(library, seconds, built) called after each build or load (set by
+# obs.Tracer.install_build_hook)
+_build_hook = None
+
+
+def set_build_hook(hook) -> None:
+    """Install ``hook(library, seconds, built)`` (``None`` removes it)."""
+    global _build_hook
+    _build_hook = hook
+
+
+class LibraryWatch:
+    """A library's build and load count as ``_cache_size()``, the protocol
+    ``obs.transfers.TransferLedger.watch`` polls."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def _cache_size(self) -> int:
+        return len(loads.get(self.name, ()))
 
 
 def _nvcc() -> str:
@@ -74,19 +104,28 @@ def load_library(name: str) -> ctypes.CDLL:
     threads and processes at once."""
     with lock(name):
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(_build(name))
+            t0 = time.perf_counter()
+            path, built = _build(name)
+            _loaded[name] = ctypes.CDLL(path)
+            wall = time.perf_counter() - t0
+            with _LOCKS_GUARD:  # atomic with set_build_hook's replay
+                loads.setdefault(name, []).append((wall, built))
+                hook = _build_hook
+            if hook is not None:
+                hook(name, wall, built)
         return _loaded[name]
 
 
-def _build(name: str) -> str:
-    """The library's path, built first if it is missing or stale."""
+def _build(name: str) -> tuple[str, bool]:
+    """The library's path, built first if it is missing or stale, and
+    whether it was built."""
     cu, cpp = (os.path.join(CSRC, f"{name}{ext}") for ext in (".cu", ".cpp"))
     src = cu if os.path.exists(cu) else cpp
     if not os.path.exists(src):
         raise FileNotFoundError(f"no {cu} or {cpp}")
     lib = library_path(name)
     if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
-        return lib
+        return lib, False
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ([_nvcc(), *NVCC_FLAGS] if src == cu else [_gxx(), *GXX_FLAGS])
@@ -103,4 +142,4 @@ def _build(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return lib
+    return lib, True

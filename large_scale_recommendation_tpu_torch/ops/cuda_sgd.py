@@ -64,6 +64,9 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
     _errors,
     constant_lr,
 )
+from large_scale_recommendation_tpu_torch.obs.introspect import (
+    get_introspector,
+)
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.ops import _build
 
@@ -239,6 +242,21 @@ class StepPlan:
         return sum(f.nbytes for f in (getattr(self, n.name) for n in
                                       dataclasses.fields(self))
                    if isinstance(f, torch.Tensor))
+
+    def bound_bytes(self, rank: int) -> int:
+        """Device-memory bytes the step pair's function must move over the
+        whole plan (one sweep): per step, each distinct row read and
+        written once with its ω (f32), and 24 B of streams per real
+        entry — the quantity the step's bound counts."""
+        row = rank * 4
+        entries = self.entry_base[-1] - self.entry_base[0]
+        rows = sum(self.u_segments) + sum(self.v_segments)
+        return rows * (2 * row + 4) + entries * 24
+
+    def flops(self, rank: int) -> int:
+        """Operations of the step pair over the plan: 7·rank per entry in
+        kernel A (dot, error, item delta), 5·rank in kernel B."""
+        return (self.entry_base[-1] - self.entry_base[0]) * 12 * rank
 
     def _step_args(self, side: str, t: int, streams) -> tuple:
         key = (side, t)
@@ -424,6 +442,24 @@ def _check_step(U, V, omega_u, omega_v, plan: StepPlan, work) -> int:
     return rank
 
 
+def note_launches(plan: StepPlan, rank: int, sweeps: int) -> None:
+    """Give the installed introspector (``obs.enable_introspection``) the
+    step pair's record for ``sweeps`` sweeps over ``plan``, against the
+    enclosing span's compile key — the port's counterpart of the XLA
+    cost analysis the JAX introspector reads. One ``is not None`` test
+    when introspection is off. Called once per segment by
+    ``dsgd_train_cuda`` and by the mesh's per-visit route (one
+    ``block_sweep`` call is one visit of a segment, so its caller notes
+    the segment)."""
+    introspector = get_introspector()
+    if introspector is None:
+        return
+    introspector.note_compiled(
+        introspector.current_key(_LIB), module=_LIB,
+        flops=sweeps * plan.flops(rank),
+        bytes_accessed=sweeps * plan.bound_bytes(rank))
+
+
 def _launch(name: str, fn, args) -> None:
     rc = fn(*args)
     if rc != 0:
@@ -514,7 +550,9 @@ def block_sweep(U_blk, V_blk, omega_u, omega_v, plan: StepPlan, s: int, work,
     ``f32_to_bf16`` after (one downcast per visit, the TPU kernel's
     cadence). On CPU tensors the same plan runs through the step pair's
     and the casts' plain versions. The step pair holds full factor rows:
-    rank-sharded tables do not reach it (``MeshDSGD`` refuses them)."""
+    rank-sharded tables do not reach it (``MeshDSGD`` refuses them). The
+    introspector's record is its caller's (``note_launches``, once per
+    segment)."""
     if plan.visits != 1:
         raise ValueError(f"block_sweep takes a plan of one visit per stratum "
                          f"([k, 1, b]); this one has {plan.visits}")
@@ -669,6 +707,7 @@ def dsgd_train_cuda(
                           lam=lam)
             if half:
                 f32_to_bf16(Uw, Vw, U, V)
+    note_launches(plan, int(U.shape[-1]), iterations)
     return U, V
 
 

@@ -59,6 +59,9 @@ from large_scale_recommendation_tpu_torch.models.dsgd import (
     DSGDConfig,
 )
 from large_scale_recommendation_tpu_torch.models.mf import ShardedMFModel
+from large_scale_recommendation_tpu_torch.obs.instrument import (
+    TrainSegmentTimer,
+)
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
@@ -132,6 +135,7 @@ def build_mesh_dsgd_step(mesh, updater: Any, minibatch: int,
                 cuda_sgd.block_sweep(U_l, V_l, omega_u, ov, plan, s, work,
                                      lr=lr, lam=float(updater.lambda_))
                 V_l, ov = part.ring_shift(V_l, ov)
+            cuda_sgd.note_launches(plan, int(U_l.shape[-1]), iterations)
             return U_l, V_l
         store = U_l.dtype
         if store == torch.bfloat16:  # one upcast per segment
@@ -240,7 +244,7 @@ class MeshDSGD:
         U_l, V_l = self._train_segments(
             U, V, strata + inv, problem.users.omega, problem.items.omega,
             "mesh_dsgd_segment", checkpoint_manager, checkpoint_every,
-            resume)
+            resume, n_ratings=int(ratings.n))
         self.model = ShardedMFModel(U=U_l, V=V_l, users=problem.users,
                                     items=problem.items,
                                     partitioner=self.partitioner)
@@ -281,7 +285,7 @@ class MeshDSGD:
         U_l, V_l = self._train_segments(
             U, V, strata + inv, p.omega_u, p.omega_v,
             "mesh_dsgd_device_segment", checkpoint_manager,
-            checkpoint_every, resume)
+            checkpoint_every, resume, n_ratings=int(p.nnz))
         users, items = p.to_id_indices()
         self.model = ShardedMFModel(U=U_l, V=V_l, users=users, items=items,
                                     partitioner=self.partitioner)
@@ -293,11 +297,14 @@ class MeshDSGD:
                                                    scale=cfg.init_scale)
 
     def _train_segments(self, U, V, strata, omega_u, omega_v, kind,
-                        checkpoint_manager, checkpoint_every, resume):
+                        checkpoint_manager, checkpoint_every, resume, *,
+                        n_ratings: int):
         """The segment loop and checkpoint/resume of both paths: the whole
         tables ``U``/``V`` and layouts in, this rank's trained slices out.
         A plain ``CheckpointManager`` is re-targeted at its directory in
-        the sharded format."""
+        the sharded format. Each segment runs inside a
+        ``TrainSegmentTimer("mesh_dsgd", kind)``; ``n_ratings`` (all
+        ranks' ratings a sweep visits) is its unit."""
         if isinstance(checkpoint_manager, CheckpointManager):
             checkpoint_manager = ShardedCheckpointManager(
                 checkpoint_manager.directory, keep=checkpoint_manager.keep)
@@ -333,17 +340,22 @@ class MeshDSGD:
         timed = self.device.type == "cuda"
         events = []
         segment = checkpoint_every or cfg.iterations
+        timer = TrainSegmentTimer(
+            "mesh_dsgd", kind, shape_key=(tuple(U_l.shape), tuple(V_l.shape),
+                                          tuple(local[0].shape)))
         while done < cfg.iterations:
             seg = min(segment, cfg.iterations - done)
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            U_l, V_l = step(U_l, V_l, ou, ov, local, iterations=seg, t0=done,
-                            plan=plan)
-            if timed:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                events.append((start, end))
+            with timer.segment(seg) as h:
+                if timed:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                U_l, V_l = step(U_l, V_l, ou, ov, local, iterations=seg,
+                                t0=done, plan=plan)
+                if timed:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    events.append((start, end))
+                h.out = (U_l, V_l)
             done += seg
             if checkpoint_manager is not None:
                 checkpoint_manager.save(
@@ -353,4 +365,20 @@ class MeshDSGD:
         if events:
             events[-1][1].synchronize()
         self.segment_ms = [a.elapsed_time(b) for a, b in events]
+        m = part.model_parallel
+        rank = int(U_l.shape[-1]) * m  # U_l holds a 1/m column slice
+        if plan is not None:  # the step pair: this rank's visits
+            model_bytes = sgd_ops.dsgd_bytes_per_sweep(
+                plan.entry_base[-1], rank, kernel="cuda",
+                user_rows=sum(plan.u_segments),
+                item_rows=sum(plan.v_segments))
+        else:
+            model_bytes = sgd_ops.dsgd_bytes_per_sweep(
+                n_ratings, rank, factor_bytes=fdt.itemsize, model_size=m)
+        timer.finish(
+            n_ratings, bytes_per_iteration=model_bytes,
+            flops_per_iteration=sgd_ops.dsgd_flops_per_sweep(n_ratings,
+                                                             rank),
+            collective_bytes_per_iteration=(
+                sgd_ops.dsgd_collective_bytes_per_sweep(n_ratings, rank, m)))
         return U_l, V_l

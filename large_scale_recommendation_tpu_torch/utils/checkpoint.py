@@ -25,6 +25,7 @@ import json
 import os
 import re
 import tempfile
+import time
 import warnings
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch.distributed as dist
 
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.models.mf import MFModel
+from large_scale_recommendation_tpu_torch.obs.transfers import get_transfers
 from large_scale_recommendation_tpu_torch.parallel.partitioner import _world
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
@@ -469,9 +471,15 @@ def snapshot_online_state(online) -> tuple[dict, dict]:
     meta = {"kind": "online_state", "step": int(online.step),
             "offsets": {str(k): int(v)
                         for k, v in online.consumed_offsets.items()}}
-    arrays = {"user_ids": u_ids, "item_ids": i_ids,
-              "U": online.users.snapshot_rows(len(u_ids)),
-              "V": online.items.snapshot_rows(len(i_ids))}
+    ledger = get_transfers()
+    t0 = time.perf_counter() if ledger is not None else 0.0
+    U = online.users.snapshot_rows(len(u_ids))
+    V = online.items.snapshot_rows(len(i_ids))
+    if ledger is not None:  # the snapshot's rows leave the card for the file
+        ledger.note_transfer("checkpoint.snapshot", "d2h",
+                             int(U.nbytes) + int(V.nbytes),
+                             time.perf_counter() - t0)
+    arrays = {"user_ids": u_ids, "item_ids": i_ids, "U": U, "V": V}
     for key, table in (("user_hot_rows", online.users),
                        ("item_hot_rows", online.items)):
         resident = getattr(table, "resident_rows", None)
@@ -506,7 +514,13 @@ def restore_online_state(manager: CheckpointManager, online,
         if len(ids) == 0:
             continue
         rows = table.ensure(ids)
+        ledger = get_transfers()
+        t0 = time.perf_counter() if ledger is not None else 0.0
         table.load_rows(rows, ck[key_arr])
+        if ledger is not None:  # the restored rows go back to the card
+            ledger.note_transfer("checkpoint.restore", "h2d",
+                                 int(ck[key_arr].nbytes),
+                                 time.perf_counter() - t0)
         warm = getattr(table, "warm_rows", None)
         if warm is not None and key_hot in ck.arrays:
             warm(ck[key_hot])

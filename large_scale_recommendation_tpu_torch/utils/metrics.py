@@ -1,8 +1,12 @@
 """Full-catalog ranking: top-K serving and HR@K / NDCG@K (counterpart of the
 ranking part of ``large_scale_recommendation_tpu.utils.metrics``), the
 sampled-negatives HR/NDCG and catalog coverage of
-``large_scale_recommendation_tpu.obs.quality``, ``ThroughputMeter``, and the
-streams' ``IngestStats`` with ``publish_fields``.
+``large_scale_recommendation_tpu.obs.quality``, ``ThroughputMeter``, the
+streams' ``IngestStats`` with ``publish_fields``, and the timing shims over
+``obs``: ``block``, ``StepTimer``, ``MetricsLog`` and ``profile`` (each
+keeps the JAX package's surface and mirrors into the process registry when
+``obs.enable()`` has installed one; under the null registry the mirroring
+is a no-op).
 
 The JAX package leaves this to XLA, so the port uses ordinary torch ops on
 the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
@@ -27,6 +31,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import time
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -50,6 +57,104 @@ def _ieee_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+logger = logging.getLogger("large_scale_recommendation_tpu_torch")
+
+
+def block(x: Any) -> Any:
+    """Wait for the device work producing ``x`` (a tensor, or tuples,
+    lists and dicts of them) on its stream (``obs.trace._block``);
+    returns ``x``."""
+    from large_scale_recommendation_tpu_torch.obs.trace import _block
+
+    _block(x)
+    return x
+
+
+@dataclasses.dataclass
+class StepTimer:
+    """Accumulating wall-clock timer for repeated steps; each step also
+    lands in the process ``step_timer_s{name=}`` histogram."""
+
+    name: str = "step"
+    total_s: float = 0.0
+    count: int = 0
+    last_s: float = 0.0
+
+    def __post_init__(self):
+        from large_scale_recommendation_tpu_torch.obs.registry import (
+            get_registry,
+        )
+
+        self._hist = get_registry().histogram("step_timer_s", name=self.name)
+
+    @contextlib.contextmanager
+    def time(self, result_holder: list | None = None) -> Iterator[None]:
+        """Time one step. If ``result_holder`` ends up holding device
+        tensors, they are waited for before the clock stops."""
+        t0 = time.perf_counter()
+        yield
+        if result_holder is not None:
+            block(result_holder)
+        self.last_s = time.perf_counter() - t0
+        self.total_s += self.last_s
+        self.count += 1
+        self._hist.observe(self.last_s)
+
+    @property
+    def mean_s(self) -> float:
+        return self.total_s / self.count if self.count else 0.0
+
+
+class MetricsLog:
+    """Append-only structured metric records; each logged event also bumps
+    ``metrics_log_events_total{event=}``."""
+
+    def __init__(self, log_to: logging.Logger | None = logger,
+                 level: int = logging.DEBUG):
+        from large_scale_recommendation_tpu_torch.obs.registry import (
+            get_registry,
+        )
+
+        self.records: list[dict] = []
+        self._logger = log_to
+        self._level = level
+        self._registry = get_registry()
+
+    def log(self, event: str, **fields) -> None:
+        rec = {"event": event, "t": time.time(), **fields}
+        self.records.append(rec)
+        self._registry.counter("metrics_log_events_total",
+                               event=event).inc()
+        if self._logger is not None:
+            self._logger.log(self._level, "%s %s", event, fields)
+
+    def of(self, event: str) -> list[dict]:
+        return [r for r in self.records if r["event"] == event]
+
+
+@contextlib.contextmanager
+def profile(log_dir: str | None) -> Iterator[None]:
+    """DEPRECATED shim (as in the JAX package): profile the block into
+    ``log_dir`` through ``obs.introspect.profile_trace``, the one capture
+    layer; a no-op when ``log_dir`` is None, so call sites can leave the
+    hook wired."""
+    if log_dir is None:
+        yield
+        return
+    import warnings
+
+    warnings.warn(
+        "utils.metrics.profile is deprecated: use "
+        "obs.introspect.profile_trace — this shim routes there",
+        DeprecationWarning, stacklevel=3)
+    from large_scale_recommendation_tpu_torch.obs.introspect import (
+        profile_trace,
+    )
+
+    with profile_trace(log_dir):
+        yield
 
 
 @dataclasses.dataclass
@@ -100,11 +205,16 @@ class IngestStats:
 
 def publish_fields(fields: dict, registry=None, prefix: str = "ingest",
                    **labels) -> None:
-    """Mirror ``{field: number}`` into ``registry`` as ``{prefix}_{field}``
-    gauges with ``labels``. The port has no metrics registry yet, so
-    ``registry=None`` (the default) is a no-op; a registry is anything
-    with the JAX registry's ``enabled`` and ``gauge(name, **labels)``."""
-    if registry is None or not registry.enabled:
+    """Mirror ``{field: number}`` into ``registry`` (default: the process
+    one) as ``{prefix}_{field}`` gauges with ``labels``; a no-op under the
+    null registry."""
+    if registry is None:
+        from large_scale_recommendation_tpu_torch.obs.registry import (
+            get_registry,
+        )
+
+        registry = get_registry()
+    if not registry.enabled:
         return
     for field, value in fields.items():
         registry.gauge(f"{prefix}_{field}", **labels).set(value)

@@ -44,7 +44,10 @@ def test_port_has_the_slice_modules():
               "models.pipeline", "store", "store.tiered",
               "store.prefetch", "parallel", "parallel.collectives",
               "parallel.distributed", "parallel.partitioner",
-              "parallel.mesh", "parallel.dsgd_mesh", "parallel.als_mesh"):
+              "parallel.mesh", "parallel.dsgd_mesh", "parallel.als_mesh",
+              "obs", "obs.registry", "obs.trace", "obs.events",
+              "obs.instrument", "obs.transfers", "obs.introspect",
+              "obs.quality"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
