@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's DSGD training, serving and evaluation paths, ALS,
 online MF, the serving engine, the streaming runtime, the parameter server,
-the estimator pipeline, the tiered store and the mesh on one NVIDIA GPU (an
-H100).
+the estimator pipeline, the tiered store, the mesh and the observability
+planes on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -84,6 +84,23 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               watchdog with no snapshot of the poisoned sweep and health
               CRITICAL; after ``obs.disable()`` a fit whose obs reads no
               clock and waits on nothing (counted);
+9b. obs.recorder — the same fit with the flight recorder sampling every
+              0.25 s (``enable_flight_recorder``) beside introspection and
+              the ``log`` guard, a ``HealthMonitor`` (watchdog, device
+              memory, quality) behind an ``ObsServer`` that a second thread
+              scrapes (``/metrics``, ``/healthz``, ``/seriesz``,
+              ``/rooflinez``, ``/transferz``, each at least twice) while
+              the fit runs: tables bit-equal to the uninstrumented fit's,
+              every scrape 200, ``/metrics`` parses, the step pair's
+              roofline row, the card's memory and ``eval_rmse`` series (≥ 3
+              points), the implicit transfers of [obs.train]; the
+              recorder's cost on the steady sweep (interleaved against the
+              recorder stopped, min of 5) and one ``sample()``'s wall; the
+              k = 1 divergence freezing a bundle that validates, with the
+              card's memory and limit (``/healthz`` 503 after it; its
+              bytes and write wall); ``/profilez?seconds=1`` 200 with a
+              concurrent second capture 409; a ``FleetServer`` over this
+              server and a second one (``host`` labels, worst status);
 10. timing  — each kernel against its plain version at the main path's
               shapes (CUDA events), with its bound on this card; per step:
               the plan, the longest segments, the design's bytes, and the
@@ -141,8 +158,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               in turns (durable/bare retention, queue high-water,
               checkpoint walls; tables within rtol 1e-4 / atol 1e-5); a
               crash after batch 9, ``resume()`` and drain (zero loss, ≤ 4
-              batches replayed); a ``serving_engine()`` whose delta refresh
-              equals a full refresh row for row;
+              batches replayed; the resumed driver's telemetry exported
+              every 0.25 s: ``/metrics`` shows ``streams_lag_records`` equal
+              to ``telemetry()``'s lag with a batch pending and after the
+              drain, and the exporter stops); a ``serving_engine()`` whose
+              delta refresh equals a full refresh row for row;
 18. streams.parallel — 32 stratum-routed batches (scripts/streams_bench.py's
               ``_stratum_batch`` rule) drained by ``ParallelIngestRunner``
               at N = 1, 2, 4 consumers on fresh models (ratings/s,
@@ -196,8 +216,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               engine's (ties within ``SCORE_TOL``); a crash after batch
               12, ``resume()`` re-warms the checkpoint's hot set and the
               drain ends at the uninterrupted run's tables (the
-              [online] bar); an overcommitted pool raises. The PS and
-              store phases launch none of the kernels;
+              [online] bar), that resume leg under a live registry:
+              ``/storez`` answers the store's ``snapshot()``, the
+              ``tier_host_bytes`` series exists and ``watch_store_memory``
+              reports OK; an overcommitted pool raises. The PS and store
+              phases launch none of the kernels;
 24. mesh.visit — the mesh's per-visit route (``block_sweep``) at the main
               path's geometry (k 8, rank 128, minibatch 32,768), each rank
               with the plan a k-rank ring builds (its device-major cells
@@ -247,6 +270,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch import obs
 from large_scale_recommendation_tpu_torch.core.generators import (
     SyntheticMFGenerator,
 )
@@ -282,6 +306,8 @@ from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
+from large_scale_recommendation_tpu_torch.obs.introspect import TRACE_FILE
+from large_scale_recommendation_tpu_torch.obs.server import http_get
 from large_scale_recommendation_tpu_torch.parallel import als_mesh, dsgd_mesh
 from large_scale_recommendation_tpu_torch.parallel import serving as psrv
 from large_scale_recommendation_tpu_torch.parallel.distributed import (
@@ -870,7 +896,9 @@ def run(scratch: str) -> int:
 
     device_runs, (Ud, Vd), obs_data = phase_device(dev, cfg, scratch)
     paths = {"fit": launches, **device_runs}
-    paths["obs.train"] = phase_obs_train(cfg, scratch, obs_data)
+    paths["obs.train"], implicit = phase_obs_train(cfg, scratch, obs_data)
+    paths["obs.recorder"] = phase_obs_recorder(cfg, scratch, obs_data, smi,
+                                               implicit)
     del obs_data
     kernels = time_kernels(U0, V0, args, plan, plan_s, lam, paths)
     kernels += time_casts(Ud, Vd, paths)
@@ -1121,12 +1149,11 @@ def phase_obs_train(cfg, scratch, data):
     share), the k = 1 divergence tripping the watchdog (no snapshot of
     the poisoned sweep, health CRITICAL), and after ``obs.disable()`` an
     uninstrumented fit whose obs reads no clock and waits on nothing.
-    Returns the instrumented fit's launch counts."""
-    from large_scale_recommendation_tpu_torch import obs
+    Returns the instrumented fit's launch counts and its implicit
+    transfers by site."""
     from large_scale_recommendation_tpu_torch.obs import instrument
     from large_scale_recommendation_tpu_torch.obs import trace as obs_trace
     from large_scale_recommendation_tpu_torch.obs.introspect import (
-        TRACE_FILE,
         profile_trace,
     )
 
@@ -1209,7 +1236,8 @@ def phase_obs_train(cfg, scratch, data):
     sample, sample_s = timed(intro.sample_device_memory)
     card = sample["devices"][0]["stats"] or {}
     tables = model.U.nbytes + model.V.nbytes
-    implicit = ledger.snapshot()["implicit_by_site"].get("dsgd.fit", 0)
+    implicit_by_site = ledger.snapshot()["implicit_by_site"]
+    implicit = implicit_by_site.get("dsgd.fit", 0)
     builds = {dict(h.labels)["library"]: {"loads": h.count, "s": h.sum}
               for h in reg.find("kernel_build_s")}
     say("obs.train.numbers", steady_timer_wall_ms=timer_ms[steady],
@@ -1326,6 +1354,315 @@ def phase_obs_train(cfg, scratch, data):
     if clock.reads or blocks or torch.cuda.get_sync_debug_mode() != 0:
         raise AssertionError(f"disabled obs read the clock {clock.reads} "
                              f"times and blocked {len(blocks)} times")
+    return launches, implicit_by_site
+
+
+ROUTES_SCRAPED = ("/metrics", "/healthz", "/seriesz", "/rooflinez",
+                  "/transferz")
+
+
+class Scraper(threading.Thread):
+    """Scrapes ``routes`` of ``url`` in turn until stopped, logging each
+    scrape's (route, start, end, status) and keeping each route's last
+    body."""
+
+    def __init__(self, url, routes=ROUTES_SCRAPED):
+        super().__init__(name="chip-smoke-scraper", daemon=True)
+        self.url, self.routes = url, routes
+        self.log, self.bodies = [], {}
+        self.halt = threading.Event()
+
+    def run(self):
+        while not self.halt.is_set():
+            for route in self.routes:
+                t0 = time.perf_counter()
+                code, body = http_get(self.url + route, timeout=5.0)
+                self.log.append((route, t0, time.perf_counter(), code))
+                self.bodies[route] = body
+
+    def rounds(self):
+        return min(sum(1 for e in self.log if e[0] == r)
+                   for r in self.routes)
+
+
+def bundle_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def phase_obs_recorder(cfg, scratch, data, smi, implicit_before):
+    """``[obs.recorder]``: [obs.train]'s f32 ``fit_device`` with the flight
+    recorder sampling every 0.25 s beside introspection and the transfer
+    guard, a ``HealthMonitor`` (watchdog, device memory, quality) behind
+    an ``ObsServer`` that a second thread scrapes while the fit runs.
+    Checks: tables bit-equal to the uninstrumented fit's; every scrape
+    200; ``/metrics`` parses; ``/rooflinez`` holds the step pair's row;
+    ``/seriesz`` the card's memory series and ``eval_rmse`` (≥ 3 points);
+    the guard's implicit transfers equal [obs.train]'s. Then the
+    recorder's cost on the steady sweep (interleaved against obs on with
+    the recorder stopped, min of 5), one ``sample()``'s wall; the k = 1
+    divergence freezing a valid bundle from the card (``/healthz`` 503
+    after it); ``/profilez`` 200 with a second capture 409; the fleet view
+    over this server and a second one. Returns the scraped fit's launch
+    counts."""
+    from large_scale_recommendation_tpu_torch.obs.recorder import (
+        series_key,
+        validate_bundle,
+    )
+
+    phase_t0 = time.perf_counter()
+    u, i, r = data["train"]
+    nu, ni = data["nu"], data["ni"]
+    n_mb = data["args"][0].shape[-1] // cfg.minibatch_size
+    kind = "dsgd_device_segment"
+
+    # -- 1. the planes
+    reg, tracer = obs.enable()
+    bundle_dir = os.path.join(scratch, "obs_bundles")
+    recorder, journal = obs.enable_flight_recorder(interval_s=0.25,
+                                                   bundle_dir=bundle_dir)
+    intro = obs.enable_introspection(interval_s=0.25)
+    ledger = obs.enable_transfers(guard="log")
+    watchdog = obs.TrainingWatchdog(policy="halt")
+    ur, ir, mask = data["holdout_rows"]
+    keep = mask > 0
+    evaluator = obs.OnlineEvaluator(source="obs.recorder")
+    evaluator.set_offline_holdout(ur[keep].cpu().numpy(),
+                                  ir[keep].cpu().numpy(),
+                                  data["hold"][2][keep].cpu().numpy())
+    monitor = obs.HealthMonitor()
+    monitor.watch_watchdog(watchdog)
+    monitor.watch_device_memory(recorder)
+    monitor.watch_quality(recorder, source=kind, k=evaluator.k)
+    server = obs.ObsServer(monitor=monitor,
+                           profile_dir=os.path.join(scratch, "profilez"))
+    server.start()
+    if not (recorder.running and intro.running and server.running):
+        raise AssertionError("the recorder, sampler or server did not start")
+    dumps = []  # (trigger, host seconds) of every bundle the recorder wrote
+    real_dump = recorder.dump
+
+    def timed_dump(trigger="manual", **kw):
+        t0 = time.perf_counter()
+        out = real_dump(trigger=trigger, **kw)
+        dumps.append((trigger, time.perf_counter() - t0))
+        return out
+
+    recorder.dump = timed_dump
+
+    # -- 2. the fit, scraped while it runs
+    scraper = Scraper(server.url)
+    scraper.start()
+    while scraper.rounds() < 1:  # the scraper is in its loop
+        time.sleep(0.01)
+    ckpt = CheckpointManager(os.path.join(scratch, "obs_recorder"), keep=3)
+    solver = DSGD(cfg)
+    solver.watchdog, solver.evaluator = watchdog, evaluator
+    cuda_sgd.reset_launch_counts()
+    torch.cuda.synchronize()
+    fit_t0 = time.perf_counter()
+    model = solver.fit_device(u, i, r, nu, ni, num_blocks=K,
+                              checkpoint_manager=ckpt, checkpoint_every=1)
+    torch.cuda.synchronize()
+    fit_t1 = time.perf_counter()
+    launches = dict(cuda_sgd.LAUNCHES)
+    check_launches(launches, n_mb, cfg.iterations, half=False)
+    implicit = ledger.snapshot()["implicit_by_site"]
+    during = {rt: sum(1 for e in scraper.log
+                      if e[0] == rt and fit_t0 <= e[1] < fit_t1)
+              for rt in ROUTES_SCRAPED}
+    rmse_key = series_key("eval_rmse", {"source": kind})
+    mem_key = series_key("device_bytes_in_use", {"device": "cuda:0"})
+    deadline = time.perf_counter() + 10.0
+    while (min(len(recorder.series_values(k)) for k in (rmse_key, mem_key))
+           < 3 and time.perf_counter() < deadline):
+        time.sleep(0.05)  # the sampler's next ticks
+    start_round = scraper.rounds()
+    while scraper.rounds() < start_round + 1:  # one round after the fit
+        time.sleep(0.01)
+    scraper.halt.set()
+    scraper.join(timeout=30)
+    equal = (torch.equal(model.U, data["U"])
+             and torch.equal(model.V, data["V"]))
+    codes = collections.Counter((e[0], e[3]) for e in scraper.log)
+    prom = obs.parse_prometheus(scraper.bodies["/metrics"])
+    roof_rows = [row for row in json.loads(
+        scraper.bodies["/rooflinez"])["rows"]
+        if row["module"] == "dsgd_sweep"
+        and row["key"].startswith(f"train_segment/{kind}")]
+    series = json.loads(scraper.bodies["/seriesz"])["series"]
+    metrics_walls = sorted((e[2] - e[1]) * 1e3 for e in scraper.log
+                           if e[0] == "/metrics"
+                           and fit_t0 <= e[1] < fit_t1)
+    say("obs.recorder", card=smi, tables_equal_uninstrumented=equal,
+        fit_wall_s=fit_t1 - fit_t0, scrapes_during_fit=during,
+        scrape_codes={f"{rt} {c}": n for (rt, c), n in codes.items()},
+        metrics_samples=len(prom), rooflinez_rows=len(roof_rows),
+        seriesz_points={k: series.get(k, {}).get("n", 0)
+                        for k in (mem_key, rmse_key)},
+        series_count=len(series),
+        implicit_by_site=implicit, implicit_obs_train=implicit_before,
+        metrics_scrape_ms_during_fit={
+            "n": len(metrics_walls), "min": metrics_walls[0],
+            "p50": metrics_walls[len(metrics_walls) // 2],
+            "max": metrics_walls[-1]} if metrics_walls else None,
+        launches=launches)
+    if scraper.is_alive() or not equal:
+        raise AssertionError("the scraped fit's tables differ from the "
+                             "uninstrumented fit's, or the scraper hung")
+    if any(c != 200 for (_, c) in codes) or min(during.values()) < 2:
+        raise AssertionError(f"scrapes {dict(codes)}, during the fit "
+                             f"{during}")
+    if len(roof_rows) != 1 or not prom:
+        raise AssertionError(f"/rooflinez rows {roof_rows}, /metrics "
+                             f"samples {len(prom)}")
+    if (series.get(mem_key, {}).get("n", 0) < 3
+            or series.get(rmse_key, {}).get("n", 0) < 3):
+        raise AssertionError(f"/seriesz lacks {mem_key} or {rmse_key} "
+                             f"with 3 points: {sorted(series)[:20]}")
+    if implicit != implicit_before:
+        raise AssertionError(f"implicit transfers {implicit} with the "
+                             f"recorder, {implicit_before} without")
+
+    # -- 3. the recorder's cost on the steady sweep
+    def steady_fit():
+        n0 = len(tracer.events())
+        s = DSGD(cfg)
+        s.fit_device(u, i, r, nu, ni, num_blocks=K, checkpoint_every=1)
+        torch.cuda.synchronize()
+        spans = [e["dur"] / 1e3 for e in tracer.events()[n0:]
+                 if e["name"] == "train/dsgd" and e["cat"] == "execute"]
+        return (sum(spans) / len(spans),
+                sum(s.segment_ms[1:]) / len(s.segment_ms[1:]))
+
+    on, off = [], []
+    for _ in range(5):  # on, off, on, off, ...
+        recorder.start(0.25)
+        on.append(steady_fit())
+        recorder.stop()
+        off.append(steady_fit())
+    recorder.start(0.25)
+    t0 = time.perf_counter()
+    touched = recorder.sample()
+    sample_s = time.perf_counter() - t0
+    timer_on, seg_on = min(w for w, _ in on), min(s for _, s in on)
+    timer_off, seg_off = min(w for w, _ in off), min(s for _, s in off)
+    say("obs.recorder.cost", card=smi, runs_each=len(on),
+        timer_wall_ms_recorder_on=[w for w, _ in on],
+        timer_wall_ms_recorder_off=[w for w, _ in off],
+        segment_ms_recorder_on=[s for _, s in on],
+        segment_ms_recorder_off=[s for _, s in off],
+        min_timer_wall_ms=[timer_on, timer_off],
+        min_segment_ms=[seg_on, seg_off],
+        timer_on_over_off=timer_on / timer_off,
+        segment_on_over_off=seg_on / seg_off,
+        sample_wall_ms=sample_s * 1e3, sample_series=touched,
+        series_count=len(recorder.series_names()),
+        recorder_samples=recorder.samples, interval_s=recorder.interval_s)
+
+    # -- 4. the k = 1 divergence freezes a bundle from the card
+    trip = obs.TrainingWatchdog(policy="halt")
+    monitor.watch_watchdog(trip)  # replaces the fit's "training" check
+    diverging = DSGD(cfg)
+    diverging.watchdog = trip
+    try:
+        diverging.fit_device(u, i, r, nu, ni, num_blocks=1)
+    except obs.TrainingDivergedError:
+        pass
+    else:
+        raise AssertionError("the k = 1 divergence did not trip")
+    path = trip.last_bundle
+    if path is None or not os.path.isdir(path):
+        raise AssertionError(f"no bundle after the trip: {path!r} "
+                             f"({recorder.last_dump_error})")
+    manifest = validate_bundle(path)
+    with open(os.path.join(path, "device_memory.json")) as f:
+        mem = json.load(f)
+    stats = mem["devices"][0]["stats"] or {}
+    limit = torch.cuda.mem_get_info(0)[1]
+    code, _ = http_get(server.url + "/healthz", timeout=5.0)
+    health_bundles = [p for p in sorted(os.listdir(bundle_dir))
+                      if p.startswith("bundle_health_critical")]
+    say("obs.recorder.trip", card=smi, bundle=os.path.basename(path),
+        trigger=manifest["trigger"], reason=manifest["detail"].get("reason"),
+        counts=manifest["counts"], bundle_bytes=bundle_bytes(path),
+        write_wall_ms=[(t, s * 1e3) for t, s in dumps],
+        memory_supported=mem["supported"], bytes_limit=stats.get(
+            "bytes_limit"), card_limit=limit,
+        bytes_in_use=stats.get("bytes_in_use"),
+        live_tensor_bytes=(mem.get("live_arrays") or {}).get("bytes"),
+        healthz_after=code, health_bundles=health_bundles)
+    if (manifest["trigger"] != "watchdog_trip"
+            or manifest["detail"].get("reason") != trip.reason):
+        raise AssertionError(f"bundle manifest {manifest}")
+    if not mem["supported"] or stats.get("bytes_limit") != limit:
+        raise AssertionError(f"device_memory.json {mem}")
+    if code == 200:
+        raise AssertionError("/healthz answers 200 after the trip")
+
+    # -- 5. /profilez: a capture, and a second one refused
+    got = {}
+    capture = threading.Thread(target=lambda: got.setdefault(
+        "first", http_get(server.url + "/profilez?seconds=1",
+                          timeout=60.0)))
+    capture.start()
+    time.sleep(0.3)
+    second = http_get(server.url + "/profilez?seconds=1", timeout=60.0)
+    for _ in range(3):  # kernels for the capture to see
+        DSGD(cfg).fit_device(u, i, r, nu, ni, num_blocks=K)
+    capture.join(timeout=120)
+    if capture.is_alive() or "first" not in got:
+        raise AssertionError("the /profilez capture hung")
+    code1, body1 = got["first"]
+    doc = json.loads(body1) if code1 == 200 else {}
+    cats = collections.Counter()
+    if TRACE_FILE in doc.get("files", []):
+        with open(os.path.join(doc["dir"], TRACE_FILE)) as f:
+            cats.update(e.get("cat") for e in json.load(f)["traceEvents"])
+    say("obs.recorder.profilez", card=smi, first=code1, second=second[0],
+        files=doc.get("files"), seconds=doc.get("seconds"),
+        trace_kernel_events=cats.get("kernel", 0),
+        trace_cpu_ops=cats.get("cpu_op", 0))
+    if code1 != 200 or TRACE_FILE not in doc.get("files", []) \
+            or second[0] != 409 or not cats.get("kernel") \
+            or not cats.get("cpu_op"):
+        raise AssertionError(f"/profilez answered {code1} {body1[:200]} "
+                             f"then {second}")
+
+    # -- 6. the fleet view over this server and a second one
+    reg2 = obs.MetricsRegistry()
+    reg2.counter("fleet_probe_total").inc()
+    other = obs.ObsServer(registry=reg2, tracer=obs.Tracer(),
+                          monitor=obs.HealthMonitor(registry=reg2)).start()
+    fleet = obs.FleetServer(obs.FleetAggregator(
+        [server.url, other.url], timeout_s=5.0)).start()
+    try:
+        fz_code, fz = http_get(fleet.url + "/fleetz", timeout=30.0)
+        fh_code, fh = http_get(fleet.url + "/healthz", timeout=30.0)
+    finally:
+        fleet.stop()
+        other.stop()
+    fz, fh = json.loads(fz), json.loads(fh)
+    hosts = {lb.get("host") for _, lb, _ in
+             obs.parse_prometheus(fz["prometheus"])}
+    say("obs.recorder.fleet", fleetz=fz_code, hosts=sorted(hosts),
+        target_status=[t["status"] for t in fz["targets"]],
+        healthz=fh_code, status=fh["status"])
+    if (fz_code != 200 or hosts != {f"127.0.0.1:{server.port}",
+                                    f"127.0.0.1:{other.port}"}
+            or fh_code != 503 or fh["status"] != obs.CRITICAL):
+        raise AssertionError(f"fleet: /fleetz {fz_code} hosts {hosts}, "
+                             f"/healthz {fh_code} {fh['status']}")
+
+    server.stop()
+    obs.disable()
+    left = [t.name for t in threading.enumerate()
+            if t.name in ("flight-recorder", "obs-introspect")
+            or t.name.startswith(("obs-server", "fleet-server"))]
+    say("obs.recorder.done", threads_left=left,
+        phase_wall_s=time.perf_counter() - phase_t0)
+    if left:
+        raise AssertionError(f"threads left running: {left}")
     return launches
 
 
@@ -2516,9 +2853,14 @@ def phase_streams_driver(scratch):
     except _Crash:
         pass
     del d1
+    # the resumed driver publishes into a live registry, its telemetry
+    # exported on a 0.25 s cadence and scraped from /metrics
+    reg, _ = obs.enable()
+    server = obs.ObsServer(registry=reg).start()
     m2 = OnlineMF(cfg)
     d2 = StreamingDriver(m2, log, ck, config=dcfg, on_batch=lambda b:
                          applied.append((b.start_offset, b.end_offset)))
+    exporter = d2.start_telemetry_export(0.25)
     if not d2.resume():
         raise AssertionError("no checkpoint to resume from")
     restored = d2.consumed_offset
@@ -2533,7 +2875,18 @@ def phase_streams_driver(scratch):
     engine = d2.serving_engine(k=SERVE_K)
     v0 = engine.version
     log.append(0, batches[0])
+    exported = [lag_scrape(server, reg, STREAM_BATCH)]  # the exporter's
+    exported.append(d2.telemetry()["lag_records"])
     d2.run()
+    exported += [lag_scrape(server, reg, 0), d2.telemetry()["lag_records"]]
+    d2.stop_telemetry_export()
+    server.stop()
+    obs.disable()
+    if exported != [STREAM_BATCH, STREAM_BATCH, 0, 0] or exporter.running \
+            or exporter.errors:
+        raise AssertionError(f"exported lag / telemetry {exported}, "
+                             f"exporter running {exporter.running}, "
+                             f"errors {exporter.errors}")
     delta_s = timed(lambda: d2.refresh_serving(delta=True))[1]
     if engine.version == v0 or d2.catalog_versions[-1] != engine.version:
         raise AssertionError("the delta refresh moved no catalog version")
@@ -2548,7 +2901,26 @@ def phase_streams_driver(scratch):
         delta_rows=len(np.unique(batches[0].users))
         + len(np.unique(batches[0].items)), delta_refresh_s=delta_s,
         full_refresh_s=full_s, delta_equals_full=True,
+        exported_lag_then_telemetry=exported, exporter_runs=exporter.runs,
         launches=no_dsgd_launches("streams.driver"))
+
+
+def lag_scrape(server, reg, want, timeout_s=10.0):
+    """The ``streams_lag_records{partition="0"}`` a ``/metrics`` scrape
+    shows once the telemetry exporter (not a hand call) has published
+    ``want``."""
+    gauge = reg.gauge("streams_lag_records", partition="0")
+    deadline = time.perf_counter() + timeout_s
+    while gauge.value != want and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    code, text = http_get(server.url + "/metrics", timeout=5.0)
+    if code != 200:
+        raise AssertionError(f"/metrics answered {code}")
+    lag = [v for name, labels, v in obs.parse_prometheus(text)
+           if name == "streams_lag_records" and labels == {"partition": "0"}]
+    if len(lag) != 1:
+        raise AssertionError(f"/metrics lag samples {lag}")
+    return int(lag[0])
 
 
 def strata(seed):
@@ -3316,13 +3688,20 @@ def phase_store_tiered(scratch, dev):
     except _Crash:
         pass
     saved = CheckpointManager(os.path.join(scratch, "tier_crash")).restore()
+    # the resume leg with obs on: the store's gauges bind at construction,
+    # a recorder samples them, /storez serves the store's snapshot
+    reg, _ = obs.enable()
+    recorder = obs.FlightRecorder(registry=reg)
     fresh = make(True)
     drv2 = driver(fresh, "tier_crash")
     restore_s = timed(drv2.resume)[1]
     hot = set(fresh.users.resident_rows().tolist())
     if hot != set(saved["user_hot_rows"].tolist()) or not hot:
         raise AssertionError("the restore did not re-warm the hot set")
+    recorder.sample()
     replayed = drv2.run()
+    storez = store_plane(fresh.users, reg, recorder)
+    obs.disable()
     if not (fresh.consumed_offsets[0] == log.end_offset(0)
             and np.array_equal(fresh.users.id_array(), st.id_array())
             and torch.allclose(fresh.users.full_table()[:rows],
@@ -3355,8 +3734,35 @@ def phase_store_tiered(scratch, dev):
         serve_max_score_diff=diff, serve_ids_compared=compared,
         crash_after=TIER_CRASH_AFTER, restore_s=restore_s,
         rewarmed_rows=len(hot), resumed_batches=replayed,
-        overcommit_raises=True)
+        overcommit_raises=True, storez=storez)
     log.close()
+
+
+def store_plane(store, reg, recorder):
+    """``/storez`` against the store's own ``snapshot()``, the
+    ``tier_host_bytes`` series and ``watch_store_memory``'s verdict, the
+    store idle: 8 more samples of its plateau (the growth check clears a
+    cold tier that stopped doubling)."""
+    server = obs.ObsServer(registry=reg, recorder=recorder).start()
+    try:
+        code, body = http_get(server.url + "/storez", timeout=5.0)
+    finally:
+        server.stop()
+    want = json.loads(json.dumps(store.snapshot()))
+    if code != 200 or json.loads(body) != want:
+        raise AssertionError(f"/storez answered {code}: {body[:300]}")
+    for _ in range(8):
+        recorder.sample()
+    monitor = obs.HealthMonitor(registry=reg)
+    monitor.watch_store_memory(recorder)
+    check = monitor.run()["checks"]["store_memory"]
+    points = recorder.series_values("tier_host_bytes")
+    if not points or check["status"] != obs.OK:
+        raise AssertionError(f"tier_host_bytes {points}, store_memory "
+                             f"{check}")
+    return {"storez_equals_snapshot": True, "host_bytes_points": points,
+            "store_memory": check["status"],
+            "store_memory_detail": check["detail"]}
 
 
 def phase_ps_store(scratch, dev):

@@ -34,6 +34,32 @@ trained model is used for:
                                        control, delta swaps (torch ops)
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+The package exports the JAX package's top-level names (the core math
+contract); importing it builds no kernel library and touches no card.
 """
 
 __version__ = "0.1.0"
+
+from large_scale_recommendation_tpu_torch.core.initializers import (
+    PseudoRandomFactorInitializer,
+    RandomFactorInitializer,
+)
+from large_scale_recommendation_tpu_torch.core.types import (
+    FactorVector,
+    Ratings,
+)
+from large_scale_recommendation_tpu_torch.core.updaters import (
+    MockFactorUpdater,
+    RegularizedSGDUpdater,
+    SGDUpdater,
+)
+
+__all__ = [
+    "Ratings",
+    "FactorVector",
+    "RandomFactorInitializer",
+    "PseudoRandomFactorInitializer",
+    "SGDUpdater",
+    "RegularizedSGDUpdater",
+    "MockFactorUpdater",
+]

@@ -33,8 +33,9 @@ from large_scale_recommendation_tpu_torch.ps.mf import (
     PSOfflineMFConfig,
 )
 from large_scale_recommendation_tpu_torch.serving.retrieval import (
-    RANK_SHARDED_NOT_PORTED,
     QuantizedCatalog,
+    _rank_sharded,
+    _shard_quantized,
 )
 from large_scale_recommendation_tpu_torch.store.tiered import (
     StoreStats,
@@ -178,13 +179,20 @@ def adaptive_from_jax(jax_adaptive, device=None) -> AdaptiveMF:
     return model
 
 
-def quantized_catalog_from_jax(cat, device=None) -> QuantizedCatalog:
+def quantized_catalog_from_jax(cat, device=None,
+                               partitioner=None) -> QuantizedCatalog:
     """A JAX ``QuantizedCatalog`` (flat or clustered; arrays read through
     ``np.asarray``) → the port's, on ``device`` (``None``: the card):
     codes, scales, weights and layout as they are, row ids as int64. The
-    port's stages then run on the JAX package's own layout."""
-    if getattr(cat, "partitioner", None) is not None:
-        raise NotImplementedError(RANK_SHARDED_NOT_PORTED)
+    port's stages then run on the JAX package's own layout.
+
+    A rank-sharded JAX catalog (``model_parallel > 1``) converts too: both
+    packages quantize full rows before they cut the code tables by column,
+    so ``np.asarray`` of its global arrays is the whole catalog, bit for
+    bit. ``partitioner`` (the port's, ``model_parallel > 1``) then keeps
+    this rank's column slice of the code tables, as
+    ``build_quantized_catalog(V, partitioner=)`` lays out its own; without
+    one the catalog stays whole."""
     device = resolve_device(device)
     arrays = {}
     for f in QuantizedCatalog._ARRAY_FIELDS:
@@ -195,10 +203,18 @@ def quantized_catalog_from_jax(cat, device=None) -> QuantizedCatalog:
                 a = a.astype(np.int64)
             arrays[f] = torch.from_numpy(a).to(device)
     pos = cat.pos_of_row
-    return QuantizedCatalog(
+    # the JAX layout's own sharding notes describe its mesh, not this one
+    stats = {k: v for k, v in cat.stats.items()
+             if k not in ("rank_sharded", "bytes_per_device")}
+    out = QuantizedCatalog(
         n_rows=int(cat.n_rows), rank=int(cat.rank), version=int(cat.version),
         pos_of_row=None if pos is None else np.asarray(pos, np.int64),
-        stats=dict(cat.stats), **arrays)
+        stats=stats, **arrays)
+    part = _rank_sharded(partitioner)
+    if part is None:
+        return out
+    part.require_rank_divisible(out.rank, "quantized_catalog_from_jax")
+    return _shard_quantized(out, part)
 
 
 def ps_offline_from_jax(jax_ps, device=None) -> PSOfflineMF:

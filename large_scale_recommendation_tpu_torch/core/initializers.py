@@ -20,7 +20,7 @@ across instead (``convert.factors_from_jax``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Protocol
 
 import numpy as np
 import torch
@@ -69,6 +69,15 @@ def keyed_uniform_rows(ids: torch.Tensor, rank: int,
         h = _mix32(_mix32(key[:, None] ^ cols[None, :]))
         out[a:a + _ROW_CHUNK] = (h >> 8).to(torch.float32) * (2.0 ** -24)
     return out.mul_(s)
+
+
+class FactorInitializer(Protocol):
+    """Batched initializer: ids ``[n]`` -> float32 factors ``[n, rank]``
+    (the JAX package's protocol, over tensors)."""
+
+    rank: int
+
+    def __call__(self, ids) -> torch.Tensor: ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Protocol
 
 import numpy as np
 import torch
@@ -144,6 +144,27 @@ def _errors(ratings: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if pred is not None:
         return ratings - pred
     return ratings - (u * v).sum(dim=-1)
+
+
+class FactorUpdater(Protocol):
+    """Batched updater contract (the JAX package's protocol, over
+    tensors): ratings ``[b]``, rows ``u`` / ``v`` ``[b, k]``, weights
+    ``[b]`` (0 masks padding), omegas ``[b]`` (read by the regularized
+    rule only), ``t`` the 1-based sweep."""
+
+    def next_factors(self, ratings: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor, *,
+                     weights: torch.Tensor | None = None,
+                     omega_u: torch.Tensor | None = None,
+                     omega_v: torch.Tensor | None = None,
+                     t: int = 1) -> tuple[torch.Tensor, torch.Tensor]: ...
+
+    def delta(self, ratings: torch.Tensor, u: torch.Tensor,
+              v: torch.Tensor, *, weights: torch.Tensor | None = None,
+              omega_u: torch.Tensor | None = None,
+              omega_v: torch.Tensor | None = None, t: int = 1,
+              pred: torch.Tensor | None = None,
+              ) -> tuple[torch.Tensor, torch.Tensor]: ...
 
 
 @dataclasses.dataclass(frozen=True)

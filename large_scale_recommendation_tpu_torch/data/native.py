@@ -13,6 +13,11 @@ plain versions the native routes are held to, reachable as
   occurrence counts (the omegas);
 - ``stable_bucket``: a permutation stably grouped by a small key;
 - ``minibatch_inv_counts_flat``: the "mean" collision scales.
+
+``native_available()`` / ``native_build_error()`` report the build's state
+(as the JAX package's do) without changing it into a fallback: they try
+the build and say whether it loaded, or why not, and every entry point
+still raises on a failed build.
 """
 
 from __future__ import annotations
@@ -63,6 +68,22 @@ def _lib() -> ctypes.CDLL:
             lib.fb_free.argtypes = [ctypes.c_void_p]
             _bound = lib
     return _bound
+
+
+def native_build_error() -> str | None:
+    """The error of building or loading the library (building it now if
+    no call has), or ``None`` when it loads. A report only: the entry
+    points raise that error themselves."""
+    try:
+        _lib()
+    except (RuntimeError, OSError) as e:  # FileNotFoundError is an OSError
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads."""
+    return native_build_error() is None
 
 
 def _take(lib, ptr, n: int, dtype) -> np.ndarray:

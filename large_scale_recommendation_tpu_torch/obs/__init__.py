@@ -19,34 +19,63 @@ the base planes and the planes that touch the device.
 - ``obs.transfers`` — the host↔device ledger, the sync-debug guard and the
   library-reload watch.
 - ``obs.quality`` — the ``OnlineEvaluator``.
+- ``obs.recorder`` — the ``FlightRecorder`` (bounded per-series history
+  of every instrument) and the postmortem bundles (``write_bundle`` /
+  ``load_bundle`` / ``validate_bundle``: the JAX package's schema and
+  version, readable by either package).
+- ``obs.anomaly`` — threshold-free checks over the recorder's series
+  (``AnomalyCheck``, ``MonotonicGrowthCheck``).
+- ``obs.store`` — the STORE plane (the tiered factor store's ``/storez``).
+- ``obs.server`` — ``ObsServer``: ``/metrics``, ``/healthz``, ``/varz``,
+  ``/tracez``, ``/seriesz``, ``/eventz``, ``/rooflinez``, ``/storez``,
+  ``/transferz``, ``/profilez``.
+- ``obs.fleet`` — ``FleetAggregator`` / ``FleetServer``: every process's
+  endpoints merged into one pod view.
 
 Zero-cost when disabled: the module defaults are a ``NullRegistry`` and a
 ``NullTracer`` whose instruments are shared stateless singletons, the
-introspector, journal and ledger default to ``None``, and call sites cache
-``registry.enabled`` at construction — off, a fit reads no clock, records
-no CUDA event and waits on no stream for obs.
+introspector, journal, ledger, recorder and store default to ``None``,
+and call sites cache ``registry.enabled`` at construction — off, a fit
+reads no clock, records no CUDA event and waits on no stream for obs,
+and no sampler thread runs.
 
 Usage::
 
     from large_scale_recommendation_tpu_torch import obs
 
     reg, tracer = obs.enable()   # before building the models to observe
+    recorder, journal = obs.enable_flight_recorder(interval_s=1.0,
+                                                   bundle_dir="bundles")
+    server = obs.ObsServer(monitor=obs.HealthMonitor()).start()
     ...
     print(reg.to_prometheus())
     tracer.to_chrome_trace("trace.json")
+    server.stop()
     obs.disable()
 
-Not ported yet (ROADMAP queue A, items 6b and 6c): the flight recorder,
-anomaly checks, endpoint server and fleet view; the lineage, distributed
-tracing, request, budget, contention and data-quality planes.
+Not ported yet (ROADMAP queue A, "Obs 6c"): the lineage, distributed
+tracing, request, budget, contention and data-quality planes, with their
+endpoints and the fleet views that read them.
 """
 
 from __future__ import annotations
 
+from large_scale_recommendation_tpu_torch.obs.anomaly import (
+    AnomalyCheck,
+    MonotonicGrowthCheck,
+    ewma_zscore,
+    rate_of_change,
+)
 from large_scale_recommendation_tpu_torch.obs.events import (
     EventJournal,
     get_events,
     set_events,
+)
+from large_scale_recommendation_tpu_torch.obs.fleet import (
+    FleetAggregator,
+    FleetServer,
+    merge_prometheus,
+    parse_prometheus,
 )
 from large_scale_recommendation_tpu_torch.obs.health import (
     CRITICAL,
@@ -70,11 +99,26 @@ from large_scale_recommendation_tpu_torch.obs.quality import (
     catalog_coverage,
     sampled_ranking_metrics,
 )
+from large_scale_recommendation_tpu_torch.obs.recorder import (
+    FlightRecorder,
+    get_recorder,
+    load_bundle,
+    series_key,
+    set_recorder,
+    validate_bundle,
+    write_bundle,
+)
 from large_scale_recommendation_tpu_torch.obs.registry import (
     MetricsRegistry,
     NullRegistry,
     get_registry,
     set_registry,
+)
+from large_scale_recommendation_tpu_torch.obs.server import ObsServer
+from large_scale_recommendation_tpu_torch.obs.store import (
+    get_store,
+    set_store,
+    storez,
 )
 from large_scale_recommendation_tpu_torch.obs.trace import (
     NullTracer,
@@ -105,15 +149,31 @@ __all__ = [
     "enable",
     "disable",
     "enabled",
+    "enable_flight_recorder",
     "enable_introspection",
     "Introspector",
     "get_introspector",
     "set_introspector",
     "capture_profile",
     "profile_trace",
+    "FleetAggregator",
+    "FleetServer",
+    "merge_prometheus",
+    "parse_prometheus",
+    "FlightRecorder",
     "EventJournal",
+    "AnomalyCheck",
+    "MonotonicGrowthCheck",
+    "ewma_zscore",
+    "rate_of_change",
+    "get_recorder",
+    "set_recorder",
     "get_events",
     "set_events",
+    "series_key",
+    "validate_bundle",
+    "load_bundle",
+    "write_bundle",
     "HealthMonitor",
     "CheckResult",
     "SLOTracker",
@@ -124,6 +184,10 @@ __all__ = [
     "catalog_coverage",
     "TraceContext",
     "process_namespace",
+    "ObsServer",
+    "get_store",
+    "set_store",
+    "storez",
     "TransferLedger",
     "get_transfers",
     "set_transfers",
@@ -147,6 +211,31 @@ def enable(registry: MetricsRegistry | None = None,
     set_registry(registry)
     set_tracer(tracer)
     return registry, tracer
+
+
+def enable_flight_recorder(interval_s: float = 1.0,
+                           bundle_dir: str | None = None,
+                           event_capacity: int = 4096,
+                           event_jsonl: str | None = None,
+                           start: bool = True,
+                           **recorder_kwargs):
+    """Install the flight-recorder layer: an ``EventJournal`` as the
+    module-level journal and a ``FlightRecorder`` as the module-level
+    recorder (started unless ``start=False``). Call AFTER ``enable()``
+    (the recorder samples the live registry; the journal stamps the live
+    tracer's span ids) and BEFORE building the models and drivers whose
+    emissions you want journaled. Returns ``(recorder, journal)``."""
+    prev = get_recorder()
+    if prev is not None:  # re-enable must not leak the old sampler
+        prev.stop()
+    journal = EventJournal(capacity=event_capacity, jsonl_path=event_jsonl)
+    set_events(journal)
+    recorder = FlightRecorder(interval_s=interval_s, bundle_dir=bundle_dir,
+                              **recorder_kwargs)
+    set_recorder(recorder)
+    if start:
+        recorder.start()
+    return recorder, journal
 
 
 def enable_introspection(interval_s: float = 1.0, start: bool = True,
@@ -185,19 +274,25 @@ def enable_transfers(guard: str = "off", watch_hot: bool = True,
 
 
 def disable() -> None:
-    """Restore the zero-cost defaults: null registry/tracer, no journal,
-    no introspector (its sampler stopped first), no transfer ledger, no
-    library build hook; the sync-debug mode is left at 0."""
+    """Restore the zero-cost defaults: null registry/tracer, no flight
+    recorder (its sampler stopped first), no journal, no introspector (its
+    sampler stopped first), no store plane, no transfer ledger, no library
+    build hook; the sync-debug mode is left at 0."""
     from large_scale_recommendation_tpu_torch.obs import registry as _r
     from large_scale_recommendation_tpu_torch.obs import trace as _t
     from large_scale_recommendation_tpu_torch.obs import transfers as _x
     from large_scale_recommendation_tpu_torch.ops import _build
 
+    recorder = get_recorder()
+    if recorder is not None:
+        recorder.stop()
     introspector = get_introspector()
     if introspector is not None:
         introspector.close()
     set_introspector(None)
+    set_recorder(None)
     set_events(None)
+    set_store(None)
     set_transfers(None)
     _build.set_build_hook(None)
     _x._set_sync_debug_mode(0)

@@ -23,11 +23,15 @@ touched-row gather). The JAX watchdog pads the touched-row index to a
 power of two to bound XLA recompiles; torch compiles nothing per shape,
 so the port gathers the rows as they are.
 
-Not ported yet (a later slice, with the planes they watch): the flight
-recorder's postmortem bundles — ``_on_transition`` and the watchdog's trip
-look the recorder up lazily, as the JAX package does, and find none, so
-``last_bundle`` stays ``None`` — and the ``watch_series``,
-``watch_device_memory``, ``watch_store_memory``, ``watch_quality``,
+Postmortems: an entry into CRITICAL (``_on_transition``) and a watchdog
+trip look the flight recorder up lazily (``obs.recorder.get_recorder``)
+and freeze a bundle when one with a ``bundle_dir`` is installed; the trip's
+path lands in ``TrainingWatchdog.last_bundle``. The threshold-free
+watches over the recorder's series are ``watch_series``,
+``watch_device_memory`` (the ``device_bytes_in_use{device="cuda:0"}``
+series on the card), ``watch_store_memory`` and ``watch_quality``.
+
+Not ported yet (a later slice, with the planes they watch): the
 ``watch_data_quality``, ``watch_freshness``, ``watch_rollout`` and
 ``watch_requests`` conveniences with ``DataQualityCheck``.
 
@@ -135,6 +139,69 @@ class HealthMonitor:
         self.register(name, CheckpointStalenessCheck(
             manager, degraded_after_s, critical_after_s))
 
+    def watch_series(self, recorder, series: str, name: str | None = None,
+                     **kwargs) -> None:
+        """Register an ``obs.anomaly.AnomalyCheck`` over one flight-recorder
+        series — threshold-free: the check learns the series' recent normal
+        and flags departures from it."""
+        from large_scale_recommendation_tpu_torch.obs.anomaly import (
+            AnomalyCheck,
+        )
+
+        self.register(name or f"anomaly:{series}",
+                      AnomalyCheck(recorder, series, **kwargs))
+
+    def watch_device_memory(self, recorder, name: str = "device_memory",
+                            **kwargs) -> None:
+        """Register an ``obs.anomaly.MonotonicGrowthCheck`` over the
+        per-card memory series (``device_bytes_in_use{device="cuda:0"}``,
+        published by ``obs.introspect``): sustained monotonic growth — the
+        leak signature EWMA can't see — degrades ``/healthz``; no series
+        (the CPU) stays OK."""
+        from large_scale_recommendation_tpu_torch.obs.anomaly import (
+            MonotonicGrowthCheck,
+        )
+
+        self.register(name, MonotonicGrowthCheck(recorder, **kwargs))
+
+    def watch_store_memory(self, recorder, name: str = "store_memory",
+                           **kwargs) -> None:
+        """Register an ``obs.anomaly.MonotonicGrowthCheck`` over the tiered
+        factor store's host-RAM footprint (``tier_host_bytes``, published
+        by ``store.TieredFactorStore``): sustained unbounded growth of the
+        cold tier is the host-side leak / runaway-vocabulary signature. No
+        series (no tiered store) stays OK."""
+        from large_scale_recommendation_tpu_torch.obs.anomaly import (
+            MonotonicGrowthCheck,
+        )
+
+        self.register(name, MonotonicGrowthCheck(
+            recorder, series_prefix="tier_host_bytes", **kwargs))
+
+    def watch_quality(self, recorder, source: str = "online",
+                      k: int = 10, name_prefix: str = "quality",
+                      **kwargs) -> None:
+        """Watch the ``obs.quality.OnlineEvaluator``'s series with the
+        threshold-free anomaly checks: ``eval_rmse`` pages on spikes,
+        ``eval_ndcg_at_k`` on drops, each learning the model's own recent
+        normal. ``kwargs`` pass through to both checks."""
+        from large_scale_recommendation_tpu_torch.obs.anomaly import (
+            AnomalyCheck,
+        )
+        from large_scale_recommendation_tpu_torch.obs.recorder import (
+            series_key,
+        )
+
+        rmse_series = series_key("eval_rmse", {"source": source})
+        ndcg_series = series_key("eval_ndcg_at_k",
+                                 {"source": source, "k": k})
+        self.register(f"{name_prefix}:rmse",
+                      AnomalyCheck(recorder, rmse_series,
+                                   direction="spike", **kwargs))
+        self.register(f"{name_prefix}:ndcg",
+                      AnomalyCheck(recorder, ndcg_series,
+                                   direction="drop", **kwargs))
+
     def watch_transfers(self, ledger, name: str = "transfers") -> None:
         """Register the steady-state transfer/retrace gate
         (``obs.transfers.TransferSteadyCheck``) over a
@@ -187,13 +254,15 @@ class HealthMonitor:
 
     def _on_transition(self, prev: str, worst: str, report: dict) -> None:
         """Aggregate status changed: journal the transition, and on an
-        entry into CRITICAL freeze a postmortem bundle when a flight
-        recorder is installed (none is until a later slice ports it).
-        Lazy module lookups: transitions are cold, and lazy resolution
-        makes construction order between monitor, journal and recorder
-        irrelevant."""
+        entry into CRITICAL freeze a postmortem bundle (the flight
+        recorder's auto-trigger). Lazy module lookups: transitions are
+        cold, and lazy resolution makes construction order between
+        monitor, journal and recorder irrelevant."""
         from large_scale_recommendation_tpu_torch.obs.events import (
             get_events,
+        )
+        from large_scale_recommendation_tpu_torch.obs.recorder import (
+            get_recorder,
         )
 
         failing = {n: r["status"] for n, r in report["checks"].items()
@@ -206,7 +275,7 @@ class HealthMonitor:
                          from_status=prev, to_status=worst,
                          failing_checks=failing)
         if worst == CRITICAL:
-            recorder = _get_recorder()
+            recorder = get_recorder()
             if recorder is not None:
                 recorder.maybe_dump("health_critical",
                                     detail={"from_status": prev,
@@ -447,18 +516,6 @@ class TrainingDivergedError(RuntimeError):
                          f"{self.detail}")
 
 
-def _get_recorder():
-    """The installed flight recorder: ``obs.recorder.get_recorder()`` once
-    a later slice ports that module, ``None`` until then."""
-    try:
-        from large_scale_recommendation_tpu_torch.obs.recorder import (
-            get_recorder,
-        )
-    except ImportError:
-        return None
-    return get_recorder()
-
-
 def _all_finite(*tables) -> bool:
     """One device-side reduction per table; a single bool crosses back."""
     for t in tables:
@@ -556,8 +613,9 @@ class TrainingWatchdog:
         self._losses: deque[float] = deque(maxlen=max(2, self.loss_window))
         self._model = None  # last online model seen (rollback target)
         self._lock = threading.Lock()
-        # path of the postmortem bundle the last trip froze (None when
-        # no flight recorder with a bundle_dir was installed)
+        # path of the postmortem bundle the last trip froze (None when no
+        # flight recorder with a bundle_dir was installed, or its write
+        # failed: the recorder's last_dump_error says why)
         self.last_bundle: str | None = None
         obs = registry or get_registry()
         self._obs = obs
@@ -644,13 +702,16 @@ class TrainingWatchdog:
             from large_scale_recommendation_tpu_torch.obs.events import (
                 get_events,
             )
+            from large_scale_recommendation_tpu_torch.obs.recorder import (
+                get_recorder,
+            )
 
             journal = get_events()
             if journal is not None:
                 journal.emit("watchdog.trip", severity="critical",
                              reason=reason, policy=self.policy,
                              context=detail)
-            recorder = _get_recorder()
+            recorder = get_recorder()
             if recorder is not None:
                 self.last_bundle = recorder.maybe_dump(
                     "watchdog_trip",

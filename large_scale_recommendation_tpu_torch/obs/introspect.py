@@ -37,7 +37,9 @@ the launcher's record.
 - ``profile_trace(log_dir)`` / ``capture_profile(dir, seconds)`` — the
   one ``torch.profiler`` capture layer (CPU and, with a card, CUDA
   activity; a process lock, ``profiler_captures_total``), writing a
-  Chrome trace (``TRACE_FILE``) into the directory.
+  Chrome trace (``TRACE_FILE``) into the directory: every thread's host
+  ops and the card's kernels, as ``jax.profiler`` records the whole
+  process (``/profilez`` captures on a handler thread).
 
 Zero-cost when unused: the module default is ``None``
 (``get_introspector()``) and every producer hook is one ``is not None``
@@ -77,6 +79,9 @@ TRACE_FILE = "trace.json"  # the Chrome trace profile_trace writes
 _PROFILE_LOCK = threading.Lock()
 # captures completed through profile_trace since import
 CAPTURE_COUNT = 0
+# whether torch's profiler library (Kineto) has been initialized by a
+# capture in this process (see warm_profiler)
+_PROFILER_READY = False
 
 
 def device_peaks(name: str | None = None) -> dict:
@@ -465,36 +470,69 @@ def roofline_rows(records: list[dict], walls: dict, model_costs: dict,
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """Profile the block with ``torch.profiler`` (CPU activity and, with a
-    card, CUDA kernels and copies) and write its Chrome trace to
-    ``log_dir/TRACE_FILE`` (Perfetto or ``chrome://tracing`` opens it).
-    Yields the profiler (``key_averages()``, ``events()``). THE one
-    capture layer: ``capture_profile`` and ``utils.metrics.profile`` run
-    through this lock and accounting. Raises ``RuntimeError`` when a
-    capture is already in flight."""
-    global CAPTURE_COUNT
+    """Profile the process during the block with ``torch.profiler`` (the
+    host ops of every thread — ``profile_all_threads`` — and, with a card,
+    the CUDA kernels and copies, whatever thread launched them) and write
+    its Chrome trace to ``log_dir/TRACE_FILE`` (Perfetto or
+    ``chrome://tracing`` opens it). Yields the profiler
+    (``key_averages()``, ``events()``). THE one capture layer:
+    ``capture_profile`` and ``utils.metrics.profile`` run through this
+    lock and accounting. Raises ``RuntimeError`` when a capture is
+    already in flight."""
+    global CAPTURE_COUNT, _PROFILER_READY
     if not _PROFILE_LOCK.acquire(blocking=False):
         raise RuntimeError("a torch profiler capture is already in progress")
     try:
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(log_dir, exist_ok=True)
-        with profile(activities=activities) as prof:
+        config = _ExperimentalConfig(profile_all_threads=True)
+        with profile(activities=activities,
+                     experimental_config=config) as prof:
             yield prof
         prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
         CAPTURE_COUNT += 1
+        _PROFILER_READY = True
         get_registry().counter("profiler_captures_total").inc()
     finally:
         _PROFILE_LOCK.release()
 
 
+def warm_profiler() -> bool:
+    """Initialize torch's profiler library (Kineto) on the main thread when
+    no capture has run in this process yet; returns whether it did.
+    Kineto initializes its client on the first capture and only on the
+    thread that registered it (the main thread): a first capture on
+    another thread (a ``/profilez`` handler, a trip on a scrape thread)
+    records no host ops. ``ObsServer.start()`` and a recorder that
+    profiles its trips call this; the first call pays the library's
+    one-time start (about 1–2 s on a CPU host)."""
+    global _PROFILER_READY
+    if (_PROFILER_READY
+            or threading.current_thread() is not threading.main_thread()):
+        return False
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        return False  # a capture in flight has initialized the library
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]):
+            pass
+        _PROFILER_READY = True
+    finally:
+        _PROFILE_LOCK.release()
+    return True
+
+
 def capture_profile(out_dir: str, seconds: float = 1.0) -> dict:
     """Record ``seconds`` of whatever the process is doing (the card's
-    kernels from every thread; host ops of the threads the profiler
-    sees) into ``out_dir``. Returns ``{dir, seconds, files}``."""
+    kernels and the host ops of every thread) into ``out_dir`` — the
+    on-demand form behind ``/profilez`` and the watchdog-trip capture.
+    Returns ``{dir, seconds, files}``."""
     seconds = max(0.0, float(seconds))
     with profile_trace(out_dir):
         time.sleep(seconds)

@@ -63,7 +63,11 @@ def _labels_str(key: tuple) -> str:
 
 
 class Counter:
-    """Monotonic counter. ``inc(n)`` under the instrument's own lock."""
+    """Monotonic counter. ``inc(n)`` under the instrument's own lock.
+    Every instrument converts what it is given to a Python float as it
+    takes it (a 0-d CUDA tensor is read once, on the caller's thread), so
+    a reader of the registry (``snapshot``, the flight recorder's sample,
+    a scrape) never touches a tensor and never waits on the card."""
 
     __slots__ = ("name", "labels", "value", "_lock")
 
@@ -74,6 +78,7 @@ class Counter:
         self._lock = threading.Lock()
 
     def inc(self, n: float = 1.0) -> None:
+        n = float(n)
         with self._lock:
             self.value += n
 
@@ -94,6 +99,7 @@ class Gauge:
             self.value = float(v)
 
     def add(self, n: float = 1.0) -> None:
+        n = float(n)
         with self._lock:
             self.value += n
 

@@ -72,10 +72,6 @@ from large_scale_recommendation_tpu_torch.utils.metrics import (
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
 
 _INV_127 = float(np.float32(1.0 / 127.0))
-RANK_SHARDED_NOT_PORTED = (
-    "a rank-sharded JAX catalog (model_parallel > 1) is not converted: "
-    "build the port's on each rank with build_quantized_catalog(V, "
-    "partitioner=)")
 
 
 @dataclasses.dataclass(frozen=True)

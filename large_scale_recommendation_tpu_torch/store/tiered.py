@@ -65,6 +65,8 @@ import torch
 from large_scale_recommendation_tpu_torch.data.tables import (
     GrowableFactorTable,
 )
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.store import set_store
 from large_scale_recommendation_tpu_torch.utils.shapes import (
     next_pow2 as _next_pow2,
 )
@@ -107,6 +109,12 @@ class TieredFactorStore(GrowableFactorTable):
     of two, at least 8); every concurrently pinned working set must fit
     it, or ``acquire_rows`` raises with the accounting. ``device=None`` is
     the card. ``mmap_dir`` backs the cold tier with ``np.memmap`` files.
+
+    ``stats`` holds the counters. With obs enabled at construction the
+    store also publishes the JAX package's registry instruments
+    (``tier_hit_rate``, ``tier_prefetch_wait_s``, ``tier_evictions_total``,
+    ``tier_host_bytes``), and construction installs the store as the
+    process's STORE plane (``obs.store``, ``/storez``: latest wins).
     """
 
     def __init__(self, initializer, capacity: int = 1024,
@@ -126,8 +134,15 @@ class TieredFactorStore(GrowableFactorTable):
         # the model's apply_lock in concurrent mode), while the serving and
         # prefetch threads take the store lock alone
         self._lock = threading.RLock()
+        obs = get_registry()
+        self._obs_on = obs.enabled
+        self._m_hit_rate = obs.gauge("tier_hit_rate")
+        self._m_wait = obs.counter("tier_prefetch_wait_s")
+        self._m_evictions = obs.counter("tier_evictions_total")
+        self._m_host_bytes = obs.gauge("tier_host_bytes")
         super().__init__(initializer, capacity=capacity, device=device)
         self._publish_host_bytes()
+        set_store(self)
 
     # -- storage hooks (base-class seams) ------------------------------------
 
@@ -201,8 +216,11 @@ class TieredFactorStore(GrowableFactorTable):
             return super().rows_for(ids)
 
     def _publish_host_bytes(self) -> None:
-        self.stats.host_bytes = int(self.cold.nbytes + self._ids_buf.nbytes
-                                    + self._row_slot.nbytes)
+        n = int(self.cold.nbytes + self._ids_buf.nbytes
+                + self._row_slot.nbytes)
+        self.stats.host_bytes = n
+        if self._obs_on:
+            self._m_host_bytes.set(n)
 
     # -- copies (store lock held) --------------------------------------------
 
@@ -280,6 +298,8 @@ class TieredFactorStore(GrowableFactorTable):
         self._slot_row[victims] = -1
         self._slot_dirty[victims] = False
         self.stats.evictions += len(victims)
+        if self._obs_on:
+            self._m_evictions.inc(len(victims))
 
     def _load_slots(self, slots: np.ndarray, rows: np.ndarray) -> None:
         self._write_pool(slots, rows)
@@ -311,6 +331,8 @@ class TieredFactorStore(GrowableFactorTable):
             self.stats.hits += int(hs.size)
             self.stats.misses += int(miss_rows.size) - fresh
             self.stats.installs += fresh
+            if self._obs_on:
+                self._m_hit_rate.set(self.stats.hit_rate)
         if miss_rows.size == 0:
             return 0
         free = np.nonzero(self._slot_row < 0)[0]
@@ -366,7 +388,10 @@ class TieredFactorStore(GrowableFactorTable):
             fresh = int((uniq >= n_before).sum())
             t0 = time.perf_counter()
             if self._fault_in(uniq, pin=True, dirty=True, fresh=fresh):
-                self.stats.demand_fault_s += time.perf_counter() - t0
+                wait = time.perf_counter() - t0
+                self.stats.demand_fault_s += wait
+                if self._obs_on:
+                    self._m_wait.inc(wait)
             return self._row_slot[rows]
 
     def release_rows(self, rows: np.ndarray) -> None:

@@ -31,20 +31,31 @@ batch's user ids (``on_enqueue``) to a ``store.StorePrefetcher``, which
 stages them into the device slot pool while earlier batches train; its
 counters land in the last run's queue stats (``_last_stats["prefetch"]``).
 
-Not ported yet: the JAX driver's obs planes (registry gauges, tracer,
-event journal, lineage and critical-path marks, the timed telemetry
-export). The duck-typed ``inspector`` (``inspect_batch(batch)``) and
-``evaluator`` (``split_batch(ratings)``) hooks are kept.
+Observability: the JAX driver's registry instruments bind at
+construction (``streams_batches_total``, ``streams_records_total``,
+``streams_checkpoint_s``, ``streams_queue_depth`` per partition; the
+shared null instrument when obs is off). ``telemetry()`` publishes the lag
+gauge (``streams_lag_records``) and the numeric queue counters
+(``streams_queue_*``); ``start_telemetry_export`` runs it on a
+``PeriodicTask`` so a ``/metrics`` scrape reads fresh lag.
+``end_offset`` stats the disk, so the lag is read on the telemetry
+cadence only, never per batch. Not ported yet (the next slice, with their
+planes): the tracer spans, the event journal's checkpoint events and the
+lineage and critical-path marks. The duck-typed ``inspector``
+(``inspect_batch(batch)``) and ``evaluator`` (``split_batch(ratings)``)
+hooks are kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
 
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.store.prefetch import (
     StorePrefetcher,
 )
@@ -59,6 +70,7 @@ from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     restore_online_state,
     save_online_state,
 )
+from large_scale_recommendation_tpu_torch.utils.metrics import publish_fields
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +141,22 @@ class StreamingDriver:
         # catalog versions observed via engine.on_refresh
         self.catalog_versions: list[int] = []
         self._engines: list = []
+        # registry instruments bind at construction (null singletons when
+        # obs is disabled)
+        obs = get_registry()
+        self._obs = obs
+        self._obs_on = obs.enabled
+        part = str(partition)
+        self._m_batches = obs.counter("streams_batches_total",
+                                      partition=part)
+        self._m_records = obs.counter("streams_records_total",
+                                      partition=part)
+        self._m_ckpt = obs.histogram("streams_checkpoint_s",
+                                     partition=part)
+        self._m_lag = obs.gauge("streams_lag_records", partition=part)
+        self._m_depth = obs.gauge("streams_queue_depth", partition=part)
+        # the timed telemetry cadence: None until started
+        self._telemetry_task = None
 
     # -- recovery ------------------------------------------------------------
 
@@ -177,8 +205,11 @@ class StreamingDriver:
 
     def checkpoint(self) -> str:
         """Write one atomic (factors, step, WAL offset) snapshot now."""
+        t0 = time.perf_counter() if self._obs_on else 0.0
         path = save_online_state(self.manager, self._online,
                                  self._online.step)
+        if self._obs_on:
+            self._m_ckpt.observe(time.perf_counter() - t0)
         self.checkpoints_written += 1
         self._since_checkpoint = 0
         if self.config.truncate_log:
@@ -268,6 +299,11 @@ class StreamingDriver:
         self.batches_processed += 1
         self.records_processed += batch.n
         self._since_checkpoint += 1
+        if self._obs_on:
+            self._m_batches.inc()
+            self._m_records.inc(batch.n)
+            if self._source is not None and self._source.queue is not None:
+                self._m_depth.set(self._source.stats.depth)
         if self.on_batch is not None:
             self.on_batch(batch)
         stamped = self._online.consumed_offsets.get(batch.partition, 0)
@@ -359,6 +395,27 @@ class StreamingDriver:
 
     # -- telemetry -----------------------------------------------------------
 
+    def start_telemetry_export(self, interval_s: float = 5.0):
+        """Publish ``telemetry()`` into the registry every ``interval_s``
+        on a daemon thread, so a ``/metrics`` scrape between hand calls
+        reads fresh stream lag. Idempotent (a running exporter is returned
+        as-is) and independent of ``run()``: a stopped driver's lag against
+        a still-growing log is the signal a health check wants. Stop it
+        with ``stop_telemetry_export()``. Returns the ``PeriodicTask``."""
+        from large_scale_recommendation_tpu_torch.obs.health import (
+            ensure_periodic,
+        )
+
+        self._telemetry_task = ensure_periodic(
+            self._telemetry_task, self.telemetry, interval_s,
+            name=f"telemetry-p{self.partition}")
+        return self._telemetry_task
+
+    def stop_telemetry_export(self) -> None:
+        task, self._telemetry_task = self._telemetry_task, None
+        if task is not None:
+            task.stop()
+
     def telemetry(self) -> dict:
         """One snapshot of the ingest tier: progress, lag against the log
         head, queue/drop/dead-letter counters of the current (or last) run,
@@ -369,6 +426,16 @@ class StreamingDriver:
             queue["dead_letter_buffered"] = len(self._source.dead_letters)
         # this partition's lag only
         end = self.log.end_offset(self.partition)
+        if self._obs_on:
+            # refreshed here (the telemetry cadence), not per batch:
+            # end_offset stats the disk
+            self._m_lag.set(max(0, end - self.consumed_offset))
+            # the numeric counters only (the JAX driver's gauge would take
+            # the prefetcher's nested snapshot too, and fail on it)
+            publish_fields({k: v for k, v in queue.items()
+                            if isinstance(v, (int, float))},
+                           registry=self._obs, prefix="streams_queue",
+                           partition=str(self.partition))
         return {
             "partition": self.partition,
             "batches_processed": self.batches_processed,

@@ -29,8 +29,11 @@
   catalog version bump per engine per refresh. Concurrent refresh requests
   coalesce too.
 
-The JAX runner's obs planes (registry counters, contention thread
-registry, event journal, lineage stamps) are not ported.
+Each member ``StreamingDriver`` publishes its partition's registry
+instruments, and ``start_telemetry_export`` / ``stop_telemetry_export``
+run every driver's telemetry cadence. The runner's own obs planes (its
+gate and barrier counters, the contention thread registry, the event
+journal, lineage stamps) are not ported yet.
 """
 
 from __future__ import annotations
@@ -532,6 +535,17 @@ class ParallelIngestRunner:
             engine.flush_deltas()
 
     # -- telemetry -----------------------------------------------------------
+
+    def start_telemetry_export(self, interval_s: float = 5.0) -> None:
+        """Per-partition timed telemetry for every member driver: keeps
+        ``streams_lag_records{partition=p}`` fresh for all N partitions (a
+        driver publishes its own only)."""
+        for d in self.drivers.values():
+            d.start_telemetry_export(interval_s)
+
+    def stop_telemetry_export(self) -> None:
+        for d in self.drivers.values():
+            d.stop_telemetry_export()
 
     def telemetry(self) -> dict:
         """Aggregate and per-partition snapshot."""

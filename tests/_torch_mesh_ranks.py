@@ -360,6 +360,40 @@ def retriever(part: Partitioner, job) -> dict:
     return out
 
 
+def jax_catalog(part: Partitioner, job) -> dict:
+    """``convert.quantized_catalog_from_jax(partitioner=)`` of a JAX
+    rank-sharded catalog (its global arrays, ``job["cat"]``) against the
+    same catalog converted whole: top-k through a rank-sharded retriever
+    and a one-device one, and this rank's code columns."""
+    import types
+
+    from large_scale_recommendation_tpu_torch import convert
+    from large_scale_recommendation_tpu_torch.serving import retrieval as rt
+    from large_scale_recommendation_tpu_torch.utils.metrics import (
+        _exclusion_builder,
+    )
+
+    ns = types.SimpleNamespace(**job["cat"])
+    cfg = rt.RetrievalConfig(n_clusters=job["n_clusters"], kmeans_iters=2)
+    V, Q = (torch.as_tensor(a) for a in (job["V"], job["Q"]))
+    shd = rt.TwoStageRetriever(V, config=cfg, partitioner=part)
+    shd.catalog = convert.quantized_catalog_from_jax(ns, device="cpu",
+                                                     partitioner=part)
+    base = rt.TwoStageRetriever(V, config=cfg)
+    base.catalog = convert.quantized_catalog_from_jax(ns, device="cpu")
+    excl = tuple(torch.from_numpy(a) for a in _exclusion_builder(
+        None, None, len(Q))(np.arange(len(Q)), len(Q)))
+    out = {name: tuple(t.numpy() for t in r.topk(Q, excl, k=10))
+           for name, r in (("sharded", shd), ("base", base))}
+    cat = shd.catalog
+    out["cols"] = part.local_range((cat.rank,), "rank")[0]
+    out["codes"] = {n: getattr(cat, n).numpy()
+                    for n in ("q", "slab_q", "ovf_q")
+                    if getattr(cat, n) is not None}
+    out["rank_sharded"] = cat.stats["rank_sharded"]
+    return out
+
+
 def global_blocking(part: Partitioner, job) -> dict:
     """``global_device_blocked`` from this rank's part of the ratings (rows
     ``[rank·n, (rank+1)·n)`` of the job's arrays), then ``sweeps`` of the

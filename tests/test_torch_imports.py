@@ -47,7 +47,8 @@ def test_port_has_the_slice_modules():
               "parallel.mesh", "parallel.dsgd_mesh", "parallel.als_mesh",
               "obs", "obs.registry", "obs.trace", "obs.events",
               "obs.instrument", "obs.transfers", "obs.introspect",
-              "obs.quality"):
+              "obs.quality", "obs.store", "obs.recorder", "obs.anomaly",
+              "obs.server", "obs.fleet"):
         assert f"large_scale_recommendation_tpu_torch.{m}" in mods, m
     for src in ("dsgd_sweep.cu", "fastblock.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -116,6 +117,103 @@ def test_parallel_exports_resolve_lazily():
 
     # the one JAX name without a counterpart: each rank is its own process
     assert set(jpar.__all__) - set(par.__all__) == {"shard_map"}
+
+
+# the planes of the next slice (ROADMAP queue A, "Obs 6c") and the names the
+# JAX obs package exports for them from elsewhere
+SIX_C_MODULES = ("lineage", "disttrace", "requests", "budget", "contention",
+                 "dataquality")
+SIX_C_NAMES = {"DataQualityCheck", "enable_lineage", "enable_disttrace",
+               "enable_requests", "enable_budget", "enable_contention"}
+
+
+def _jax_packages():
+    import large_scale_recommendation_tpu as jpkg
+
+    root = os.path.dirname(jpkg.__file__)
+    return sorted(
+        "large_scale_recommendation_tpu" + (
+            "." + os.path.relpath(r, root).replace(os.sep, ".")
+            if r != root else "")
+        for r, _, fs in os.walk(root) if "__init__.py" in fs)
+
+
+def _exported(mod):
+    """A package's exported names: its ``__all__``, else the public
+    classes and functions its ``__init__`` binds from its own modules."""
+    import types
+
+    names = getattr(mod, "__all__", None)
+    if names is not None:
+        return list(names)
+    pkg = mod.__name__.split(".")[0]
+    return [n for n, v in vars(mod).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and str(getattr(v, "__module__", "")).startswith(pkg)]
+
+
+@pytest.mark.parametrize("jname", _jax_packages())
+def test_package_exports_cover_the_jax_packages(jname):
+    """Each package ``__init__`` of the port exports every name the JAX
+    package's exports (obs: but for the next slice's planes)."""
+    import importlib
+
+    jmod = importlib.import_module(jname)
+    pmod = importlib.import_module(
+        jname.replace("large_scale_recommendation_tpu",
+                      "large_scale_recommendation_tpu_torch", 1))
+    missing = []
+    for n in _exported(jmod):
+        src = str(getattr(getattr(jmod, n), "__module__", ""))
+        if (jname.endswith(".obs") and (
+                n in SIX_C_NAMES
+                or src.rsplit(".", 1)[-1] in SIX_C_MODULES)):
+            continue
+        if n == "shard_map":  # each rank is its own process (test above)
+            continue
+        if not hasattr(pmod, n):
+            missing.append(n)
+    assert not missing, missing
+    port_all = getattr(pmod, "__all__", None)
+    if port_all is not None:
+        assert all(hasattr(pmod, n) for n in port_all)
+
+
+def test_package_import_builds_nothing_and_touches_no_card():
+    """Importing the package and its core exports builds no kernel
+    library and initializes no CUDA context."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import torch\n"
+        "import large_scale_recommendation_tpu_torch as p\n"
+        "import large_scale_recommendation_tpu_torch.core as c\n"
+        "from large_scale_recommendation_tpu_torch.ops import _build\n"
+        "assert not _build._loaded, _build._loaded\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert p.RegularizedSGDUpdater is c.RegularizedSGDUpdater\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_protocols_describe_the_ports_initializers_and_updaters():
+    import typing
+
+    from large_scale_recommendation_tpu_torch import core
+
+    assert typing.get_type_hints(core.FactorInitializer)["rank"] is int
+    for cls in (core.SGDUpdater, core.RegularizedSGDUpdater,
+                core.MockFactorUpdater):
+        for m in ("next_factors", "delta"):
+            assert callable(getattr(cls, m)), (cls, m)
+    init = core.PseudoRandomFactorInitializer(4)
+    assert tuple(init(np.arange(3)).shape) == (3, init.rank)
+    u = torch.ones(2, 4)
+    nu, nv = core.MockFactorUpdater().next_factors(torch.ones(2), u, u)
+    assert nu is u and nv is u
 
 
 def test_default_device_is_the_card(monkeypatch):

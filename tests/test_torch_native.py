@@ -232,3 +232,28 @@ def test_threads_making_first_use_get_one_build_and_one_load(tmp_path,
     assert loads == [_build.library_path("fastblock")]
     assert all(g is got[0] for g in got)
     assert sorted(os.listdir(tmp_path / "build")) == ["libfastblock.so"]
+
+
+def test_native_probes_report_the_build_as_jax():
+    """After a build both packages' probes say the library loads."""
+    native._lib()
+    assert native.native_available() is jnative.native_available() is True
+    assert native.native_build_error() is None
+
+
+def test_native_probes_report_a_failed_build_and_add_no_fallback(
+        tmp_path, monkeypatch):
+    """A broken source: the probes report the compiler's error, and the
+    entry points still raise it (no numpy fallback)."""
+    (tmp_path / "fastblock.cpp").write_text(
+        'extern "C" int fb_free() { return undeclared_name; }\n')
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(native, "_bound", None)
+    assert native.native_available() is False
+    err = native.native_build_error()
+    assert err.startswith("RuntimeError") and "undeclared_name" in err
+    with pytest.raises(RuntimeError, match="undeclared_name"):
+        native.compact_ids(np.array([3, 1, 3]))
+    assert native._bound is None

@@ -7,7 +7,9 @@ device and skip without one; on the machine with the card run
 what the CPU cannot show: a span waits on the stream that produced its
 output and on no other; the sync-debug guard counts (``log``) or raises
 (``disallow``) on an ``.item()``; the device-memory sample is supported;
-a profiler capture names the step kernels.
+a profiler capture names the step kernels; a watchdog trip on the card
+freezes a bundle whose memory sample is the card's; ``/profilez`` records
+the card's kernels and refuses a second capture with 409.
 """
 
 import json
@@ -126,3 +128,99 @@ def test_capture_profile_names_the_step_kernel(card, tmp_path):
     with open(os.path.join(tmp_path, introspect.TRACE_FILE)) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any("sgd_item_rows_kernel" in n for n in names)
+
+
+@pytest.fixture
+def card_flight(tmp_path):
+    """The port's planes live for one card test (registry, tracer, flight
+    recorder with a bundle dir, introspector at the card's peaks); the
+    defaults restored after."""
+    from large_scale_recommendation_tpu_torch import obs
+
+    prev = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+            obs.get_recorder(), obs.get_introspector(), obs.get_store())
+    obs.enable()
+    rec, _ = obs.enable_flight_recorder(interval_s=0.05,
+                                        bundle_dir=str(tmp_path / "pm"))
+    obs.enable_introspection(interval_s=0.05)
+    yield rec
+    obs.disable()
+    obs.set_registry(prev[0])
+    obs.set_tracer(prev[1])
+    obs.set_events(prev[2])
+    obs.set_recorder(prev[3])
+    obs.set_introspector(prev[4])
+    obs.set_store(prev[5])
+
+
+def test_trip_bundle_freezes_the_cards_memory(card, card_flight):
+    """A NaN table on the card trips a halting watchdog: the bundle it
+    freezes validates, its ``device_memory.json`` is supported with the
+    card's limit and live tensors, and the recorder sampled the card's
+    memory series."""
+    from large_scale_recommendation_tpu_torch.obs import recorder
+    from large_scale_recommendation_tpu_torch.obs.health import (
+        TrainingDivergedError,
+        TrainingWatchdog,
+    )
+
+    U = torch.ones(64, 8, device=card)
+    U[5, 2] = float("nan")
+    time.sleep(0.3)  # a few samples of the introspector's gauges
+    wd = TrainingWatchdog(policy="halt")
+    with pytest.raises(TrainingDivergedError):
+        wd.after_segment(U, U, label="dsgd_segment")
+    loaded = recorder.load_bundle(wd.last_bundle)
+    assert loaded["manifest"]["trigger"] == "watchdog_trip"
+    mem = loaded["device_memory"]
+    assert mem["supported"] and mem["live_arrays"]["bytes"] >= U.nbytes
+    stats = mem["devices"][0]["stats"]
+    _, total = torch.cuda.mem_get_info(0)
+    assert stats["bytes_limit"] == total
+    assert 'device_bytes_in_use{device="cuda:0"}' in card_flight.series_names()
+
+
+def test_profilez_captures_the_card_and_refuses_a_second(card, tmp_path):
+    """A ``/profilez`` capture (on a handler thread) holds the kernels and
+    the host ops the main thread issues meanwhile; a concurrent second
+    capture answers 409."""
+    from large_scale_recommendation_tpu_torch.obs.server import (
+        ObsServer,
+        http_get,
+    )
+
+    x = torch.ones(1 << 20, device=card)
+    (x * 2).sum()
+    torch.cuda.synchronize()
+    server = ObsServer(registry=MetricsRegistry(), tracer=Tracer(),
+                       profile_dir=str(tmp_path)).start()
+    results = {}
+
+    def scrape(name):
+        results[name] = http_get(server.url + "/profilez?seconds=1",
+                                 timeout=5)
+
+    try:
+        first = threading.Thread(target=scrape, args=("first",))
+        first.start()
+        time.sleep(0.3)
+        scrape("second")
+        end = time.perf_counter() + 0.5
+        while time.perf_counter() < end:  # work for the capture to see
+            (x * 2).sum()
+            torch.cuda.synchronize()
+        first.join(timeout=60)
+    finally:
+        server.stop()
+    assert not first.is_alive()
+    code, body = results["first"]
+    assert code == 200, body
+    doc = json.loads(body)
+    assert introspect.TRACE_FILE in doc["files"]
+    assert results["second"][0] == 409
+    with open(os.path.join(doc["dir"], introspect.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    cats = {e.get("cat") for e in events}
+    assert "kernel" in cats, sorted(map(str, cats))
+    assert any(e.get("cat") == "cpu_op" and e.get("name") == "aten::mul"
+               for e in events), sorted(map(str, cats))

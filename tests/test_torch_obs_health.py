@@ -6,7 +6,9 @@ stream checks; and the port's rollback through ``restore_online_state``
 with its heal of rows the snapshot never knew. Exact equality throughout
 (host arithmetic; the finite scans read one bool)."""
 
+import json
 import math
+import os
 import time
 
 import jax.numpy as jnp
@@ -276,3 +278,105 @@ def test_rollback_restores_the_snapshot_and_heals_new_rows(tmp_path):
     wd.reset()
     assert wd.check().status == ph.OK and math.isclose(
         wd._m_state.value, 0.0)
+
+
+# -- postmortem bundles -------------------------------------------------------
+
+
+@pytest.fixture
+def both_recorders(tmp_path):
+    """A recorder with a ``bundle_dir`` installed in each package (registry,
+    tracer and journal live); every default restored after."""
+    from large_scale_recommendation_tpu import obs as jobs
+    from large_scale_recommendation_tpu.obs import events as jev
+    from large_scale_recommendation_tpu.obs import recorder as jrec
+    from large_scale_recommendation_tpu.obs import trace as jtr
+
+    jprev = (jreg.get_registry(), jtr.get_tracer(), jev.get_events(),
+             jrec.get_recorder())
+    pprev = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+             obs.get_recorder(), obs.get_store())
+    obs.set_store(None)
+    jobs.enable()
+    jrecorder, _ = jobs.enable_flight_recorder(
+        start=False, bundle_dir=str(tmp_path / "jax"))
+    obs.enable()
+    precorder, _ = obs.enable_flight_recorder(
+        start=False, bundle_dir=str(tmp_path / "port"))
+    yield jrecorder, precorder
+    jreg.set_registry(jprev[0])
+    jtr.set_tracer(jprev[1])
+    jev.set_events(jprev[2])
+    jrec.set_recorder(jprev[3])
+    obs.disable()
+    obs.set_registry(pprev[0])
+    obs.set_tracer(pprev[1])
+    obs.set_events(pprev[2])
+    obs.set_recorder(pprev[3])
+    obs.set_store(pprev[4])
+
+
+@pytest.mark.parametrize("policy", ["observe", "halt"])
+def test_watchdog_trip_sets_last_bundle_as_jax(both_recorders, policy):
+    """A NaN row at a segment boundary trips both watchdogs; each freezes
+    one bundle, and the port's validates under either package with the
+    JAX trip's trigger and detail."""
+    from large_scale_recommendation_tpu.obs import recorder as jrec
+    from large_scale_recommendation_tpu_torch.obs import recorder as prec
+
+    U = np.ones((6, 3), np.float32)
+    U[2, 0] = np.nan
+    V = np.ones((4, 3), np.float32)
+    paths = []
+    for mod, conv in ((jh, jnp.asarray), (ph, torch.from_numpy)):
+        wd = mod.TrainingWatchdog(policy=policy)
+        assert wd.last_bundle is None
+        for _ in range(2):  # the second is a re-detection: no new bundle
+            try:
+                wd.after_segment(conv(U), conv(V), label="dsgd_segment")
+            except mod.TrainingDivergedError:
+                assert policy == "halt"
+            paths.append(wd.last_bundle)
+    jpath, _, ppath, again = paths
+    assert again == ppath and os.path.isdir(ppath)
+    manifests = [m.validate_bundle(p) for m in (jrec, prec)
+                 for p in (jpath, ppath)]
+    for key in ("trigger", "detail", "bundle_version", "files"):
+        assert len({json.dumps(m[key], sort_keys=True)
+                    for m in manifests}) == 1, key
+    assert manifests[-1]["trigger"] == "watchdog_trip"
+    assert manifests[-1]["detail"] == {"reason": "non_finite_factors",
+                                       "policy": policy,
+                                       "where": "dsgd_segment"}
+    assert both_recorders[1].bundles_written == 1
+
+
+def test_critical_transition_freezes_one_bundle_as_jax(both_recorders):
+    from large_scale_recommendation_tpu_torch.obs import recorder as prec
+
+    jrecorder, precorder = both_recorders
+    state = {"s": ph.OK}
+    mons = []
+    for mod in (jh, ph):
+        mon = mod.HealthMonitor()
+        mon.register("c", lambda mod=mod: mod.CheckResult(state["s"]))
+        mons.append(mon)
+    for s, want in ((ph.OK, 0), (ph.CRITICAL, 1), (ph.CRITICAL, 1),
+                    (ph.DEGRADED, 1), (ph.CRITICAL, 2)):
+        state["s"] = s
+        for mon in mons:
+            mon.run()
+        assert precorder.bundles_written == jrecorder.bundles_written == want
+    loaded = prec.load_bundle(precorder.last_bundle)
+    assert loaded["manifest"]["trigger"] == "health_critical"
+    assert loaded["manifest"]["detail"] == {"from_status": "degraded",
+                                            "failing_checks": {"c":
+                                                               "critical"}}
+    assert loaded["health"]["status"] == ph.CRITICAL
+
+
+def test_no_bundle_without_a_bundle_dir(both_recorders):
+    both_recorders[1].bundle_dir = None
+    wd = ph.TrainingWatchdog(policy="observe")
+    wd.observe_loss(float("nan"))
+    assert wd.tripped and wd.last_bundle is None

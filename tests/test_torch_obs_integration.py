@@ -10,6 +10,7 @@ the ``utils.metrics`` shims record nothing. Names, labels, fields and
 bytes are compared exactly; values that are walls are not compared."""
 
 import socket
+import threading
 
 import numpy as np
 import pytest
@@ -89,7 +90,8 @@ def both_obs():
 def port_null():
     """The port's disabled layer for one test, the previous one after."""
     prev = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
-            obs.get_introspector(), obs.get_transfers())
+            obs.get_introspector(), obs.get_transfers(), obs.get_recorder(),
+            obs.get_store())
     obs.disable()
     yield obs.get_registry()
     obs.set_registry(prev[0])
@@ -97,6 +99,8 @@ def port_null():
     obs.set_events(prev[2])
     obs.set_introspector(prev[3])
     obs.set_transfers(prev[4])
+    obs.set_recorder(prev[5])
+    obs.set_store(prev[6])
 
 
 def _ratings(seed=3, n=4000, users=120, items=60):
@@ -286,6 +290,21 @@ def test_null_path_binds_singletons_and_reads_no_clock(port_null,
         _port(_ratings(n=1000)))
     assert port_null.names() == set()
     assert port_null.snapshot()["metrics"] == []
+    # the flight-recorder layer: no recorder, no sampler thread, and the
+    # store and driver instruments are the null singletons
+    from large_scale_recommendation_tpu_torch.core.initializers import (
+        PseudoRandomFactorInitializer,
+    )
+    from large_scale_recommendation_tpu_torch.store import TieredFactorStore
+
+    assert obs.get_recorder() is None
+    assert not [t for t in threading.enumerate()
+                if t.name in ("flight-recorder", "obs-introspect")]
+    store = TieredFactorStore(PseudoRandomFactorInitializer(4),
+                              slot_capacity=8, device="cpu")
+    assert store._obs_on is False and store._m_evictions is NULL_INSTRUMENT
+    store.acquire_rows(np.arange(20) % 8)
+    assert port_null.names() == set()
 
 
 def test_metrics_shims_record_nothing_when_disabled(port_null):

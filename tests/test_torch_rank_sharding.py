@@ -124,6 +124,32 @@ def _retrieval_tables():
 RETRIEVAL = [(m, nc) for m in (2, 4) for nc in (None, 8)]
 
 
+def _jax_sharded_catalog(V, nc):
+    """The global arrays of the JAX package's rank-sharded catalog of ``V``
+    (data 4 × model 2 on the virtual CPU devices), as
+    ``convert.quantized_catalog_from_jax`` reads them (``np.asarray``)."""
+    from large_scale_recommendation_tpu.serving.retrieval import (
+        QuantizedCatalog as JCatalog,
+    )
+    from large_scale_recommendation_tpu.serving.retrieval import (
+        RetrievalConfig as JRetrievalConfig,
+    )
+    from large_scale_recommendation_tpu.serving.retrieval import (
+        build_quantized_catalog as j_build,
+    )
+
+    cat = j_build(V, config=JRetrievalConfig(n_clusters=nc, kmeans_iters=2),
+                  partitioner=JPartitioner(num_devices=8, model_parallel=2))
+    assert cat.stats["rank_sharded"] == 2
+    out = {f: (None if getattr(cat, f) is None
+               else np.asarray(getattr(cat, f)))
+           for f in JCatalog._ARRAY_FIELDS}
+    return dict(out, n_rows=cat.n_rows, rank=cat.rank, version=cat.version,
+                pos_of_row=(None if cat.pos_of_row is None
+                            else np.asarray(cat.pos_of_row)),
+                stats=dict(cat.stats))
+
+
 @pytest.fixture(scope="module")
 def grids():
     train = _ratings()
@@ -132,7 +158,9 @@ def grids():
         op="refusals", m=2, cfg=DSGD_KW,
         ratings=tuple(np.asarray(a) for a in train.to_numpy()[:3]))] + [
         dict(op="retriever", m=m, n_clusters=nc, V=V, Q=Q, delta=delta,
-             train=pairs) for m, nc in RETRIEVAL])
+             train=pairs) for m, nc in RETRIEVAL] + [
+        dict(op="jax_catalog", m=2, n_clusters=nc, V=V, Q=Q,
+             cat=_jax_sharded_catalog(V, nc)) for nc in (None, 8)])
     base = ranks.run_world(2, _jobs(1, train))
     return dict(train=train, sharded=sharded, base=base)
 
@@ -248,3 +276,25 @@ def test_rank_sharded_two_stage_retriever(grids, i):
         np.testing.assert_array_equal(got[1], np.asarray(jrows))
         np.testing.assert_allclose(got[0], np.asarray(jv), atol=GRID_TOL,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("nc", [None, 8], ids=["flat", "clustered"])
+def test_rank_sharded_jax_catalog_converts(grids, nc):
+    """A JAX rank-sharded catalog laid out by the port's partitioner
+    (model 2): each rank keeps its column slice of the JAX codes, and the
+    sharded retriever over it gives the ids of the whole catalog, scores
+    within the grid bar (the partial rescores' sum order)."""
+    i = len(RETRIEVAL) + (0 if nc is None else 1)
+    cat = None
+    for res in grids["sharded"]:
+        got = res[5 + i]
+        if cat is None:
+            V, _, _, _ = _retrieval_tables()
+            cat = _jax_sharded_catalog(V, nc)
+        c0, c1 = got["cols"]
+        assert (c0, c1) in ((0, 8), (8, 16)) and got["rank_sharded"] == 2
+        for name, codes in got["codes"].items():
+            np.testing.assert_array_equal(codes, cat[name][..., c0:c1])
+        np.testing.assert_array_equal(got["sharded"][1], got["base"][1])
+        np.testing.assert_allclose(got["sharded"][0], got["base"][0],
+                                   atol=GRID_TOL, rtol=0)

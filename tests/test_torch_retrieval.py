@@ -338,13 +338,14 @@ def test_rank_sharded_partitioner_is_not_ported():
     """Rank-sharded retrieval is ported now (the name is kept from when it
     raised; tests/test_torch_rank_sharding.py runs it on 4 gloo ranks): a
     one-rank partitioner keeps the one-device layout, and a JAX catalog
-    that is rank-sharded is still not converted."""
+    that is rank-sharded converts whole, bit-equal to the JAX package's
+    replicated catalog of the same table (flat and clustered)."""
+    from large_scale_recommendation_tpu.parallel.partitioner import (
+        Partitioner as JPartitioner,
+    )
     from large_scale_recommendation_tpu_torch.parallel.partitioner import (
         Partitioner,
     )
-
-    class Part:
-        model_parallel = 2
 
     V = torch.from_numpy(catalog_V(64, 4, seed=1))
     one = Partitioner(device="cpu")
@@ -355,11 +356,21 @@ def test_rank_sharded_partitioner_is_not_ported():
     ret = tret.TwoStageRetriever(V, partitioner=one)
     assert ret.partitioner is None and torch.equal(ret.V, V)
 
-    class Jcat:
-        partitioner = Part()
-
-    with pytest.raises(NotImplementedError, match="rank-sharded"):
-        convert.quantized_catalog_from_jax(Jcat(), device="cpu")
+    jp = JPartitioner(num_devices=8, model_parallel=2)
+    for nc in (None, 4):
+        cfg = jret.RetrievalConfig(n_clusters=nc, kmeans_iters=2)
+        shd = jret.build_quantized_catalog(V.numpy(), config=cfg,
+                                           partitioner=jp)
+        rep = jret.build_quantized_catalog(V.numpy(), config=cfg)
+        assert shd.stats["rank_sharded"] == 2
+        got = convert.quantized_catalog_from_jax(shd, device="cpu")
+        want = convert.quantized_catalog_from_jax(rep, device="cpu")
+        assert got.partitioner is None and "rank_sharded" not in got.stats
+        for f in tret.QuantizedCatalog._ARRAY_FIELDS:
+            x, y = getattr(got, f), getattr(want, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                assert torch.equal(x, y), f
 
 
 def test_recall_at_k_matches_jax():

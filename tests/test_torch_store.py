@@ -76,12 +76,15 @@ _INIT = np.random.default_rng(5).uniform(
 
 @pytest.fixture(autouse=True)
 def _reset_jax_store_plane():
-    """A JAX store installs itself as the process's obs STORE plane."""
+    """A store of either package installs itself as its package's obs
+    STORE plane."""
     from large_scale_recommendation_tpu.obs.store import get_store, set_store
+    from large_scale_recommendation_tpu_torch.obs import store as pstore
 
-    prev = get_store()
+    prev = (get_store(), pstore.get_store())
     yield
-    set_store(prev)
+    set_store(prev[0])
+    pstore.set_store(prev[1])
 
 
 def tiered(slots, capacity=64, mmap_dir=None, init=None):
@@ -539,6 +542,86 @@ def test_tiered_store_from_jax_continues_the_jax_store():
             table(pm).numpy(),
             np.asarray(jm.users.full_table())[:jm.users.num_rows],
             **ONLINE_TOL)
+
+
+# -- the STORE plane and the registry gauges ----------------------------------
+
+
+@pytest.fixture
+def both_obs_live():
+    """Live registries in both packages; the defaults restored after."""
+    from large_scale_recommendation_tpu import obs as jobs
+    from large_scale_recommendation_tpu.obs import registry as jreg
+    from large_scale_recommendation_tpu_torch import obs
+
+    jprev, pprev = jreg.get_registry(), obs.get_registry()
+    jr, _ = jobs.enable()
+    pr, _ = obs.enable()
+    yield jr, pr
+    jreg.set_registry(jprev)
+    obs.disable()
+    obs.set_registry(pprev)
+
+
+def test_storez_equals_the_jax_snapshot_and_gauges_match(both_obs_live):
+    """The same batches through both packages' tiered models (8 slots: the
+    pool evicts): the port's ``/storez`` body equals the JAX store's live
+    ``snapshot()`` (the demand-fault wall compared for presence), and the
+    registry gauges carry the same values."""
+    from large_scale_recommendation_tpu.obs.store import storez as jstorez
+    from large_scale_recommendation_tpu_torch.obs.store import storez
+
+    jr, pr = both_obs_live
+    jm, pm = _pair(8)
+    assert storez() == pm.users.snapshot()
+    for b in batches():
+        jm.partial_fit(JRatings.from_arrays(*b.to_numpy()),
+                       emit_updates=False)
+        pm.partial_fit(b, emit_updates=False)
+        js, ps = jstorez(), storez()
+        assert js["stats"].pop("demand_fault_s") >= 0.0
+        assert ps["stats"].pop("demand_fault_s") >= 0.0
+        assert ps == js
+    assert ps["stats"]["evictions"] > 0 and ps["stats"]["hits"] > 0
+    for name in ("tier_hit_rate", "tier_evictions_total", "tier_host_bytes"):
+        (jv,), (pv,) = ([m.value for m in r.find(name)] for r in (jr, pr))
+        assert pv == jv, name
+    assert [m.value >= 0 for m in pr.find("tier_prefetch_wait_s")] == [True]
+
+
+def test_store_memory_watch_reads_the_host_bytes_series(both_obs_live):
+    from large_scale_recommendation_tpu_torch.obs.health import (
+        OK,
+        HealthMonitor,
+    )
+    from large_scale_recommendation_tpu_torch.obs.recorder import (
+        FlightRecorder,
+    )
+
+    _, pr = both_obs_live
+    rec = FlightRecorder(registry=pr)
+    mon = HealthMonitor(registry=pr)
+    mon.watch_store_memory(rec)
+    store = tiered(8, capacity=8)
+    for i in range(6):  # the cold tier doubles once: growth, then a plateau
+        store.ensure(np.arange(4 * i, 4 * i + 4))
+        rec.sample()
+    assert "tier_host_bytes" in rec.series_names()
+    report = mon.run()
+    assert report["status"] == OK
+    assert report["checks"]["store_memory"]["detail"]["series"] == \
+        "tier_host_bytes"
+
+
+def test_null_registry_binds_no_store_gauges():
+    from large_scale_recommendation_tpu_torch.obs import store as pstore
+    from large_scale_recommendation_tpu_torch.obs.registry import (
+        NULL_INSTRUMENT,
+    )
+
+    store = tiered(8)
+    assert store._obs_on is False and store._m_hit_rate is NULL_INSTRUMENT
+    assert pstore.get_store() is store  # the latest store wins
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

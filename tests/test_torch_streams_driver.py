@@ -9,6 +9,7 @@ resume from a JAX driver's checkpoint, delta refresh = full refresh, and
 the adaptive model's history rebuild."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -318,3 +319,108 @@ def test_adaptive_crash_resume_rebuilds_history_and_swaps(tmp_path):
     assert d2.catalog_versions[0] == v0
     assert engine.version in d2.catalog_versions[1:]
     assert d2.consumed_offset == 2400
+
+
+# -- StreamingDriver's registry instruments and telemetry export -----------
+
+
+@pytest.fixture
+def both_obs_live():
+    """Live registries in both packages; the defaults restored after."""
+    from large_scale_recommendation_tpu import obs as jobs
+    from large_scale_recommendation_tpu.obs import registry as jreg
+    from large_scale_recommendation_tpu_torch import obs
+
+    jprev, pprev = jreg.get_registry(), obs.get_registry()
+    jr, _ = jobs.enable()
+    pr, _ = obs.enable()
+    yield jr, pr
+    jreg.set_registry(jprev)
+    obs.disable()
+    obs.set_registry(pprev)
+
+
+# the instruments whose values do not depend on the feeder thread's timing
+# (queue depth and high-water do)
+EXACT = ("streams_batches_total", "streams_records_total",
+         "streams_lag_records", "streams_queue_dequeued_records")
+
+
+def _metric_values(reg):
+    """Every ``streams_*`` instrument's name and labels, with the value of
+    the ones in ``EXACT``."""
+    return sorted((m["name"], sorted(m["labels"].items()),
+                   m["value"] if m["name"] in EXACT else None)
+                  for m in reg.snapshot()["metrics"]
+                  if m["name"].startswith("streams_"))
+
+
+def test_driver_publishes_the_jax_instruments(tmp_path, both_obs_live):
+    """The same log through both drivers with obs on: the same
+    ``streams_*`` names and labels, the same batch, record, lag and
+    dequeued counts and checkpoint count (walls and the feeder's
+    timing-dependent queue depths are not compared), and ``telemetry()``
+    refreshes the lag and queue gauges."""
+    jr, pr = both_obs_live
+    _fill(str(tmp_path / "log"))
+    cfg = dict(batch_records=500, checkpoint_every=2)
+    jd = jdriver.StreamingDriver(
+        _online("jax"), jlog.EventLog(str(tmp_path / "log"), fsync=False),
+        str(tmp_path / "jck"), config=jdriver.StreamingDriverConfig(**cfg))
+    pd = StreamingDriver(_online(), EventLog(str(tmp_path / "log"),
+                                             fsync=False),
+                         str(tmp_path / "pck"),
+                         config=StreamingDriverConfig(**cfg))
+    pd.run()
+    jd.run()
+    # a growing log: lag the telemetry pass must see
+    _fill(str(tmp_path / "log"), n_batches=1, batch=100, seed=3)
+    assert pd.telemetry()["lag_records"] == jd.telemetry()["lag_records"]
+    assert _metric_values(pr) == _metric_values(jr)
+    (pc,), (jc,) = (r.find("streams_checkpoint_s") for r in (pr, jr))
+    assert pc.count == jc.count == 3
+    assert pr.gauge("streams_lag_records", partition="0").value == 100
+
+
+def test_telemetry_export_keeps_the_lag_gauge_fresh(tmp_path, both_obs_live):
+    """The exporter publishes ``telemetry()`` on its cadence: a
+    ``/metrics`` scrape after the run shows the lag ``telemetry()``
+    reports, and the exporter stops cleanly."""
+    from large_scale_recommendation_tpu_torch.obs.fleet import (
+        parse_prometheus,
+    )
+    from large_scale_recommendation_tpu_torch.obs.server import (
+        ObsServer,
+        http_get,
+    )
+
+    _, pr = both_obs_live
+    log = _fill(str(tmp_path / "log"))
+    pd = StreamingDriver(_online(), EventLog(str(tmp_path / "log"),
+                                             fsync=False),
+                         str(tmp_path / "pck"),
+                         config=StreamingDriverConfig(batch_records=500))
+    task = pd.start_telemetry_export(0.02)
+    assert pd.start_telemetry_export(0.02) is task  # idempotent
+    server = ObsServer(registry=pr).start()
+    try:
+        pd.run()
+        _fill(None, n_batches=1, batch=50, seed=5, log=log)
+        want = pd.telemetry()["lag_records"]
+        assert want == 50
+        gauge = pr.gauge("streams_lag_records", partition="0")
+        gauge.set(-1)  # only the exporter can put the lag back
+        deadline = time.time() + 10
+        while gauge.value != want and time.time() < deadline:
+            time.sleep(0.02)
+        code, text = http_get(server.url + "/metrics", timeout=5)
+    finally:
+        server.stop()
+        pd.stop_telemetry_export()
+    assert code == 200
+    lag = [v for n, lb, v in parse_prometheus(text)
+           if n == "streams_lag_records" and lb == {"partition": "0"}]
+    assert lag == [50.0]
+    assert task.runs >= 1 and task.errors == 0
+    assert not task.running and pd._telemetry_task is None
+    pd.stop_telemetry_export()  # stopping twice is a no-op

@@ -517,3 +517,31 @@ def test_runner_matches_a_jax_runner_on_the_same_routed_log(tmp_path):
     j4 = JRunner(jm4, jl, str(tmp_path / "pck"),
                  config=JDriverConfig(batch_records=300))
     assert j4.resume() and jm4.consumed_offsets == pm.consumed_offsets
+
+
+def test_runner_exports_every_partitions_lag(tmp_path):
+    """``start_telemetry_export`` runs each member driver's cadence: every
+    partition's ``streams_lag_records`` gauge tracks its own backlog, and
+    ``stop_telemetry_export`` stops every exporter."""
+    from large_scale_recommendation_tpu_torch import obs
+
+    prev = obs.get_registry()
+    reg, _ = obs.enable()
+    try:
+        log = EventLog(str(tmp_path / "log"), num_partitions=3, fsync=False)
+        _fill_strata(log, 3, 1)
+        _, runner = _runner(tmp_path, log)
+        runner.run()
+        _fill_strata(log, 3, 0, per_partition=[0, 1, 2], seed=4)
+        runner.start_telemetry_export(0.02)
+        tasks = [d._telemetry_task for d in runner.drivers.values()]
+        gauges = [reg.gauge("streams_lag_records", partition=str(p))
+                  for p in range(3)]
+        _wait_for(lambda: [g.value for g in gauges] == [0, 300, 600])
+        runner.stop_telemetry_export()
+        assert not any(t.running for t in tasks)
+        assert all(d._telemetry_task is None
+                   for d in runner.drivers.values())
+    finally:
+        obs.disable()
+        obs.set_registry(prev)
