@@ -78,7 +78,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               uninstrumented run's, the segment key's roofline row at the
               card's peak (≤ 100%), a device-memory sample, the implicit
               transfers counted in the fit's guard scope and the libraries'
-              build walls; one steady sweep under ``torch.profiler`` (both
+              build walls; the instrumented-vs-uninstrumented sweep again
+              as 5 interleaved pairs (min of each side, every plane off
+              for the uninstrumented fits); one steady sweep under ``torch.profiler`` (both
               step kernels, 96 launches each; the card's busy and idle
               share); the k = 1 divergence (η 0.3 warm_boost) tripping the
               watchdog with no snapshot of the poisoned sweep and health
@@ -141,6 +143,20 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               unmeetable SLO target climbs the ladder to ``degrade``
               (results flagged) and, with default thresholds, to ``shed``
               (``serve`` returns each rejection in its request's place);
+14a. obs.serve — the exact engine of [serve.engine] again with the request,
+              rollout, lineage and critical-path planes on and an
+              ``ObsServer`` scraped from a second thread (``/lineagez``,
+              ``/criticalpathz``, ``/contentionz``, ``/budgetz``,
+              ``/slowz``, ``/metrics``): the request stream, an
+              ``apply_delta`` of 4,096 item rows into a second version, the
+              stream again. Answers equal to a planes-off engine's through
+              the same swap; every flush's stages fsum to its wall;
+              ``/slowz`` keeps every request past the 5 ms target; two
+              ``/budgetz`` cohorts and a verdict (stamped into lineage);
+              both swaps on ``/lineagez``; every scrape 200. The stage
+              fractions, the planes' cost on users/s (min of 5 passes,
+              interleaved with the planes-off engine) and one
+              ``note_flush``'s host µs;
 15. serve.two_stage — SERVING_r03.json's geometry on the card (20,000 ×
               1,048,576, rank 64, 512 clusters, 16 probes): build wall,
               index, fast and exact users/s, recall@10 ≥ 0.95, one
@@ -180,6 +196,24 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               at 1e-5, the fit at 1e-5 × sweeps, holdout RMSE within
               1e-4); then one foreground ALS retrain. The log, driver and
               parallel phases launch none of the kernels;
+19a. obs.stream — ``StreamingDriver(AdaptiveMF)`` (rank 128, a foreground
+              DSGD retrain every 4 batches: the step pair's launches) over
+              8 batches and a rotten one (2,000 NaN ratings the queue
+              quarantines, 5,000 out-of-range ratings, 12,000 rows of ids
+              past the vocabulary), with the lineage, critical-path and
+              contention planes and the flight recorder on and a
+              ``DataQualityInspector`` behind ``watch_data_quality``: the
+              check trips CRITICAL and the bundle it freezes validates
+              with live ``lineage.json`` / ``contention.json``;
+              ``/criticalpathz``'s samples reconcile with the freshness
+              histogram (count, mean ``swap_lag``); the tables equal a
+              planes-off run's at the [online] bar; the fleet's
+              ``/podtracez`` 200 and valid. ``ParallelIngestRunner`` at N =
+              2 (the [streams.parallel] strata) under the contention
+              plane: ``/contentionz``'s serial fraction, top contended
+              locks and the consumers' CPU fractions, beside the card's
+              busy share from a second, profiled N = 2 run; the planes'
+              cost on durable ratings/s (min of 5, interleaved);
 20. pipeline — ``Pipeline(IdCompactor(), MeanCenterer(), DSGD(cfg))`` on
               2,000,000 of the [main] train ratings at the [main] config
               (k 8, rank 128, minibatch 32,768, 3 sweeps; run after [eval]):
@@ -889,6 +923,7 @@ def run(scratch: str) -> int:
                         items=model.items)
     serve_share = phase_serve(model, cpu_model, train)
     phase_serve_engine(model, cpu_model, train, serve_share)
+    obs_serve_launches = phase_obs_serve(model, smi)
     phase_eval(model, cpu_model, train, holdout)
     pipeline_launches = phase_pipeline(train, holdout, dev)
     del train, holdout, model, solver, cpu_model
@@ -911,6 +946,8 @@ def run(scratch: str) -> int:
     phase_als_conv(dev)
     phase_online(dev, scratch)
     paths["streams.adaptive"] = phase_streams(scratch)
+    paths["obs.serve"] = obs_serve_launches
+    paths["obs.stream"] = phase_obs_stream(scratch, smi)
     paths["pipeline"] = pipeline_launches
     phase_ps_store(scratch, dev)
     paths.update(phase_mesh(dev, scratch, visit_args))
@@ -1261,6 +1298,51 @@ def phase_obs_train(cfg, scratch, data):
         raise AssertionError(f"pct_of_hbm_peak {roof['pct_of_hbm_peak']}")
     if not sample["supported"] or card.get("bytes_in_use", 0) < tables:
         raise AssertionError(f"device memory sample {sample['devices']}")
+
+    # -- 2b. the same comparison as 5 interleaved pairs (min of each side):
+    # the single pair above is one reading of each and crossed its bar once
+    def pair_fit(instrumented):
+        if instrumented:
+            s = DSGD(cfg)
+            s.watchdog = obs.TrainingWatchdog(policy="halt")
+            s.evaluator = evaluator
+            n0 = len(tracer.events())
+            s.fit_device(u, i, r, nu, ni, **fit)
+            torch.cuda.synchronize()
+            walls = [e["dur"] / 1e3 for e in tracer.events()[n0:]
+                     if e["name"] == "train/dsgd"][steady]
+            return mean(walls)
+        # every plane off for this fit (they bind when a fit starts)
+        saved = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+                 obs.get_introspector(), obs.get_transfers())
+        intro.stop()
+        obs.set_registry(obs.NullRegistry())
+        obs.set_tracer(obs.NullTracer())
+        obs.set_events(None)
+        obs.set_introspector(None)
+        obs.set_transfers(None)
+        try:
+            s = WalledDSGD(cfg)
+            s.fit_device(u, i, r, nu, ni, **fit)
+        finally:
+            obs.set_registry(saved[0])
+            obs.set_tracer(saved[1])
+            obs.set_events(saved[2])
+            obs.set_introspector(saved[3])
+            obs.set_transfers(saved[4])
+            intro.start(0.25)
+        return mean(s.walls[steady]) * 1e3
+
+    pairs_on, pairs_off = [], []
+    for _ in range(5):  # on, off, on, off, ...
+        pairs_on.append(pair_fit(True))
+        pairs_off.append(pair_fit(False))
+    say("obs.train.pairs", runs_each=len(pairs_on),
+        steady_sweep_ms_instrumented=pairs_on,
+        steady_sweep_ms_uninstrumented=pairs_off,
+        min_instrumented_over_min_uninstrumented=min(pairs_on)
+        / min(pairs_off),
+        single_pair_instrumented_over_uninstrumented=on_ms / off_ms)
 
     # -- 3. one steady sweep under the profiler
     su, si, sv, sw, ou, ov, icu, icv = args
@@ -2067,6 +2149,160 @@ def phase_serve_admission(eng, requests):
         served_degraded=sum(out[i].degraded for i in kept),
         shed_final=shed.level, shed_transitions=shed.transitions,
         in_order=True, launches=no_dsgd_launches("serve.admission"))
+
+
+# [obs.serve]: the request-plane SLO (a flush of 1,024 rows takes ~4.6 ms
+# on the card, so requests queued behind one miss it and the rest meet it)
+OBS_SERVE_SLO_S = 0.005
+OBS_SERVE_DELTA_ROWS = 4096
+OBS_SERVE_ROUTES = ("/lineagez", "/criticalpathz", "/contentionz",
+                    "/budgetz", "/slowz", "/metrics")
+
+
+def same_answers(a, b) -> bool:
+    """Two ``serve`` result lists hold equal ids and scores, request by
+    request (exact: the same ops on the same tables)."""
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        for x, y in zip(a, b))
+
+
+def phase_obs_serve(model, smi):
+    """``[obs.serve]``: the exact f32 engine of ``[serve.engine]`` (the
+    ``fit`` tables, max_batch 1,024, k 10, the 16,384 users in requests of
+    1–32) with the request, rollout, lineage and critical-path planes on
+    and an ``ObsServer`` scraped from a second thread: it serves the stream,
+    takes an ``apply_delta`` swap of 4,096 item rows into a second version
+    (the canary cohort), and serves it again. Checks: answers equal to a
+    planes-off engine's through the same swap; every flush's stages fsum
+    to its wall; ``/slowz`` keeps every SLO-violating request; ``/budgetz``
+    two cohorts and a verdict; ``/lineagez`` both swaps; every scrape 200.
+    Reports the stage fractions, the planes' cost on users/s (min of 5
+    passes, interleaved with the planes-off engine) and one ``note_flush``'s
+    host µs. Returns the launch counts (none: serving runs torch ops)."""
+    phase_t0 = time.perf_counter()
+    users = model.users.sorted_ids[:SERVE_USERS]
+    requests = cut_requests(users, np.random.default_rng(1))
+    rows = np.random.default_rng(7).choice(model.V.shape[0],
+                                           OBS_SERVE_DELTA_ROWS,
+                                           replace=False)
+    vals = model.V[torch.as_tensor(rows, device=model.V.device)] * 1.01
+    cuda_sgd.reset_launch_counts()
+
+    def engine():  # each engine's deltas patch its own model binding
+        return ServingEngine(dataclasses.replace(model), k=SERVE_K,
+                             max_batch=SERVE_MAX_BATCH)
+
+    off = engine()
+    off.serve(requests)  # warm
+    ref1 = off.serve(requests)
+    off.apply_delta(item_rows=rows, V_rows=vals)
+    ref2 = off.serve(requests)
+
+    reg, _ = obs.enable()
+    lineage = obs.enable_lineage()
+    obs.enable_disttrace()
+    budget = obs.enable_budget(OBS_SERVE_SLO_S, objective=0.99,
+                               min_samples=64)
+    tel = obs.enable_requests(OBS_SERVE_SLO_S, objective=0.99, window=4096,
+                              max_exemplars=8192)
+    flushes = []  # (stages, flush wall, note_flush host seconds)
+    real_note = tel.note_flush
+
+    def note(ledger, end, stamps, **kw):
+        t0 = time.perf_counter()
+        real_note(ledger, end, stamps, **kw)
+        flushes.append((dict(ledger.stages), end - ledger.t0,
+                        time.perf_counter() - t0))
+
+    tel.note_flush = note
+    server = obs.ObsServer().start()
+    scraper = Scraper(server.url, OBS_SERVE_ROUTES)
+    scraper.start()
+    try:
+        while scraper.rounds() < 1:
+            time.sleep(0.01)
+        on = engine()
+        v1 = on.version
+        got1 = on.serve(requests)
+        v2 = on.apply_delta(item_rows=rows, V_rows=vals)
+        got2 = on.serve(requests)
+        verdict = budget.verdicts.evaluate(v2, v1)
+        start_round = scraper.rounds()
+        while scraper.rounds() < start_round + 1:  # a round after it all
+            time.sleep(0.01)
+    finally:
+        scraper.halt.set()
+        scraper.join(timeout=30)
+        server.stop()
+    tel.note_flush = real_note
+    snap = tel.snapshot(limit=0)
+    codes = collections.Counter((e[0], e[3]) for e in scraper.log)
+    budgetz = json.loads(scraper.bodies["/budgetz"])
+    lineagez = json.loads(scraper.bodies["/lineagez"])
+    slowz = json.loads(scraper.bodies["/slowz"])
+    swaps = {r["catalog_version"]: r["source"] for r in lineagez["records"]}
+    kept_viol = sum(e["violating"] for e in tel.exemplars())
+    unreconciled = sum(math.fsum(st.values()) != wall
+                       for st, wall, _ in flushes)
+    note_us = sorted(t * 1e6 for _, _, t in flushes)
+
+    # the planes' cost: passes of the same stream, interleaved off / on
+    walls_on, walls_off = [], []
+    for _ in range(5):
+        walls_off.append(timed(lambda: off.serve(requests))[1])
+        walls_on.append(timed(lambda: on.serve(requests))[1])
+    n_users = sum(len(r) for r in requests)
+    ups_on, ups_off = n_users / min(walls_on), n_users / min(walls_off)
+    launches = no_dsgd_launches("obs.serve")
+    obs.disable()
+    say("obs.serve", card=smi, users=n_users, requests=len(requests),
+        slo_target_s=OBS_SERVE_SLO_S, versions=[v1, v2],
+        answers_equal_planes_off=[same_answers(got1, ref1),
+                                  same_answers(got2, ref2)],
+        flushes=len(flushes), flushes_unreconciled=unreconciled,
+        stage_frac=snap["stage_frac"], dominant_stage=snap["dominant_stage"],
+        request_p50_ms=snap["p50_ms"], request_p99_ms=snap["p99_ms"],
+        requests_noted=snap["count"], violations=snap["violations"],
+        violating_kept=kept_viol, kept=snap["kept"],
+        slowz_count=slowz.get("count"),
+        budget_cohorts={v: c["served"]
+                        for v, c in budgetz["cohorts"].items()},
+        verdict=verdict["verdict"], verdict_reason=verdict["reason"],
+        budgetz_verdicts=budgetz["verdicts"]["evaluations"],
+        lineage_swaps=swaps,
+        scrape_codes={f"{rt} {c}": n for (rt, c), n in codes.items()},
+        scrape_rounds=scraper.rounds(),
+        users_per_s_planes_on=ups_on, users_per_s_planes_off=ups_off,
+        on_over_off_users_per_s=ups_on / ups_off,
+        pass_walls_s_on=walls_on, pass_walls_s_off=walls_off,
+        note_flush_us_min=note_us[0],
+        note_flush_us_p50=note_us[len(note_us) // 2],
+        note_flush_us_max=note_us[-1], launches=launches,
+        phase_wall_s=time.perf_counter() - phase_t0)
+    if not (same_answers(got1, ref1) and same_answers(got2, ref2)):
+        raise AssertionError("obs.serve: answers differ from the planes-off "
+                             "engine's")
+    if not flushes or unreconciled:
+        raise AssertionError(f"obs.serve: {unreconciled} of {len(flushes)} "
+                             "flushes' stages do not fsum to their wall")
+    if not (snap["violations"] > 0 and kept_viol == snap["violations"]
+            and snap["count"] == 2 * len(requests)):
+        raise AssertionError(f"obs.serve: {kept_viol} of "
+                             f"{snap['violations']} violating requests kept "
+                             f"({snap['count']} noted)")
+    if (set(budgetz["cohorts"]) != {str(v1), str(v2)}
+            or not budgetz["verdicts"]["evaluations"]):
+        raise AssertionError(f"obs.serve: /budgetz cohorts "
+                             f"{sorted(budgetz['cohorts'])}, verdicts "
+                             f"{budgetz['verdicts']['evaluations']}")
+    if swaps.get(v1) != "engine_refresh" or swaps.get(v2) != "engine_delta":
+        raise AssertionError(f"obs.serve: /lineagez swaps {swaps}")
+    if any(c != 200 for (_, c) in codes) or scraper.rounds() < 2:
+        raise AssertionError(f"obs.serve: scrapes {dict(codes)}")
+    if lineage.resolve(v2)["verdict"] != verdict["verdict"]:
+        raise AssertionError("obs.serve: the verdict is not in lineage")
+    return launches
 
 
 def build_structured_model(dev, num_users, num_items, rank, n_centers=256,
@@ -3195,6 +3431,271 @@ def phase_streams_adaptive(scratch):
         raise AssertionError(f"ALS-retrained holdout RMSE {rmse_als}")
     say("streams.adaptive.als", history=als._history_rows,
         retrain_wall_s=als_s, rmse=rmse_als)
+    return launches
+
+
+# [obs.stream]: 8 clean Netflix-shaped batches and one rotten one (NaN
+# ratings, out-of-range ratings, ids past the vocabulary), a foreground DSGD
+# retrain every 4 batches
+OBS_STREAM_BATCHES = 8
+OBS_ROTTEN = dict(nan=2_000, out_of_range=5_000, out_of_vocab=12_000)
+OBS_STREAM_ROUTES = ("/lineagez", "/criticalpathz", "/contentionz",
+                     "/healthz")
+
+
+def rotten_batch(hi):
+    """One more batch of the stream's shape with rows that the quarantine
+    (NaN ratings) and the data-quality gate (ratings past ``hi``, ids past
+    the vocabulary) must catch."""
+    u, i, r, _ = netflix_batches(22, 1)[0].to_numpy()
+    u, i, r = u.copy(), i.copy(), r.copy()
+    a = OBS_ROTTEN["nan"]
+    b = a + OBS_ROTTEN["out_of_range"]
+    c = b + OBS_ROTTEN["out_of_vocab"]
+    r[:a] = np.nan
+    r[a:b] = hi + 5.0
+    u[b:c] = NETFLIX["num_users"] + np.arange(c - b) % 64
+    return Ratings.from_arrays(u, i, r)
+
+
+def stream_run(batches, run_dir, acfg, planes):
+    """One ``StreamingDriver(AdaptiveMF)`` drain of ``batches`` appended to
+    a fresh log under ``run_dir``, with the stream planes on (``planes``: a
+    dict of the data-quality policy; they bind before the log, so the
+    appends are marked) or off, then a refresh and one served request.
+    Returns (model, driver, engine, drain seconds, what the planes
+    hold)."""
+    out = {}
+    if planes is not None:
+        reg, _ = obs.enable()
+        recorder, _ = obs.enable_flight_recorder(
+            interval_s=0.25, bundle_dir=os.path.join(run_dir, "bundles"))
+        out["lineage"] = obs.enable_lineage()
+        out["analyzer"] = obs.enable_disttrace()
+        out["tracker"] = obs.enable_contention(interval_s=0.25)
+        inspector = obs.DataQualityInspector(**planes)
+        monitor = obs.HealthMonitor()
+        monitor.watch_data_quality(inspector)
+        inspect_s, real_inspect = [], inspector.inspect_batch
+
+        def timed_inspect(batch):  # the gate's host wall a batch
+            t0 = time.perf_counter()
+            counts = real_inspect(batch)
+            inspect_s.append(time.perf_counter() - t0)
+            return counts
+
+        inspector.inspect_batch = timed_inspect
+        out.update(reg=reg, recorder=recorder, inspector=inspector,
+                   monitor=monitor, inspect_s=inspect_s)
+    log = EventLog(os.path.join(run_dir, "log"), fsync=False)
+    for b in batches:
+        log.append(0, b)
+    model = AdaptiveMF(acfg)
+    drv = StreamingDriver(model, log, os.path.join(run_dir, "ck"),
+                          inspector=out.get("inspector"),
+                          config=StreamingDriverConfig(
+                              batch_records=STREAM_BATCH,
+                              checkpoint_every=STREAM_CKPT_EVERY))
+    engine = drv.serving_engine(k=SERVE_K)
+    _, wall = timed(drv.run)
+    drv.refresh_serving()
+    engine.recommend(model.online.users.id_array()[:64])
+    return model, drv, engine, wall, out
+
+
+def phase_obs_stream(scratch, smi):
+    """``[obs.stream]`` at ``[online]``'s width (480,189 × 17,770, rank 128,
+    batches of 100,000): a ``StreamingDriver`` with ``AdaptiveMF`` (a
+    foreground DSGD retrain every 4 batches: the step pair's launches,
+    counted here) over 8 batches and a rotten one, with the lineage,
+    critical-path and contention planes on (the flight recorder sampling)
+    and a ``DataQualityInspector`` behind ``watch_data_quality``. Checks:
+    the check trips CRITICAL on the rotten batch and the bundle it freezes
+    validates with live ``lineage.json`` / ``contention.json``;
+    ``/criticalpathz``'s samples reconcile with the lineage freshness
+    histogram; the tables equal a planes-off run's at the [online] bar;
+    the fleet's ``/podtracez`` answers 200. Then ``ParallelIngestRunner``
+    at N = 2 (the [streams.parallel] strata) under the contention plane for
+    ``/contentionz``'s serial fraction and the consumers' CPU fractions,
+    and a second N = 2 run under the profiler for the card's busy share;
+    the planes' cost on durable ratings/s (min of 5, interleaved). Returns
+    the planes-on run's launch counts."""
+    from large_scale_recommendation_tpu_torch.obs.introspect import (
+        profile_trace,
+    )
+    from large_scale_recommendation_tpu_torch.obs.recorder import (
+        validate_bundle,
+    )
+
+    phase_t0 = time.perf_counter()
+    clean = netflix_batches(21, OBS_STREAM_BATCHES)
+    lo = min(float(b.ratings.min()) for b in clean)
+    hi = max(float(b.ratings.max()) for b in clean)
+    batches = clean + [rotten_batch(hi)]
+    policy = dict(rating_range=(lo - 1.0, hi + 1.0),
+                  max_user_id=NETFLIX["num_users"] - 1,
+                  max_item_id=NETFLIX["num_items"] - 1,
+                  class_policy={"duplicate_key": (0.5, 0.9)})
+    acfg = AdaptiveMFConfig(num_factors=128, minibatch_size=16384,
+                            learning_rate=0.05, offline_every=4,
+                            background=False, offline_algorithm="dsgd",
+                            offline_iterations=3)
+    records = (OBS_STREAM_BATCHES + 1) * STREAM_BATCH
+
+    # -- 1. the planes-on run (the path whose launches are counted)
+    cuda_sgd.reset_launch_counts()
+    m_on, drv, _, wall_on, p = stream_run(
+        batches, os.path.join(scratch, "obs_stream_on"), acfg, policy)
+    launches = dict(cuda_sgd.LAUNCHES)
+    report = p["monitor"].run()  # CRITICAL: the recorder freezes a bundle
+    server = obs.ObsServer(monitor=p["monitor"]).start()
+    fleet = obs.FleetServer(obs.FleetAggregator([server.url],
+                                                timeout_s=10.0)).start()
+    try:
+        scrapes = {rt: http_get(server.url + rt, timeout=10.0)
+                   for rt in OBS_STREAM_ROUTES}
+        pod_code, pod_body = http_get(fleet.url + "/podtracez?limit=512",
+                                      timeout=30.0)
+    finally:
+        fleet.stop()
+        server.stop()
+    crit = json.loads(scrapes["/criticalpathz"][1])
+    hist = [m for m in p["reg"].snapshot()["metrics"]
+            if m["name"] == "lineage_ingest_to_servable_s"]
+    samples = crit["samples"]
+    lags = [x["swap_lag_s"] for x in samples]
+    bundle = p["recorder"].last_bundle
+    manifest = validate_bundle(bundle) if bundle else None
+    docs = obs.load_bundle(bundle) if bundle else {}
+    dq = p["inspector"].snapshot()
+    versions = list(drv.catalog_versions)
+    obs.disable()
+
+    # -- 2. the planes-off run: the same tables
+    m_off, _, _, wall_off, _ = stream_run(
+        batches, os.path.join(scratch, "obs_stream_off"), acfg, None)
+    table_err = same_tables(m_on.online, m_off.online, "obs.stream on/off")
+    del m_on, m_off, drv
+
+    say("obs.stream", card=smi, batches=OBS_STREAM_BATCHES + 1,
+        batch=STREAM_BATCH, rank=acfg.num_factors, rotten=OBS_ROTTEN,
+        dq_violations=dq["violations"], dq_status=dq["status"],
+        health=report["status"],
+        data_quality_check=report["checks"]["data_quality"]["status"],
+        bundle=os.path.basename(bundle) if bundle else None,
+        bundle_trigger=manifest["trigger"] if manifest else None,
+        bundle_lineage_records=len(docs.get("lineage", {}).get(
+            "lineage", {}).get("records", [])),
+        bundle_contention_locks=len(docs.get("contention", {}).get(
+            "locks", [])),
+        catalog_versions=len(versions), launches=launches,
+        critical_path={k: v["mean_s"] for k, v in crit["stages"].items()},
+        critical_samples=len(samples),
+        freshness_hist_count=hist[0]["count"] if hist else None,
+        freshness_hist_mean_s=hist[0]["mean"] if hist else None,
+        swap_lag_mean_s=(sum(lags) / len(lags)) if lags else None,
+        scrape_codes={rt: c for rt, (c, _) in scrapes.items()},
+        podtracez=pod_code, tables_max_abs_on_vs_off=table_err,
+        drain_s_on=wall_on, drain_s_off=wall_off,
+        inspect_ms_per_batch=[t * 1e3 for t in p["inspect_s"]])
+    if not (launches["sgd_item_rows_kernel"] > 0
+            and launches["sgd_user_rows_kernel"] > 0):
+        raise AssertionError(f"obs.stream: no step-pair launches {launches}")
+    if (report["checks"]["data_quality"]["status"] != obs.CRITICAL
+            or dq["violations"]["out_of_vocab"] != OBS_ROTTEN["out_of_vocab"]
+            or dq["violations"]["out_of_range"] != OBS_ROTTEN["out_of_range"]
+            or dq["violations"]["non_finite"] != 0):
+        raise AssertionError(f"obs.stream: data quality {dq}, health "
+                             f"{report['status']}")
+    if (manifest is None or manifest["trigger"] != "health_critical"
+            or not docs["lineage"]["lineage"]["records"]
+            or "note" in docs["contention"]
+            or not docs["contention"]["locks"]):
+        raise AssertionError(f"obs.stream: the trip's bundle {bundle} "
+                             f"({manifest})")
+    if not (samples and hist and hist[0]["count"] == len(samples)
+            and abs(sum(lags) / len(lags) - hist[0]["mean"])
+            <= 1e-9 * max(1.0, hist[0]["mean"])):
+        raise AssertionError(f"obs.stream: {len(samples)} critical-path "
+                             f"samples vs the freshness histogram {hist}")
+    for x in samples:
+        parts = [x[k] for k in ("queue_wait_s", "train_apply_s",
+                                "swap_lag_s") if x[k] is not None]
+        if abs(math.fsum(parts) - x["total_s"]) > 1e-9:
+            raise AssertionError(f"obs.stream: sample {x} stages do not "
+                                 "sum to its total")
+    codes = {rt: c for rt, (c, _) in scrapes.items()}
+    want = {rt: 503 if rt == "/healthz" else 200 for rt in codes}
+    if codes != want or pod_code != 200:  # /healthz: the CRITICAL trip
+        raise AssertionError(f"obs.stream: scrapes {codes}, /podtracez "
+                             f"{pod_code}")
+    obs.validate_chrome_trace(json.loads(pod_body))
+
+    # -- 3. N = 2 consumers under the contention plane, then the profiler
+    streams = strata(5)
+    cfg = stream_online_cfg()
+    dcfg = StreamingDriverConfig(batch_records=STREAM_BATCH,
+                                 checkpoint_every=STREAM_CKPT_EVERY)
+    obs.enable()
+    tracker = obs.enable_contention(interval_s=0.25)
+    par_log = strata_log(os.path.join(scratch, "obs_par_log"), streams, 2)
+    runner = ParallelIngestRunner(OnlineMF(cfg), par_log,
+                                  os.path.join(scratch, "obs_par_ck"),
+                                  config=dcfg)
+    tracker.reset_window()
+    _, par_wall = timed(runner.run)
+    server = obs.ObsServer().start()
+    try:
+        code, body = http_get(server.url + "/contentionz", timeout=10.0)
+    finally:
+        server.stop()
+    obs.disable()
+    if code != 200:
+        raise AssertionError(f"obs.stream: /contentionz {code}")
+    cz = json.loads(body)
+    cpu_frac = {pt: row["busy_s"] / cz["window"]["wall_s"]
+                for pt, row in cz["partitions"].items()}
+    prof_log = strata_log(os.path.join(scratch, "obs_par_log_p"), streams, 2)
+    prof_runner = ParallelIngestRunner(OnlineMF(cfg), prof_log,
+                                       os.path.join(scratch, "obs_par_ck_p"),
+                                       config=dcfg)
+    prof_dir = os.path.join(scratch, "obs_par_profile")
+    with profile_trace(prof_dir):
+        _, prof_wall = timed(prof_runner.run)
+    busy_ms, window_ms, _ = device_busy(os.path.join(prof_dir, TRACE_FILE))
+    del runner, prof_runner
+    say("obs.stream.contention", card=smi, consumers=cz["consumers"],
+        wall_s=par_wall, serial_fraction=cz["serial_fraction"],
+        efficiency=cz["efficiency"], cpu_source=cz["cpu_source"],
+        projected_speedup_at_2n=cz["projected_speedup_at_2n"],
+        consumer_cpu_frac=cpu_frac,
+        top_contended=[(r["lock"], r["contended"], r["wait_s"], r["hold_s"])
+                       for r in cz["top_contended"][:5]],
+        lock_wait_s_total=cz["lock_wait_s_total"],
+        profiled_wall_s=prof_wall, device_busy_ms=busy_ms,
+        device_window_ms=window_ms, device_busy_share=busy_ms / window_ms,
+        device_busy_over_wall=busy_ms / (prof_wall * 1e3))
+    if cz["consumers"] != 2 or cz["serial_fraction"] is None:
+        raise AssertionError(f"obs.stream: /contentionz {cz}")
+
+    # -- 4. the planes' cost on durable ratings/s, interleaved off / on
+    walls_on, walls_off, inspect_on = [], [], []
+    for j in range(5):
+        walls_off.append(stream_run(
+            batches, os.path.join(scratch, f"obs_cost_off{j}"), acfg,
+            None)[3])
+        run_on = stream_run(batches, os.path.join(scratch, f"obs_cost_on{j}"),
+                            acfg, policy)
+        walls_on.append(run_on[3])
+        inspect_on.append(sum(run_on[4]["inspect_s"]))
+        obs.disable()
+    say("obs.stream.cost", card=smi, runs_each=5, records=records,
+        drain_s_on=walls_on, drain_s_off=walls_off,
+        ratings_per_s_on=records / min(walls_on),
+        ratings_per_s_off=records / min(walls_off),
+        on_over_off_ratings_per_s=min(walls_off) / min(walls_on),
+        inspect_s_per_run_on=inspect_on,
+        phase_wall_s=time.perf_counter() - phase_t0)
     return launches
 
 

@@ -16,15 +16,25 @@ state machine:
 
 A retrain that raises on the background thread is re-raised by the next
 ``process`` or ``flush`` (the JAX package's thread dies and the swap is
-skipped in silence; the port does not swallow it). The JAX package's obs
-hooks (registry, tracer, events, lineage, critical-path marks) are not
-ported; ``watchdog`` (on the online model) also gates the swap.
+skipped in silence; the port does not swallow it). ``watchdog`` (on the
+online model) also gates the swap.
+
+Observability binds at construction, as in the JAX package: each retrain
+is an ``adaptive/retrain`` span (on the retrain thread in background mode,
+under the triggering batch's captured ``TraceContext``) timed into
+``adaptive_retrain_s`` / ``adaptive_retrains_total``; the journal gets
+``adaptive.retrain_start`` / ``_install`` / ``_abort``; each swap enriches
+every engine's lineage record with the retrain id, the online step and,
+per partition, the WAL offset the tables absorbed, marks the critical-path
+swap at that record's ``wall_time`` and drops a ``lineage/swap_watermark``
+instant. ``apply_lock`` is the contention plane's ``adaptive.apply_lock``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 import weakref
 from typing import Iterable, Iterator, Literal
 
@@ -41,6 +51,12 @@ from large_scale_recommendation_tpu_torch.models.online import (
     OnlineMF,
     OnlineMFConfig,
 )
+from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
+from large_scale_recommendation_tpu_torch.obs.disttrace import get_disttrace
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +104,16 @@ class AdaptiveMF:
         self._engines: "weakref.WeakSet" = weakref.WeakSet()
         # snapshot + register of an engine vs a swap landing in between
         self._engines_lock = threading.Lock()
+        # observability (null singletons / None when off), all on the cold
+        # retrain and swap paths
+        obs = get_registry()
+        self._obs_on = obs.enabled
+        self._trace = get_tracer()
+        self._events = get_events()
+        self._lineage = get_lineage()
+        self._disttrace = get_disttrace()
+        self._m_retrains = obs.counter("adaptive_retrains_total")
+        self._m_retrain_s = obs.histogram("adaptive_retrain_s")
         self._manager = None
         if cfg.checkpoint_dir is not None:
             from large_scale_recommendation_tpu_torch.utils.checkpoint import (
@@ -99,7 +125,8 @@ class AdaptiveMF:
         # parallel-ingest mode: process() serializes on apply_lock (history
         # order, the retrain counter and the buffer are one sequence)
         self._serialize_process = False
-        self.apply_lock = threading.RLock()
+        # raw unless the contention plane is armed
+        self.apply_lock = named_rlock("adaptive.apply_lock")
 
     # -- state -------------------------------------------------------------
 
@@ -193,12 +220,21 @@ class AdaptiveMF:
             return
         self._batches_since_retrain = 0
         history = self._history_ratings()
+        if self._events is not None:
+            self._events.emit("adaptive.retrain_start",
+                              algorithm=self.config.offline_algorithm,
+                              rows=int(history.n),
+                              background=self.config.background)
         if self.config.background:
             self._state = "Batch"
             self._retrained = None
             self._retrain_error = None
+            # the enclosing context crosses the thread hop: the retrain
+            # span parents to the triggering batch's span
+            ctx = (self._trace.capture_context()
+                   if self._trace.enabled else None)
             self._thread = threading.Thread(
-                target=self._retrain_into_slot, args=(history,),
+                target=self._retrain_into_slot, args=(history, ctx),
                 daemon=True, name="adaptive-retrain")
             self._thread.start()
         else:
@@ -225,8 +261,19 @@ class AdaptiveMF:
     # -- retrain machinery --------------------------------------------------
 
     def _retrain(self, history: Ratings) -> MFModel:
-        """A from-scratch fit on the whole history (``_offline_solver``)."""
-        return self._offline_solver().fit(history)
+        """A from-scratch fit on the whole history (``_offline_solver``),
+        inside an ``adaptive/retrain`` span that waits for the fitted
+        tables, so the card's time is inside it."""
+        with self._trace.span("adaptive/retrain",
+                              algorithm=self.config.offline_algorithm,
+                              rows=int(history.n)) as sp:
+            t0 = time.perf_counter() if self._obs_on else 0.0
+            model = self._offline_solver().fit(history)
+            sp.out = (model.U, model.V)
+        if self._obs_on:
+            self._m_retrain_s.observe(time.perf_counter() - t0)
+            self._m_retrains.inc()
+        return model
 
     def _offline_solver(self) -> DSGD | ALS:
         """The retrain's solver, on the model's device: DSGD (constant lr
@@ -254,9 +301,10 @@ class AdaptiveMF:
             init_scale=self.online.config.init_scale,
         ), device=self.device)
 
-    def _retrain_into_slot(self, history: Ratings) -> None:
+    def _retrain_into_slot(self, history: Ratings, ctx=None) -> None:
         try:
-            self._retrained = self._retrain(history)
+            with self._trace.activate(ctx):
+                self._retrained = self._retrain(history)
         except BaseException as exc:  # re-raised by _finish_batch
             self._retrain_error = exc
 
@@ -291,7 +339,15 @@ class AdaptiveMF:
         wd = self.online.watchdog
         if wd is not None:
             # a diverged retrain aborts here, before the tables and engines
-            wd.check_swap(model.U, model.V)
+            try:
+                wd.check_swap(model.U, model.V)
+            except BaseException:
+                if self._events is not None:
+                    self._events.emit("adaptive.retrain_abort",
+                                      severity="error",
+                                      reason="diverged_retrain",
+                                      retrain_count=self.retrain_count)
+                raise
         for table, T, index in ((self.online.users, model.U, model.users),
                                 (self.online.items, model.V, model.items)):
             real = index.ids >= 0
@@ -305,6 +361,43 @@ class AdaptiveMF:
         snapshot = self.to_model() if engines else None
         for engine in engines:
             engine.refresh(snapshot)
+        if engines and (self._lineage is not None
+                        or self._disttrace is not None
+                        or self._trace.enabled):
+            self._stamp_swap(engines)
+        if self._events is not None:
+            self._events.emit("adaptive.retrain_install",
+                              retrain_count=self.retrain_count + 1,
+                              engines_refreshed=len(engines))
+
+    def _stamp_swap(self, engines) -> None:
+        """Enrich each engine's fresh lineage record (``refresh`` stamped
+        the swap instant) with what only the retrain layer knows: the
+        retrain id, the online step and, per partition, the WAL offset the
+        tables absorbed (frozen at the pre-retrain offsets during a
+        background retrain: what this build's history covers). The
+        critical-path mark reuses the record's ``wall_time``."""
+        offsets = dict(self.online.consumed_offsets) or {0: None}
+        for engine in engines:
+            for p, off in offsets.items():
+                t_swap = None
+                if self._lineage is not None:
+                    rec = self._lineage.record_swap(
+                        engine.version, retrain_id=self.retrain_count + 1,
+                        train_step=int(self.online.step),
+                        wal_offset_watermark=off, partition=p,
+                        source="retrain_install")
+                    t_swap = rec["wall_time"]
+                if off is None:
+                    continue
+                if self._disttrace is not None:
+                    self._disttrace.note_swap(engine.version, partition=p,
+                                              watermark=off, t=t_swap)
+                if self._trace.enabled:
+                    self._trace.instant(
+                        "lineage/swap_watermark",
+                        version=int(engine.version), partition=int(p),
+                        watermark=int(off), source="retrain_install")
 
     def serving_engine(self, k: int = 10, **kwargs):
         """A ``ServingEngine`` bound to the current snapshot (``to_model``)

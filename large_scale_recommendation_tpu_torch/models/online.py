@@ -14,15 +14,18 @@ computes on a snapshot outside it, and the commit writes back only the
 batch's touched rows. A snapshot is two tensor references: a table is never
 written in place (``data/tables.py``). Every consumer thread enqueues on the
 default CUDA stream, so the card runs the work in the order it was enqueued
-under the lock. The JAX package's observability hooks (metrics, tracer,
-transfer ledger, event journal, contention lock) are not ported;
-``watchdog`` is the one seam, ``None`` by default.
+under the lock. ``apply_lock`` is the contention plane's
+``online.apply_lock`` (raw unless the plane is armed), and with the tracer
+on each update is an ``online/partial_fit`` span (compile-keyed on the
+padded batch length, as the JAX span), the hop of a record's trace between
+its ingest batch and the swap. The JAX package's other hooks here
+(metrics, transfer ledger, event journal) are not ported; ``watchdog`` is
+the divergence seam, ``None`` by default.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -44,6 +47,8 @@ from large_scale_recommendation_tpu_torch.data.tables import (
     GrowableFactorTable,
 )
 from large_scale_recommendation_tpu_torch.models.mf import MFModel, masked_scores
+from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
@@ -155,7 +160,7 @@ class OnlineMF:
         # concurrent-apply mode: off by default (the serial path takes no
         # lock); when on, partial_fit runs _partial_fit_concurrent
         self._concurrent = False
-        self.apply_lock = threading.RLock()
+        self.apply_lock = named_rlock("online.apply_lock")
         # optional streams.parallel.RowConflictGate: the concurrent path
         # claims the batch's user and item ids for the snapshot → commit
         # window, so only genuinely colliding batches serialize
@@ -163,6 +168,7 @@ class OnlineMF:
         # divergence guard: ``after_batch(model, U, V, u_rows, i_rows)``
         # before the offset stamp; None = one pointer test per batch
         self.watchdog = None
+        self._trace = get_tracer()
 
     # -- training ----------------------------------------------------------
 
@@ -212,12 +218,15 @@ class OnlineMF:
                                              cfg.minibatch_size)
             ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
                                for a in staged)
-            U, V = sgd_ops.online_train(
-                self.users.array, self.items.array, ur, ir, vals, w,
-                updater=self.updater, minibatch=cfg.minibatch_size,
-                iterations=(iterations if iterations is not None
-                            else cfg.iterations_per_batch),
-                collision=cfg.collision_mode)
+            with self._trace.span("online/partial_fit",
+                                  key=("online_train", len(ur)),
+                                  records=len(ru)):
+                U, V = sgd_ops.online_train(
+                    self.users.array, self.items.array, ur, ir, vals, w,
+                    updater=self.updater, minibatch=cfg.minibatch_size,
+                    iterations=(iterations if iterations is not None
+                                else cfg.iterations_per_batch),
+                    collision=cfg.collision_mode)
             self.users.install_trained(U, u_rows)
             self.items.install_trained(V, i_rows)
         finally:
@@ -296,12 +305,15 @@ class OnlineMF:
                                              cfg.minibatch_size)
             ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
                                for a in staged)
-            U, V = sgd_ops.online_train(
-                U0, V0, ur, ir, vals, w, updater=self.updater,
-                minibatch=cfg.minibatch_size,
-                iterations=(iterations if iterations is not None
-                            else cfg.iterations_per_batch),
-                collision=cfg.collision_mode)
+            with self._trace.span("online/partial_fit",
+                                  key=("online_train", len(ur)),
+                                  records=len(ru)):
+                U, V = sgd_ops.online_train(
+                    U0, V0, ur, ir, vals, w, updater=self.updater,
+                    minibatch=cfg.minibatch_size,
+                    iterations=(iterations if iterations is not None
+                                else cfg.iterations_per_batch),
+                    collision=cfg.collision_mode)
             if self.watchdog is not None:
                 # before the commit and the offset stamp
                 self.watchdog.after_batch(self, U, V, u_rows, i_rows)

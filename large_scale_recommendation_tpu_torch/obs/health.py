@@ -31,9 +31,12 @@ watches over the recorder's series are ``watch_series``,
 ``watch_device_memory`` (the ``device_bytes_in_use{device="cuda:0"}``
 series on the card), ``watch_store_memory`` and ``watch_quality``.
 
-Not ported yet (a later slice, with the planes they watch): the
-``watch_data_quality``, ``watch_freshness``, ``watch_rollout`` and
-``watch_requests`` conveniences with ``DataQualityCheck``.
+The serving and stream planes have their watches too:
+``watch_data_quality`` (``DataQualityCheck`` over an
+``obs.dataquality.DataQualityInspector``), ``watch_freshness``
+(``obs.lineage.FreshnessCheck``), ``watch_rollout``
+(``obs.budget.RolloutCheck``) and ``watch_requests``
+(``obs.requests.RequestStageCheck``).
 
 Zero-cost when unused: every hook is an ``is not None`` test on the hot
 path (``model.watchdog``, ``engine._slo``), and with the null registry
@@ -202,6 +205,26 @@ class HealthMonitor:
                       AnomalyCheck(recorder, ndcg_series,
                                    direction="drop", **kwargs))
 
+    def watch_data_quality(self, inspector,
+                           name: str = "data_quality") -> None:
+        """Register a ``DataQualityCheck`` over an
+        ``obs.dataquality.DataQualityInspector``."""
+        self.register(name, DataQualityCheck(inspector))
+
+    def watch_freshness(self, lineage, degraded_after_s: float,
+                        critical_after_s: float | None = None,
+                        name: str = "freshness") -> None:
+        """Register the ingest→serve staleness SLO
+        (``obs.lineage.FreshnessCheck``) over a ``LineageJournal``: pages
+        when ingest keeps advancing while the servable watermark stands
+        still."""
+        from large_scale_recommendation_tpu_torch.obs.lineage import (
+            FreshnessCheck,
+        )
+
+        self.register(name, FreshnessCheck(lineage, degraded_after_s,
+                                           critical_after_s))
+
     def watch_transfers(self, ledger, name: str = "transfers") -> None:
         """Register the steady-state transfer/retrace gate
         (``obs.transfers.TransferSteadyCheck``) over a
@@ -213,6 +236,29 @@ class HealthMonitor:
         )
 
         self.register(name, TransferSteadyCheck(ledger))
+
+    def watch_rollout(self, budget, name: str = "rollout") -> None:
+        """Register the canary-verdict gate (``obs.budget.RolloutCheck``)
+        over a ``RolloutBudget``: OK while no verdict is outstanding,
+        DEGRADED while a ROLLBACK verdict sits un-acted-on."""
+        from large_scale_recommendation_tpu_torch.obs.budget import (
+            RolloutCheck,
+        )
+
+        self.register(name, RolloutCheck(budget))
+
+    def watch_requests(self, telemetry, name: str = "requests",
+                       frac_bar: float = 0.5) -> None:
+        """Register the stage-domination gate
+        (``obs.requests.RequestStageCheck``) over a ``RequestTelemetry``:
+        DEGRADED when one stage's window fraction exceeds ``frac_bar``
+        while the plane's burn rate is over budget."""
+        from large_scale_recommendation_tpu_torch.obs.requests import (
+            RequestStageCheck,
+        )
+
+        self.register(name, RequestStageCheck(telemetry,
+                                              frac_bar=frac_bar))
 
     # -- evaluation ----------------------------------------------------------
 
@@ -845,6 +891,25 @@ class StreamHealthCheck:
         if lag >= self.degraded_lag or growing:
             return degraded(**detail)
         return ok(**detail)
+
+
+class DataQualityCheck:
+    """Ingest data-quality health from an
+    ``obs.dataquality.DataQualityInspector``: the inspector keeps a bounded
+    window of per-batch violation fractions (non-finite, out-of-range,
+    out-of-vocab, duplicate-key) plus the per-partition arrival skew, and
+    its ``status()`` applies the configured degraded / critical policy;
+    this check surfaces that verdict. An inspector that has seen no
+    batches is OK (a not-yet-flowing stream is not a data incident)."""
+
+    def __init__(self, inspector):
+        self.inspector = inspector
+
+    def __call__(self) -> CheckResult:
+        if self.inspector.batches == 0:
+            return ok(note="no batches inspected yet")
+        status, detail = self.inspector.status()
+        return CheckResult(status, detail)
 
 
 class CheckpointStalenessCheck:

@@ -34,11 +34,6 @@ Differences from the JAX package, by design:
   variables under ``CUDA_``, ``TORCH_``, ``PYTORCH_``, ``NCCL_``, ``OBS_``
   and ``BENCH_`` (the JAX package's ``JAX_`` / ``XLA_`` / ``TPU_`` /
   ``LIBTPU`` name nothing the port reads).
-- The planes of the next slice (lineage, contention, rollout budget,
-  request telemetry) are not ported: ``lineage.json``,
-  ``contention.json``, ``budget.json`` and ``requests.json`` carry the
-  JAX package's own "not installed" documents (``lineage.json`` still
-  freezes the ``eval_`` quality gauges).
 - ``device_memory.json`` is a fresh ``Introspector.sample_device_memory
   (publish=False)``. Its live-tensor walk (``gc.get_objects()``, under the
   switch-interval guard of ``obs.introspect``) runs only when the bundle
@@ -446,6 +441,15 @@ def write_bundle(directory: str, *, trigger: str, detail: dict | None = None,
     directory first and one ``os.replace`` publishes it — a crash
     mid-write leaves a ``.tmp-*`` orphan, never a half bundle at the final
     path. Returns the final directory."""
+    from large_scale_recommendation_tpu_torch.obs.budget import get_budget
+    from large_scale_recommendation_tpu_torch.obs.contention import (
+        SaturationAnalyzer,
+        get_contention,
+    )
+    from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
+    from large_scale_recommendation_tpu_torch.obs.requests import (
+        get_requests,
+    )
     from large_scale_recommendation_tpu_torch.obs.store import get_store
     from large_scale_recommendation_tpu_torch.obs.transfers import (
         get_transfers,
@@ -474,18 +478,29 @@ def write_bundle(directory: str, *, trigger: str, detail: dict | None = None,
         return [m for m in metrics_doc.get("metrics", [])
                 if m.get("name", "").startswith(prefix)]
 
-    # the planes of the next slice are not ported: their files carry the
-    # JAX package's own "not installed" documents
+    # the model plane: catalog-swap provenance plus the latest quality /
+    # data-quality instrument values from the same registry snapshot
     lineage_doc = {
-        "lineage": {"note": "no lineage journal installed", "records": []},
+        "lineage": _plane_doc(get_lineage,
+                              {"note": "no lineage journal installed",
+                               "records": []}),
         "quality": _metric_subset("eval_"),
         "data_quality": _metric_subset("dataq_"),
     }
-    contention_doc = {"note": "no contention tracker installed",
-                      "locks": [], "partitions": {}}
-    budget_doc = {"note": "rollout budget not enabled", "cohorts": {}}
-    requests_doc = {"note": "request telemetry not enabled",
-                    "exemplars": []}
+
+    def _saturation():
+        tracker = get_contention()
+        return (None if tracker is None
+                else SaturationAnalyzer(tracker, registry=registry))
+
+    contention_doc = _plane_doc(_saturation,
+                                {"note": "no contention tracker installed",
+                                 "locks": [], "partitions": {}})
+    budget_doc = _plane_doc(get_budget, {"note": "rollout budget not enabled",
+                                         "cohorts": {}})
+    requests_doc = _plane_doc(get_requests,
+                              {"note": "request telemetry not enabled",
+                               "exemplars": []})
     store_doc = _plane_doc(get_store, {"note": "no tiered store installed",
                                        "tiers": {}})
     transfers_doc = _plane_doc(get_transfers,

@@ -20,9 +20,19 @@ any deployment of the package can expose its live state to a scraper or a
   (``Introspector.roofline()``: the step pair's launcher records joined
   with the measured execute walls) plus the transfer ledger's per-site
   GB/s.
+- ``/lineagez`` — the catalog provenance journal and its freshness
+  summary (``obs.lineage.LineageJournal.snapshot()``).
+- ``/criticalpathz`` — the ingest→servable stage attribution
+  (``obs.disttrace.CriticalPathAnalyzer.snapshot()``).
+- ``/contentionz`` — the saturation view (``obs.contention
+  .SaturationAnalyzer``): Amdahl decomposition, top contended locks,
+  per-partition blocked share.
 - ``/storez``   — the tiered factor store (``obs.store.storez()``).
 - ``/transferz`` — the host↔device transfer plane
   (``obs.transfers.transferz()``).
+- ``/budgetz``  — the rollout plane (``obs.budget.budgetz()``).
+- ``/slowz``    — the request plane (``obs.requests.slowz()``;
+  ``?limit=N`` bounds the exemplar table, 400 on junk).
 - ``/profilez`` — an on-demand ``torch.profiler`` capture:
   ``GET /profilez?seconds=N`` records N seconds (capped, default 1) of the
   whole process into a fresh directory (under ``profile_dir`` or the
@@ -36,14 +46,14 @@ any deployment of the package can expose its live state to a scraper or a
   would record no host ops).
 
 Route bodies read Python state only (the registry's floats, the tracer's
-and journal's buffers, the launcher records), so a scrape never waits on
-the card and never trips the implicit-transfer guard of a hot path that
-runs beside it.
+and journal's buffers, the launcher records, the planes' host-side
+records), so a scrape never waits on the card and never trips the
+implicit-transfer guard of a hot path that runs beside it. No route takes a
+lock the contention plane instruments: ``/contentionz`` reads the tracker's
+own raw-locked tables.
 
 Differences from the JAX package, by design: ``/profilez`` runs
-``torch.profiler``; the routes of the planes not ported yet (``/lineagez``,
-``/criticalpathz``, ``/contentionz``, ``/budgetz``, ``/slowz``) are not
-served — ``/`` does not list them and they answer 404.
+``torch.profiler``.
 
 Usage::
 
@@ -73,11 +83,16 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
+from large_scale_recommendation_tpu_torch.obs.contention import (
+    get_contention,
+)
+from large_scale_recommendation_tpu_torch.obs.disttrace import get_disttrace
 from large_scale_recommendation_tpu_torch.obs.events import get_events
 from large_scale_recommendation_tpu_torch.obs.health import CRITICAL
 from large_scale_recommendation_tpu_torch.obs.introspect import (
     get_introspector,
 )
+from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
 from large_scale_recommendation_tpu_torch.obs.recorder import get_recorder
 from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
@@ -90,7 +105,8 @@ DEFAULT_PROFILE_SECONDS = 1.0
 MAX_PROFILE_SECONDS = 60.0
 POLL_INTERVAL_S = 0.05  # serve_forever's shutdown poll
 ROUTES = ("/metrics", "/healthz", "/varz", "/tracez", "/seriesz", "/eventz",
-          "/rooflinez", "/storez", "/transferz", "/profilez")
+          "/rooflinez", "/lineagez", "/criticalpathz", "/contentionz",
+          "/storez", "/transferz", "/budgetz", "/slowz", "/profilez")
 
 PROM_CTYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -246,6 +262,7 @@ class ObsServer(EndpointServerBase):
 
     def __init__(self, registry=None, tracer=None, monitor=None,
                  recorder=None, events=None, introspector=None,
+                 lineage=None, disttrace=None, contention=None,
                  host: str = "127.0.0.1", port: int = 0,
                  tracez_limit: int = DEFAULT_TRACEZ_LIMIT,
                  eventz_limit: int = DEFAULT_EVENTZ_LIMIT,
@@ -258,6 +275,11 @@ class ObsServer(EndpointServerBase):
         self.events = events if events is not None else get_events()
         self.introspector = (introspector if introspector is not None
                              else get_introspector())
+        self.lineage = lineage if lineage is not None else get_lineage()
+        self.disttrace = (disttrace if disttrace is not None
+                          else get_disttrace())
+        self.contention = (contention if contention is not None
+                           else get_contention())
         self.profile_dir = profile_dir
         self.eventz_limit = int(eventz_limit)
         self.tracez_limit = int(tracez_limit)
@@ -292,10 +314,23 @@ class ObsServer(EndpointServerBase):
             return 200, self.eventz()
         if path == "/rooflinez":
             return 200, self.rooflinez()
+        if path == "/lineagez":
+            return 200, self.lineagez()
+        if path == "/criticalpathz":
+            return 200, self.criticalpathz()
+        if path == "/contentionz":
+            return 200, self.contentionz()
         if path == "/storez":
             return 200, self.storez()
         if path == "/transferz":
             return 200, self.transferz()
+        if path == "/budgetz":
+            return 200, self.budgetz()
+        if path == "/slowz":
+            limit, err = parse_query_int(query, "limit")
+            if err is not None:  # a client error, not a server failure
+                return 400, {"error": err}
+            return 200, self.slowz(limit)
         if path == "/profilez":
             raw = parse_qs(query).get("seconds", [None])[0]
             try:
@@ -353,6 +388,46 @@ class ObsServer(EndpointServerBase):
         if ledger is not None:
             doc["transfer_site_gbs"] = ledger.site_gbs()
         return doc
+
+    def lineagez(self) -> dict:
+        if self.lineage is None:
+            return {"note": "no lineage journal installed "
+                            "(obs.enable_lineage())", "records": []}
+        return self.lineage.snapshot()
+
+    def criticalpathz(self) -> dict:
+        if self.disttrace is None:
+            return {"note": "no critical-path analyzer installed "
+                            "(obs.enable_disttrace())", "samples": [],
+                    "stages": {}}
+        return self.disttrace.snapshot()
+
+    def contentionz(self) -> dict:
+        if self.contention is None:
+            return {"note": "no contention tracker installed "
+                            "(obs.enable_contention())", "locks": [],
+                    "top_contended": [], "partitions": {}}
+        from large_scale_recommendation_tpu_torch.obs.contention import (
+            SaturationAnalyzer,
+        )
+
+        return SaturationAnalyzer(self.contention,
+                                  registry=self.registry).snapshot()
+
+    def budgetz(self) -> dict:
+        """The rollout plane, resolved per request so a budget enabled
+        after the server is still visible."""
+        from large_scale_recommendation_tpu_torch.obs.budget import budgetz
+
+        return budgetz()
+
+    def slowz(self, limit: int | None = None) -> dict:
+        """The request plane, resolved per request so telemetry enabled
+        after the server is still visible; ``limit`` bounds the exemplar
+        table."""
+        from large_scale_recommendation_tpu_torch.obs.requests import slowz
+
+        return slowz(limit)
 
     def storez(self) -> dict:
         """The tiered factor store's live surface, resolved per request so

@@ -33,11 +33,14 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.obs.budget import get_budget
+from large_scale_recommendation_tpu_torch.obs.requests import get_requests
 from large_scale_recommendation_tpu_torch.parallel import collectives
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
@@ -279,7 +282,18 @@ def mesh_top_k_recommend(U, V, user_rows, k: int = 10, train_u=None,
     ``catalog`` (``shard_catalog``) to reuse it across calls; else it is
     built from ``V``, ``mesh`` and ``item_mask``. The chunk loop runs two
     deep (``run_pipelined_topk``): chunk i+1's exclusions are built on the
-    host while chunk i is scored."""
+    host while chunk i is scored.
+
+    With the rollout or request plane installed the call is noted as one
+    request served by ``catalog.version`` (the bare mesh path has no engine
+    flush to note it): its wall lands in the version's cohort, and its
+    stage ledger marks the engine's seams (the residual, the pad clamp
+    after the last drain, lands in ``topk_merge``)."""
+    budget = get_budget()
+    rt = get_requests()
+    t_serve = (time.perf_counter()
+               if budget is not None or rt is not None else 0.0)
+    led = rt.ledger(t_serve) if rt is not None else None
     if catalog is None:
         catalog = shard_catalog(V, mesh, item_mask)
     part = catalog.partitioner
@@ -300,16 +314,33 @@ def mesh_top_k_recommend(U, V, user_rows, k: int = 10, train_u=None,
 
     def score_chunk(cu, c):
         excl = [to_device(a, dev) for a in build_excl(cu, c)]
+        if led is not None:
+            led.mark("batch_form")  # exclusion build + staging
         rows = to_device(np.asarray(cu, np.int64), dev)
         U_chunk = U_dev[rows].to(cat_dtype)
-        return mesh_topk_step(part, U_chunk, catalog.V_sh, catalog.w_sh,
-                              *excl, k_local=k_local, k_out=k_out,
-                              rows_per_shard=rpb)
+        if led is not None:
+            led.mark("gather")
+        out = mesh_topk_step(part, U_chunk, catalog.V_sh, catalog.w_sh,
+                             *excl, k_local=k_local, k_out=k_out,
+                             rows_per_shard=rpb)
+        if led is not None:
+            led.mark("score_stage1")  # one score dispatch: stage 1
+        return out
 
     chunk = min(chunk, pow2_pad(n))
-    return run_pipelined_topk(user_rows, k=k, k_out=k_out, n_rows=n_rows,
-                              slice_size=chunk, bucket_fn=lambda c: chunk,
-                              score_chunk=score_chunk)
+    out = run_pipelined_topk(
+        user_rows, k=k, k_out=k_out, n_rows=n_rows, slice_size=chunk,
+        bucket_fn=lambda c: chunk, score_chunk=score_chunk,
+        on_drain=(None if led is None
+                  else lambda: led.mark("topk_merge")))
+    if budget is not None or led is not None:
+        t_end = time.perf_counter()  # one read shared by both planes
+        if budget is not None:
+            budget.note_result(catalog.version, t_end - t_serve)
+        if led is not None:
+            rt.note_flush(led, t_end, (t_serve,), version=catalog.version,
+                          rows=(n,), residual_stage="topk_merge")
+    return out
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -347,7 +378,7 @@ class _Readback:
 
 def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
                        slice_size: int, bucket_fn, score_chunk,
-                       on_batch=None):
+                       on_batch=None, on_drain=None):
     """The chunk loop of the serving engine: walk ``user_rows`` in
     ``slice_size`` slices, pad each to ``bucket_fn(len(slice))`` rows,
     score via ``score_chunk(cu_padded, c) -> (v_top, r_top)`` (device
@@ -357,7 +388,10 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
     back asynchronously right after its own kernels; the drain waits for
     that copy alone. Ends with the pad-row clamp: rows ≥ ``n_rows`` (slab
     pads) become row 0 / -inf. ``on_batch(bucket)`` observes each
-    dispatched bucket. Returns ``(rows int32 [n, k], scores f32 [n, k])``.
+    dispatched bucket; ``on_drain()`` fires after each drain, once the
+    chunk's copy event has been waited on (the request plane marks its
+    ``topk_merge`` stage there, so the card's time of the chunk lands in
+    it). Returns ``(rows int32 [n, k], scores f32 [n, k])``.
     """
     n = len(user_rows)
     out_rows = np.zeros((n, k), np.int32)
@@ -370,6 +404,8 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
         p0, pc, pv, pr = p
         out_rows[p0:p0 + pc, :k_out] = pr.numpy()[:pc]
         out_scores[p0:p0 + pc, :k_out] = pv.numpy()[:pc]
+        if on_drain is not None:
+            on_drain()
 
     for c0 in range(0, n, slice_size):
         cu = user_rows[c0:c0 + slice_size]

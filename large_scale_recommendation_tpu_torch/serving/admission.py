@@ -17,15 +17,21 @@ Levels, escalating:
 ``observe()`` (once per flush) jumps straight to the level the burn
 warrants, and steps down one level at a time once the burn is below
 ``recover_ratio ×`` the current level's entry threshold. ``min_samples``
-keeps the first flushes from tripping the ladder at warmup. The JAX
-package's transition events and registry metrics are not ported (obs
-comes last); the ladder's arithmetic is the same.
+keeps the first flushes from tripping the ladder at warmup. Every level
+change journals a ``serving.admission_transition`` event and counts
+``serving_admission_transitions_total{from_level, to_level}``; the
+``serving_admission_level`` gauge, ``serving_admission_shed_total`` and
+``serving_admission_degraded_total`` follow the ladder (the JAX package's
+instruments, bound at construction: null singletons when obs is off).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 
 NORMAL = "normal"
 WIDEN = "widen"
@@ -85,7 +91,8 @@ class AdmissionController:
     level from the tracker's current burn; ``check_admit()`` is the
     per-request gate. Thread-safe."""
 
-    def __init__(self, slo, config: AdmissionConfig | None = None):
+    def __init__(self, slo, config: AdmissionConfig | None = None,
+                 registry=None):
         self.slo = slo
         self.config = config or AdmissionConfig()
         self.level = NORMAL
@@ -94,6 +101,13 @@ class AdmissionController:
         self.degraded = 0  # requests served degraded (count_degraded)
         self._shed_seen = 0  # requests seen while shedding (probe tick)
         self._lock = threading.Lock()
+        obs = registry or get_registry()
+        self._obs = obs
+        self._events = get_events()
+        self._m_level = obs.gauge("serving_admission_level")
+        self._m_shed = obs.counter("serving_admission_shed_total")
+        self._m_degraded = obs.counter("serving_admission_degraded_total")
+        self._m_level.set(0)
 
     def _entry_threshold(self, level: str) -> float:
         cfg = self.config
@@ -132,10 +146,24 @@ class AdmissionController:
                        if burn < exit_below else prev)
             else:
                 new = prev
-            if new != prev:
+            changed = new != prev
+            if changed:
                 self.level = new
                 self.transitions += 1
-            return self.level
+        if changed:
+            self._m_level.set(LEVEL_ORDER[new])
+            self._obs.counter("serving_admission_transitions_total",
+                              from_level=prev, to_level=new).inc()
+            if self._events is not None:
+                severity = ("warning" if LEVEL_ORDER[new]
+                            > LEVEL_ORDER[prev] else "info")
+                self._events.emit(
+                    "serving.admission_transition", severity=severity,
+                    from_level=prev, to_level=new,
+                    burn_rate=round(burn, 4),
+                    attainment=round(snap["attainment"], 4),
+                    window_fill=fill)
+        return self.level
 
     def admit(self) -> bool:
         """Per-request gate: False iff the ladder is at ``shed``."""
@@ -152,6 +180,7 @@ class AdmissionController:
                 if self._shed_seen % period == 0:
                     return  # the recovery probe
                 self.sheds += 1
+            self._m_shed.inc()
             raise AdmissionRejectedError(SHED, self.slo.burn_rate)
 
     @property
@@ -170,6 +199,8 @@ class AdmissionController:
 
     def count_degraded(self, n: int) -> None:
         self.degraded += n
+        if n:
+            self._m_degraded.inc(n)
 
     def snapshot(self) -> dict:
         with self._lock:

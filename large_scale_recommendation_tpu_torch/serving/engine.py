@@ -41,14 +41,32 @@ more top-k), on the partitioner's device; every rank holds the user table
 and calls the engine with the same requests (the step is collective). The
 two-stage path over a mesh is each rank's own replicated retriever (the
 JAX package's single-host layout); a rank-sharded one (``model_parallel >
-1``) raises ``NotImplementedError`` (ROADMAP.md queue A). The JAX
-package's obs seams (tracer, events, lineage, budget, request plane,
-transfer guard, registry histograms) are not ported (obs comes last).
+1``) raises ``NotImplementedError`` (ROADMAP.md queue A).
+
+Observability binds at construction, as in the JAX package: the registry
+histograms (``serving_queue_wait_s``, ``serving_batch_assembly_s``,
+``serving_flush_s``, ``serving_score_s{bucket=}``), a ``serving/flush``
+span per flush (compile-keyed on the catalog geometry) and a
+``serving/catalog_swap`` instant per swap, the journal's
+``serving.catalog_swap`` / ``serving.catalog_delta`` events, the
+transfer ledger's ``serving.delta`` note, and the serving and stream
+planes: every swap stamps one lineage record (inside the engine lock, so
+records land in swap order), every flush joins its version back
+(``LineageJournal.observe_serve``, ``CriticalPathAnalyzer.note_serve``),
+attributes each request's latency to its version's rollout cohort
+(``RolloutBudget.note_results``) and closes a stage ledger
+(``RequestTelemetry.note_flush``); a shed submit notes both planes. The
+version keys are the engine's own token (``version``). Every plane is one
+``is not None`` test per seam when off. The stage marks are host clocks:
+the card's time of a chunk lands in ``topk_merge``, marked in the drain
+after the chunk's copy event is waited on (``obs.requests``). The transfer
+guard is not scoped over the serving pipeline (the JAX engine's
+``serving.serve_rows`` scope): the pipeline's host reads are its drains,
+all explicit.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 
 import numpy as np
@@ -58,6 +76,15 @@ from large_scale_recommendation_tpu_torch.models.mf import (
     MFModel,
     _assemble_topk,
 )
+from large_scale_recommendation_tpu_torch.obs.budget import get_budget
+from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
+from large_scale_recommendation_tpu_torch.obs.disttrace import get_disttrace
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.requests import get_requests
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
+from large_scale_recommendation_tpu_torch.obs.transfers import get_transfers
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
 )
@@ -151,7 +178,10 @@ class ServingEngine:
         self._train = train
         self._pending: list[np.ndarray] = []
         self._pending_t: list[float] = []  # submit stamps (queue wait)
-        self._lock = threading.RLock()
+        # raw unless the contention plane is armed: then the engine's
+        # submit / flush / refresh serialization publishes as
+        # lock_*{lock="serving.engine"}
+        self._lock = named_rlock("serving.engine")
         self.stats = {"requests": 0, "rows": 0, "microbatches": 0,
                       "flushes": 0, "refreshes": 0, "delta_swaps": 0,
                       "deferred_delta_rows": 0, "delta_flushes": 0,
@@ -162,6 +192,23 @@ class ServingEngine:
         self._pending_users: list[tuple[np.ndarray, torch.Tensor]] = []
         self._shapes_seen: set[tuple] = set()  # exact path's dispatches
         self.meter = ThroughputMeter()
+        # observability binds at construction (null singletons / None when
+        # off), before the constructor's refresh so the first build is
+        # stamped too
+        obs = get_registry()
+        self._obs = obs
+        self._obs_on = obs.enabled
+        self._trace = get_tracer()
+        self._events = get_events()
+        self._lineage = get_lineage()
+        self._disttrace = get_disttrace()
+        self._budget = get_budget()
+        self._requests = get_requests()
+        self._m_qwait = obs.histogram("serving_queue_wait_s")
+        self._m_assembly = obs.histogram("serving_batch_assembly_s")
+        self._m_flush = obs.histogram("serving_flush_s")
+        self._m_requests = obs.counter("serving_requests_total")
+        self._m_rows = obs.counter("serving_rows_total")
         # an admission controller brings its own tracker: without a
         # separate slo= the engine records into it (adopted), so the
         # burn the ladder reads is the burn this engine produces
@@ -182,11 +229,24 @@ class ServingEngine:
         it is now): new copies of its tables, a new version token (a table
         written in place since the last build gets a fresh one), deferred
         deltas dropped. Returns the version (reported to ``on_refresh``)."""
+        swap_detail = None
         with self._lock:
             version = self._refresh(model)
             hook = self.on_refresh
             if hook is not None:
                 hook(version)
+            if self._lineage is not None:
+                # the swap instant; the driver / adaptive layers enrich
+                # the same record by version
+                self._lineage.record_swap(version, source="engine_refresh")
+            if self._events is not None:
+                swap_detail = {"version": version,
+                               "refreshes": self.stats["refreshes"],
+                               "rows": int(self.catalog_rows)}
+        if swap_detail is not None:
+            # journaled outside the engine lock (the emit may write the
+            # journal's JSONL mirror)
+            self._events.emit("serving.catalog_swap", **swap_detail)
         return version
 
     def _refresh(self, model: MFModel | None) -> int:
@@ -228,6 +288,13 @@ class ServingEngine:
         tu, ti = model._train_rows(self._train)
         self._build_excl = _exclusion_builder(tu, ti, n_users)
         self.stats["refreshes"] += 1
+        if self._obs_on:
+            # version-labeled: which builds reached this engine
+            self._obs.counter("serving_catalog_swaps_total",
+                              version=self.version).inc()
+            self._obs.gauge("serving_catalog_version").set(self.version)
+            self._trace.instant("serving/catalog_swap",
+                                version=self.version)
         return self.version
 
     def apply_delta(self, item_rows=None, V_rows=None,
@@ -261,7 +328,13 @@ class ServingEngine:
                     self.stats["deferred_delta_rows"] += len(rows)
                 return self.version
             model, dev = self.model, self._device
+            ledger = get_transfers()
             for rows, vals, side in sides:
+                if ledger is not None:
+                    # the delta's rows reached the engine's device in
+                    # _delta_sides (async from pinned memory: wait 0.0)
+                    ledger.note_transfer("serving.delta", "h2d",
+                                         vals.numel() * vals.element_size())
                 idx = to_device(rows.astype(np.int64), dev)
                 if side == "item":
                     model.V = model.V.index_copy(0, idx,
@@ -282,6 +355,22 @@ class ServingEngine:
             hook = self.on_refresh
             if hook is not None:
                 hook(version)
+            if self._obs_on:
+                self._obs.counter("serving_catalog_delta_total").inc()
+                self._obs.gauge("serving_catalog_version").set(version)
+            if self._lineage is not None:
+                self._lineage.record_swap(version, source="engine_delta")
+            swap_detail = None
+            if self._events is not None:
+                swap_detail = {
+                    "version": version,
+                    "item_rows": int(sum(len(r) for r, _, sd in sides
+                                         if sd == "item")),
+                    "user_rows": int(sum(len(r) for r, _, sd in sides
+                                         if sd == "user")),
+                    "delta_swaps": self.stats["delta_swaps"]}
+        if swap_detail is not None:
+            self._events.emit("serving.catalog_delta", **swap_detail)
         return version
 
     def _delta_sides(self, item_rows, V_rows, user_rows, U_rows) -> list:
@@ -395,7 +484,18 @@ class ServingEngine:
         list. At the ``shed`` level this raises ``AdmissionRejectedError``;
         queued requests still flush."""
         if self._admission is not None:
-            self._admission.check_admit()
+            try:
+                self._admission.check_admit()  # raises when shedding
+            except AdmissionRejectedError as e:
+                if self._budget is not None:
+                    # charged to the version that would have served
+                    self._budget.note_shed(self.version)
+                if self._requests is not None:
+                    # a shed is a tail exemplar: always kept
+                    self._requests.note_shed(
+                        version=self.version, level=e.level, burn=e.burn,
+                        queue_depth=len(self._pending))
+                raise
         with self._lock:
             self._pending.append(np.asarray(user_ids))
             self._pending_t.append(time.perf_counter())
@@ -466,6 +566,13 @@ class ServingEngine:
                         and self._retriever is not None)
             t0 = time.perf_counter()
             stamps, self._pending_t = self._pending_t, []
+            # the stage ledger is anchored on the flush wall's own t0
+            # (None when the request plane is off: no allocation)
+            led = (self._requests.ledger(t0)
+                   if self._requests is not None else None)
+            if self._obs_on:
+                for ts in stamps:
+                    self._m_qwait.observe(t0 - ts)
             # id → row space per request, then one shared row stream
             known_masks, row_slices, bounds = [], [], [0]
             for ids in requests:
@@ -476,8 +583,29 @@ class ServingEngine:
                 bounds.append(bounds[-1] + int(known.sum()))
             rows_all = (np.concatenate(row_slices) if row_slices
                         else np.zeros(0, np.int64))
-            top_rows, top_scores = self._serve_rows(rows_all,
-                                                    stage1_only=degraded)
+            if self._obs_on or led is not None:
+                # one clock read feeds the assembly histogram and the
+                # ledger's batch_form mark
+                t_asm = time.perf_counter()
+                if self._obs_on:
+                    self._m_assembly.observe(t_asm - t0)
+                if led is not None:
+                    led.mark("batch_form", t_asm)
+            if self._trace.enabled:
+                # compile-keyed on the catalog geometry, as the JAX span;
+                # catalog_version is the record trace's serve-side join
+                geom = (self._catalog.rows_per_shard
+                        if self._catalog is not None
+                        else self._retriever.n_rows)
+                with self._trace.span(
+                        "serving/flush", key=("serving_flush", geom),
+                        rows=len(rows_all), requests=len(requests),
+                        catalog_version=int(self.version)):
+                    top_rows, top_scores = self._serve_rows(
+                        rows_all, stage1_only=degraded, ledger=led)
+            else:
+                top_rows, top_scores = self._serve_rows(
+                    rows_all, stage1_only=degraded, ledger=led)
             version = self.version
             results = []
             for (n_ids, known), b0, b1 in zip(known_masks, bounds,
@@ -492,6 +620,9 @@ class ServingEngine:
             self.stats["flushes"] += 1
             wall = time.perf_counter() - t0
             end = t0 + wall
+            # the level that served this flush, read before observe()
+            adm_level = (self._admission.level
+                         if self._admission is not None else None)
             self.meter.record(len(rows_all), wall)
             if self._slo is not None:
                 # one sample per REQUEST: queue wait + flush wall
@@ -501,24 +632,59 @@ class ServingEngine:
                 if degraded:
                     self._admission.count_degraded(len(requests))
                 self._admission.observe()
-            return results
+            if self._obs_on:
+                # results are host arrays by here: a synced wall
+                self._m_flush.observe(wall)
+                self._m_requests.inc(len(requests))
+                self._m_rows.inc(len(rows_all))
+        # the planes' flush notes, outside this flush's own lock hold (the
+        # recommend() path still holds the re-entrant lock): the lineage
+        # join and the critical-path note only try their locks, the budget
+        # and request planes hold their own short locks
+        if self._lineage is not None:
+            self._lineage.observe_serve(version, requests=len(requests))
+        if self._disttrace is not None:
+            self._disttrace.note_serve(version)
+        if self._budget is not None:
+            self._budget.note_results(
+                version, [end - ts for ts in stamps],
+                degraded=len(requests) if degraded else 0)
+        if led is not None:
+            # the same end / stamps floats the SLO recorded close the
+            # ledger, so each request's stage sum reconciles by
+            # construction
+            self._requests.note_flush(
+                led, end, stamps, version=version, degraded=degraded,
+                rows=[b1 - b0 for b0, b1 in zip(bounds, bounds[1:])],
+                admission_level=adm_level)
+        return results
 
-    def _serve_rows(self, user_rows: np.ndarray, stage1_only: bool = False):
+    def _serve_rows(self, user_rows: np.ndarray, stage1_only: bool = False,
+                    ledger=None):
         """Row-space scoring through pow2-bucketed micro-batches on the
         two-deep pipeline (``run_pipelined_topk``): the exact step or the
         two-stage fast path (``stage1_only``: the degraded point). Per
         chunk the host builds the exclusion triple and stages it with the
         user rows through pinned memory; nothing in a chunk's dispatch
-        reads back."""
+        reads back. ``ledger`` (an ``obs.requests.FlushLedger``, None when
+        the plane is off) marks the stage seams: exclusion builds in
+        ``batch_form``, user gathers in ``gather``, score dispatches in
+        ``score_stage1`` / ``score_stage2``, drains in ``topk_merge``."""
         dev = self._device
         store = self._user_store
 
         def stage(cu, c):
             excl = tuple(to_device(a, dev) for a in self._build_excl(cu, c))
+            if ledger is not None:
+                ledger.mark("batch_form")  # exclusion build + staging
             if store is not None:
-                return excl, store.serve_rows(cu).to(self._want)
-            idx = to_device(cu.astype(np.int64), dev)
-            return excl, self._U.index_select(0, idx)
+                U_chunk = store.serve_rows(cu).to(self._want)
+            else:
+                idx = to_device(cu.astype(np.int64), dev)
+                U_chunk = self._U.index_select(0, idx)
+            if ledger is not None:
+                ledger.mark("gather")
+            return excl, U_chunk
 
         if self._retriever is not None:
             ret = self._retriever
@@ -526,7 +692,9 @@ class ServingEngine:
             def score_chunk(cu, c):
                 excl, U_chunk = stage(cu, c)
                 return ret.topk(U_chunk, excl, k=self.k,
-                                stage1_only=stage1_only)
+                                stage1_only=stage1_only,
+                                mark=(ledger.mark if ledger is not None
+                                      else None))
 
             k_out = min(self.k, ret.candidate_count(self.k))
             n_rows = ret.n_rows
@@ -538,24 +706,50 @@ class ServingEngine:
                 excl, U_chunk = stage(cu, c)
                 self._shapes_seen.add(("exact", len(cu), self._k_out))
                 if part is not None:
-                    return mesh_topk_step(
+                    out = mesh_topk_step(
                         part, U_chunk, cat.V_sh, cat.w_sh, *excl,
                         k_local=self._k_local, k_out=self._k_out,
                         rows_per_shard=cat.rows_per_shard)
-                return topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
-                                 k_out=self._k_out)
+                else:
+                    out = topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
+                                    k_out=self._k_out)
+                if ledger is not None:
+                    # the exact path's one score dispatch: stage 1
+                    ledger.mark("score_stage1")
+                return out
 
             k_out, n_rows, slice_size = (self._k_out, cat.n_rows,
                                          self.max_batch)
+
+        if self._obs_on:
+            base_chunk = score_chunk
+
+            def score_chunk(cu, c):
+                # per-bucket host wall of staging + dispatch (the card's
+                # time is in the flush histogram: blocking per chunk would
+                # serialize the pipeline's overlap)
+                t0 = time.perf_counter()
+                out = base_chunk(cu, c)
+                bucket = len(cu)
+                self._obs.histogram("serving_score_s", bucket=bucket
+                                    ).observe(time.perf_counter() - t0)
+                self._obs.gauge("serving_bucket_occupancy",
+                                bucket=bucket).set(c / bucket)
+                return out
 
         def on_batch(bucket):
             self.stats["microbatches"] += 1
             hist = self.stats["buckets"]
             hist[bucket] = hist.get(bucket, 0) + 1
+            if self._obs_on:
+                self._obs.counter("serving_microbatches_total",
+                                  bucket=bucket).inc()
 
         return run_pipelined_topk(
             user_rows, k=self.k, k_out=k_out, n_rows=n_rows,
             slice_size=slice_size,
             bucket_fn=lambda c: min(pow2_pad(c, self.min_bucket),
                                     slice_size),
-            score_chunk=score_chunk, on_batch=on_batch)
+            score_chunk=score_chunk, on_batch=on_batch,
+            on_drain=(None if ledger is None
+                      else lambda: ledger.mark("topk_merge")))

@@ -322,6 +322,13 @@ class QuantizedCatalog:
                        for t in (getattr(self, f) for f in self._ARRAY_FIELDS)
                        if t is not None))
 
+    def nbytes_per_device(self) -> int:
+        """Catalog bytes resident on this rank's device. Each rank is its
+        own process holding its own column slice of a rank-sharded build,
+        so this is ``nbytes()`` (the JAX package sums a global array's
+        addressable shards per device to the same number)."""
+        return self.nbytes()
+
     def apply_delta(self, rows, values, version: int) -> "QuantizedCatalog":
         """Re-quantize ONLY the given rows (new f32 ``values``) into a new
         layout, out of place. Per-row quantization is deterministic, so the
@@ -610,6 +617,12 @@ class TwoStageRetriever:
                   else self.partitioner.place(V_full, None, "rank"))
         self.buckets_seen: set[tuple] = set()  # dispatched shapes
 
+    def nbytes_per_device(self) -> int:
+        """Stage-1 catalog plus stage-2 rescore table bytes on this rank's
+        device (the per-device serving footprint)."""
+        return (self.catalog.nbytes_per_device()
+                + self.V.numel() * self.V.element_size())
+
     @property
     def version(self) -> int:
         return self.catalog.version
@@ -632,11 +645,15 @@ class TwoStageRetriever:
         return min(max(k, min(k * self.config.overfetch, cat.n_rows)),
                    hard)
 
-    def topk(self, U_chunk, excl, k: int, stage1_only: bool = False):
+    def topk(self, U_chunk, excl, k: int, stage1_only: bool = False,
+             mark=None):
         """Top-``k`` of one padded f32 query chunk (on the catalog's
         device) under the exclusion triple ``excl`` (tensors there):
         ``(values f32 [b, k'], rows int64 [b, k'])``, ``k' = min(k, kc)``;
-        rows ≥ ``n_rows`` only for slab pads (callers clamp)."""
+        rows ≥ ``n_rows`` only for slab pads (callers clamp). ``mark`` (the
+        request plane's ``FlushLedger.mark``, None when off) splits the
+        host's dispatch wall at the stage-1 / stage-2 seam, under
+        ``stage1_only`` too."""
         cat = self.catalog
         kc = self.candidate_count(k)
         if U_chunk.shape[0] * (cat.n_rows + 1) >= 2**32:
@@ -661,9 +678,14 @@ class TwoStageRetriever:
             cand_v, cand_rows = _stage1_flat(
                 qU, u_scale, cat.q, cat.scale, cat.item_w, excl_rows,
                 excl_cols, excl_w, kc=kc, part=self.partitioner)
-        return _stage2(U_chunk, self.V, cat.item_w, cand_v, cand_rows,
-                       excl_rows, excl_cols, excl_w, k=min(k, kc),
-                       exact=not stage1_only, part=self.partitioner)
+        if mark is not None:
+            mark("score_stage1")
+        out = _stage2(U_chunk, self.V, cat.item_w, cand_v, cand_rows,
+                      excl_rows, excl_cols, excl_w, k=min(k, kc),
+                      exact=not stage1_only, part=self.partitioner)
+        if mark is not None:
+            mark("score_stage2")
+        return out
 
     def apply_delta(self, rows, values, version: int) -> None:
         """Install only the touched rows: a patched copy of the f32

@@ -50,13 +50,18 @@ tiered run is held to the online card bar, not to bit equality.
 Two rules keep the row layout equal to an untiered run: prefetch never
 registers vocabulary (unknown ids are dropped), and hit accounting
 excludes installs (a first-seen row counts as an install, not a miss).
+
+Every crossing notes the transfer ledger (``obs.transfers``) when one is
+installed, in logical bytes that reconcile with ``StoreStats``:
+``store.demand_fault`` / ``store.prefetch`` (h2d slot loads),
+``store.writeback`` (d2h) and ``store.serve_cold`` (h2d serve misses). The
+store's lock is the contention plane's ``store.tiered``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 import time
 
 import numpy as np
@@ -65,8 +70,10 @@ import torch
 from large_scale_recommendation_tpu_torch.data.tables import (
     GrowableFactorTable,
 )
+from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
 from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.obs.store import set_store
+from large_scale_recommendation_tpu_torch.obs.transfers import get_transfers
 from large_scale_recommendation_tpu_torch.utils.shapes import (
     next_pow2 as _next_pow2,
 )
@@ -132,8 +139,9 @@ class TieredFactorStore(GrowableFactorTable):
         # one reentrant lock over every map / tier mutation; with a model:
         # apply_lock → store lock (acquire / commit / snapshot run under
         # the model's apply_lock in concurrent mode), while the serving and
-        # prefetch threads take the store lock alone
-        self._lock = threading.RLock()
+        # prefetch threads take the store lock alone. Raw unless the
+        # contention plane is armed (lock_*{lock="store.tiered"}).
+        self._lock = named_rlock("store.tiered")
         obs = get_registry()
         self._obs_on = obs.enabled
         self._m_hit_rate = obs.gauge("tier_hit_rate")
@@ -290,9 +298,15 @@ class TieredFactorStore(GrowableFactorTable):
         dirty = self._slot_dirty[victims]
         if dirty.any():
             dv = victims[dirty]
+            ledger = get_transfers()
+            t0 = time.perf_counter() if ledger is not None else 0.0
             # the write-back lands in the cold tier before the slot is
             # reused
             self.cold[self._slot_row[dv]] = self._gather_pool(dv)
+            if ledger is not None:  # logical bytes: len(dv) == writebacks
+                ledger.note_transfer("store.writeback", "d2h",
+                                     len(dv) * self.rank * 4,
+                                     time.perf_counter() - t0)
             self.stats.writebacks += int(dirty.sum())
         self._row_slot[self._slot_row[victims]] = -1
         self._slot_row[victims] = -1
@@ -365,7 +379,16 @@ class TieredFactorStore(GrowableFactorTable):
                 self._evict(cand[order[:shortfall]])
                 free = np.nonzero(self._slot_row < 0)[0]
         take = free[:need]
+        ledger = get_transfers()
+        t0 = time.perf_counter() if ledger is not None else 0.0
         self._load_slots(take, miss_rows)
+        if ledger is not None:
+            # logical bytes (need == misses + installs on the demand path,
+            # == prefetched on the lookahead path); the copy is async from
+            # pinned memory, so the wall is the host's enqueue
+            ledger.note_transfer(
+                "store.demand_fault" if demand else "store.prefetch",
+                "h2d", need * self.rank * 4, time.perf_counter() - t0)
         if pin:
             self._slot_pin[take] += 1
         self._slot_dirty[take] = dirty
@@ -480,8 +503,14 @@ class TieredFactorStore(GrowableFactorTable):
             idx = torch.from_numpy(np.where(miss, 0, slots)).to(self.device)
             out = self._pool.index_select(0, idx)
             if miss.any():
+                ledger = get_transfers()
+                t0 = time.perf_counter() if ledger is not None else 0.0
                 vals, midx = self._to_device(rows[miss], np.nonzero(miss)[0])
                 out.index_copy_(0, midx, vals)
+                if ledger is not None:  # logical bytes: serve misses
+                    ledger.note_transfer("store.serve_cold", "h2d",
+                                         int(miss.sum()) * self.rank * 4,
+                                         time.perf_counter() - t0)
         return out
 
     # -- whole-table views (offline / eval + checkpoint) ----------------------

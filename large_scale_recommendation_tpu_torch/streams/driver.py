@@ -39,11 +39,20 @@ gauge (``streams_lag_records``) and the numeric queue counters
 (``streams_queue_*``); ``start_telemetry_export`` runs it on a
 ``PeriodicTask`` so a ``/metrics`` scrape reads fresh lag.
 ``end_offset`` stats the disk, so the lag is read on the telemetry
-cadence only, never per batch. Not ported yet (the next slice, with their
-planes): the tracer spans, the event journal's checkpoint events and the
-lineage and critical-path marks. The duck-typed ``inspector``
-(``inspect_batch(batch)``) and ``evaluator`` (``split_batch(ratings)``)
-hooks are kept.
+cadence only, never per batch. With the tracer on, each apply is a
+``stream/ingest_batch`` span under the batch's activated ``TraceContext``
+(``StreamBatch.ctx``), so the update's spans join the record's trace;
+each checkpoint journals a ``stream.checkpoint`` event. The stream planes
+bind at construction: the lineage journal receives each applied batch's
+ingest watermark (``note_ingest``) and each swap's provenance
+(``_note_swap``: the watermark only this driver knows), and the
+critical-path analyzer the apply-start / applied / swap marks (the applied
+mark shares the ingest mark's clock read, the swap mark the lineage
+record's ``wall_time``, so ``swap_lag`` reconciles exactly with the
+freshness histogram). The duck-typed ``inspector``
+(``inspect_batch(batch)``, e.g. ``obs.dataquality.DataQualityInspector``:
+it reads the batch's host arrays before anything is staged) and
+``evaluator`` (``split_batch(ratings)``) hooks see each batch first.
 """
 
 from __future__ import annotations
@@ -55,7 +64,11 @@ from typing import Any, Callable
 
 import numpy as np
 
+from large_scale_recommendation_tpu_torch.obs.disttrace import get_disttrace
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
 from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 from large_scale_recommendation_tpu_torch.store.prefetch import (
     StorePrefetcher,
 )
@@ -121,6 +134,10 @@ class StreamingDriver:
         # takes a holdout out of it (weights zeroed) before the model does
         self.inspector = inspector
         self.evaluator = evaluator
+        # the stream planes (None unless installed): per-batch ingest
+        # watermarks and swap provenance, the critical-path marks
+        self._lineage = get_lineage()
+        self._disttrace = get_disttrace()
         self._adaptive = isinstance(model, AdaptiveMF)
         self._online = model.online if self._adaptive else model
         # ids touched since the last serving refresh (what lets
@@ -146,6 +163,8 @@ class StreamingDriver:
         obs = get_registry()
         self._obs = obs
         self._obs_on = obs.enabled
+        self._trace = get_tracer()
+        self._events = get_events()
         part = str(partition)
         self._m_batches = obs.counter("streams_batches_total",
                                       partition=part)
@@ -212,6 +231,12 @@ class StreamingDriver:
             self._m_ckpt.observe(time.perf_counter() - t0)
         self.checkpoints_written += 1
         self._since_checkpoint = 0
+        if self._events is not None:
+            self._events.emit("stream.checkpoint",
+                              partition=self.partition,
+                              step=int(self._online.step),
+                              offset=int(self.consumed_offset),
+                              path=path)
         if self.config.truncate_log:
             # retention chases the checkpointed offset, never the live one
             self.log.truncate_before(self.partition, self.consumed_offset)
@@ -249,7 +274,7 @@ class StreamingDriver:
         applied = 0
         try:
             for batch in self._source:
-                self._apply_batch(batch)
+                self._apply(batch)
                 applied += 1
                 if (max_batches is not None and applied >= max_batches) \
                         or self._stop.is_set():
@@ -275,9 +300,27 @@ class StreamingDriver:
         self._stop.clear()
         return applied
 
+    def _apply(self, batch: StreamBatch) -> None:
+        if self._trace.enabled:
+            # the batch's context is activated around the apply: every span
+            # opened inside (this one, the update's, a retrain the batch
+            # triggers) carries the record family's trace id
+            with self._trace.activate(batch.ctx), \
+                    self._trace.span("stream/ingest_batch",
+                                     partition=int(batch.partition),
+                                     start_offset=int(batch.start_offset),
+                                     end_offset=int(batch.end_offset)):
+                self._apply_batch(batch)
+        else:
+            self._apply_batch(batch)
+
     def _apply_batch(self, batch: StreamBatch) -> None:
         offset = (batch.partition, batch.end_offset)
         ratings = batch.ratings
+        if self._disttrace is not None:
+            # apply start: the queue_wait → train_apply boundary
+            self._disttrace.note_dequeue(batch.end_offset,
+                                         partition=batch.partition)
         if self.inspector is not None:
             self.inspector.inspect_batch(batch)
         if self.evaluator is not None:
@@ -288,6 +331,21 @@ class StreamingDriver:
             self.model.partial_fit(
                 ratings, offset=offset,
                 emit_updates=self.config.emit_updates)
+        if self._lineage is not None or self._disttrace is not None:
+            # the ingest half of the freshness join, once the model's own
+            # offset stamp shows the batch applied (a batch buffered during
+            # a background retrain is not yet). One clock read shared by
+            # both planes.
+            applied = self._online.consumed_offsets.get(batch.partition, 0)
+            if applied >= batch.end_offset:
+                t_applied = time.time()
+                if self._lineage is not None:
+                    self._lineage.note_ingest(applied,
+                                              partition=batch.partition,
+                                              t=t_applied)
+                if self._disttrace is not None:
+                    self._disttrace.note_applied(
+                        applied, partition=batch.partition, t=t_applied)
         if self._engines:  # dirty-id tracking feeds delta refreshes
             ru, ri, _, rw = ratings.to_numpy()
             real = rw > 0
@@ -342,7 +400,35 @@ class StreamingDriver:
         engine.on_refresh = self.catalog_versions.append
         self.catalog_versions.append(engine.version)  # the bind itself
         self._engines.append(engine)
+        self._note_swap(engine.version, self.consumed_offset,
+                        source="engine_bind")
         return engine
+
+    def _note_swap(self, version: int, watermark: int,
+                   source: str) -> None:
+        """One swap's causal stamps, each plane behind its own gate: the
+        lineage record (enriched with this partition's watermark), the
+        critical-path swap mark (at the lineage record's own ``wall_time``)
+        and a ``lineage/swap_watermark`` trace instant (the version ↔
+        watermark join the assembled record trace pivots on)."""
+        if (self._lineage is None and self._disttrace is None
+                and not self._trace.enabled):
+            return
+        t_swap = None
+        if self._lineage is not None:
+            rec = self._lineage.record_swap(
+                version, wal_offset_watermark=watermark,
+                partition=self.partition, train_step=int(self._online.step),
+                source=source)
+            t_swap = rec["wall_time"]
+        if self._disttrace is not None:
+            self._disttrace.note_swap(version, partition=self.partition,
+                                      watermark=watermark, t=t_swap)
+        if self._trace.enabled:
+            self._trace.instant("lineage/swap_watermark",
+                                version=int(version),
+                                partition=int(self.partition),
+                                watermark=int(watermark), source=source)
 
     def refresh_serving(self, delta: bool | None = None) -> None:
         """Push the live model's state into every attached engine.
@@ -392,6 +478,14 @@ class StreamingDriver:
             snapshot = self.model.to_model()
             for engine in self._engines:
                 engine.refresh(snapshot)
+        if (self._lineage is not None or self._disttrace is not None
+                or self._trace.enabled):
+            # each engine's new version covers everything applied here:
+            # the consumed offset is the servable watermark
+            watermark = self.consumed_offset
+            for engine in self._engines:
+                self._note_swap(engine.version, watermark,
+                                source="stream_refresh")
 
     # -- telemetry -----------------------------------------------------------
 

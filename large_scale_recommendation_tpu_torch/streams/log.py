@@ -21,6 +21,12 @@ wrote).
 Delivery is at-least-once: consumers persist their consumed offset with
 their state (``utils.checkpoint.save_online_state``) and replay the tail
 from it after a crash. Pure host code: no tensor is touched here.
+
+The causal plane binds at construction: with the tracer on, each acked
+append is a ``wal/append`` span carrying its offset range and the record
+trace id (``obs.disttrace.record_trace_id``), and an installed
+``CriticalPathAnalyzer`` notes the append instant. Each partition's lock is
+the contention plane's ``streams.wal_partition``.
 """
 
 from __future__ import annotations
@@ -30,11 +36,16 @@ import os
 import re
 import struct
 import tempfile
-import threading
 
 import numpy as np
 
 from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
+from large_scale_recommendation_tpu_torch.obs.disttrace import (
+    get_disttrace,
+    record_trace_id,
+)
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 
 # one rating event; int32 ids + f32 value match Ratings' wire dtypes
 RECORD_DTYPE = np.dtype([("user", "<i4"), ("item", "<i4"),
@@ -67,8 +78,8 @@ class _Partition:
         # guards self.segments against the reader/truncator race: the
         # driver's consumer thread truncates on checkpoint while the
         # QueuedSource feeder thread reads the tail (re-entrant: _read
-        # calls refresh)
-        self._lock = threading.RLock()
+        # calls refresh); raw unless the contention plane is armed
+        self._lock = named_rlock("streams.wal_partition")
         self._scan()
 
     # -- recovery-on-open ---------------------------------------------------
@@ -371,6 +382,8 @@ class EventLog:
                        segment_records, fsync)
             for k in range(num_partitions)
         ]
+        self._trace = get_tracer()
+        self._disttrace = get_disttrace()
 
     # -- append -------------------------------------------------------------
 
@@ -382,13 +395,28 @@ class EventLog:
 
     def append_arrays(self, partition: int, users, items,
                       ratings) -> tuple[int, int]:
-        """Append raw triples; returns the acked [start, end) offsets."""
+        """Append raw triples; returns the acked [start, end) offsets.
+        With the tracer on the durable write is a ``wal/append`` span
+        carrying the acked range and the record trace id; an installed
+        critical-path analyzer notes the append instant."""
         users = np.asarray(users)
         records = np.empty(len(users), RECORD_DTYPE)
         records["user"] = users.astype(np.int32)
         records["item"] = np.asarray(items, dtype=np.int32)
         records["rating"] = np.asarray(ratings, dtype=np.float32)
-        return self._part(partition).append(records)
+        if self._trace.enabled:
+            with self._trace.span("wal/append", partition=int(partition),
+                                  n=int(len(users))) as sp:
+                start, end = self._part(partition).append(records)
+                # stamped before exit so they export with the span
+                sp.args["start_offset"] = int(start)
+                sp.args["end_offset"] = int(end)
+                sp.args["trace_id"] = record_trace_id(partition, start)
+        else:
+            start, end = self._part(partition).append(records)
+        if self._disttrace is not None:
+            self._disttrace.note_append(end, partition=partition)
+        return start, end
 
     def append(self, partition: int, batch: Ratings) -> tuple[int, int]:
         """Append a ``Ratings`` batch. Weight-0 entries are padding by

@@ -31,9 +31,16 @@
 
 Each member ``StreamingDriver`` publishes its partition's registry
 instruments, and ``start_telemetry_export`` / ``stop_telemetry_export``
-run every driver's telemetry cadence. The runner's own obs planes (its
-gate and barrier counters, the contention thread registry, the event
-journal, lineage stamps) are not ported yet.
+run every driver's telemetry cadence. The runner's own: the gate's
+``streams_gate_grants_total`` / ``streams_gate_waits_total``, the
+barrier's ``streams_barrier_checkpoints_total``,
+``streams_checkpoint_s{partition="all"}``, ``streams_barriers_held_total``
+and ``streams_refreshes_coalesced_total``, a ``stream.checkpoint`` event
+per barrier, the named locks of the contention plane
+(``streams.row_conflict_gate``, ``streams.barrier``,
+``streams.ckpt_write``, ``streams.refresh``), consumer threads checked in
+and out of its thread registry, and per-partition swap provenance
+(each driver's ``_note_swap``) at every engine bind and refresh.
 """
 
 from __future__ import annotations
@@ -41,10 +48,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Any, Callable, Iterable
 
 import numpy as np
 
+from large_scale_recommendation_tpu_torch.obs.contention import (
+    get_contention,
+    named_condition,
+    named_lock,
+)
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.streams.driver import (
     StreamingDriver,
     StreamingDriverConfig,
@@ -98,11 +113,16 @@ class RowConflictGate:
     """
 
     def __init__(self):
-        self._cv = threading.Condition()
+        # raw unless the contention plane is armed: a colliding batch's
+        # wait then publishes as lock_wait_s{lock="streams.row_conflict_gate"}
+        self._cv = named_condition("streams.row_conflict_gate")
         self._users: set[int] = set()
         self._items: set[int] = set()
         self.grants = 0
         self.waits = 0
+        obs = get_registry()
+        self._m_grants = obs.counter("streams_gate_grants_total")
+        self._m_waits = obs.counter("streams_gate_waits_total")
 
     def acquire(self, user_ids, item_ids) -> tuple[set, set]:
         # tolist() then set(): both at C speed, so the GIL is held briefly
@@ -114,11 +134,13 @@ class RowConflictGate:
                        and i.isdisjoint(self._items)):
                 if not waited:
                     self.waits += 1
+                    self._m_waits.inc()
                     waited = True
                 self._cv.wait()
             self._users |= u
             self._items |= i
             self.grants += 1
+            self._m_grants.inc()
         return u, i
 
     def release(self, token: tuple[set, set]) -> None:
@@ -199,10 +221,10 @@ class ParallelIngestRunner:
         self.evaluator = evaluator
         # barrier accounting (held briefly per batch; the capture itself
         # nests the model's apply_lock, the .npz write happens outside)
-        self._barrier_lock = threading.Lock()
+        self._barrier_lock = named_lock("streams.barrier")
         # serializes the snapshot writes (two in-flight writes would race
         # the manager's retention sweep)
-        self._write_lock = threading.Lock()
+        self._write_lock = named_lock("streams.ckpt_write")
         self._frontier: dict[int, int] = {}
         self._since_barrier: dict[int, int] = {p: 0
                                                for p in self.partitions}
@@ -212,13 +234,26 @@ class ParallelIngestRunner:
         # tracking per batch), but only the runner swaps them
         self._engines: list = []
         self.catalog_versions: list[int] = []
-        self._refresh_lock = threading.Lock()
+        self._refresh_lock = named_lock("streams.refresh")
         self._refreshing = False
         # None = nothing pending; (delta,) = a coalesced request
         self._refresh_pending: tuple | None = None
         self.refreshes_coalesced = 0
         self._threads: list[threading.Thread] = []
         self._error: BaseException | None = None
+        # consumer threads check in and out of the contention plane's
+        # thread registry (None unless installed): one test per thread
+        # lifetime, nothing per batch
+        self._contention = get_contention()
+        obs = get_registry()
+        self._obs_on = obs.enabled
+        self._events = get_events()
+        self._m_barriers = obs.counter("streams_barrier_checkpoints_total")
+        self._m_ckpt = obs.histogram("streams_checkpoint_s",
+                                     partition="all")
+        self._m_held = obs.counter("streams_barriers_held_total")
+        self._m_coalesced = obs.counter(
+            "streams_refreshes_coalesced_total")
 
     # -- recovery ------------------------------------------------------------
 
@@ -301,6 +336,7 @@ class ParallelIngestRunner:
                 return False
             if not self._stamps_caught_up():
                 self.barriers_held += 1
+                self._m_held.inc()
                 return False
             arrays, meta = self._capture_locked()
         self._write_snapshot(arrays, meta)
@@ -326,12 +362,24 @@ class ParallelIngestRunner:
         return arrays, meta
 
     def _write_snapshot(self, arrays: dict, meta: dict) -> str:
+        t0 = time.perf_counter() if self._obs_on else 0.0
         with self._write_lock:
             path = self.manager.save(int(meta["step"]), arrays, meta)
+        if self._obs_on:
+            self._m_ckpt.observe(time.perf_counter() - t0)
+            self._m_barriers.inc()
         self.checkpoints_written += 1
+        offsets = {int(k): int(v) for k, v in meta["offsets"].items()}
+        if self._events is not None:
+            self._events.emit("stream.checkpoint",
+                              partitions=sorted(offsets),
+                              offsets={str(k): v
+                                       for k, v in offsets.items()},
+                              step=int(meta["step"]), path=path,
+                              barrier=True)
         if self.config.truncate_log:
-            for p, off in meta["offsets"].items():
-                self.log.truncate_before(int(p), int(off))
+            for p, off in offsets.items():
+                self.log.truncate_before(p, off)
         return path
 
     # -- consume loops -------------------------------------------------------
@@ -339,12 +387,18 @@ class ParallelIngestRunner:
     def _consumer(self, p: int, driver: StreamingDriver, applied: dict,
                   **run_kw) -> threading.Thread:
         def consume() -> None:
+            ct = self._contention
+            if ct is not None:
+                ct.note_thread_start()
             try:
                 applied[p] = driver.run(**run_kw)
             except BaseException as exc:
                 if self._error is None:
                     self._error = exc
                 self.stop()
+            finally:
+                if ct is not None:
+                    ct.note_thread_end()
 
         return threading.Thread(target=consume, daemon=True,
                                 name=f"ingest-p{p}")
@@ -430,6 +484,8 @@ class ParallelIngestRunner:
         self._engines.append(engine)
         for d in self.drivers.values():
             d._engines.append(engine)
+            d._note_swap(engine.version, d.consumed_offset,
+                         source="engine_bind")
         return engine
 
     def refresh_serving(self, delta: bool | None = None) -> None:
@@ -443,6 +499,7 @@ class ParallelIngestRunner:
             if self._refreshing:
                 self._refresh_pending = (delta,)
                 self.refreshes_coalesced += 1
+                self._m_coalesced.inc()
                 return
             self._refreshing = True
         try:
@@ -510,6 +567,12 @@ class ParallelIngestRunner:
                 snapshot = self.model.to_model()
             for engine in self._engines:
                 engine.refresh(snapshot)
+        # per-partition swap provenance: each driver stamps its partition's
+        # watermark onto every engine's fresh version
+        for engine in self._engines:
+            for d in self.drivers.values():
+                d._note_swap(engine.version, d.consumed_offset,
+                             source="stream_refresh")
 
     def _ship_deltas(self, online, dirty: dict) -> None:
         """Each partition's dirty rows into every engine as deferred

@@ -17,8 +17,12 @@ backpressure-aware ingest queue (counterpart of
   counted), ``dead_letter`` (shed into the quarantine buffer). Counters
   live in ``utils.metrics.IngestStats``.
 
-The JAX package's trace contexts and event journal are not ported (no obs
-plane yet), so a ``StreamBatch`` carries no ``ctx``.
+With the tracer on, every source mints each batch's ``TraceContext`` from
+its durable identity (``obs.disttrace.record_trace_id`` of its first
+record) into ``StreamBatch.ctx``, which the driver activates around the
+apply. The ingest queue's condition is the contention plane's
+``streams.ingest_queue``, and quarantines and backpressure sheds journal a
+``stream.dead_letter`` event.
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ from typing import Iterator
 import numpy as np
 
 from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.obs.contention import (
+    named_condition,
+)
+from large_scale_recommendation_tpu_torch.obs.disttrace import record_trace_id
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.trace import (
+    TraceContext,
+    get_tracer,
+)
 from large_scale_recommendation_tpu_torch.streams.log import EventLog
 from large_scale_recommendation_tpu_torch.utils.metrics import IngestStats
 
@@ -40,12 +53,20 @@ class StreamBatch:
     """One offset-stamped micro-batch: ``ratings`` covers records
     ``[start_offset, end_offset)`` of ``partition``'s stream. The stamp
     is what makes consumption checkpointable — a consumer that persists
-    ``end_offset`` with its state can replay the tail after a crash."""
+    ``end_offset`` with its state can replay the tail after a crash.
+
+    ``ctx`` is the batch's ``obs.trace.TraceContext`` (None when tracing is
+    off): minted by the source from the batch's first record
+    (``record_trace_id``) and activated around the apply by
+    ``StreamingDriver``, so every span the batch's processing opens joins
+    the record's distributed trace."""
 
     ratings: Ratings
     partition: int
     start_offset: int
     end_offset: int
+    ctx: TraceContext | None = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def n(self) -> int:
@@ -139,11 +160,16 @@ class IngestQueue:
         self.stats = IngestStats()
         self._items: list[StreamBatch] = []
         self._closed = False
-        self._cv = threading.Condition()
+        # raw unless the contention plane is armed: producer backpressure
+        # and consumer dequeue waits then publish as
+        # lock_*{lock="streams.ingest_queue"} (every queue shares the row)
+        self._cv = named_condition("streams.ingest_queue")
+        self._events = get_events()
 
     def put(self, batch: StreamBatch, timeout: float | None = None) -> bool:
         """Enqueue; returns False if the batch was shed (or the queue is
         closed / a blocking put timed out)."""
+        shed_records = None
         with self._cv:
             if self._closed:
                 return False
@@ -166,9 +192,9 @@ class IngestQueue:
                     ru, ri, rv, rw = batch.ratings.to_numpy()
                     real = rw > 0
                     self.dead_letters.put(ru[real], ri[real], rv[real])
+                    shed_records = int(real.sum())
                     self.stats.dead_letter_batches += 1
-                    self.stats.dead_letter_records += int(real.sum())
-                    return False
+                    self.stats.dead_letter_records += shed_records
                 else:  # "drop": shed outright, counted as loss
                     # count the batch's REAL rating rows, not its offset
                     # span (batch.n still covers rows _quarantine already
@@ -178,13 +204,23 @@ class IngestQueue:
                     self.stats.dropped_batches += 1
                     self.stats.dropped_records += int((rw > 0).sum())
                     return False
-            self._items.append(batch)
-            self.stats.enqueued_batches += 1
-            self.stats.enqueued_records += batch.n
-            self.stats.depth = len(self._items)
-            self.stats.depth_high_water = max(
-                self.stats.depth_high_water, self.stats.depth)
-            self._cv.notify_all()
+            if shed_records is None:
+                self._items.append(batch)
+                self.stats.enqueued_batches += 1
+                self.stats.enqueued_records += batch.n
+                self.stats.depth = len(self._items)
+                self.stats.depth_high_water = max(
+                    self.stats.depth_high_water, self.stats.depth)
+                self._cv.notify_all()
+        if shed_records is not None:
+            # journaled outside the condition (the emit may write the
+            # journal's JSONL mirror)
+            if self._events is not None:
+                self._events.emit("stream.dead_letter", severity="warning",
+                                  reason="backpressure_shed",
+                                  records=shed_records,
+                                  partition=batch.partition)
+            return False
         return True
 
     def get(self, timeout: float | None = None) -> StreamBatch | None:
@@ -252,6 +288,7 @@ class LogTailSource:
         self.follow = follow
         self.poll_interval_s = poll_interval_s
         self._stop = threading.Event()
+        self._trace = get_tracer()  # ctx mints only with the tracer on
 
     def stop(self) -> None:
         self._stop.set()
@@ -265,8 +302,12 @@ class LogTailSource:
                     return
                 time.sleep(self.poll_interval_s)
                 continue
+            ctx = (TraceContext(trace_id=record_trace_id(
+                self.partition, self.offset))
+                if self._trace.enabled else None)
             yield StreamBatch(ratings=batch, partition=self.partition,
-                              start_offset=self.offset, end_offset=nxt)
+                              start_offset=self.offset, end_offset=nxt,
+                              ctx=ctx)
             self.offset = nxt
 
     def __iter__(self) -> Iterator[StreamBatch]:
@@ -287,15 +328,19 @@ class GeneratorSource:
         self.num_batches = num_batches
         self.partition = partition
         self.offset = 0
+        self._trace = get_tracer()
 
     def batches(self) -> Iterator[StreamBatch]:
         produced = 0
         while self.num_batches is None or produced < self.num_batches:
             ratings = self.generator.generate(self.batch_records)
             n = int(np.sum(np.asarray(ratings.weights) > 0))
+            ctx = (TraceContext(trace_id=record_trace_id(
+                self.partition, self.offset))
+                if self._trace.enabled else None)
             yield StreamBatch(ratings=ratings, partition=self.partition,
                               start_offset=self.offset,
-                              end_offset=self.offset + n)
+                              end_offset=self.offset + n, ctx=ctx)
             self.offset += n
             produced += 1
 
@@ -313,6 +358,7 @@ class CSVSource:
         self.path = path
         self.batch_records = batch_records
         self.partition = partition
+        self._trace = get_tracer()
 
     def batches(self) -> Iterator[StreamBatch]:
         from large_scale_recommendation_tpu_torch.data.movielens import (
@@ -324,11 +370,13 @@ class CSVSource:
         ru, ri, rv = ru[real], ri[real], rv[real]
         for b0 in range(0, len(ru), self.batch_records):
             b1 = min(b0 + self.batch_records, len(ru))
+            ctx = (TraceContext(trace_id=record_trace_id(
+                self.partition, b0)) if self._trace.enabled else None)
             yield StreamBatch(
                 ratings=Ratings.from_arrays(ru[b0:b1], ri[b0:b1],
                                             rv[b0:b1]),
                 partition=self.partition, start_offset=b0,
-                end_offset=b1)
+                end_offset=b1, ctx=ctx)
 
     def __iter__(self) -> Iterator[StreamBatch]:
         return self.batches()
@@ -382,6 +430,7 @@ class QueuedSource:
         # hook of a tiered store's prefetcher (StorePrefetcher). Must be
         # cheap and non-blocking; exceptions are the feeder's death.
         self.on_enqueue = on_enqueue
+        self._events = get_events()
         self._error: BaseException | None = None
         self._thread: threading.Thread | None = None
 
@@ -402,11 +451,17 @@ class QueuedSource:
             return batch
         self.dead_letters.put(ru[bad], ri[bad], rv[bad])
         self.queue.stats.poison_records += int(bad.sum())
+        if self._events is not None:
+            self._events.emit(
+                "stream.dead_letter", severity="warning", reason="poison",
+                records=int(bad.sum()), partition=batch.partition,
+                start_offset=int(batch.start_offset),
+                end_offset=int(batch.end_offset))
         keep = real & good
         return StreamBatch(
             ratings=Ratings.from_arrays(ru[keep], ri[keep], rv[keep]),
             partition=batch.partition, start_offset=batch.start_offset,
-            end_offset=batch.end_offset)
+            end_offset=batch.end_offset, ctx=batch.ctx)
 
     def _feed(self) -> None:
         try:

@@ -159,14 +159,29 @@ def profile(log_dir: str | None) -> Iterator[None]:
 
 @dataclasses.dataclass
 class ThroughputMeter:
-    """Elements/second over the lifetime."""
+    """Elements/second over the lifetime. Recorded elements and seconds
+    also feed the ``meter_elements_total`` / ``meter_seconds_total``
+    registry counters (labeled by ``name``; null singletons when obs is
+    off, bound at construction)."""
 
     total_elements: int = 0
     total_s: float = 0.0
+    name: str = "throughput"
+
+    def __post_init__(self):
+        from large_scale_recommendation_tpu_torch.obs.registry import (
+            get_registry,
+        )
+
+        reg = get_registry()
+        self._c_elems = reg.counter("meter_elements_total", name=self.name)
+        self._c_secs = reg.counter("meter_seconds_total", name=self.name)
 
     def record(self, elements: int, seconds: float) -> None:
         self.total_elements += elements
         self.total_s += seconds
+        self._c_elems.inc(elements)
+        self._c_secs.inc(seconds)
 
     @property
     def rate(self) -> float:

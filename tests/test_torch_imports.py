@@ -119,14 +119,6 @@ def test_parallel_exports_resolve_lazily():
     assert set(jpar.__all__) - set(par.__all__) == {"shard_map"}
 
 
-# the planes of the next slice (ROADMAP queue A, "Obs 6c") and the names the
-# JAX obs package exports for them from elsewhere
-SIX_C_MODULES = ("lineage", "disttrace", "requests", "budget", "contention",
-                 "dataquality")
-SIX_C_NAMES = {"DataQualityCheck", "enable_lineage", "enable_disttrace",
-               "enable_requests", "enable_budget", "enable_contention"}
-
-
 def _jax_packages():
     import large_scale_recommendation_tpu as jpkg
 
@@ -155,7 +147,7 @@ def _exported(mod):
 @pytest.mark.parametrize("jname", _jax_packages())
 def test_package_exports_cover_the_jax_packages(jname):
     """Each package ``__init__`` of the port exports every name the JAX
-    package's exports (obs: but for the next slice's planes)."""
+    package's exports."""
     import importlib
 
     jmod = importlib.import_module(jname)
@@ -164,11 +156,6 @@ def test_package_exports_cover_the_jax_packages(jname):
                       "large_scale_recommendation_tpu_torch", 1))
     missing = []
     for n in _exported(jmod):
-        src = str(getattr(getattr(jmod, n), "__module__", ""))
-        if (jname.endswith(".obs") and (
-                n in SIX_C_NAMES
-                or src.rsplit(".", 1)[-1] in SIX_C_MODULES)):
-            continue
         if n == "shard_map":  # each rank is its own process (test above)
             continue
         if not hasattr(pmod, n):

@@ -9,7 +9,12 @@ output and on no other; the sync-debug guard counts (``log``) or raises
 (``disallow``) on an ``.item()``; the device-memory sample is supported;
 a profiler capture names the step kernels; a watchdog trip on the card
 freezes a bundle whose memory sample is the card's; ``/profilez`` records
-the card's kernels and refuses a second capture with 409.
+the card's kernels and refuses a second capture with 409. The serving and
+stream planes: a request's ``topk_merge`` stage holds the card's time of
+its scoring (the drain waits on the chunk's copy event), not
+``host_post``; scrapes of ``/lineagez``, ``/criticalpathz``,
+``/contentionz``, ``/budgetz`` and ``/slowz`` during card fits read no
+tensor (the guard counts per fit what it counts without them).
 """
 
 import json
@@ -224,3 +229,134 @@ def test_profilez_captures_the_card_and_refuses_a_second(card, tmp_path):
     assert "kernel" in cats, sorted(map(str, cats))
     assert any(e.get("cat") == "cpu_op" and e.get("name") == "aten::mul"
                for e in events), sorted(map(str, cats))
+
+
+@pytest.fixture
+def card_planes():
+    """The serving and stream planes live for one card test; every plane
+    reset after."""
+    from large_scale_recommendation_tpu_torch import obs
+
+    prev = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+            obs.get_store())
+    obs.enable()
+    yield obs
+    obs.disable()
+    obs.set_registry(prev[0])
+    obs.set_tracer(prev[1])
+    obs.set_events(prev[2])
+    obs.set_store(prev[3])
+
+
+def _card_model(card, num_users=2000, num_items=500, rank=16):
+    import numpy as np
+
+    from large_scale_recommendation_tpu_torch.data.blocking import (
+        flat_index,
+    )
+    from large_scale_recommendation_tpu_torch.models.mf import MFModel
+
+    g = torch.Generator().manual_seed(0)
+    return MFModel(U=torch.randn(num_users, rank, generator=g).to(card),
+                   V=torch.randn(num_items, rank, generator=g).to(card),
+                   users=flat_index(np.arange(num_users, dtype=np.int64)),
+                   items=flat_index(np.arange(num_items, dtype=np.int64)))
+
+
+def test_topk_merge_holds_the_drained_card_time(card, card_planes,
+                                                monkeypatch):
+    """~0.5 s of ``torch.cuda._sleep`` queued ahead of a chunk's scoring
+    lands in ``topk_merge`` (the drain's wait on the chunk's copy event);
+    the enqueue stages and ``host_post`` stay short."""
+    import numpy as np
+
+    from large_scale_recommendation_tpu_torch.serving import engine as em
+
+    obs = card_planes
+    tel = obs.enable_requests(10.0)
+    ledgers = []
+    real_note = tel.note_flush
+
+    def note(ledger, end, stamps, **kw):
+        real_note(ledger, end, stamps, **kw)  # closes host_post
+        ledgers.append((dict(ledger.stages), end - ledger.t0))
+
+    tel.note_flush = note
+    engine = em.ServingEngine(_card_model(card), k=10, max_batch=64)
+    engine.recommend(np.arange(32))  # warm: no sleep
+    real_step = em.topk_step
+
+    def slow_step(*args, **kwargs):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return real_step(*args, **kwargs)
+
+    monkeypatch.setattr(em, "topk_step", slow_step)
+    engine.recommend(np.arange(32))
+    stages, wall = ledgers[-1]
+    assert stages["topk_merge"] >= 0.25, stages
+    assert stages["topk_merge"] >= 0.8 * wall, stages
+    for stage in ("batch_form", "gather", "score_stage1", "host_post"):
+        assert stages[stage] < 0.05, stages
+    ex = tel.exemplars()[0]
+    assert ex["dominant_stage"] in ("topk_merge", "queue_wait")
+
+
+def test_plane_scrapes_read_no_tensor_during_card_fits(card, card_planes):
+    """Five plane routes scraped from a second thread while the card fits:
+    the sync-debug guard counts in the fits' scope exactly what it counts
+    for fits without them."""
+    import numpy as np
+
+    from large_scale_recommendation_tpu_torch.obs.server import (
+        ObsServer,
+        http_get,
+    )
+    from large_scale_recommendation_tpu_torch.serving import ServingEngine
+
+    obs = card_planes
+    ledger = obs.enable_transfers(guard="log")
+    obs.enable_lineage()
+    obs.enable_disttrace()
+    obs.enable_contention(interval_s=0.05)
+    obs.enable_budget(0.001)
+    obs.enable_requests(0.001)
+    ServingEngine(_card_model(card), k=10).serve(
+        [np.arange(i, i + 8) for i in range(0, 160, 8)])
+    ratings = SyntheticMFGenerator(num_users=800, num_items=600, rank=8,
+                                   seed=0).generate(20_000)
+    cfg = DSGDConfig(num_factors=32, iterations=2, learning_rate=0.05,
+                     lambda_=0.05, minibatch_size=1024, init_scale=0.1)
+
+    def fits(n):
+        before = ledger.snapshot()["implicit_by_site"].get("dsgd.fit", 0)
+        for _ in range(n):
+            DSGD(cfg).fit(ratings, num_blocks=2)
+        torch.cuda.synchronize()
+        return (ledger.snapshot()["implicit_by_site"].get("dsgd.fit", 0)
+                - before)
+
+    fits(1)  # builds and loads the library
+    quiet = fits(3)
+    routes = ("/lineagez", "/criticalpathz", "/contentionz", "/budgetz",
+              "/slowz")
+    codes, stop = [], threading.Event()
+    server = ObsServer().start()
+
+    def scrape():
+        while not stop.is_set():
+            for route in routes:
+                codes.append(http_get(server.url + route, timeout=5)[0])
+
+    scraper = threading.Thread(target=scrape)
+    scraper.start()
+    try:
+        while len(codes) < len(routes):
+            time.sleep(0.01)
+        scraped = fits(3)
+    finally:
+        stop.set()
+        scraper.join(timeout=30)
+        server.stop()
+    assert not scraper.is_alive()
+    assert len(codes) >= 2 * len(routes) and set(codes) == {200}
+    assert scraped == quiet

@@ -4,9 +4,11 @@ equal outputs on the same texts (escaped label values, histograms, empty
 bodies, malformed lines refused alike); the port's ``FleetAggregator``
 scraping one JAX and one port ``ObsServer`` gives the JAX aggregator's
 ``/fleetz`` merge, worst-status-wins health and transfer view; an
-unreachable member counts CRITICAL; the ``FleetServer`` routes, and 404 on
-the routes whose planes are not ported. Every server is stopped by its
-fixture; scrapes time out at 5 s."""
+unreachable member counts CRITICAL; the ``FleetServer`` routes. Then the
+pod views of the serving and stream planes (``pod_trace`` / ``/podtracez``,
+``contention``, ``budget``, ``requests``) against the JAX aggregator's over
+the same two servers. Every server is stopped by its fixture; scrapes time
+out at 5 s."""
 
 import json
 
@@ -186,9 +188,12 @@ def test_fleet_server_routes(pod):
         assert http_get(fleet.url + "/transferz", timeout=TIMEOUT)[0] == 200
         routes = json.loads(http_get(fleet.url + "/", timeout=TIMEOUT)[1])
         assert routes["routes"] == ["/metrics", "/healthz", "/fleetz",
-                                    "/transferz"]
+                                    "/podtracez", "/contentionz",
+                                    "/transferz", "/budgetz", "/slowz"]
         for route in ("/podtracez", "/contentionz", "/budgetz", "/slowz"):
-            assert http_get(fleet.url + route, timeout=TIMEOUT)[0] == 404
+            assert http_get(fleet.url + route, timeout=TIMEOUT)[0] == 200
+        for query in ("/podtracez?limit=x", "/slowz?limit=-1"):
+            assert http_get(fleet.url + query, timeout=TIMEOUT)[0] == 400
         state["p"] = "critical"
         code, body = http_get(fleet.url + "/healthz", timeout=TIMEOUT)
         assert code == 503 and json.loads(body)["status"] == "critical"
@@ -201,3 +206,102 @@ def test_needs_targets():
     with pytest.raises(ValueError):
         pfleet.FleetAggregator(["http://x"]).scrape(include_metrics=False,
                                                     include_health=False)
+
+
+@pytest.fixture
+def live_pod():
+    """One JAX and one port ``ObsServer``, each over its own package's live
+    serving and stream planes fed the same notes; every plane reset and
+    both servers stopped after."""
+    from large_scale_recommendation_tpu import obs as jobs
+
+    prev = [(m.get_registry(), m.get_tracer(), m.get_events(), m.get_store())
+            for m in (obs, jobs)]
+    servers = []
+    for m, server_cls, kw in ((jobs, JServer, {}),
+                              (obs, ObsServer, {})):
+        reg, tracer = m.enable()
+        budget = m.enable_budget(0.01, objective=0.9, min_samples=4)
+        tel = m.enable_requests(0.01, objective=0.9)
+        tracker = m.enable_contention(start=False)
+        lk = tracker.lock("shared.lock")
+        for _ in range(3):
+            with lk:
+                pass
+        for i, lat in enumerate(np.linspace(0.001, 0.02, 12)):
+            budget.note_result(1 + i % 2, float(lat), t=100.0 + i)
+        budget.note_shed(2, 2)
+        led = tel.ledger(10.0)
+        led.mark("batch_form", 10.001)
+        led.mark("gather", 10.003)
+        led.mark("topk_merge", 10.02)
+        tel.note_flush(led, 10.021, (9.99, 10.0), version=2, rows=(3, 5))
+        tel.note_shed(version=2, burn=5.0, queue_depth=1)
+        with tracer.span("wal/append", partition=0) as sp:
+            sp.args.update(start_offset=0, end_offset=10)
+        servers.append(server_cls(registry=reg, tracer=tracer, **kw).start())
+    yield servers
+    for s in servers:
+        s.stop()
+    for m, p in zip((obs, jobs), prev):
+        m.disable()
+        m.set_registry(p[0])
+        m.set_tracer(p[1])
+        m.set_events(p[2])
+        m.set_store(p[3])
+
+
+def _no_time(doc):
+    if isinstance(doc, dict):
+        return {k: _no_time(v) for k, v in doc.items()
+                if k not in ("time", "first_t", "last_t", "window_start",
+                             "start", "wall_s", "capacity_s", "busy_s",
+                             "blocked_s", "efficiency", "serial_fraction",
+                             "hold_s", "wait_s", "ts", "dur", "span_id",
+                             "parent_span_id", "threads")}
+    if isinstance(doc, list):
+        return [_no_time(v) for v in doc]
+    return doc
+
+
+@pytest.mark.parametrize("view", ["pod_trace", "contention", "budget",
+                                  "requests"])
+def test_plane_aggregations_equal_jax(live_pod, view):
+    """The four pod views of the serving and stream planes: the port's
+    aggregator over one JAX and one port server gives the JAX
+    aggregator's document (clocks, CPU and lock-hold walls dropped)."""
+    targets = [s.url for s in live_pod]
+    pv = getattr(pfleet.FleetAggregator(targets, timeout_s=TIMEOUT), view)()
+    jv = getattr(jfleet.FleetAggregator(targets, timeout_s=TIMEOUT), view)()
+    assert _no_time(pv) == _no_time(jv)
+    assert pv["unreachable"] == []
+    if view == "budget":
+        assert [c["served"] for c in pv["cohorts"]] == [12, 12]
+        assert [c["shed"] for c in pv["cohorts"]] == [0, 4]
+    if view == "requests":
+        assert len(pv["exemplars"]) == 6
+        assert {e["host"] for e in pv["exemplars"]} == {
+            t.split("//")[1] for t in targets}
+    if view == "contention":
+        row = [r for r in pv["locks"] if r["lock"] == "shared.lock"][0]
+        assert row["acquisitions"] == 6 and row["hosts"] == 2
+    if view == "pod_trace":
+        assert pv["podSources"] == [t.split("//")[1] for t in targets]
+        names = [e["name"] for e in pv["traceEvents"]]
+        assert names.count("wal/append") == 2
+
+
+def test_podtracez_route_validates(live_pod):
+    from large_scale_recommendation_tpu_torch.obs.trace import (
+        validate_chrome_trace,
+    )
+
+    agg = pfleet.FleetAggregator([s.url for s in live_pod] + [
+        "http://127.0.0.1:9"], timeout_s=TIMEOUT)
+    with pfleet.FleetServer(agg) as fleet:
+        code, body = http_get(fleet.url + "/podtracez?limit=0",
+                              timeout=TIMEOUT)
+    assert code == 200
+    doc = json.loads(body)
+    validate_chrome_trace(doc)
+    assert doc["unreachable"] == ["127.0.0.1:9"]

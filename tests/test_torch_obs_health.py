@@ -380,3 +380,75 @@ def test_no_bundle_without_a_bundle_dir(both_recorders):
     wd = ph.TrainingWatchdog(policy="observe")
     wd.observe_loss(float("nan"))
     assert wd.tripped and wd.last_bundle is None
+
+
+def _watch_sequences(pkg):
+    """The four serving / stream watches of ``pkg``'s ``HealthMonitor``
+    driven from OK into their page and back out; returns each step's
+    per-check statuses."""
+    import importlib
+
+    budget = importlib.import_module(pkg + ".obs.budget")
+    dq = importlib.import_module(pkg + ".obs.dataquality")
+    lineage = importlib.import_module(pkg + ".obs.lineage")
+    health = importlib.import_module(pkg + ".obs.health")
+    requests = importlib.import_module(pkg + ".obs.requests")
+    regmod = importlib.import_module(pkg + ".obs.registry")
+    reg = regmod.MetricsRegistry()
+    now = [1000.0]
+    mon = health.HealthMonitor(registry=reg)
+    insp = dq.DataQualityInspector(rating_range=(1.0, 5.0), window=2,
+                                   registry=reg)
+    journal = lineage.LineageJournal(registry=reg)
+    rb = budget.RolloutBudget(0.01, objective=0.9, min_samples=4,
+                              registry=reg)
+    tel = requests.RequestTelemetry(0.01, objective=0.9, window=8,
+                                    registry=reg)
+    mon.watch_data_quality(insp)
+    mon.watch_freshness(journal, degraded_after_s=5.0,
+                        critical_after_s=60.0)
+    mon.watch_rollout(rb)
+    mon.watch_requests(tel, frac_bar=0.5)
+    steps = []
+
+    def step():
+        rep = mon.run()
+        steps.append({n: c["status"] for n, c in rep["checks"].items()})
+
+    step()
+    # trip all four
+    insp.inspect([1, 2], [1, 2], np.array([np.nan, 3.0], np.float32))
+    journal.note_ingest(100, t=now[0])
+    for i in range(8):
+        rb.note_result(1, 0.001, t=float(i))
+        rb.note_result(2, 0.5, t=float(i))
+        led = tel.ledger(10.0 + i)
+        led.mark("gather", 10.0 + i + 0.09)
+        tel.note_flush(led, 10.0 + i + 0.1, (10.0 + i,), version=2)
+    rb.verdicts.evaluate(2, 1)
+    now[0] += 10.0
+    step()
+    # clear all four
+    for _ in range(2):
+        insp.inspect([1, 2], [3, 4], np.array([3.0, 4.0], np.float32))
+    journal.record_swap(3, wal_offset_watermark=100, wall_time=now[0])
+    rb.verdicts.mark_rolled_back(2)
+    for i in range(8):
+        led = tel.ledger(30.0 + i)
+        led.mark("gather", 30.0 + i + 0.001)
+        tel.note_flush(led, 30.0 + i + 0.002, (30.0 + i,), version=3)
+    step()
+    return steps, now
+
+
+def test_serving_and_stream_watches_trip_and_clear_as_jax(monkeypatch):
+    now = [1000.0]
+    monkeypatch.setattr(time, "time", lambda: now[0] + 10.0)
+    p, _ = _watch_sequences("large_scale_recommendation_tpu_torch")
+    j, _ = _watch_sequences("large_scale_recommendation_tpu")
+    assert p == j
+    names = ("data_quality", "freshness", "rollout", "requests")
+    assert [p[0][n] for n in names] == ["ok"] * 4
+    assert [p[1][n] for n in names] == ["critical", "degraded",
+                                        "degraded", "degraded"]
+    assert [p[2][n] for n in names] == ["ok"] * 4

@@ -3,12 +3,13 @@ the same (t, v) sequences through both ``SeriesRing``s give equal points,
 downsampling tiers included; both recorders sampling registries built with
 the same instruments and values give equal ``snapshot()`` series; a bundle
 either package writes validates and loads under the other's
-``validate_bundle`` / ``load_bundle``, and the port's files of the planes
-not ported carry the JAX package's own "not installed" documents. Then the
-port's own contracts: crash safety (a write interrupted before
-``os.replace`` leaves only a ``.tmp-*`` orphan), the auto-named bundles,
-the device-memory freeze off the main thread, the profiler note, and
-``enable_flight_recorder`` / ``disable``. Exact equality throughout (host
+``validate_bundle`` / ``load_bundle``; without the serving and stream
+planes the port's files for them carry the JAX package's own "not
+installed" documents, and with them live a bundle crosses the packages
+either way. Then the port's own contracts: crash safety (a write
+interrupted before ``os.replace`` leaves only a ``.tmp-*`` orphan), the
+auto-named bundles, the device-memory freeze off the main thread, the
+profiler note, and ``enable_flight_recorder`` / ``disable``. Exact equality throughout (host
 arithmetic on the same floats); times are not compared."""
 
 import json
@@ -240,9 +241,9 @@ def test_jax_bundle_validates_under_the_port(jax_flight, tmp_path):
 
 def test_unported_planes_carry_the_jax_notes(port_flight, jax_flight,
                                             tmp_path):
-    """Neither process has the next slice's planes installed: the port's
-    files for them equal the JAX package's, and ``lineage.json`` freezes
-    the same ``eval_`` gauges."""
+    """Neither process has the serving and stream planes installed: the
+    port's files for them equal the JAX package's, and ``lineage.json``
+    freezes the same ``eval_`` gauges."""
     for reg in (port_flight[0], jax_flight[0]):
         reg.gauge("eval_rmse", source="online").set(0.25)
         reg.gauge("eval_ndcg_at_k", source="online", k="10").set(0.5)
@@ -441,3 +442,73 @@ def test_enable_flight_recorder_replaces_and_disable_clears(port_flight):
     assert obs.get_recorder() is None and obs.get_events() is None
     assert not [t for t in threading.enumerate()
                 if t.name == "flight-recorder" and t.is_alive()]
+
+
+def _install_planes(m):
+    """Every serving and stream plane of package ``m`` live, fed a few
+    notes (the same in both packages)."""
+    journal = m.enable_lineage()
+    m.enable_disttrace()
+    tracker = m.enable_contention(start=False)
+    budget = m.enable_budget(0.01, objective=0.9)
+    tel = m.enable_requests(0.01, objective=0.9)
+    journal.note_ingest(40, t=1.0)
+    journal.record_swap(3, wal_offset_watermark=40, wall_time=2.0,
+                        source="stream_refresh")
+    with tracker.lock("b.lock"):
+        pass
+    budget.note_result(3, 0.002, t=3.0)
+    budget.note_shed(3)
+    led = tel.ledger(5.0)
+    led.mark("gather", 5.01)
+    tel.note_flush(led, 5.02, (4.99,), version=3)
+
+
+def _clear_planes(m):
+    for setter in ("set_lineage", "set_disttrace", "set_budget",
+                   "set_requests"):
+        getattr(m, setter)(None)
+    tracker = m.get_contention()
+    if tracker is not None:
+        tracker.stop()
+    m.set_contention(None)
+
+
+def test_live_planes_bundle_crosses_packages(port_flight, jax_flight,
+                                            tmp_path):
+    """A bundle frozen by the port with every plane live passes the JAX
+    package's ``validate_bundle`` with the planes' snapshots in its four
+    files, and a JAX bundle frozen the same way passes the port's."""
+    try:
+        _install_planes(obs)
+        _install_planes(jobs)
+        p = port_flight[2].dump(directory=str(tmp_path / "p"))
+        j = jax_flight[2].dump(directory=str(tmp_path / "j"))
+    finally:
+        _clear_planes(jobs)
+    jrec.validate_bundle(p)
+    prec.validate_bundle(j)
+    pl, jl = prec.load_bundle(p), jrec.load_bundle(j)
+    for docs in (pl, jl, prec.load_bundle(j), jrec.load_bundle(p)):
+        assert docs["lineage"]["lineage"]["records"][0]["catalog_version"] \
+            == 3
+        assert "note" not in docs["contention"]
+        assert [r["lock"] for r in docs["contention"]["locks"]] == ["b.lock"]
+        assert docs["budget"]["cohorts"]["3"]["shed"] == 1
+        assert docs["requests"]["count"] == 1
+    strip = ("time", "first_t", "last_t")
+
+    def clean(d):
+        if isinstance(d, dict):
+            return {k: clean(v) for k, v in d.items() if k not in strip}
+        if isinstance(d, list):
+            return [clean(v) for v in d]
+        return d
+
+    assert clean(pl["budget"]) == clean(jl["budget"])
+    assert (clean(pl["lineage"]["lineage"]["records"])
+            == clean(jl["lineage"]["lineage"]["records"]))
+    p_req, j_req = clean(pl["requests"]), clean(jl["requests"])
+    for ex in p_req["exemplars"] + j_req["exemplars"]:
+        ex.pop("span_id", None)
+    assert p_req == j_req

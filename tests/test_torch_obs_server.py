@@ -6,8 +6,11 @@ same codes for OK, DEGRADED and CRITICAL monitors; both answer 400 on a bad
 ``?limit=`` and 404 on an unknown path. Then the port's own routes:
 ``/seriesz``, ``/eventz``, ``/tracez``, ``/rooflinez``, ``/storez``,
 ``/transferz``, ``/profilez`` (200 with a trace listed; 409 while another
-capture runs), the routes of the planes not ported (404, unlisted) and the
-server's lifecycle. Every server is stopped by its fixture."""
+capture runs), the serving and stream planes' routes (``/lineagez``,
+``/criticalpathz``, ``/contentionz``, ``/budgetz``, ``/slowz``: the JAX
+package's bodies with no plane installed, live snapshots with one, the
+``/slowz`` limit's 400, all listed on ``/``) and the server's lifecycle.
+Every server is stopped by its fixture."""
 
 import json
 import os
@@ -135,13 +138,18 @@ def test_unknown_paths_answer_404_as_jax(servers):
 @pytest.mark.parametrize("route", ["/lineagez", "/criticalpathz",
                                    "/contentionz", "/budgetz", "/slowz"])
 def test_unported_plane_routes_answer_404(servers, route):
+    """Once the routes of the serving and stream planes were missing here
+    (404); now each answers 200 with the JAX package's body when its plane
+    is not installed, and ``/`` lists the JAX package's routes in order."""
     j, p = _pair(servers)
-    assert get(j.url + route)[0] == 200
-    assert get(p.url + route)[0] == 404
+    jc, jb = get(j.url + route)
+    pc, pb = get(p.url + route)
+    assert jc == pc == 200
+    assert json.loads(pb) == json.loads(jb)
     routes = json.loads(get(p.url + "/")[1])["routes"]
-    assert route not in routes
-    assert set(routes) == set(psrv.ROUTES)
-    assert set(routes) < set(json.loads(get(j.url + "/")[1])["routes"])
+    assert route in routes
+    assert routes == list(psrv.ROUTES)
+    assert routes == json.loads(get(j.url + "/")[1])["routes"]
 
 
 def test_tracez_limit_and_buffer(servers):
@@ -323,3 +331,41 @@ def test_the_first_capture_of_a_process_sees_host_ops(tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.strip().splitlines()[-1]) > 0
+
+
+def test_plane_routes_serve_live_snapshots(servers, port_planes):
+    """With every serving and stream plane installed, the five routes
+    answer the planes' snapshots over the socket (strict JSON), and
+    ``/slowz?limit=`` bounds the exemplar table (400 on junk)."""
+    reg, _ = obs.enable()
+    journal = obs.enable_lineage()
+    analyzer = obs.enable_disttrace()
+    tracker = obs.enable_contention(start=False)
+    budget = obs.enable_budget(0.01)
+    tel = obs.enable_requests(0.01)
+    journal.record_swap(4, wal_offset_watermark=10, wall_time=5.0)
+    analyzer.note_applied(10, t=1.0)
+    analyzer.note_swap(4, watermark=10, t=2.0)
+    with tracker.lock("x.lock"):
+        pass
+    budget.note_result(4, 0.5)
+    for i in range(5):
+        led = tel.ledger(float(i))
+        tel.note_flush(led, i + 0.5, (float(i),), version=4)
+    p = servers(obs.ObsServer())
+    docs = {}
+    for route in ("/lineagez", "/criticalpathz", "/contentionz",
+                  "/budgetz", "/slowz", "/slowz?limit=2"):
+        code, body = get(p.url + route)
+        assert code == 200, (route, body)
+        docs[route] = json.loads(body)
+    assert docs["/lineagez"]["records"][0]["catalog_version"] == 4
+    assert docs["/criticalpathz"]["samples_total"] == 1
+    assert [r["lock"] for r in docs["/contentionz"]["locks"]] == ["x.lock"]
+    assert docs["/budgetz"]["cohorts"]["4"]["served"] == 1
+    assert docs["/slowz"]["count"] == 5
+    assert len(docs["/slowz"]["exemplars"]) == 5
+    assert len(docs["/slowz?limit=2"]["exemplars"]) == 2
+    for junk in ("/slowz?limit=x", "/slowz?limit=-3"):
+        assert get(p.url + junk)[0] == 400
+    assert reg is obs.get_registry()

@@ -515,3 +515,19 @@ def test_clustered_recall_pin_on_structured_catalog():
     ie, _ = exact.recommend(uids)
     ia, _ = fast.recommend(uids)
     assert tret.recall_at_k(ia, ie) >= 0.95
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, dict(n_clusters=8,
+                                             kmeans_sample=600)])
+def test_bytes_per_device_equal_jax(cfg_kw):
+    """A replicated build's per-device footprint is the catalog's bytes
+    plus the f32 rescore table's; the flat build's equals the JAX
+    package's (same dtypes and shapes; a clustered build's slab sizes
+    follow each package's own k-means)."""
+    V = catalog_V(600, 8, seed=9)
+    jr, tr = _retrievers(V, cfg_kw)
+    assert tr.catalog.nbytes_per_device() == tr.catalog.nbytes()
+    assert (tr.nbytes_per_device()
+            == tr.catalog.nbytes() + V.size * V.itemsize)
+    if not cfg_kw:
+        assert tr.nbytes_per_device() == jr.nbytes_per_device()

@@ -631,3 +631,46 @@ def test_entry_points_default_to_the_card(monkeypatch):
                   lambda: convert.tiered_store_from_jax(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
+
+
+def test_transfer_ledger_notes_reconcile_with_the_stats_as_jax(
+        both_obs_live):
+    """With a transfer ledger installed, the same batches through both
+    packages' tiered models (8 slots: the pool evicts and writes back)
+    note the same sites with the same logical bytes and counts, and the
+    bytes reconcile with ``StoreStats``: demand faults = (misses +
+    installs) rows, write-backs and serve misses likewise."""
+    from large_scale_recommendation_tpu.obs import transfers as jtx
+    from large_scale_recommendation_tpu_torch import obs
+
+    jprev = jtx.get_transfers()
+    jl = jtx.TransferLedger()
+    jtx.set_transfers(jl)
+    pl = obs.enable_transfers(watch_hot=False)
+    try:
+        jm, pm = _pair(8)
+        for b in batches():
+            jm.partial_fit(JRatings.from_arrays(*b.to_numpy()),
+                           emit_updates=False)
+            pm.partial_fit(b, emit_updates=False)
+        rows = np.arange(40)
+        jm.users.serve_rows(rows)
+        pm.users.serve_rows(rows)
+    finally:
+        jtx.set_transfers(jprev)
+
+    def sites(ledger):
+        return {name: {k: v for k, v in row.items()
+                       if k in ("h2d_bytes", "d2h_bytes", "h2d_count",
+                                "d2h_count")}
+                for name, row in ledger.snapshot()["sites"].items()
+                if name.startswith("store.")}
+
+    ps, js = sites(pl), sites(jl)
+    assert ps == js
+    st, row = pm.users.stats, 4 * RANK
+    assert ps["store.demand_fault"]["h2d_bytes"] == \
+        (st.misses + st.installs) * row
+    assert ps["store.writeback"]["d2h_bytes"] == st.writebacks * row
+    assert ps["store.serve_cold"]["h2d_bytes"] == st.serve_misses * row
+    assert st.writebacks > 0 and st.serve_misses > 0
