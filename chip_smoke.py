@@ -27,6 +27,14 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               one bf16 ulp (magnitudes below 2^-16 counted as 2^-16, where
               a bf16 ulp is the size of the f32 kernel-vs-plain
               difference), and the cast kernels bit-equal to ``Tensor.to``;
+3a. kernels.probe — ``cuda_sgd.probe_variants`` at the JAX probe's
+              defaults (rank 128, minibatch 2,048, 5,080 × 1,848 rows,
+              24,576 ratings, 5 reps), 16 sweeps a timed call, unsorted and
+              sorted, obs on: the ``torch`` and ``cuda`` variants' ratings/s
+              (no ``FAILED``, equal to their gauges), the cuda variant's
+              plan wall, the step pair launched 12 × 6 × 16 times a probe
+              each (its launches join the kernels line), and its one visit
+              within 1e-5 of ``block_sweep_reference`` on the same draw;
 4. data/host — the bench configuration's ratings at full width:
               ML-25M-shaped (162,541 × 59,047, 25,000,095 ratings, 95/5
               split); ``block_problem`` and ``minibatch_inv_counts`` through
@@ -128,7 +136,17 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               atol 1e-5); a snapshot after batch 5 restored bit-equal into
               a fresh model; one batch split into its host and device
               parts; one updates-emitting batch of 20,000.
-              The ALS and online paths launch none of the four kernels.
+              ``[online.obs]``: the stream with the model's obs hooks on
+              (registry, journal, the transfer plane's ``log`` guard)
+              against off, ratings/s as the min of 5 interleaved pairs;
+              ``online_batch_s`` p50 beside the batch wall, its count and
+              the two counters equal to the batches and ratings applied,
+              the implicit transfers at ``online.partial_fit``, the staging
+              and emit notes' bytes; under torch's deterministic
+              algorithms (the card's ``index_add_`` atomics otherwise vary
+              the last places between any two runs) tables bit-equal on
+              and off. The ALS and online paths launch none of the four
+              kernels.
 14. serve.engine — ``ServingEngine`` on the trained ``fit`` model: the
               16,384 users of [serve] in seeded requests of 1–32 users,
               max_batch 1,024 (users/s, flush p50/p99, buckets, shapes, the
@@ -143,6 +161,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               unmeetable SLO target climbs the ladder to ``degrade``
               (results flagged) and, with default thresholds, to ``shed``
               (``serve`` returns each rejection in its request's place);
+              the exact engine again with the transfer plane's ``log``
+              guard armed: answers equal, the implicit transfers counted at
+              ``serving.serve_rows`` after a warm pass, users/s against the
+              unarmed engine;
 14a. obs.serve — the exact engine of [serve.engine] again with the request,
               rollout, lineage and critical-path planes on and an
               ``ObsServer`` scraped from a second thread (``/lineagez``,
@@ -167,7 +189,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               100,000 records appended over 4 partitions and read back by a
               new instance (records/s and bytes/s each way; the re-read
               equal to what was appended), a torn tail cut off by the next
-              append, one 8-batch ``fsync=True`` leg on its own;
+              append, one 8-batch ``fsync=True`` leg on its own; the log
+              built with an event journal: one ``wal.segment_roll`` per
+              roll (directory and bases equal to the segments');
 17. streams.driver — 16 batches of one partition drained by
               ``StreamingDriver(OnlineMF)`` (rank 128, checkpoint every 4)
               against the bare ``partial_fit`` loop over the same batches,
@@ -206,8 +230,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               check trips CRITICAL and the bundle it freezes validates
               with live ``lineage.json`` / ``contention.json``;
               ``/criticalpathz``'s samples reconcile with the freshness
-              histogram (count, mean ``swap_lag``); the tables equal a
-              planes-off run's at the [online] bar; the fleet's
+              histogram (count, mean ``swap_lag``); under torch's
+              deterministic algorithms the tables bit-equal to a planes-off
+              run's; ``online.table_growth`` events ending at the tables'
+              capacities, ``online_batch_s`` counting every online batch;
+              the fleet's
               ``/podtracez`` 200 and valid. ``ParallelIngestRunner`` at N =
               2 (the [streams.parallel] strata) under the contention
               plane: ``/contentionz``'s serial fraction, top contended
@@ -289,6 +316,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -339,6 +367,7 @@ from large_scale_recommendation_tpu_torch.models.pipeline import (
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.obs import registry as obs_registry
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
 from large_scale_recommendation_tpu_torch.obs.introspect import TRACE_FILE
 from large_scale_recommendation_tpu_torch.obs.server import http_get
@@ -388,6 +417,7 @@ from large_scale_recommendation_tpu_torch.streams.log import (
     RECORD_SIZE,
 )
 from large_scale_recommendation_tpu_torch.utils import metrics
+from large_scale_recommendation_tpu_torch.utils.shapes import next_pow2
 from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     ShardedCheckpointManager,
@@ -661,6 +691,74 @@ def phase_skewed(dev):
         tol_per_stratum=STRATUM_TOL)
 
 
+# the JAX probe's defaults (pallas_sgd.py:882-885: one ML-25M block visit
+# at k = 32), 16 sweeps a timed call (scripts/pallas_probe.py's advice)
+PROBE = dict(rank=128, mb=2048, rpb_u=5080, rpb_v=1848, nnz=24576, reps=5)
+PROBE_SWEEPS = 16
+
+
+def phase_kernels_probe(smi):
+    """``probe_variants`` at the JAX defaults, 16 sweeps a timed call,
+    unsorted and sorted, with obs on: both variants' ratings/s and the cuda
+    variant's plan wall, no ``FAILED``, the rates in the
+    ``pallas_probe_ratings_per_s`` gauges, the step pair launched steps ×
+    (1 + reps) × sweeps times a probe each; then the cuda variant's tables
+    after one visit against ``block_sweep_reference`` on the same draw
+    (max-abs ≤ 1e-5; these launches are not counted). Returns the probes'
+    launch counts."""
+    reg, _ = obs.enable()
+    cuda_sgd.reset_launch_counts()
+    rates = {}
+    for sort in (False, True):
+        rates[sort] = cuda_sgd.probe_variants(sort=sort, sweeps=PROBE_SWEEPS,
+                                              **PROBE)
+    launches = dict(cuda_sgd.LAUNCHES)
+    gauges = {(m["labels"]["variant"], m["labels"]["sorted"]): m["value"]
+              for m in reg.snapshot()["metrics"]
+              if m["name"] == "pallas_probe_ratings_per_s"}
+    obs.disable()
+    e = PROBE["nnz"] - PROBE["nnz"] % PROBE["mb"]
+    steps = e // PROBE["mb"]
+    want = 2 * steps * (1 + PROBE["reps"]) * PROBE_SWEEPS
+    errs = {}
+    for sort in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        inputs = cuda_sgd._probe_inputs(
+            gen, PROBE["rank"], PROBE["mb"], PROBE["rpb_u"], PROBE["rpb_v"],
+            e, sort)
+        got = cuda_sgd._probe_setups(
+            inputs, mb=PROBE["mb"], sweeps=1, lr=0.1, lam=0.1,
+            rates=cuda_sgd.ProbeRates())["cuda"]()()
+        ref = cuda_sgd.block_sweep_reference(
+            *inputs[8:], *inputs[:8], lr=0.1, lam=0.1, minibatch=PROBE["mb"])
+        torch.cuda.synchronize()
+        errs[sort] = max_abs(zip(got, ref))
+    say("kernels.probe", card=smi, **PROBE, sweeps=PROBE_SWEEPS, ratings=e,
+        steps=steps, **{f"{'sorted' if s else 'unsorted'}_{v}_ratings_per_s":
+                        r[v] for s, r in rates.items() for v in r},
+        **{f"{'sorted' if s else 'unsorted'}_cuda_plan_s": r.plan_s
+           for s, r in rates.items()},
+        **{f"{'sorted' if s else 'unsorted'}_one_visit_max_abs": f"{x:.3e}"
+           for s, x in errs.items()}, launches=launches,
+        launches_want_each=want, tol=STRATUM_TOL)
+    failed = {(s, v): r for s, rs in rates.items() for v, r in rs.items()
+              if not isinstance(r, float)}
+    if failed or set(rates[False]) != set(cuda_sgd.PROBE_VARIANTS):
+        raise AssertionError(f"kernels.probe: {failed or rates}")
+    if gauges != {(v, str(s).lower()): r for s, rs in rates.items()
+                  for v, r in rs.items()}:
+        raise AssertionError(f"kernels.probe: gauges {gauges}")
+    if (launches["sgd_item_rows_kernel"] != want
+            or launches["sgd_user_rows_kernel"] != want
+            or launches["bf16_to_f32_kernel"]
+            or launches["f32_to_bf16_kernel"]):
+        raise AssertionError(f"kernels.probe: launches {launches}, expected "
+                             f"{want} of each step kernel")
+    if not max(errs.values()) <= STRATUM_TOL:
+        raise AssertionError(f"kernels.probe: one visit max-abs {errs}")
+    return launches
+
+
 class HoldoutEval:
     """Segment hook of ``DSGD``: holdout RMSE of the live tables after each
     sweep (the rows come from the same deterministic blocking fit runs)."""
@@ -775,6 +873,7 @@ def run(scratch: str) -> int:
 
     phase_small(dev)
     phase_skewed(dev)
+    probe_launches = phase_kernels_probe(smi)
 
     # -- main path data: bench.py's host pipeline --------------------------
     t0 = time.perf_counter()
@@ -930,7 +1029,8 @@ def run(scratch: str) -> int:
     phase_serve_two_stage(dev)
 
     device_runs, (Ud, Vd), obs_data = phase_device(dev, cfg, scratch)
-    paths = {"fit": launches, **device_runs}
+    paths = {"fit": launches, "kernels.probe": probe_launches,
+             **device_runs}
     paths["obs.train"], implicit = phase_obs_train(cfg, scratch, obs_data)
     paths["obs.recorder"] = phase_obs_recorder(cfg, scratch, obs_data, smi,
                                                implicit)
@@ -944,7 +1044,7 @@ def run(scratch: str) -> int:
     del U0, V0, args, plan
     phase_als(dev)
     phase_als_conv(dev)
-    phase_online(dev, scratch)
+    phase_online(dev, scratch, smi)
     paths["streams.adaptive"] = phase_streams(scratch)
     paths["obs.serve"] = obs_serve_launches
     paths["obs.stream"] = phase_obs_stream(scratch, smi)
@@ -1135,6 +1235,9 @@ class CountingClock:
         return time.time()
 
 
+PROFILE_MARGIN_S = 0.02  # profiler window open before / after a sweep
+
+
 def device_busy(trace_path):
     """(busy ms, window ms, intervals) of the card in a profiler trace:
     the union of its device intervals (Chrome-trace categories
@@ -1181,8 +1284,9 @@ def phase_obs_train(cfg, scratch, data):
     ``TrainingWatchdog`` and an ``OnlineEvaluator`` on the holdout, a
     snapshot per sweep. Its tables must equal the uninstrumented fit's
     bit for bit; 3 timed segments (compile, execute, execute); a valid
-    Chrome trace; health OK. Then one steady sweep under the profiler
-    (both step kernels, 96 launches each; the card's busy and idle
+    Chrome trace; health OK. Then, after a throwaway capture, one steady
+    sweep under the profiler (both step kernels, 96 launches each, with
+    ``PROFILE_MARGIN_S`` of window on each side; the card's busy and idle
     share), the k = 1 divergence tripping the watchdog (no snapshot of
     the poisoned sweep, health CRITICAL), and after ``obs.disable()`` an
     uninstrumented fit whose obs reads no clock and waits on nothing.
@@ -1354,19 +1458,34 @@ def phase_obs_train(cfg, scratch, data):
             minibatch=cfg.minibatch_size, num_blocks=K, iterations=1,
             schedule=sched, t0=cfg.iterations, plan=solver._plan)
 
+    def step_counts(prof):
+        ops = profiled_kernels(prof)
+        return ops, {name: sum(c for key, c, _ in ops if name in key)
+                     for name in ("sgd_item_rows_kernel",
+                                  "sgd_user_rows_kernel")}
+
     sweep()  # warm
     torch.cuda.synchronize()
+    # This is the process's first capture with CUDA activity: a throwaway
+    # one pays CUPTI's one-time start, and the measured capture keeps a
+    # margin on both sides of the sweep, so that no launch falls at an
+    # edge of the profiler's window (one run on an H100 saw 87 of 96).
+    with profile_trace(os.path.join(scratch, "obs_profile_warm")) as prof:
+        timed(sweep)
+    warm_counts = step_counts(prof)[1]
     prof_dir = os.path.join(scratch, "obs_profile")
     with profile_trace(prof_dir) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         _, prof_wall = timed(sweep)
-    ops = profiled_kernels(prof)
-    counts = {name: sum(c for key, c, _ in ops if name in key)
-              for name in ("sgd_item_rows_kernel", "sgd_user_rows_kernel")}
+        time.sleep(PROFILE_MARGIN_S)
+    ops, counts = step_counts(prof)
     busy_ms, window_ms, n_iv = device_busy(os.path.join(prof_dir,
                                                         TRACE_FILE))
     say("obs.train.profile", top_device_ops=[
         (key[:48], c, round(ms, 4)) for key, c, ms in ops[:6]],
-        step_kernel_launches=counts, sweep_wall_ms=prof_wall * 1e3,
+        step_kernel_launches=counts,
+        warm_capture_step_kernel_launches=warm_counts,
+        sweep_wall_ms=prof_wall * 1e3,
         device_busy_ms=busy_ms, device_window_ms=window_ms,
         device_intervals=n_iv, device_busy_share=busy_ms / window_ms,
         device_idle_share=1.0 - busy_ms / window_ms,
@@ -1377,7 +1496,9 @@ def phase_obs_train(cfg, scratch, data):
     if counts != {"sgd_item_rows_kernel": n_mb * K,
                   "sgd_user_rows_kernel": n_mb * K}:
         raise AssertionError(f"profiled step-kernel launches {counts}, "
-                             f"expected {n_mb * K} each")
+                             f"expected {n_mb * K} each (warm capture "
+                             f"{warm_counts}, {n_iv} device intervals "
+                             f"over {window_ms} ms)")
 
     # -- 4. the k = 1 divergence trips the watchdog
     trip = obs.TrainingWatchdog(policy="halt")
@@ -2033,6 +2154,33 @@ def check_delta(model, users):
             "delta_codes_bit_equal": True, "delta_lists_equal": True}
 
 
+def serve_armed(model, requests, ids, scores, ups):
+    """The exact engine again with the transfer plane armed (the ``log``
+    guard, so each flush's pipeline runs in ``serving.serve_rows``'s
+    sync-debug scope): answers equal to the unarmed engine's, the implicit
+    transfers counted at that site after a warm pass (the steady state),
+    users/s against the unarmed engine's."""
+    ledger = obs.enable_transfers(guard="log")
+    try:
+        eng = ServingEngine(model, k=SERVE_K, max_batch=SERVE_MAX_BATCH)
+        eng.serve(requests)
+        ledger.mark_steady()
+        out, armed_ups, _ = best_serve(eng, requests)
+        snap = ledger.snapshot()
+    finally:
+        obs.set_transfers(None)
+    a_ids, a_scores = served(out)
+    if not (np.array_equal(a_ids, ids) and np.array_equal(a_scores, scores)):
+        raise AssertionError("serve.engine: the armed engine's answers "
+                             "differ from the unarmed engine's")
+    return {"armed_answers_equal": True,
+            "armed_implicit_at_serve_rows":
+                snap["implicit_by_site"].get("serving.serve_rows", 0),
+            "armed_steady_implicit": snap["steady"]["implicit_transfers"],
+            "armed_users_per_s": armed_ups,
+            "armed_over_unarmed_users_per_s": armed_ups / ups}
+
+
 def phase_serve_engine(model, cpu_model, train, serve_share):
     """``[serve.engine]`` on the trained ``fit`` model: the exact f32
     ``ServingEngine`` (max_batch 1,024, k 10) serves the 16,384 users of
@@ -2075,6 +2223,7 @@ def phase_serve_engine(model, cpu_model, train, serve_share):
         raise AssertionError(f"flat two-stage recall@10 {recall} < "
                              f"{RECALL_MIN}")
     delta = check_delta(model, users[:SERVE_WARM])
+    armed = serve_armed(model, requests, ids, scores, ups)
     say("serve.engine", users=n, requests=len(requests), k=SERVE_K,
         item_rows=n_items, rank=rank, max_batch=SERVE_MAX_BATCH,
         users_per_s=ups, **ms_quantiles(walls),
@@ -2094,7 +2243,7 @@ def phase_serve_engine(model, cpu_model, train, serve_share):
         **{f"flat_{k_}": v for k_, v in ms_quantiles(fl_walls).items()},
         flat_variants=flat.executable_variants,
         flat_catalog_bytes=flat.retriever.catalog.nbytes(), **delta,
-        launches=no_dsgd_launches("serve.engine"))
+        **armed, launches=no_dsgd_launches("serve.engine"))
     phase_serve_admission(flat, requests)
 
 
@@ -2792,7 +2941,137 @@ def online_parts(om, batch):
         online_train_device_ms=a.elapsed_time(e))
 
 
-def phase_online(dev, scratch):
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the bit-equality legs: the
+    card's ``index_add_`` adds a minibatch's duplicate rows with atomics in
+    a varying order, so two runs of the same online stream differ in the
+    last places whatever obs does; the deterministic ``index_add_`` fixes
+    the order. Ops without a deterministic version only warn, and fresh
+    memory is left unfilled, as outside the mode."""
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+ONLINE_OBS_PAIRS = 5
+
+
+def online_run(cfg, batches, planes=None):
+    """A fresh ``OnlineMF`` over ``batches`` (ingest mode), each batch
+    synchronized. ``planes`` (``None``: obs off) is the transfer guard's
+    mode: the registry, an event journal and a transfer ledger with that
+    guard are installed before the model is built (the hooks bind at
+    construction) and left installed for the caller to read. Returns
+    (model, per-batch walls, the planes' handles)."""
+    handles = {}
+    if planes is not None:
+        handles["reg"], _ = obs.enable()
+        handles["journal"] = obs.EventJournal()
+        obs.set_events(handles["journal"])
+        handles["ledger"] = obs.enable_transfers(guard=planes)
+    om = OnlineMF(cfg)
+    walls = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om.partial_fit(b, emit_updates=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return om, walls, handles
+
+
+def same_online(a, b) -> bool:
+    """Two online models hold the same ids in the same rows and bit-equal
+    tables."""
+    return all(x.capacity == y.capacity
+               and np.array_equal(x.id_array(), y.id_array())
+               and torch.equal(x.array, y.array)
+               for x, y in ((a.users, b.users), (a.items, b.items)))
+
+
+def phase_online_obs(cfg, batches, up, smi):
+    """``[online.obs]``: the [online] stream with the online model's obs
+    hooks on (registry, journal, a transfer ledger) against off, ratings/s
+    as the min of 5 runs a side in turns (batches after the first):
+    ``on`` with the ledger's guard off (the production setting),
+    ``guarded`` with its ``log`` guard (each batch's ``online_train`` in a
+    sync-debug scope). From the last guarded run: ``online_batch_s``'s p50
+    beside the synchronized batch wall, the counters against the batches
+    and ratings applied, the implicit transfers at ``online.partial_fit``,
+    the staging notes' bytes, the growth events against the capacity
+    doublings. Then, under ``deterministic()``, one run each way: tables
+    bit-equal; and one updates-emitting batch's ``online.emit_updates``
+    note."""
+    ratings = sum(b.n for b in batches[1:])
+    walls = {"off": [], "on": [], "guarded": []}
+    sides = (("off", None), ("on", "off"), ("guarded", "log"))
+    for rep in range(ONLINE_OBS_PAIRS):  # in turns: ABC, CBA, ABC, ...
+        for side, planes in (sides if rep % 2 == 0 else sides[::-1]):
+            om, w, h = online_run(cfg, batches, planes)
+            walls[side].append(sum(w[1:]))
+            if side == "guarded":
+                hist = h["reg"].histogram("online_batch_s")
+                n_batches = h["reg"].counter("online_batches_total").value
+                n_ratings = h["reg"].counter("online_ratings_total").value
+                snap = h["ledger"].snapshot()
+                growth = len(h["journal"].events("online.table_growth"))
+                batch_wall_p50 = float(np.percentile(w, 50))
+            obs.disable()
+            del om
+    stage = snap["sites"].get("online.minibatch_stage", {})
+    staged = sum(4 * 4 * cfg.minibatch_size * next_pow2(
+        -(-b.n // cfg.minibatch_size)) for b in batches)
+    implicit = snap["implicit_by_site"].get("online.partial_fit", 0)
+    with deterministic():
+        off, _, _ = online_run(cfg, batches)
+        on, _, h = online_run(cfg, batches, "log")
+        equal = same_online(on, off)
+        ups = on.partial_fit(up)
+        emit = h["ledger"].snapshot()["sites"].get("online.emit_updates", {})
+        obs.disable()
+    rows = len(ups.user_arrays[0]) + len(ups.item_arrays[0])
+    best = {side: min(w) for side, w in walls.items()}
+    say("online.obs", card=smi, runs_each=ONLINE_OBS_PAIRS,
+        batches=len(batches),
+        **{f"ratings_per_s_{side}": ratings / t for side, t in best.items()},
+        on_over_off_ratings_per_s=best["off"] / best["on"],
+        guarded_over_off_ratings_per_s=best["off"] / best["guarded"],
+        **{f"walls_{side}_s": w for side, w in walls.items()},
+        online_batch_s_p50_ms=hist.quantile(0.5) * 1e3,
+        online_batch_s_count=hist.count, batch_wall_p50_ms=batch_wall_p50
+        * 1e3, online_batches_total=n_batches,
+        online_ratings_total=n_ratings, implicit_at_partial_fit=implicit,
+        implicit_by_site=snap["implicit_by_site"],
+        stage_h2d_bytes=stage.get("h2d_bytes"), stage_h2d_want=staged,
+        stage_count=stage.get("h2d_count"), growth_events=growth,
+        emit_d2h_bytes=emit.get("d2h_bytes"),
+        emit_d2h_want=rows * cfg.num_factors * 4,
+        emit_wait_s=emit.get("wait_s"), tables_bit_equal_on_off=equal)
+    if not equal:
+        raise AssertionError("online.obs: tables with the hooks on differ "
+                             "from off under deterministic algorithms")
+    if (hist.count != len(batches) or n_batches != len(batches)
+            or n_ratings != sum(b.n for b in batches)):
+        raise AssertionError(f"online.obs: histogram {hist.count}, counters "
+                             f"{n_batches} / {n_ratings}")
+    if (stage.get("h2d_bytes") != staged
+            or stage.get("h2d_count") != len(batches)
+            or emit.get("d2h_bytes") != rows * cfg.num_factors * 4
+            or emit.get("d2h_count") != 1):
+        raise AssertionError(f"online.obs: transfer notes {stage} / {emit}")
+    if growth != 0:  # 2^19 rows a table: the stream never grows one
+        raise AssertionError(f"online.obs: {growth} growth events")
+
+
+def phase_online(dev, scratch, smi):
     """Path 5: the Netflix-shaped online stream (bench.py:919-975) through
     ``OnlineMF.partial_fit``: 10 batches of 100,000 (the first a warm-up),
     each synchronized; the first 3 also on the CPU from the same keyed
@@ -2870,6 +3149,9 @@ def phase_online(dev, scratch):
     say("online.updates", ratings=ONLINE_UPDATES, wall_s=wall,
         ratings_per_s=ONLINE_UPDATES / wall, rows_emitted=rows,
         launches=no_dsgd_launches("online"))
+    del om
+    phase_online_obs(cfg, batches, up[1], smi)
+    no_dsgd_launches("online.obs")
 
 
 # -- streams: the log, the driver, the parallel runner and the adaptive
@@ -2954,11 +3236,26 @@ def phase_streams_log(scratch):
     8-batch ``fsync=True`` leg."""
     batches = netflix_batches(3, LOG_BATCHES)
     path = os.path.join(scratch, "wal")
+    journal = obs.EventJournal()
+    obs.set_events(journal)  # the log reads it at construction
     log = EventLog(path, num_partitions=LOG_PARTS, fsync=False)
+    obs.set_events(None)
     t0 = time.perf_counter()
     for k, b in enumerate(batches):
         log.append(k % LOG_PARTS, b)
     append_s = time.perf_counter() - t0
+    # one wal.segment_roll per roll: each partition's segments after its
+    # first, their bases in order
+    segs = {part.directory: [seg[0] for seg in part.segments]
+            for part in log._parts}
+    rolls = [(e["detail"]["directory"], e["detail"]["sealed_base"],
+              e["detail"]["new_base"])
+             for e in journal.events("wal.segment_roll")]
+    want = sorted((d, a, b_) for d, bases in segs.items()
+                  for a, b_ in zip(bases, bases[1:]))
+    if sorted(rolls) != want:
+        raise AssertionError(f"streams.log: {len(rolls)} roll events against "
+                             f"{len(want)} rolls")
     log.close()
     n = LOG_BATCHES * STREAM_BATCH
     reader = EventLog(path, num_partitions=LOG_PARTS, fsync=False)
@@ -3014,8 +3311,8 @@ def phase_streams_log(scratch):
         read_records_per_s=n / read_s,
         read_bytes_per_s=n * RECORD_SIZE / read_s, reread_equal=True,
         torn_tail_cut=True, fsync_records=n_sync, fsync_s=fsync_s,
-        fsync_records_per_s=n_sync / fsync_s,
-        launches=no_dsgd_launches("streams.log"))
+        fsync_records_per_s=n_sync / fsync_s, segment_rolls=len(want),
+        roll_events=len(rolls), launches=no_dsgd_launches("streams.log"))
 
 
 def phase_streams_driver(scratch):
@@ -3542,11 +3839,17 @@ def phase_obs_stream(scratch, smi):
                             offline_iterations=3)
     records = (OBS_STREAM_BATCHES + 1) * STREAM_BATCH
 
-    # -- 1. the planes-on run (the path whose launches are counted)
+    # -- 1. the planes-on run (the path whose launches are counted); it and
+    # the planes-off run of 2. under deterministic(): bit-equal tables
     cuda_sgd.reset_launch_counts()
-    m_on, drv, _, wall_on, p = stream_run(
-        batches, os.path.join(scratch, "obs_stream_on"), acfg, policy)
+    with deterministic():
+        m_on, drv, _, wall_on, p = stream_run(
+            batches, os.path.join(scratch, "obs_stream_on"), acfg, policy)
     launches = dict(cuda_sgd.LAUNCHES)
+    growth = [e["detail"] for e in obs.get_events().events(
+        "online.table_growth")]
+    batch_hist = p["reg"].histogram("online_batch_s")
+    online_batches = p["reg"].counter("online_batches_total").value
     report = p["monitor"].run()  # CRITICAL: the recorder freezes a bundle
     server = obs.ObsServer(monitor=p["monitor"]).start()
     fleet = obs.FleetServer(obs.FleetAggregator([server.url],
@@ -3571,10 +3874,13 @@ def phase_obs_stream(scratch, smi):
     versions = list(drv.catalog_versions)
     obs.disable()
 
-    # -- 2. the planes-off run: the same tables
-    m_off, _, _, wall_off, _ = stream_run(
-        batches, os.path.join(scratch, "obs_stream_off"), acfg, None)
-    table_err = same_tables(m_on.online, m_off.online, "obs.stream on/off")
+    # -- 2. the planes-off run: the same tables, bit for bit
+    with deterministic():
+        m_off, _, _, wall_off, _ = stream_run(
+            batches, os.path.join(scratch, "obs_stream_off"), acfg, None)
+    table_err = same_tables(m_on.online, m_off.online, "obs.stream on/off",
+                            tol=dict(rtol=0.0, atol=0.0))
+    caps = (m_on.online.users.capacity, m_on.online.items.capacity)
     del m_on, m_off, drv
 
     say("obs.stream", card=smi, batches=OBS_STREAM_BATCHES + 1,
@@ -3597,7 +3903,18 @@ def phase_obs_stream(scratch, smi):
         scrape_codes={rt: c for rt, (c, _) in scrapes.items()},
         podtracez=pod_code, tables_max_abs_on_vs_off=table_err,
         drain_s_on=wall_on, drain_s_off=wall_off,
-        inspect_ms_per_batch=[t * 1e3 for t in p["inspect_s"]])
+        inspect_ms_per_batch=[t * 1e3 for t in p["inspect_s"]],
+        growth_events=len(growth),
+        last_growth=growth[-1] if growth else None, capacities=caps,
+        online_batches_total=online_batches,
+        online_batch_s_count=batch_hist.count,
+        online_batch_s_p50_ms=batch_hist.quantile(0.5) * 1e3)
+    if not (growth and (growth[-1]["users_capacity"],
+                        growth[-1]["items_capacity"]) == caps
+            and online_batches > 0 and batch_hist.count == online_batches):
+        raise AssertionError(f"obs.stream: growth events {growth[-1:]} vs "
+                             f"capacities {caps}; {online_batches} batches, "
+                             f"{batch_hist.count} observed")
     if not (launches["sgd_item_rows_kernel"] > 0
             and launches["sgd_user_rows_kernel"] > 0):
         raise AssertionError(f"obs.stream: no step-pair launches {launches}")
@@ -3636,23 +3953,39 @@ def phase_obs_stream(scratch, smi):
     cfg = stream_online_cfg()
     dcfg = StreamingDriverConfig(batch_records=STREAM_BATCH,
                                  checkpoint_every=STREAM_CKPT_EVERY)
-    obs.enable()
-    tracker = obs.enable_contention(interval_s=0.25)
-    par_log = strata_log(os.path.join(scratch, "obs_par_log"), streams, 2)
-    runner = ParallelIngestRunner(OnlineMF(cfg), par_log,
-                                  os.path.join(scratch, "obs_par_ck"),
-                                  config=dcfg)
-    tracker.reset_window()
-    _, par_wall = timed(runner.run)
-    server = obs.ObsServer().start()
-    try:
-        code, body = http_get(server.url + "/contentionz", timeout=10.0)
-    finally:
-        server.stop()
-    obs.disable()
-    if code != 200:
-        raise AssertionError(f"obs.stream: /contentionz {code}")
-    cz = json.loads(body)
+    def contention_run(tag, hooks):
+        obs.enable()
+        tracker = obs.enable_contention(interval_s=0.25)
+        par_log = strata_log(os.path.join(scratch, f"obs_par_log{tag}"),
+                             streams, 2)
+        reg = obs.get_registry()
+        if not hooks:  # the model's instruments bound to the null registry
+            obs.set_registry(obs_registry.NULL_REGISTRY)
+        model = OnlineMF(cfg)
+        obs.set_registry(reg)
+        runner = ParallelIngestRunner(
+            model, par_log, os.path.join(scratch, f"obs_par_ck{tag}"),
+            config=dcfg)
+        tracker.reset_window()
+        _, wall = timed(runner.run)
+        server = obs.ObsServer().start()
+        try:
+            code, body = http_get(server.url + "/contentionz", timeout=10.0)
+        finally:
+            server.stop()
+        obs.disable()
+        if code != 200:
+            raise AssertionError(f"obs.stream: /contentionz {code}")
+        return json.loads(body), wall
+
+    def apply_lock(cz):
+        return next(((r["contended"], r["wait_s"], r["hold_s"])
+                     for r in cz["top_contended"]
+                     if r["lock"] == "online.apply_lock"), None)
+
+    # the online model's hooks (the batch histogram's wait) on, then off
+    cz, par_wall = contention_run("", True)
+    cz_off, par_wall_off = contention_run("_nohooks", False)
     cpu_frac = {pt: row["busy_s"] / cz["window"]["wall_s"]
                 for pt, row in cz["partitions"].items()}
     prof_log = strata_log(os.path.join(scratch, "obs_par_log_p"), streams, 2)
@@ -3663,7 +3996,7 @@ def phase_obs_stream(scratch, smi):
     with profile_trace(prof_dir):
         _, prof_wall = timed(prof_runner.run)
     busy_ms, window_ms, _ = device_busy(os.path.join(prof_dir, TRACE_FILE))
-    del runner, prof_runner
+    del prof_runner
     say("obs.stream.contention", card=smi, consumers=cz["consumers"],
         wall_s=par_wall, serial_fraction=cz["serial_fraction"],
         efficiency=cz["efficiency"], cpu_source=cz["cpu_source"],
@@ -3672,6 +4005,11 @@ def phase_obs_stream(scratch, smi):
         top_contended=[(r["lock"], r["contended"], r["wait_s"], r["hold_s"])
                        for r in cz["top_contended"][:5]],
         lock_wait_s_total=cz["lock_wait_s_total"],
+        apply_lock_contended_wait_hold_s=apply_lock(cz),
+        hooks_off_wall_s=par_wall_off,
+        hooks_off_serial_fraction=cz_off["serial_fraction"],
+        hooks_off_efficiency=cz_off["efficiency"],
+        hooks_off_apply_lock_contended_wait_hold_s=apply_lock(cz_off),
         profiled_wall_s=prof_wall, device_busy_ms=busy_ms,
         device_window_ms=window_ms, device_busy_share=busy_ms / window_ms,
         device_busy_over_wall=busy_ms / (prof_wall * 1e3))

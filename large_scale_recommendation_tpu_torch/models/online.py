@@ -14,18 +14,33 @@ computes on a snapshot outside it, and the commit writes back only the
 batch's touched rows. A snapshot is two tensor references: a table is never
 written in place (``data/tables.py``). Every consumer thread enqueues on the
 default CUDA stream, so the card runs the work in the order it was enqueued
-under the lock. ``apply_lock`` is the contention plane's
-``online.apply_lock`` (raw unless the plane is armed), and with the tracer
-on each update is an ``online/partial_fit`` span (compile-keyed on the
-padded batch length, as the JAX span), the hop of a record's trace between
-its ingest batch and the swap. The JAX package's other hooks here
-(metrics, transfer ledger, event journal) are not ported; ``watchdog`` is
-the divergence seam, ``None`` by default.
+under the lock. ``watchdog`` is the divergence seam, ``None`` by default.
+
+The obs hooks keep the JAX names and bind at construction (the null
+registry's shared instruments when obs is off: no clock read, no wait):
+
+- ``apply_lock`` is the contention plane's ``online.apply_lock``;
+- each update is an ``online/partial_fit`` span (compile-keyed on the
+  padded batch length), its ``online_train`` call inside
+  ``guard_scope("online.partial_fit")`` — the staging before it is an
+  explicit host→device copy and stays outside the guard;
+- with the transfer ledger installed, the staged bytes are noted at
+  ``online.minibatch_stage`` (h2d, with ``observe_call("online_train",
+  …)``) and the updates-only pull at ``online.emit_updates`` (d2h, with
+  its wait);
+- with an event journal, a batch that grew a table emits
+  ``online.table_growth`` (on the concurrent path detected under
+  ``apply_lock`` and emitted after it);
+- with obs on, ``online_batch_s`` observes each batch's wall up to its last
+  write on its stream (an event waited on, after ``apply_lock`` is
+  released on the concurrent path), and ``online_batches_total`` /
+  ``online_ratings_total`` count the batches and ratings applied.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -48,7 +63,13 @@ from large_scale_recommendation_tpu_torch.data.tables import (
 )
 from large_scale_recommendation_tpu_torch.models.mf import MFModel, masked_scores
 from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
+from large_scale_recommendation_tpu_torch.obs.events import get_events
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
+from large_scale_recommendation_tpu_torch.obs.transfers import (
+    get_transfers,
+    guard_scope,
+)
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
@@ -128,6 +149,24 @@ class BatchUpdates:
         yield from self.item_updates
 
 
+def _batch_done(out: torch.Tensor):
+    """A marker of a batch's last write: an event recorded now on the
+    current stream of ``out``'s card (not a device-wide sync: other
+    threads' streams are not waited for), or ``None`` for a CPU tensor,
+    whose work is done when the call returns."""
+    if out.device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    return done
+
+
+def _wait(done) -> None:
+    """Wait for a ``_batch_done`` marker."""
+    if done is not None:
+        done.synchronize()
+
+
 class OnlineMF:
     """Streaming MF on growable tables: construct with pluggable
     initializers and updater, then feed micro-batches (``partial_fit``) or
@@ -168,7 +207,13 @@ class OnlineMF:
         # divergence guard: ``after_batch(model, U, V, u_rows, i_rows)``
         # before the offset stamp; None = one pointer test per batch
         self.watchdog = None
+        obs = get_registry()
+        self._obs_on = obs.enabled
         self._trace = get_tracer()
+        self._events = get_events()
+        self._m_batch_s = obs.histogram("online_batch_s")
+        self._m_batches = obs.counter("online_batches_total")
+        self._m_ratings = obs.counter("online_ratings_total")
 
     # -- training ----------------------------------------------------------
 
@@ -211,28 +256,23 @@ class OnlineMF:
             return (BatchUpdates([], [], rank=cfg.num_factors)
                     if emit_updates else None)
 
+        t0 = time.perf_counter() if self._obs_on else 0.0
+        caps = self._capacities()
         u_rows = self.users.acquire_rows(ru)
         i_rows = self.items.acquire_rows(ri)
+        if caps is not None and caps != self._capacities():
+            self._emit_growth()
         try:
-            staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
-                                             cfg.minibatch_size)
-            ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
-                               for a in staged)
-            with self._trace.span("online/partial_fit",
-                                  key=("online_train", len(ur)),
-                                  records=len(ru)):
-                U, V = sgd_ops.online_train(
-                    self.users.array, self.items.array, ur, ir, vals, w,
-                    updater=self.updater, minibatch=cfg.minibatch_size,
-                    iterations=(iterations if iterations is not None
-                                else cfg.iterations_per_batch),
-                    collision=cfg.collision_mode)
+            U, V = self._train(self.users.array, self.items.array, u_rows,
+                               i_rows, rv, len(ru), iterations)
             self.users.install_trained(U, u_rows)
             self.items.install_trained(V, i_rows)
         finally:
             self.users.release_rows(u_rows)
             self.items.release_rows(i_rows)
         self.step += 1
+        if self._obs_on:
+            self._observe_batch(t0, _batch_done(U), len(ru))
         if self.watchdog is not None:
             # before the offset stamp: a tripped batch never claims its
             # stream position
@@ -254,10 +294,9 @@ class OnlineMF:
             return table[torch.from_numpy(idx).to(self.device)].cpu() \
                 .numpy()[:n]
 
-        return BatchUpdates(
-            user_arrays=(uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
-            item_arrays=(uniq_i.astype(np.int64), gather(V, i_rows[first_i])),
-            rank=cfg.num_factors)
+        return self._emit_updates(
+            lambda: ((uniq_u.astype(np.int64), gather(U, u_rows[first_u])),
+                     (uniq_i.astype(np.int64), gather(V, i_rows[first_i]))))
 
     def _partial_fit_concurrent(self, batch: Ratings,
                                 iterations: int | None = None,
@@ -294,26 +333,19 @@ class OnlineMF:
 
     def _apply_concurrent(self, ru, ri, rv, iterations=None,
                           emit_updates=True, offset=None):
-        cfg = self.config
+        t0 = time.perf_counter() if self._obs_on else 0.0
         with self.apply_lock:
+            caps = self._capacities()
             u_rows = self.users.acquire_rows(ru)
             i_rows = self.items.acquire_rows(ri)
+            grew = caps is not None and caps != self._capacities()
             U0 = self.users.array  # never written in place: the snapshot
             V0 = self.items.array  # is two references, no copy
         try:
-            staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
-                                             cfg.minibatch_size)
-            ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
-                               for a in staged)
-            with self._trace.span("online/partial_fit",
-                                  key=("online_train", len(ur)),
-                                  records=len(ru)):
-                U, V = sgd_ops.online_train(
-                    U0, V0, ur, ir, vals, w, updater=self.updater,
-                    minibatch=cfg.minibatch_size,
-                    iterations=(iterations if iterations is not None
-                                else cfg.iterations_per_batch),
-                    collision=cfg.collision_mode)
+            if grew:  # journaled outside the lock
+                self._emit_growth()
+            U, V = self._train(U0, V0, u_rows, i_rows, rv, len(ru),
+                               iterations)
             if self.watchdog is not None:
                 # before the commit and the offset stamp
                 self.watchdog.after_batch(self, U, V, u_rows, i_rows)
@@ -339,9 +371,16 @@ class OnlineMF:
                 if offset is not None:
                     # stamped only with the update committed
                     self.consumed_offsets[int(offset[0])] = int(offset[1])
+                # marked under the lock, right after this batch's commit
+                done = _batch_done(self.items.array) if self._obs_on \
+                    else None
         finally:
             self.users.release_rows(u_rows)
             self.items.release_rows(i_rows)
+        if self._obs_on:
+            # waited on after apply_lock: waiting under it would serialize
+            # the consumers' overlap this path exists for
+            self._observe_batch(t0, done, len(ru))
         if not emit_updates:
             return None
 
@@ -354,10 +393,73 @@ class OnlineMF:
             pos = np.searchsorted(rows_uniq, rows[first])
             return uniq_ids.astype(np.int64), vals[pos]
 
-        return BatchUpdates(
-            user_arrays=updates_for(ru, u_rows, uniq_u, U, ju),
-            item_arrays=updates_for(ri, i_rows, uniq_i, V, ji),
-            rank=cfg.num_factors)
+        return self._emit_updates(
+            lambda: (updates_for(ru, u_rows, uniq_u, U, ju),
+                     updates_for(ri, i_rows, uniq_i, V, ji)))
+
+    # -- the update and its obs hooks --------------------------------------
+
+    def _train(self, U, V, u_rows, i_rows, rv, records: int, iterations):
+        """Pad and stage the batch's entries on the device (an explicit
+        host→device copy, noted on the transfer ledger), then train copies
+        of ``U``/``V`` on them inside the ``online.partial_fit`` guard.
+        Returns the trained copies."""
+        cfg = self.config
+        staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
+                                         cfg.minibatch_size)
+        ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
+                           for a in staged)
+        ledger = get_transfers()
+        if ledger is not None:
+            ledger.note_transfer("online.minibatch_stage", "h2d",
+                                 sum(a.nbytes for a in staged))
+            ledger.observe_call("online_train", U, V, ur, ir, vals, w)
+        with self._trace.span("online/partial_fit",
+                              key=("online_train", len(ur)),
+                              records=records):
+            with guard_scope("online.partial_fit"):
+                return sgd_ops.online_train(
+                    U, V, ur, ir, vals, w, updater=self.updater,
+                    minibatch=cfg.minibatch_size,
+                    iterations=(iterations if iterations is not None
+                                else cfg.iterations_per_batch),
+                    collision=cfg.collision_mode)
+
+    def _capacities(self) -> tuple[int, int] | None:
+        """Both tables' capacities when a journal is installed (growth
+        detection), else ``None``."""
+        if self._events is None:
+            return None
+        return self.users.capacity, self.items.capacity
+
+    def _emit_growth(self) -> None:
+        self._events.emit("online.table_growth", step=self.step,
+                          users_capacity=int(self.users.capacity),
+                          items_capacity=int(self.items.capacity))
+
+    def _observe_batch(self, t0: float, done, records: int) -> None:
+        """Wait for the batch's last write (``done``, from
+        ``_batch_done``), then observe its wall since ``t0`` and count
+        it."""
+        _wait(done)
+        self._m_batch_s.observe(time.perf_counter() - t0)
+        self._m_batches.inc()
+        self._m_ratings.inc(records)
+
+    def _emit_updates(self, pull) -> BatchUpdates:
+        """The updates-only output from ``pull() -> (user_arrays,
+        item_arrays)``, the device→host pull noted on the transfer ledger
+        (the emitted vectors' bytes, its wall)."""
+        ledger = get_transfers()
+        t0 = time.perf_counter() if ledger is not None else 0.0
+        user_arrays, item_arrays = pull()
+        if ledger is not None:
+            ledger.note_transfer("online.emit_updates", "d2h",
+                                 user_arrays[1].nbytes
+                                 + item_arrays[1].nbytes,
+                                 time.perf_counter() - t0)
+        return BatchUpdates(user_arrays=user_arrays, item_arrays=item_arrays,
+                            rank=self.config.num_factors)
 
     def run(self, batches: Iterable[Ratings],
             limiter: ThroughputLimiter | None = None,

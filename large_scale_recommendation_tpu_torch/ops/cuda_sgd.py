@@ -49,12 +49,18 @@ loop of ``dsgd_train_cuda``, bf16 rounding points included). Every plain
 version applies the one λ/ω rule of ``RegularizedSGDUpdater`` at a
 constant η. The TPU's VMEM/SMEM budget helpers have no counterpart: the
 wrappers' shape checks take their place.
+
+``probe_variants`` (the counterpart of the JAX ``probe_variants``) times the
+framework's own sweep (``"torch"``: ``ops.sgd.sgd_block_sweep``) against the
+step pair (``"cuda"``: ``block_sweep`` over a one-visit plan) on one
+realistic (stratum, block) visit drawn on the device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -64,11 +70,18 @@ from large_scale_recommendation_tpu_torch.core.updaters import (
     _errors,
     constant_lr,
 )
+from large_scale_recommendation_tpu_torch.data.device_blocking import (
+    _inv_counts_2d,
+    truncated_exp_ids,
+)
 from large_scale_recommendation_tpu_torch.obs.introspect import (
     get_introspector,
 )
+from large_scale_recommendation_tpu_torch.obs.registry import get_registry
+from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.ops import _build
+from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 # launches per kernel since the last reset (counted where the kernel is
 # launched, and nowhere else)
@@ -828,3 +841,168 @@ def stratum_sweep_reference(U, V, idx, streams, s: int, *, lr: float,
             Us.copy_(Uw)
             Vs.copy_(Vw)
     return U, V
+
+
+# -- the variant probe ------------------------------------------------------
+
+PROBE_VARIANTS = ("torch", "cuda")
+# the JAX package's variants and their counterparts here
+_JAX_VARIANTS = {"xla": "torch", "pallas_take": "cuda", "pallas_loop": "cuda"}
+
+
+class ProbeRates(dict):
+    """``probe_variants``' result, ``{variant: ratings/s | "FAILED <type>:
+    <msg>"}``, with the cuda variant's plan build wall in ``plan_s``
+    (seconds; ``None`` when that variant did not build its plan)."""
+
+    plan_s: float | None = None
+
+
+def _probe_inputs(gen: torch.Generator, rank: int, mb: int, rpb_u: int,
+                  rpb_v: int, e: int, sort: bool):
+    """The probe's (stratum, block) visit, drawn on ``gen``'s device (the
+    counterpart of the JAX ``_probe_inputs``): ``e`` entries of block-local
+    user and item rows from the truncated exponential at λ 2 (each
+    minibatch sorted by user row when ``sort``), normal ratings, unit
+    weights, the per-minibatch collision scales, ω = max(count, 1) and
+    tables of 0.1·N(0, 1). Returns ``(ur, ir, vals, w, icu, icv, ou, ov, U,
+    V)``."""
+    dev = gen.device
+    ur = truncated_exp_ids(gen, 2.0, rpb_u, e)
+    ir = truncated_exp_ids(gen, 2.0, rpb_v, e)
+    if sort:
+        order = torch.argsort(ur.view(-1, mb), dim=1, stable=True)
+        ur = torch.gather(ur.view(-1, mb), 1, order).reshape(-1)
+        ir = torch.gather(ir.view(-1, mb), 1, order).reshape(-1)
+    vals = torch.randn(e, generator=gen, device=dev)
+    w = torch.ones(e, device=dev)
+    U = 0.1 * torch.randn((rpb_u, rank), generator=gen, device=dev)
+    V = 0.1 * torch.randn((rpb_v, rank), generator=gen, device=dev)
+
+    def omega(rows, n):
+        return torch.zeros(n, device=dev).index_add_(
+            0, rows, w).clamp_min(1.0)
+
+    def inv(rows):
+        return _inv_counts_2d(rows.view(-1, mb), w.view(-1, mb)).reshape(-1)
+
+    return (ur.int(), ir.int(), vals, w, inv(ur), inv(ir), omega(ur, rpb_u),
+            omega(ir, rpb_v), U, V)
+
+
+def _probe_setups(inputs, *, mb: int, sweeps: int, lr: float, lam: float,
+                  rates: ProbeRates) -> dict:
+    """Per variant, a setup that returns the variant's timed call (``sweeps``
+    visits of ``inputs``, from ``_probe_inputs``, on copies of its tables;
+    returns them): ``"torch"`` sweeps with ``ops.sgd.sgd_block_sweep``,
+    ``"cuda"`` builds its one-visit plan (its wall into ``rates.plan_s``)
+    and runs ``block_sweep``."""
+    ur, ir, vals, w, icu, icv, ou, ov, U0, V0 = inputs
+    e = ur.numel()
+
+    def torch_variant():
+        rule = _rule(lr, lam)
+
+        def run():
+            U, V = U0.clone(), V0.clone()
+            for _ in range(sweeps):
+                sgd_ops.sgd_block_sweep(U, V, ur, ir, vals, w, ou, ov, rule,
+                                        1, mb, "mean", icu, icv)
+            return U, V
+
+        return run
+
+    def cuda_variant():
+        t0 = time.perf_counter()
+        plan = build_step_plan(*(a.view(1, 1, e) for a in
+                                 (ur, ir, vals, w, icu, icv)), minibatch=mb)
+        rates.plan_s = time.perf_counter() - t0  # ends in a host read
+        work = plan.new_work(int(U0.shape[-1]))
+
+        def run():
+            U, V = U0.clone(), V0.clone()
+            for _ in range(sweeps):
+                block_sweep(U, V, ou, ov, plan, 0, work, lr=lr, lam=lam)
+            return U, V
+
+        return run
+
+    return {"torch": torch_variant, "cuda": cuda_variant}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def probe_variants(rank: int = 128, mb: int = 2048, rpb_u: int = 5080,
+                   rpb_v: int = 1848, nnz: int = 24576, reps: int = 5,
+                   seed: int = 0, sort: bool = False, sweeps: int = 1,
+                   variants: tuple = PROBE_VARIANTS,
+                   device=None) -> ProbeRates:
+    """Measure the framework's own sweep (``"torch"``, the JAX ``"xla"``)
+    against the step pair (``"cuda"``, the JAX Pallas variants) on ONE
+    realistic (stratum, block) visit, drawn on the device from ``seed``
+    (the JAX defaults: one ML-25M block visit at k = 32). Returns
+    ``{variant: ratings_per_s | "FAILED <type>: <msg>"}`` (a ``ProbeRates``,
+    with the cuda variant's plan build wall in ``plan_s``): a variant that
+    raises is recorded, not hidden. A JAX variant name raises a
+    ``ValueError`` naming its counterpart. ``device=None`` runs on the card.
+
+    Each variant's first call (the cuda variant's plan build included) is
+    the warm-up; then ``reps`` timed calls, each ``sweeps`` visits in a loop
+    with one sync at the end (``sweeps`` ≥ 16 amortizes the launch and the
+    sync). With obs on: a ``pallas_probe/<variant>`` span per call
+    (compile-keyed, so the warm-up reads "compile"), and the JAX metrics
+    ``pallas_probe_ratings_per_s{variant,rank,sorted}``,
+    ``pallas_probe_sweep_s{variant}`` and
+    ``pallas_probe_failures_total{variant}``."""
+    for label in variants:
+        if label not in PROBE_VARIANTS:
+            hint = _JAX_VARIANTS.get(label)
+            raise ValueError(
+                f"unknown probe variant {label!r}"
+                + (f" (the JAX package's; here it is {hint!r})"
+                   if hint else "") + f": expected one of {PROBE_VARIANTS}")
+    dev = resolve_device(device)
+    e = nnz - nnz % mb
+    lr, lam = 0.1, 0.1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    inputs = _probe_inputs(gen, rank, mb, rpb_u, rpb_v, e, sort)
+    out = ProbeRates()
+    setups = _probe_setups(inputs, mb=mb, sweeps=sweeps, lr=lr, lam=lam,
+                               rates=out)
+    obs = get_registry()
+    tracer = get_tracer()
+    sort_lbl = str(bool(sort)).lower()
+    for label in variants:
+        key = ("pallas_probe", label, rank, mb, sort)
+        try:
+            with tracer.span(f"pallas_probe/{label}", key=key, rank=rank,
+                             mb=mb):
+                fn = setups[label]()
+                fn()
+                _sync(dev)  # a deferred device error surfaces in this try
+        except Exception as ex:
+            out[label] = f"FAILED {type(ex).__name__}: {str(ex)[:200]}"
+            if obs.enabled:
+                obs.counter("pallas_probe_failures_total",
+                            variant=label).inc()
+            continue
+        walls = []
+        for _ in range(reps):
+            with tracer.span(f"pallas_probe/{label}", key=key, rank=rank,
+                             mb=mb):
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                walls.append(time.perf_counter() - t0)
+        out[label] = round(e * sweeps / min(walls), 1)
+        if obs.enabled:
+            obs.gauge("pallas_probe_ratings_per_s", variant=label,
+                      rank=rank, sorted=sort_lbl).set(out[label])
+            for wall in walls:
+                obs.histogram("pallas_probe_sweep_s",
+                              variant=label).observe(wall / sweeps)
+    return out

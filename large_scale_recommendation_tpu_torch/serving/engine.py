@@ -59,10 +59,11 @@ attributes each request's latency to its version's rollout cohort
 version keys are the engine's own token (``version``). Every plane is one
 ``is not None`` test per seam when off. The stage marks are host clocks:
 the card's time of a chunk lands in ``topk_merge``, marked in the drain
-after the chunk's copy event is waited on (``obs.requests``). The transfer
-guard is not scoped over the serving pipeline (the JAX engine's
-``serving.serve_rows`` scope): the pipeline's host reads are its drains,
-all explicit.
+after the chunk's copy event is waited on (``obs.requests``). The scoring
+pipeline runs inside the transfer guard's ``serving.serve_rows`` scope, as
+in the JAX engine: its staging copies are pinned and non-blocking, and its
+host reads are the drains, each an event wait on its chunk's copy, which
+the sync-debug mode does not count.
 """
 
 from __future__ import annotations
@@ -84,7 +85,10 @@ from large_scale_recommendation_tpu_torch.obs.lineage import get_lineage
 from large_scale_recommendation_tpu_torch.obs.registry import get_registry
 from large_scale_recommendation_tpu_torch.obs.requests import get_requests
 from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
-from large_scale_recommendation_tpu_torch.obs.transfers import get_transfers
+from large_scale_recommendation_tpu_torch.obs.transfers import (
+    get_transfers,
+    guard_scope,
+)
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
 )
@@ -745,11 +749,12 @@ class ServingEngine:
                 self._obs.counter("serving_microbatches_total",
                                   bucket=bucket).inc()
 
-        return run_pipelined_topk(
-            user_rows, k=self.k, k_out=k_out, n_rows=n_rows,
-            slice_size=slice_size,
-            bucket_fn=lambda c: min(pow2_pad(c, self.min_bucket),
-                                    slice_size),
-            score_chunk=score_chunk, on_batch=on_batch,
-            on_drain=(None if ledger is None
-                      else lambda: ledger.mark("topk_merge")))
+        with guard_scope("serving.serve_rows"):
+            return run_pipelined_topk(
+                user_rows, k=self.k, k_out=k_out, n_rows=n_rows,
+                slice_size=slice_size,
+                bucket_fn=lambda c: min(pow2_pad(c, self.min_bucket),
+                                        slice_size),
+                score_chunk=score_chunk, on_batch=on_batch,
+                on_drain=(None if ledger is None
+                          else lambda: ledger.mark("topk_merge")))

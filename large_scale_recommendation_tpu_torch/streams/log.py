@@ -26,7 +26,10 @@ The causal plane binds at construction: with the tracer on, each acked
 append is a ``wal/append`` span carrying its offset range and the record
 trace id (``obs.disttrace.record_trace_id``), and an installed
 ``CriticalPathAnalyzer`` notes the append instant. Each partition's lock is
-the contention plane's ``streams.wal_partition``.
+the contention plane's ``streams.wal_partition``. With an event journal
+installed (``obs.events``), every segment roll emits ``wal.segment_roll``
+(``directory``, ``sealed_base``, ``new_base``) after the partition's lock is
+released: the journal's JSONL mirror may touch the disk.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from large_scale_recommendation_tpu_torch.obs.disttrace import (
     get_disttrace,
     record_trace_id,
 )
+from large_scale_recommendation_tpu_torch.obs.events import get_events
 from large_scale_recommendation_tpu_torch.obs.trace import get_tracer
 
 # one rating event; int32 ids + f32 value match Ratings' wire dtypes
@@ -70,6 +74,8 @@ class _Partition:
         self.directory = directory
         self.segment_records = segment_records
         self.fsync = fsync
+        # the event journal, or None (one test per roll)
+        self._events = get_events()
         os.makedirs(directory, exist_ok=True)
         # sealed: sorted [(base_offset, n_records)]; the LAST entry is
         # the active (appendable) segment
@@ -222,6 +228,7 @@ class _Partition:
         start = self.end_offset
         pos = 0
         while pos < len(records):
+            rolled = None
             with self._lock:
                 base, n = self.segments[-1]
                 room = self.segment_records - n
@@ -230,7 +237,14 @@ class _Partition:
                     # than segment_records (reopened with a smaller
                     # segment_records): treat it as sealed and roll
                     self._new_segment(base + n)
-                    continue
+                    rolled = (int(base), int(base + n))
+            if rolled is not None:
+                if self._events is not None:  # outside the lock
+                    self._events.emit("wal.segment_roll",
+                                      directory=self.directory,
+                                      sealed_base=rolled[0],
+                                      new_base=rolled[1])
+                continue
             take = min(room, len(records) - pos)
             fh = self._active_handle()
             fh.write(records[pos:pos + take].tobytes())

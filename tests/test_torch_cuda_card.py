@@ -920,3 +920,32 @@ def test_mesh_dsgd_world_one_equals_dsgd_on_the_card(dev):
         ref = DSGD(DSGDConfig(**kw, factor_dtype=dtype)).fit_device(
             u, i, r, 500, 300, num_blocks=1)
         assert torch.equal(mesh.U, ref.U) and torch.equal(mesh.V, ref.V)
+
+
+def test_probe_cuda_variant_launches_the_step_pair(dev):
+    """``probe_variants`` on the card (its default device): numeric rates
+    for both variants, the step pair launched steps × (1 + reps) × sweeps
+    times each, and the cuda variant's one visit within the per-stratum
+    bar of ``block_sweep_reference`` on the same draw."""
+    kw = dict(rank=64, mb=512, rpb_u=1000, rpb_v=400, nnz=4096)
+    reps, sweeps, steps = 2, 3, 4096 // 512
+    cuda_sgd.reset_launch_counts()
+    out = cuda_sgd.probe_variants(reps=reps, sweeps=sweeps, **kw)
+    assert set(out) == {"torch", "cuda"}, out
+    assert all(isinstance(v, float) and v > 0 for v in out.values()), out
+    want = steps * (1 + reps) * sweeps
+    assert cuda_sgd.LAUNCHES == {"sgd_item_rows_kernel": want,
+                                 "sgd_user_rows_kernel": want,
+                                 "bf16_to_f32_kernel": 0,
+                                 "f32_to_bf16_kernel": 0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = cuda_sgd._probe_inputs(gen, kw["rank"], kw["mb"], kw["rpb_u"],
+                                    kw["rpb_v"], kw["nnz"], False)
+    got = cuda_sgd._probe_setups(
+        inputs, mb=kw["mb"], sweeps=1, lr=0.1, lam=0.1,
+        rates=cuda_sgd.ProbeRates())["cuda"]()()
+    ref = cuda_sgd.block_sweep_reference(*inputs[8:], *inputs[:8], lr=0.1,
+                                         lam=0.1, minibatch=kw["mb"])
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= TOL

@@ -729,3 +729,134 @@ def test_traffic_models():
         10 * (2 * row + 48) + 3 * (3 * row + 4) + 4 * (2 * row + 4)
     with pytest.raises(ValueError):
         tsgd.dsgd_bytes_per_sweep(10, 8, kernel="pallas")
+
+
+# -- the variant probe -------------------------------------------------------
+
+PROBE_SMALL = dict(rank=16, mb=256, rpb_u=300, rpb_v=120, nnz=1100)
+
+
+@pytest.mark.parametrize("sort,sweeps", [(False, 1), (True, 1), (False, 2)])
+def test_probe_variants_match_the_jax_variants(sort, sweeps):
+    """The probe's two timed calls on the JAX probe's own visit (its
+    ``_probe_inputs``, as numpy): ``"cuda"`` (the one-visit plan and the
+    step pair's plain versions) against ``pallas_block_sweep(interpret=
+    True)`` and ``"torch"`` against the XLA route's
+    ``sgd_block_sweep``, each repeated ``sweeps`` times, at the
+    per-stratum bar."""
+    p = PROBE_SMALL
+    e = p["nnz"] - p["nnz"] % p["mb"]
+    inputs = [np.asarray(a) for a in jp._probe_inputs(
+        jax.random.PRNGKey(3), p["rank"], p["mb"], p["rpb_u"], p["rpb_v"],
+        e, sort)]
+    rates = tc.ProbeRates()
+    setups = tc._probe_setups([_t(a) for a in inputs], mb=p["mb"],
+                              sweeps=sweeps, lr=0.1, lam=0.1, rates=rates)
+    got = {v: setups[v]()() for v in tc.PROBE_VARIANTS}
+    assert rates.plan_s > 0
+    ur, ir, vals, w, icu, icv, ou, ov, U, V = (jnp.asarray(a)
+                                               for a in inputs)
+    upd = ju.RegularizedSGDUpdater(learning_rate=0.1, lambda_=0.1,
+                                   schedule=ju.constant_lr)
+    pallas, xla = (U, V), (U, V)
+    for _ in range(sweeps):
+        pallas = jp.pallas_block_sweep(
+            *pallas, ur, ir, vals, w, icu, icv, ou, ov, lr=0.1, lam=0.1,
+            minibatch=p["mb"], gather="take", interpret=True)
+        xla = jsgd.sgd_block_sweep(*xla, ur, ir, vals, w, ou, ov, upd, 1,
+                                   p["mb"], "mean", icu, icv)
+    _close(got["cuda"], pallas, ONE)
+    _close(got["torch"], xla, ONE)
+    # the inputs' tables are untouched: each call sweeps copies
+    np.testing.assert_array_equal(inputs[8], np.asarray(U))
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_probe_inputs_follow_the_jax_recipe(sort):
+    """The port's draw: rows in range and skewed to low ids, each
+    minibatch sorted by user row when ``sort`` (its item rows carried
+    along), unit weights, ω = max(count, 1), the per-minibatch 1/count
+    scales, tables of 0.1·N(0, 1)."""
+    p = PROBE_SMALL
+    e = 4 * p["mb"]
+    gen = torch.Generator().manual_seed(0)
+    ur, ir, vals, w, icu, icv, ou, ov, U, V = (
+        a.numpy() for a in tc._probe_inputs(gen, p["rank"], p["mb"],
+                                            p["rpb_u"], p["rpb_v"], e, sort))
+    assert ur.dtype == ir.dtype == np.int32 and vals.shape == (e,)
+    assert 0 <= ur.min() and ur.max() < p["rpb_u"]
+    assert 0 <= ir.min() and ir.max() < p["rpb_v"]
+    assert (ur < p["rpb_u"] // 2).mean() > 0.6  # λ 2: low ids are hot
+    assert (w == 1).all() and U.shape == (p["rpb_u"], p["rank"])
+    assert V.shape == (p["rpb_v"], p["rank"]) and 0.08 < U.std() < 0.12
+    sorted_mb = (np.diff(ur.reshape(-1, p["mb"]), axis=1) >= 0).all()
+    assert sorted_mb == sort
+    for rows, om, inv, n in ((ur, ou, icu, p["rpb_u"]),
+                             (ir, ov, icv, p["rpb_v"])):
+        np.testing.assert_array_equal(
+            om, np.maximum(np.bincount(rows, minlength=n), 1))
+        for mb_rows, mb_inv in zip(rows.reshape(-1, p["mb"]),
+                                   inv.reshape(-1, p["mb"])):
+            counts = np.bincount(mb_rows, minlength=n)
+            np.testing.assert_array_equal(
+                mb_inv, (1.0 / counts[mb_rows]).astype(np.float32))
+
+
+def test_probe_variants_on_cpu_report_both_and_emit_the_jax_metrics():
+    from large_scale_recommendation_tpu_torch import obs
+
+    prev = (obs.get_registry(), obs.get_tracer())
+    reg, tracer = obs.enable()
+    try:
+        out = tc.probe_variants(reps=2, sweeps=2, device="cpu",
+                                **PROBE_SMALL)
+    finally:
+        obs.set_registry(prev[0])
+        obs.set_tracer(prev[1])
+    assert set(out) == set(tc.PROBE_VARIANTS) and out.plan_s > 0
+    for variant, rate in out.items():
+        assert isinstance(rate, float) and rate > 0
+        assert reg.gauge("pallas_probe_ratings_per_s", variant=variant,
+                         rank=16, sorted="false").value == rate
+        assert reg.histogram("pallas_probe_sweep_s",
+                             variant=variant).count == 2
+    spans = [ev["name"] for ev in tracer.events() if ev.get("ph") == "X"]
+    assert spans.count("pallas_probe/torch") == 3
+    assert spans.count("pallas_probe/cuda") == 3
+    assert not any(tc.LAUNCHES.values())
+
+
+def test_probe_records_a_failing_variant(monkeypatch):
+    """A variant that raises is reported as ``FAILED <type>: <msg>`` and
+    counted; the others still run."""
+    from large_scale_recommendation_tpu_torch import obs
+
+    def refuse(*a, **k):
+        raise RuntimeError("no plan today")
+
+    monkeypatch.setattr(tc, "build_step_plan", refuse)
+    prev = (obs.get_registry(), obs.get_tracer())
+    reg, _ = obs.enable()
+    try:
+        out = tc.probe_variants(reps=1, device="cpu", **PROBE_SMALL)
+    finally:
+        obs.set_registry(prev[0])
+        obs.set_tracer(prev[1])
+    assert out["cuda"] == "FAILED RuntimeError: no plan today"
+    assert out.plan_s is None and out["torch"] > 0
+    assert reg.counter("pallas_probe_failures_total",
+                       variant="cuda").value == 1
+
+
+@pytest.mark.parametrize("name,counterpart", [
+    ("xla", "'torch'"), ("pallas_take", "'cuda'"), ("pallas_loop", "'cuda'"),
+    ("triton", "expected one of")])
+def test_probe_refuses_other_variant_names(name, counterpart):
+    with pytest.raises(ValueError, match=counterpart):
+        tc.probe_variants(variants=("torch", name), device="cpu")
+
+
+def test_probe_runs_on_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.probe_variants()

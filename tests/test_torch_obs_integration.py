@@ -305,6 +305,25 @@ def test_null_path_binds_singletons_and_reads_no_clock(port_null,
     assert store._obs_on is False and store._m_evictions is NULL_INSTRUMENT
     store.acquire_rows(np.arange(20) % 8)
     assert port_null.names() == set()
+    # the online model: null instruments, no journal, no clock, no wait,
+    # on both paths, through a table growth and an updates-emitting batch
+    from large_scale_recommendation_tpu_torch.models import online
+
+    monkeypatch.setattr(online, "time", NoClock())
+    monkeypatch.setattr(online, "_batch_done", no_block)
+    monkeypatch.setattr(online, "_wait", no_block)
+    for concurrent in (False, True):
+        m = online.OnlineMF(online.OnlineMFConfig(
+            num_factors=4, minibatch_size=64, init_capacity=8), device="cpu")
+        assert m._obs_on is False and m._events is None
+        assert m._m_batch_s is NULL_INSTRUMENT
+        assert m._m_batches is NULL_INSTRUMENT is m._m_ratings
+        m.enable_concurrent_applies(concurrent)
+        r = _port(_ratings(n=500))
+        m.partial_fit(r)
+        m.partial_fit(r, emit_updates=False)
+        assert m.users.capacity > 8
+    assert port_null.names() == set()
 
 
 def test_metrics_shims_record_nothing_when_disabled(port_null):

@@ -442,3 +442,162 @@ def test_batch_updates_builds_both_ways_like_jax():
     assert a.item_updates == []
     with pytest.raises(TypeError):
         BatchUpdates(users, [], 3)  # rank is keyword-only
+
+
+# -- the obs hooks -----------------------------------------------------------
+
+
+@pytest.fixture
+def planes():
+    """Live registries, event journals and transfer ledgers in both
+    packages (the hooks bind at construction: build models inside); each
+    package's defaults restored after."""
+    from large_scale_recommendation_tpu import obs as jobs
+    from large_scale_recommendation_tpu.obs import events as jev
+    from large_scale_recommendation_tpu.obs import transfers as jtx
+    from large_scale_recommendation_tpu_torch import obs
+
+    jprev = (jobs.get_registry(), jobs.get_tracer(), jobs.get_events(),
+             jtx.get_transfers())
+    pprev = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+             obs.get_transfers())
+    jreg, _ = jobs.enable()
+    jev.set_events(jev.EventJournal())
+    jled = jobs.enable_transfers(watch_hot=False)
+    preg, _ = obs.enable()
+    obs.set_events(obs.EventJournal())
+    pled = obs.enable_transfers(watch_hot=False)
+    yield ((jreg, jev.get_events(), jled),
+           (preg, obs.get_events(), pled))
+    jobs.disable()
+    jobs.set_registry(jprev[0])
+    jobs.set_tracer(jprev[1])
+    jev.set_events(jprev[2])
+    jtx.set_transfers(jprev[3])
+    obs.disable()
+    obs.set_registry(pprev[0])
+    obs.set_tracer(pprev[1])
+    obs.set_events(pprev[2])
+    obs.set_transfers(pprev[3])
+
+
+def _hooks_off_tables(concurrent, batches, **kw):
+    """The port's tables after each batch with every obs plane off."""
+    from large_scale_recommendation_tpu_torch import obs
+
+    state = (obs.get_registry(), obs.get_tracer(), obs.get_events(),
+             obs.get_transfers())
+    obs.disable()
+    try:
+        _, p = _pair(**kw)
+        assert p._obs_on is False and p._events is None
+        if concurrent:
+            p.enable_concurrent_applies()
+        out = []
+        for n, b in enumerate(batches, start=1):
+            p.partial_fit(_port(b), emit_updates=n % 2 == 1)
+            out.append((p.users.array, p.items.array))
+        return out
+    finally:
+        obs.set_registry(state[0])
+        obs.set_tracer(state[1])
+        obs.set_events(state[2])
+        obs.set_transfers(state[3])
+
+
+def _growth(journal):
+    return [tuple(e["detail"][k] for k in ("step", "users_capacity",
+                                           "items_capacity"))
+            for e in journal.events("online.table_growth")]
+
+
+def _sites(ledger):
+    return {name: {k: v for k, v in site.items()
+                   if k in ("h2d_bytes", "d2h_bytes", "h2d_count",
+                            "d2h_count")}
+            for name, site in ledger.snapshot()["sites"].items()}
+
+
+@pytest.mark.parametrize("concurrent", [False, True])
+def test_obs_hooks_match_jax_on_a_growing_table(planes, monkeypatch,
+                                                concurrent):
+    """Hooks on against off (the port, bit-equal tables) and against the
+    JAX hooks on the same numpy inputs: the tables at the file's bar, the
+    histogram's count and both counters after every batch, the growth
+    events' capacities, the staging and emit notes' bytes; the
+    ``online.partial_fit`` guard is entered once per batch (the scope is
+    read when the batch runs, whatever the plane was at construction)."""
+    from large_scale_recommendation_tpu_torch.models import online as pmod
+
+    (jreg, jjournal, jled), (preg, pjournal, pled) = planes
+    batches = _batches(5, n=300, seed=6)
+    off = _hooks_off_tables(concurrent, batches, capacity=16)
+    j, p = _pair(capacity=16)
+    if concurrent:
+        j.enable_concurrent_applies()
+        p.enable_concurrent_applies()
+    guarded = []
+    real_guard = pmod.guard_scope
+    monkeypatch.setattr(pmod, "guard_scope",
+                        lambda site: guarded.append(site) or real_guard(site))
+    ratings = 0
+    for n, (b, tables_off) in enumerate(zip(batches, off), start=1):
+        emit = n % 2 == 1
+        ju = j.partial_fit(b, emit_updates=emit)
+        pu = p.partial_fit(_port(b), emit_updates=emit)
+        ratings += b.n
+        assert torch.equal(p.users.array, tables_off[0])
+        assert torch.equal(p.items.array, tables_off[1])
+        _assert_close_model(p, j)
+        if emit:
+            for side in ("user_arrays", "item_arrays"):
+                np.testing.assert_array_equal(getattr(pu, side)[0],
+                                              getattr(ju, side)[0])
+        assert preg.histogram("online_batch_s").count == n == \
+            jreg.histogram("online_batch_s").count
+        for name, want in (("online_batches_total", n),
+                           ("online_ratings_total", ratings)):
+            assert preg.counter(name).value == want == \
+                jreg.counter(name).value
+    assert guarded == ["online.partial_fit"] * 5
+    grew = _growth(pjournal)
+    assert grew and grew == _growth(jjournal)
+    assert grew[-1][1:] == (p.users.capacity, p.items.capacity)
+    sites = _sites(pled)
+    assert sites == _sites(jled)
+    assert sites["online.minibatch_stage"]["h2d_count"] == 5
+    assert sites["online.emit_updates"]["d2h_count"] == 3
+
+
+def test_batch_wait_runs_outside_the_apply_lock(planes, monkeypatch):
+    """On the concurrent path the batch histogram's wait comes after
+    ``apply_lock`` is released: while it runs, another thread takes and
+    holds the lock."""
+    import threading
+
+    from large_scale_recommendation_tpu_torch.models import online as pmod
+
+    _, p = _pair(capacity=16)
+    p.enable_concurrent_applies()
+    held = []
+
+    def wait(done):
+        taken, release = threading.Event(), threading.Event()
+
+        def other():
+            if p.apply_lock.acquire(timeout=5.0):
+                taken.set()
+                release.wait(5.0)
+                p.apply_lock.release()
+
+        t = threading.Thread(target=other)
+        t.start()
+        held.append(taken.wait(5.0))
+        release.set()
+        t.join(5.0)
+        assert not t.is_alive()
+
+    monkeypatch.setattr(pmod, "_wait", wait)
+    for b in _batches(3, n=200, seed=8):
+        p.partial_fit(_port(b), emit_updates=False)
+    assert held == [True, True, True]

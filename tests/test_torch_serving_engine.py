@@ -684,3 +684,47 @@ def test_slo_tracker_records_each_request():
     eng.serve([users[:3], users[3:5], users[5:9]])
     assert slo.count == 3 and slo.violations == 0
     assert eng.meter.total_elements == 9 and eng.meter.rate > 0
+
+
+@pytest.mark.parametrize("retrieval", [None, "two_stage"])
+def test_serving_pipeline_runs_in_the_serve_rows_guard(monkeypatch,
+                                                       retrieval):
+    """Each flush's scoring pipeline enters the transfer guard's
+    ``serving.serve_rows`` scope, as many times as the JAX engine's; with a
+    ``log`` ledger the sync-debug mode is raised around each pipeline run
+    and put back, and (on the CPU) nothing is counted."""
+    from large_scale_recommendation_tpu.serving import engine as jeng
+    from large_scale_recommendation_tpu_torch import obs
+    from large_scale_recommendation_tpu_torch.obs import transfers
+    from large_scale_recommendation_tpu_torch.serving import engine as peng
+
+    entered = {"jax": [], "port": []}
+    for name, mod in (("jax", jeng), ("port", peng)):
+        real = mod.guard_scope
+        monkeypatch.setattr(
+            mod, "guard_scope",
+            lambda site, real=real, seen=entered[name]:
+            seen.append(site) or real(site))
+    modes = []
+    monkeypatch.setattr(transfers, "_set_sync_debug_mode", modes.append)
+    jm, tm = models(num_items=1024, seed=4)
+    kw = {} if retrieval is None else dict(retrieval=RetrievalConfig())
+    jkw = {} if retrieval is None else dict(retrieval=JCfg())
+    j = JEngine(jm, k=5, mesh=make_block_mesh(1), max_batch=32, **jkw)
+    prev = obs.get_transfers()
+    ledger = obs.enable_transfers(guard="log", watch_hot=False)
+    try:
+        t = ServingEngine(tm, k=5, max_batch=32, **kw)
+        rng = np.random.default_rng(5)
+        reqs = [rng.choice(real_users(tm), int(rng.integers(1, 40)))
+                for _ in range(12)]
+        for _ in range(2):
+            res, jres = t.serve(reqs), j.serve(reqs)
+        for r, jr in zip(res, jres):
+            np.testing.assert_array_equal(r[0], np.asarray(jr[0]))
+    finally:
+        obs.set_transfers(prev)
+    assert entered["port"] == entered["jax"] != []
+    assert set(entered["port"]) == {"serving.serve_rows"}
+    assert modes == [1, 0] * len(entered["port"])
+    assert ledger.implicit_total == 0

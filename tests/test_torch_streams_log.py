@@ -238,3 +238,81 @@ def test_concurrent_append_and_tail_read(tmp_path):
         off = nxt
     t.join(timeout=30)
     assert not t.is_alive() and not errors and off == n
+
+
+@pytest.fixture
+def journals():
+    """An event journal in each package (the log reads it at
+    construction); the previous ones restored after."""
+    from large_scale_recommendation_tpu.obs import events as jev
+    from large_scale_recommendation_tpu_torch.obs import events as pev
+
+    prev = (jev.get_events(), pev.get_events())
+    jev.set_events(jev.EventJournal())
+    pev.set_events(pev.EventJournal())
+    yield {"jax": jev.get_events(), "port": pev.get_events()}
+    jev.set_events(prev[0])
+    pev.set_events(prev[1])
+
+
+def _rolls(journal, root):
+    return [(os.path.relpath(e["detail"]["directory"], root),
+             e["detail"]["sealed_base"], e["detail"]["new_base"])
+            for e in journal.events("wal.segment_roll")]
+
+
+def test_segment_rolls_are_journaled_as_in_jax(tmp_path, journals):
+    """The same appends with small segments (and a reopen with smaller
+    ones, whose over-full active segment rolls at once) journal the same
+    ``wal.segment_roll`` events in both packages: one per roll."""
+    for name, (cls, _) in PACKAGES.items():
+        root = str(tmp_path / name)
+        log = cls(root, num_partitions=2, segment_records=64, fsync=False)
+        for k, (p, n) in enumerate([(0, 100), (1, 30), (0, 50), (1, 70)]):
+            log.append(p, _batch(n, seed=k, pkg=name))
+        log.close()
+        log = cls(root, num_partitions=2, segment_records=16, fsync=False)
+        log.append(0, _batch(20, seed=9, pkg=name))
+        log.close()
+    port, jax_ = (_rolls(journals[n], str(tmp_path / n))
+                  for n in ("port", "jax"))
+    assert port == jax_
+    assert port == [("p0", 0, 64), ("p0", 64, 128), ("p1", 0, 64),
+                    ("p0", 128, 150), ("p0", 150, 166)]
+    segs = sorted(os.listdir(tmp_path / "port" / "p0"))
+    assert len(segs) == 1 + sum(r[0] == "p0" for r in port)
+
+
+def test_segment_roll_is_journaled_outside_the_partition_lock(tmp_path):
+    """While the roll's event is emitted, another thread takes the
+    partition's lock."""
+    from large_scale_recommendation_tpu_torch.obs import events as pev
+
+    seen = []
+
+    class Journal:
+        def emit(self, kind, **detail):
+            got = []
+
+            def take():
+                got.append(part._lock.acquire(timeout=5.0))
+                if got[0]:
+                    part._lock.release()
+
+            t = threading.Thread(target=take)
+            t.start()
+            t.join(10.0)
+            assert not t.is_alive()
+            seen.append((kind, got[0], detail["new_base"]))
+
+    prev = pev.get_events()
+    pev.set_events(Journal())
+    try:
+        log = EventLog(str(tmp_path / "l"), segment_records=8, fsync=False)
+    finally:
+        pev.set_events(prev)
+    part = log._parts[0]
+    log.append(0, _batch(20))
+    log.close()
+    assert seen == [("wal.segment_roll", True, 8),
+                    ("wal.segment_roll", True, 16)]
