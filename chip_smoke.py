@@ -85,13 +85,15 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               steady wall beside the sweeps' CUDA-event ms and beside an
               uninstrumented run's, the segment key's roofline row at the
               card's peak (≤ 100%), a device-memory sample, the implicit
-              transfers counted in the fit's guard scope and the libraries'
-              build walls; the instrumented-vs-uninstrumented sweep again
+              transfers counted in the fit's guard scope (0: the fit hands
+              the kernels' driver its plan) and the libraries' build
+              walls; the instrumented-vs-uninstrumented sweep again
               as 5 interleaved pairs (min of each side, every plane off
               for the uninstrumented fits); one steady sweep under ``torch.profiler`` (both
-              step kernels, 96 launches each; the card's busy and idle
-              share); the k = 1 divergence (η 0.3 warm_boost) tripping the
-              watchdog with no snapshot of the poisoned sweep and health
+              step kernels, 96 launches each, framed by other kernels; the
+              card's busy and idle share over the sweep); the k = 1
+              divergence (η 0.3 warm_boost) tripping the watchdog with no
+              snapshot of the poisoned sweep and health
               CRITICAL; after ``obs.disable()`` a fit whose obs reads no
               clock and waits on nothing (counted);
 9b. obs.recorder — the same fit with the flight recorder sampling every
@@ -112,9 +114,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               concurrent second capture 409; a ``FleetServer`` over this
               server and a second one (``host`` labels, worst status);
 10. timing  — each kernel against its plain version at the main path's
-              shapes (CUDA events), with its bound on this card; per step:
-              the plan, the longest segments, the design's bytes, and the
-              host time of the launch loop beside the device time;
+              shapes (CUDA events), with its bound on this card: step 0
+              warm, each kernel's mean over the steps of stratum 0 and
+              step 0 from a cold L2 (a 128 MB write and read first); the
+              kernels' registers, shared memory and resident blocks; per
+              step: the plan, the longest segments, the design's bytes,
+              and the host time of the launch loop beside the device time;
 11. als     — the bench's ALS lines (``bench.py:736-849``) on 2,000,000
               planted ratings at ML-25M width: device plans (rank 256
               geometry) timed and equal, row for row, to the host plans;
@@ -322,6 +327,7 @@ import json
 import math
 import os
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1235,21 +1241,41 @@ class CountingClock:
         return time.time()
 
 
-PROFILE_MARGIN_S = 0.02  # profiler window open before / after a sweep
+PROFILE_MARGIN_S = 0.25  # profiler window open before / after a sweep
+# device records the profiled sweep is framed with, on each side: a capture
+# may lose records at its edges (one H100 run saw the first 10 of a sweep
+# go missing with a 0.02 s margin), so the edges hold these and not the sweep
+PROFILE_EDGE_LAUNCHES = 64
 
 
-def device_busy(trace_path):
-    """(busy ms, window ms, intervals) of the card in a profiler trace:
-    the union of its device intervals (Chrome-trace categories
-    ``kernel``, ``gpu_memcpy``, ``gpu_memset``) over the window from the
-    first one's start to the last one's end; idle share = 1 − busy /
-    window (the card waiting on the host's launches)."""
+def device_intervals(trace_path):
+    """(start µs, end µs, name) of the device intervals in a profiler trace
+    (Chrome-trace categories ``kernel``, ``gpu_memcpy``, ``gpu_memset``),
+    by start."""
     with open(trace_path) as f:
         doc = json.load(f)
-    iv = sorted((e["ts"], e["ts"] + e.get("dur", 0.0))
-                for e in doc["traceEvents"]
-                if e.get("ph") == "X"
-                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return sorted((e["ts"], e["ts"] + e.get("dur", 0.0), e.get("name", ""))
+                  for e in doc["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def device_busy(trace_path, around=None):
+    """(busy ms, window ms, intervals) of the card in a profiler trace:
+    the union of its device intervals over the window from the first
+    one's start to the last one's end; idle share = 1 − busy / window (the
+    card waiting on the host's launches). With ``around`` (names), the
+    window runs from the first interval whose name holds one of them to
+    the last such one's end, and only intervals inside it count: the
+    capture's edge records stay out."""
+    named = device_intervals(trace_path)
+    if around:
+        hits = [(a, b) for a, b, name in named
+                if any(n in name for n in around)]
+        if hits:
+            lo, hi = hits[0][0], max(b for _, b in hits)
+            named = [x for x in named if x[0] >= lo and x[1] <= hi]
+    iv = [(a, b) for a, b, _ in named]
     if not iv:
         raise AssertionError("the profiler trace holds no device interval")
     busy, (lo, hi) = 0.0, iv[0]
@@ -1286,8 +1312,9 @@ def phase_obs_train(cfg, scratch, data):
     bit for bit; 3 timed segments (compile, execute, execute); a valid
     Chrome trace; health OK. Then, after a throwaway capture, one steady
     sweep under the profiler (both step kernels, 96 launches each, with
-    ``PROFILE_MARGIN_S`` of window on each side; the card's busy and idle
-    share), the k = 1 divergence tripping the watchdog (no snapshot of
+    ``PROFILE_MARGIN_S`` of window and ``PROFILE_EDGE_LAUNCHES`` other
+    kernels on each side; the card's busy and idle share over the
+    sweep), the k = 1 divergence tripping the watchdog (no snapshot of
     the poisoned sweep, health CRITICAL), and after ``obs.disable()`` an
     uninstrumented fit whose obs reads no clock and waits on nothing.
     Returns the instrumented fit's launch counts and its implicit
@@ -1400,6 +1427,9 @@ def phase_obs_train(cfg, scratch, data):
         kernel_build_s=builds)
     if not roof["pct_of_hbm_peak"] or roof["pct_of_hbm_peak"] > 100.0:
         raise AssertionError(f"pct_of_hbm_peak {roof['pct_of_hbm_peak']}")
+    if implicit != 0:  # the fit passes its plan: rows checked on the host
+        raise AssertionError(f"{implicit} implicit transfers under the "
+                             "dsgd.fit guard")
     if not sample["supported"] or card.get("bytes_in_use", 0) < tables:
         raise AssertionError(f"device memory sample {sample['devices']}")
 
@@ -1464,41 +1494,57 @@ def phase_obs_train(cfg, scratch, data):
                      for name in ("sgd_item_rows_kernel",
                                   "sgd_user_rows_kernel")}
 
+    edge = torch.zeros(1024, device=model.U.device)
+
+    def edge_records():  # device records that frame the profiled sweep
+        for _ in range(PROFILE_EDGE_LAUNCHES):
+            edge.add_(1.0)
+        torch.cuda.synchronize()
+
     sweep()  # warm
     torch.cuda.synchronize()
     # This is the process's first capture with CUDA activity: a throwaway
-    # one pays CUPTI's one-time start, and the measured capture keeps a
-    # margin on both sides of the sweep, so that no launch falls at an
-    # edge of the profiler's window (one run on an H100 saw 87 of 96).
+    # one pays CUPTI's one-time start. A capture may lose the records at
+    # its edges (runs on an H100 saw 87 and 92 of 96, the sweep's first
+    # launches gone), so the measured one frames the sweep with
+    # PROFILE_MARGIN_S of window and PROFILE_EDGE_LAUNCHES other kernels
+    # on each side, and counts and times only what lies between them.
     with profile_trace(os.path.join(scratch, "obs_profile_warm")) as prof:
         timed(sweep)
     warm_counts = step_counts(prof)[1]
     prof_dir = os.path.join(scratch, "obs_profile")
     with profile_trace(prof_dir) as prof:
+        edge_records()
         time.sleep(PROFILE_MARGIN_S)
         _, prof_wall = timed(sweep)
         time.sleep(PROFILE_MARGIN_S)
+        edge_records()
     ops, counts = step_counts(prof)
-    busy_ms, window_ms, n_iv = device_busy(os.path.join(prof_dir,
-                                                        TRACE_FILE))
+    trace = os.path.join(prof_dir, TRACE_FILE)
+    busy_ms, window_ms, n_iv = device_busy(
+        trace, around=("sgd_item_rows_kernel", "sgd_user_rows_kernel",
+                       "Memcpy DtoD"))
+    edge_seen = len(device_intervals(trace)) - n_iv
     say("obs.train.profile", top_device_ops=[
         (key[:48], c, round(ms, 4)) for key, c, ms in ops[:6]],
         step_kernel_launches=counts,
         warm_capture_step_kernel_launches=warm_counts,
+        edge_launches=2 * PROFILE_EDGE_LAUNCHES, edge_records=edge_seen,
         sweep_wall_ms=prof_wall * 1e3,
         device_busy_ms=busy_ms, device_window_ms=window_ms,
         device_intervals=n_iv, device_busy_share=busy_ms / window_ms,
         device_idle_share=1.0 - busy_ms / window_ms,
         busy_over_host_wall=busy_ms / (prof_wall * 1e3),
         how="union of the trace's kernel/memcpy/memset intervals over the "
-            "window from the first device interval's start to the last "
-            "one's end")
+            "window from the sweep's first device interval's start to its "
+            "last one's end")
     if counts != {"sgd_item_rows_kernel": n_mb * K,
                   "sgd_user_rows_kernel": n_mb * K}:
         raise AssertionError(f"profiled step-kernel launches {counts}, "
                              f"expected {n_mb * K} each (warm capture "
                              f"{warm_counts}, {n_iv} device intervals "
-                             f"over {window_ms} ms)")
+                             f"over {window_ms} ms, {edge_seen} of "
+                             f"{2 * PROFILE_EDGE_LAUNCHES} edge records)")
 
     # -- 4. the k = 1 divergence trips the watchdog
     trip = obs.TrainingWatchdog(policy="halt")
@@ -5052,11 +5098,63 @@ def time_casts(U, V, paths):
     return out
 
 
+L2_FLUSH_BYTES = 128 * 2 ** 20  # written, then read: evicts the 50 MB L2
+
+
+def stratum_kernel_ms(U, V, ou, ov, plan, s, work, kw, passes=3):
+    """Kernel A's and kernel B's mean device time over every step of
+    stratum ``s`` (CUDA events around each launch, the pair alternating as
+    on the main path; the tables are updated in place), each the best of
+    ``passes`` passes over the stratum."""
+    best = (math.inf, math.inf)
+    for _ in range(passes):
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                 for _ in range(plan.n_mb)]
+        torch.cuda.synchronize()
+        for g, (a, b, c) in enumerate(marks):
+            t = s * plan.n_mb + g
+            a.record()
+            cuda_sgd.sgd_item_rows(U, V, ou, ov, plan, t, work, **kw)
+            b.record()
+            cuda_sgd.sgd_user_rows(U, V, ou, ov, plan, t, work, **kw)
+            c.record()
+        torch.cuda.synchronize()
+        best = (min(best[0], sum(a.elapsed_time(b) for a, b, _ in marks)
+                    / plan.n_mb),
+                min(best[1], sum(b.elapsed_time(c) for _, b, c in marks)
+                    / plan.n_mb))
+    return best
+
+
+def cold_step_ms(U, V, ou, ov, plan, t, work, kw, reps=10):
+    """Step ``t`` from a cold L2: before each repetition ``L2_FLUSH_BYTES``
+    are written, then read (the read leaves clean lines, so the timed
+    kernels pay no write-back of the flush). Returns the medians of kernel
+    A and of kernel B (B right after A, as on the main path)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=U.device)
+    a_ms, b_ms = [], []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        flush.sum()
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        cuda_sgd.sgd_item_rows(U, V, ou, ov, plan, t, work, **kw)
+        b.record()
+        cuda_sgd.sgd_user_rows(U, V, ou, ov, plan, t, work, **kw)
+        c.record()
+        c.synchronize()
+        a_ms.append(a.elapsed_time(b))
+        b_ms.append(b.elapsed_time(c))
+    return statistics.median(a_ms), statistics.median(b_ms)
+
+
 def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
     """Kernel A and kernel B against their plain versions on step 0 of the
     main path (stratum 0, minibatch 0: k visits × mb entries), each with
-    its share of the step's bound from this data; then stratum 0's launch
-    loop on the host clock beside its device time."""
+    its share of the step's bound from this data; each kernel's mean over
+    every step of stratum 0 and step 0 from a cold L2 (``cold_step_ms``);
+    the kernels' registers, shared memory and resident blocks; then
+    stratum 0's launch loop on the host clock beside its device time."""
     su, si, sv, sw, ou, ov, icu, icv = args
     k, mb, t = plan.num_blocks, plan.minibatch, 0
     rank = U0.shape[-1]
@@ -5099,6 +5197,16 @@ def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
     lib_ms = cuda_ms(lambda: (Up.index_add_(0, ur, du),
                               Vp.index_add_(0, ir, dv)), reps=20)
 
+    # beyond the warm step 0 (its rows left in the L2 by the repetition
+    # before): every step of stratum 0, and step 0 from a cold L2
+    Uw, Vw = U0.clone(), V0.clone()
+    a_stratum_ms, b_stratum_ms = stratum_kernel_ms(Uw, Vw, ou, ov, plan, 0,
+                                                   wk, kw)
+    Uw, Vw = U0.clone(), V0.clone()
+    a_cold_ms, b_cold_ms = cold_step_ms(Uw, Vw, ou, ov, plan, 0, wk, kw)
+    del Uw, Vw
+    attrs = cuda_sgd.step_kernel_attrs(rank)
+
     # the launch loop of stratum 0: host time to enqueue its n_mb steps
     # beside the device time they take (best of 5)
     host_us, dev_ms = [], []
@@ -5126,21 +5234,34 @@ def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
     a_flops, b_flops = n_e * 7 * rank, n_e * 5 * rank
     step_bms, _ = bound_of(a_bytes + b_bytes, a_flops + b_flops)
     step_ms = a_ms + b_ms
-    # what the design moves beyond the function (not in the bound)
-    design = dict(gathered_user_rows=n_e * row, snapshot_writes=n_v * row,
-                  snapshot_gathers=n_e * row, e_buffer=2 * n_e * 4,
-                  plan=2 * n_e * 20)
+    # the same bound for each step of stratum 0 (its own rows), averaged
+    stratum_bms = sum(bound_of(
+        (plan.u_segments[g] + plan.v_segments[g]) * (2 * row + 4)
+        + n_all * 24,
+        (plan.entry_base[g + 1] - plan.entry_base[g]) * 12 * rank)[0]
+        for g in range(plan.n_mb)) / plan.n_mb
+    # what the design moves beyond the function (not in the bound): the
+    # per-entry row gathers (A's U rows: the re-reads within a visit; B's
+    # snapshot rows) through the L2, the old rows B reads again after A
+    # gathered them, the snapshot, e, and the plan's positions
+    design = dict(gathered_user_rows=n_e * row,
+                  user_rows_read_again_in_b=n_u * row,
+                  snapshot_writes=n_v * row, snapshot_gathers=n_e * row,
+                  e_buffer=2 * n_e * 4, plan=2 * n_e * 20)
     out = []
-    for name, err, ms, pms, bound, lib in (
+    for name, err, ms, pms, bound, lib, side in (
             ("sgd_item_rows_kernel", a_err, a_ms, a_plain_ms,
-             bound_of(a_bytes, a_flops), None),
+             bound_of(a_bytes, a_flops), None, "a"),
             ("sgd_user_rows_kernel", b_err, b_ms, b_plain_ms,
-             bound_of(b_bytes, b_flops), lib_ms)):
+             bound_of(b_bytes, b_flops), lib_ms, "b")):
         if not err <= STRATUM_TOL:
             raise AssertionError(f"{name} max-abs {err:.3e} vs plain")
-        out.append(entry(name, err, ms, pms, bound, lib, paths,
-                         step_ms=step_ms, step_bound_ms=step_bms,
-                         per_visit_replaces=f"{_PALLAS}:172"))
+        out.append(entry(
+            name, err, ms, pms, bound, lib, paths, step_ms=step_ms,
+            step_bound_ms=step_bms, per_visit_replaces=f"{_PALLAS}:172",
+            stratum_ms=a_stratum_ms if side == "a" else b_stratum_ms,
+            cold_l2_ms=a_cold_ms if side == "a" else b_cold_ms,
+            **{k[2:]: v for k, v in attrs.items() if k[0] == side}))
     say("kernels.timing", visits=k, minibatch=mb, real_entries=n_e,
         distinct_u=n_u, distinct_v=n_v, plan_build_s=plan_s,
         plan_bytes=plan.nbytes(), longest_segment_u_step0=plan.longest_u[t],
@@ -5149,6 +5270,13 @@ def time_kernels(U0, V0, args, plan, plan_s, lam, paths):
         longest_segment_v=max(plan.longest_v), chunk=plan.chunk,
         kernel_a_ms=a_ms, kernel_b_ms=b_ms, step_ms=step_ms,
         step_bound_ms=step_bms, step_share_of_bound=step_bms / step_ms,
+        stratum0_kernel_a_ms=a_stratum_ms, stratum0_kernel_b_ms=b_stratum_ms,
+        stratum0_step_ms=a_stratum_ms + b_stratum_ms,
+        stratum0_step_bound_ms=stratum_bms,
+        stratum0_share_of_bound=stratum_bms / (a_stratum_ms + b_stratum_ms),
+        cold_l2_kernel_a_ms=a_cold_ms, cold_l2_kernel_b_ms=b_cold_ms,
+        cold_l2_step_ms=a_cold_ms + b_cold_ms, l2_flush_bytes=L2_FLUSH_BYTES,
+        **{f"kernel_{k}": v for k, v in attrs.items()},
         function_bytes=a_bytes + b_bytes,
         design_bytes_beyond=sum(design.values()), **design,
         old_pair_scratch_bytes=2 * 2 * n_all * row,

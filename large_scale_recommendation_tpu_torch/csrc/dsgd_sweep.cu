@@ -11,40 +11,30 @@
 //   add du into U[su], dv into V[si], one entry at a time in entry order
 //   (duplicates accumulate; minibatch g+1 sees g's writes)
 //
-// Design: row-owning warps. The k block visits of a stratum are row-disjoint
-// in U and in V, so minibatch g of every visit is one step of two launches.
-// A step plan (ops/cuda_sgd.py::build_step_plan, built once per fit) lists
-// each step's real entries twice: grouped by V row and by U row (a
-// "segment": one per row and step), each segment in the minibatch's entry
-// order, with every position's row and the entry's streams stored beside it
-// in that order. A warp owns the segments that start in kOwn consecutive
-// positions, so each row has exactly one owner; a segment longer than
-// `chunk` is owned by a thread block of its own instead (below).
-//   sgd_item_rows_kernel (A)  per owned item row, lanes over the rank: reads
-//                             v_old and ω_v once, walks the row's entries
-//                             gathering u_old per entry, writes each e =
-//                             (r − u·v)·w to a per-entry f32 buffer, adds
-//                             each dv into the row in entry order, writes
-//                             V[i] in place and v_old into the snapshot
-//                             (an f32 table by item row).
-//   sgd_user_rows_kernel (B)  per owned user row: reads u_old and ω_u once,
-//                             walks the entries reading each one's e and its
-//                             item's v_old from the snapshot, adds each du
-//                             into the row in entry order, writes U[u] in
-//                             place.
-// A warp loads its positions' plan streams lane-parallel in one coalesced
-// round and walks them kAhead at a time, issuing an entry's gathers (and a
-// starting segment's old row and ω) before using any of them: per warp a
-// few rounds of dependent loads for ~kOwn entries, where one warp per
-// segment paid three rounds for ~2–5 entries. Both orders give the same
-// arithmetic, so the two designs' tables are bit-equal.
-// Why the launch boundary A → B is the only barrier a step needs: in A, V
-// row i is read and written by its owner alone (its segment holds every
-// entry of item i in the step, and the visits are row-disjoint), and A
-// writes no U, so every u it gathers is u_old. B reads no V (v_old comes
-// from the snapshot, e from A's buffer) and U row u is read and written by
-// its owner alone. The next step's A sees both tables' writes (stream
-// order).
+// Algorithm: row-owning warps. The k block visits of a stratum are
+// row-disjoint in U and in V, so minibatch g of every visit is one step of
+// two launches. A step plan (ops/cuda_sgd.py::build_step_plan, built once
+// per fit) lists each step's real entries twice: grouped by V row and by U
+// row (a "segment": one per row and step), each segment in the minibatch's
+// entry order, with every position's row and the entry's streams stored
+// beside it in that order. A warp owns the segments that start in kOwn
+// consecutive positions, so each row has exactly one owner; a segment
+// longer than `chunk` is owned by a thread block of its own (below).
+//   sgd_item_rows_kernel (A)  per owned item row: v_old and ω_v once, then
+//                             per entry the gathered u_old, e = (r − u·v)·w
+//                             into a per-entry f32 buffer, dv added into the
+//                             row in entry order; V[i] written in place and
+//                             v_old into the snapshot (f32, by item row).
+//   sgd_user_rows_kernel (B)  per owned user row: u_old and ω_u once, then
+//                             per entry its e and its item's v_old from the
+//                             snapshot, du added in entry order; U[u]
+//                             written in place.
+// The launch boundary A → B is the only barrier a step needs: in A, V row
+// i is read and written by its owner alone (its segment holds every entry
+// of item i in the step, and the visits are row-disjoint), and A writes no
+// U, so every u it gathers is u_old. B reads no V (v_old comes from the
+// snapshot, e from A's buffer) and U row u is read and written by its owner
+// alone. The next step's A sees both tables' writes (stream order).
 //
 // Padding. Entries of weight 0 are in no segment. The layout gives padding
 // global row 0 in every visit: kept, visit p > 0's padding would make a
@@ -55,13 +45,12 @@
 // deltas in a fixed order. A segment of at most `chunk` entries adds them
 // one at a time in entry order, the sequential read-modify-write order of
 // the TPU kernels (ops/pallas_sgd.py:593-600). A longer segment (skewed ids)
-// would set the launch's tail if one warp walked it, so it gets a block of
-// its own: its entries are cut into chunks of `chunk`, dealt round robin to
-// the block's kWarps warps; each warp sums its chunks in order, and warp 0
-// adds the kWarps partials to the old row in warp order. Either way the
-// result depends on the inputs alone, so two runs are bit-equal. What
-// differs from JAX is the order of the dot reduction and, for long
-// segments, the grouping of the sum.
+// gets a block of its own: its entries are cut into chunks of `chunk`,
+// dealt round robin to the block's kWarps warps; each warp sums its chunks
+// in order, and warp 0 adds the kWarps partials to the old row in warp
+// order. Either way the result depends on the inputs alone, so two runs are
+// bit-equal. What differs from JAX is the order of the dot reduction and,
+// for long segments, the grouping of the sum.
 //
 // Bound. The function of one step (all k visits) must read each distinct U
 // and V row it touches once, with its ω, write each of them back once, and
@@ -71,16 +60,50 @@
 // f32 operations (~12·rank per entry) are far below the card's rate. Split
 // by what each kernel must move: A the distinct-row reads of both sides
 // with ω, the streams and V's writes; B U's writes.
-// What this design moves beyond that, per step: one gathered U row per
-// real entry in A and one snapshot row per real entry in B (the rows the
-// step touches, ~28 MB at the bench, inside the 50 MB L2), the snapshot
-// written once per item row, 4 B of e written and read per entry, and the
-// plan (20 B per entry and side). About 0.3 GB per step at the bench,
-// against the ~1.34 GB of the earlier delta/scatter pair (whose
-// [k, mb, r] du/dv scratch alone was 537 MB written and read back). Kernel
-// A's per-entry gathers come mostly from HBM (the U table is 83 MB), and
-// A runs near what random 512-byte row gathers sustain; fewer bytes (bf16
-// rows) is what would move it.
+//
+// What bounds the pair on this card: random 512-byte row traffic, not the
+// instruction stream any more. Measured with scripts/torch_step_pair_bench.py
+// (H100 80GB HBM3, 700 W, the bench step): the previous pair took 0.142 ms (A
+// 0.076, B 0.066; the same from a cold L2), with 75 / 63 registers a
+// thread (24 / 32 warps an SM), ~10 warp shuffles an entry to read back
+// its scalars (A 5 more for its dot), four 4-byte loads a 512-byte row and
+// two entries' gathers in flight a warp. This pair takes ~0.127 ms (A
+// ~0.063, B ~0.064) with 48 / 55 registers: A gained, B barely moved. A
+// kernel that only reads each of B's 117,816 distinct U rows and writes it
+// back in place, one warp a row, takes 0.046 ms (2.6 TB/s): B's own row
+// traffic, not its issue, sets B's floor, and B spends the rest on its
+// per-entry snapshot gathers and the entries' scalars (a ring of 4 or of
+// 8 made no difference to it). The step's bound assumes streaming rates
+// for those rows.
+//   - 16-byte rows: where rank % 4 == 0 (and the tables are 16-byte
+//     aligned) a lane holds 4 contiguous columns, so a 128-column row is one
+//     access a warp; other ranks keep one column a lane (W = 1 below).
+//   - a ring of kStages = 8 row slots a warp in shared memory, filled with
+//     cp.async (16 bytes a lane; 4 on the W = 1 route): the gathered rows
+//     and each segment's old row are queued in the order they are used,
+//     kStages ahead of their use, so a warp keeps up to 8 row loads in
+//     flight whatever its registers (4 measured ~2% slower on the step, 12
+//     ~10%: 58 KB a block leaves 3 blocks an SM). Each lane copies and
+//     reads back only its own columns, so its own cp.async.wait_group is
+//     the only synchronisation (no mbarrier, no cross-lane wait).
+//   - the owned positions' scalars (the gathered row, r or e, w, the
+//     collision scale; at a segment start its row and λ/max(ω,1)) staged in
+//     shared memory once per warp and read back as one 16-byte broadcast an
+//     entry, in place of the shuffles.
+//   - L2 eviction priorities (createpolicy): A's U gathers, the snapshot
+//     and e that A writes for B, and B's snapshot gathers evict last
+//     (~1% on the warm step, nothing resolved over a stratum); the rest
+//     keeps the normal priority (evict_first there, or V's rows kept in
+//     place of U's, moved nothing).
+//   - the plan walks a step's visits in order in A and in reverse in B
+//     (ops/cuda_sgd.py::_visit_order), so B starts on the rows A touched
+//     last: ~3% on stratum 0 against row order alone.
+// What the design still moves beyond the bound, per step: one gathered U
+// row per real entry in A and one snapshot row per real entry in B (L2
+// traffic: the rows of one visit, ~7.5 MB of U and ~3.5 MB of snapshot, are
+// re-read within it), each touched U row read again by B after A gathered
+// it, the snapshot written once per item row, 4 B of e written and read
+// per entry, and the plan (20 B per entry and side).
 //
 // bf16 factor storage (the half=True branch of both TPU kernels,
 // ops/pallas_sgd.py:193-198, :226-228, :270-274 and :475-478, :552-554,
@@ -104,155 +127,432 @@
 #include <limits.h>
 #include <stdint.h>
 
+// the block's dynamic shared memory: each warp's ring, entries and starts
+extern __shared__ float4 dsgd_smem[];
+
 namespace {
 
 constexpr int kWarps = 8;     // warps per thread block
 constexpr int kMaxCols = 8;   // columns per lane: rank <= 32 * kMaxCols
-constexpr int kAhead = 2;     // entries whose gathers a warp issues together
+constexpr int kStages = 8;    // row loads a warp keeps in flight (its ring)
 constexpr int kOwn = 16;      // positions whose short segments a warp owns
 constexpr int kWindow = 32;   // positions a warp loads in one round
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = INT_MIN;  // no row (outside the step)
+static_assert(kStages >= 2, "a segment start takes two slots at once");
 
-template <int NC>
-__device__ __forceinline__ void load_row(float (&x)[NC],
-                                         const float* __restrict__ row,
-                                         int lane, int rank) {
+// -- L2 eviction priorities and hinted accesses ------------------------------
+
+struct Policies {
+  uint64_t keep;  // read again within the step
+  uint64_t once;  // read or written once in the step
+};
+
+// `keep` evicts last. `once` keeps the normal priority: evict_first there
+// did not move the bench step (scripts/torch_step_pair_bench.py, variant
+// once_first).
+__device__ __forceinline__ Policies policies() {
+  Policies p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p.keep));
+  asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p.once));
+  return p;
+}
+
+__device__ __forceinline__ int ld_int(const int32_t* p, uint64_t pol) {
+  int v;
+  asm volatile("ld.global.L2::cache_hint.b32 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ float ld_float(const float* p, uint64_t pol) {
+  float v;
+  asm volatile("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void st_float(float* p, float v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;"
+               :: "l"(p), "f"(v), "l"(pol) : "memory");
+}
+
+// -- rows: a lane holds NCH chunks of W contiguous columns --------------------
+// Chunk j of lane l covers columns [W·(l + 32j), W·(l + 32j) + W). W = 4 (one
+// 16-byte access a lane) needs rank % 4 == 0 and 16-byte aligned tables; W =
+// 1 takes any rank. A chunk at or past `rank` is 0 and never stored.
+
+template <int W>
+__device__ __forceinline__ int col(int j, int lane) {
+  return W * (lane + 32 * j);
+}
+
+template <int W, int NCH>
+__device__ __forceinline__ void load_row(float (&x)[W * NCH],
+                                         const float* row, int lane,
+                                         int rank, uint64_t pol) {
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = lane + 32 * i;
-    x[i] = c < rank ? row[c] : 0.0f;
+  for (int j = 0; j < NCH; ++j) {
+    const int c = col<W>(j, lane);
+    if constexpr (W == 4) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (c < rank)
+        asm volatile("ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, "
+                     "[%4], %5;"
+                     : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                     : "l"(row + c), "l"(pol));
+      x[4 * j] = v.x;
+      x[4 * j + 1] = v.y;
+      x[4 * j + 2] = v.z;
+      x[4 * j + 3] = v.w;
+    } else {
+      x[j] = c < rank ? ld_float(row + c, pol) : 0.0f;
+    }
   }
 }
 
-template <int NC>
-__device__ __forceinline__ void store_row(float* __restrict__ row,
-                                          const float (&x)[NC], int lane,
-                                          int rank) {
+template <int W, int NCH>
+__device__ __forceinline__ void store_row(float* row,
+                                          const float (&x)[W * NCH],
+                                          int lane, int rank, uint64_t pol) {
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = lane + 32 * i;
-    if (c < rank) row[c] = x[i];
+  for (int j = 0; j < NCH; ++j) {
+    const int c = col<W>(j, lane);
+    if (c >= rank) continue;
+    if constexpr (W == 4) {
+      asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, "
+                   "%5;"
+                   :: "l"(row + c), "f"(x[4 * j]), "f"(x[4 * j + 1]),
+                      "f"(x[4 * j + 2]), "f"(x[4 * j + 3]), "l"(pol)
+                   : "memory");
+    } else {
+      st_float(row + c, x[j], pol);
+    }
   }
 }
 
 // u·v over the warp (each lane's columns, then a butterfly of shuffles).
-template <int NC>
-__device__ __forceinline__ float warp_dot(const float (&u)[NC],
-                                          const float (&v)[NC]) {
+template <int N>
+__device__ __forceinline__ float warp_dot(const float (&u)[N],
+                                          const float (&v)[N]) {
   float dot = 0.0f;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) dot += u[i] * v[i];
+  for (int i = 0; i < N; ++i) dot += u[i] * v[i];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     dot += __shfl_xor_sync(kFull, dot, off);
   return dot;
 }
 
-// Long segments: one block each; the entries [beg, end) are cut into chunks
-// of `chunk`, dealt round robin to the block's warps, each walking its
-// chunks in entry order with kAhead entries' loads in flight.
+// -- a warp's shared memory ---------------------------------------------------
 
-// Item side, entries [beg, end) of one item row (old value v, regularizer
-// reg_v = λ/max(ω_v,1)): per entry, gather u, write e = (r − u·v)·w, add dv
-// into acc in entry order.
-template <int NC>
-__device__ __forceinline__ void item_walk(
-    const float* __restrict__ U, const int32_t* __restrict__ su,
-    const float* __restrict__ sr, const float* __restrict__ sw,
-    const float* __restrict__ sc, float* __restrict__ e_buf, int e0,
-    int beg, int end, const float (&v)[NC], float reg_v, float lr, int lane,
-    int rank, float (&acc)[NC]) {
-  for (int t = beg; t < end; t += kAhead) {
-    float u[kAhead][NC], dot[kAhead], r[kAhead], w[kAhead], c[kAhead];
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      const bool ok = t + q < end;
-      const int64_t row = ok ? su[t + q] : 0;
-      r[q] = ok ? sr[t + q] : 0.0f;
-      w[q] = ok ? sw[t + q] : 0.0f;
-      c[q] = ok ? sc[t + q] : 0.0f;
-      load_row(u[q], U + row * rank, lane, ok ? rank : 0);
-    }
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) dot[q] = warp_dot(u[q], v);
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      if (t + q < end) {
-        const float err = (r[q] - dot[q]) * w[q];
-        if (lane == 0) e_buf[t + q - e0] = err;
-#pragma unroll
-        for (int i = 0; i < NC; ++i)
-          acc[i] += (lr * (err * u[q][i] - reg_v * v[i] * w[q])) * c[q];
-      }
-    }
+// An owned position's scalars, staged by the lane that loaded them and read
+// back by every lane as one 16-byte broadcast: the row its entry gathers,
+// then kernel A's r (kernel B's e), w and collision scale.
+struct alignas(16) Entry {
+  int gather;
+  float x, w, c;
+};
+
+// A segment start's row and its regularizer λ/max(ω, 1).
+struct alignas(8) Start {
+  int row;
+  float reg;
+};
+
+template <int W, int NCH>
+struct WarpSmem {
+  static constexpr int kCap = 32 * W * NCH;  // floats in a ring slot
+  static constexpr int kRingBytes = kStages * kCap * 4;
+  static constexpr int kBytes = kRingBytes + 2 * kWindow * sizeof(Entry) +
+                                kOwn * sizeof(Start);
+  float* ring;
+  Entry* entries;  // by window offset, [2 · kWindow]
+  Start* starts;   // by window offset, [kOwn]
+
+  __device__ explicit WarpSmem(int warp) {
+    char* base = reinterpret_cast<char*>(dsgd_smem) + warp * kBytes;
+    ring = reinterpret_cast<float*>(base);
+    entries = reinterpret_cast<Entry*>(base + kRingBytes);
+    starts = reinterpret_cast<Start*>(base + kRingBytes +
+                                      2 * kWindow * sizeof(Entry));
   }
+};
+
+template <int W, int NCH>
+constexpr int block_smem_bytes() {
+  return kWarps * WarpSmem<W, NCH>::kBytes;
 }
 
-// User side, entries [beg, end) of one user row (old value u, regularizer
-// reg_u): per entry, read e and the item's v_old from the snapshot, add du
-// into acc in entry order.
-template <int NC>
-__device__ __forceinline__ void user_walk(
-    const int32_t* __restrict__ epos, const int32_t* __restrict__ vrow,
-    const float* __restrict__ sw, const float* __restrict__ sc,
-    const float* __restrict__ e_buf, int e0, const float* __restrict__ snap,
-    int beg, int end, const float (&u)[NC], float reg_u, float lr, int lane,
-    int rank, float (&acc)[NC]) {
-  for (int t = beg; t < end; t += kAhead) {
-    float v[kAhead][NC], err[kAhead], w[kAhead], c[kAhead];
+// -- the ring: kStages row loads in flight, used in the order queued ----------
+// One cp.async group per queued row (an empty one past the warp's last row),
+// so before the n-th take n + kStages groups are committed and
+// cp.async.wait_group kStages − 1 means row n has landed. A lane copies and
+// reads back only its own chunks: its own wait is all the synchronisation.
+// A slot is refilled only after the row taken from it has been used and the
+// warp has passed a __syncwarp.
+
+template <int W>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           uint64_t pol) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (W == 4)
+    asm volatile(
+        "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+        :: "r"(d), "l"(src), "l"(pol) : "memory");
+  else
+    asm volatile(
+        "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;"
+        :: "r"(d), "l"(src), "l"(pol) : "memory");
+}
+
+template <int W, int NCH>
+struct Ring {
+  static constexpr int kCap = WarpSmem<W, NCH>::kCap;
+  float* slots;
+  int fill_at = 0, take_at = 0;
+
+  __device__ explicit Ring(float* s) : slots(s) {}
+
+  // Queue one row (nullptr: nothing left to queue).
+  __device__ __forceinline__ void fill(const float* row, uint64_t pol,
+                                       int lane, int rank) {
+    if (row != nullptr) {
+      float* slot = slots + fill_at * kCap;
 #pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      const bool ok = t + q < end;
-      const int64_t row = ok ? vrow[t + q] : 0;
-      err[q] = ok ? e_buf[epos[t + q] - e0] : 0.0f;
-      w[q] = ok ? sw[t + q] : 0.0f;
-      c[q] = ok ? sc[t + q] : 0.0f;
-      load_row(v[q], snap + row * rank, lane, ok ? rank : 0);
-    }
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      if (t + q < end) {
-#pragma unroll
-        for (int i = 0; i < NC; ++i)
-          acc[i] += (lr * (err[q] * v[q][i] - reg_u * u[i] * w[q])) * c[q];
+      for (int j = 0; j < NCH; ++j) {
+        const int c = col<W>(j, lane);
+        if (c < rank) copy_async<W>(slot + c, row + c, pol);
       }
     }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    fill_at = fill_at + 1 == kStages ? 0 : fill_at + 1;
   }
+
+  // The oldest queued row, into registers; kPending = the groups that may
+  // still be in flight (kStages − 1, or kStages − 2 for a second take
+  // before a refill).
+  template <int kPending>
+  __device__ __forceinline__ void take(float (&x)[W * NCH], int lane,
+                                       int rank) {
+    asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+    const float* slot = slots + take_at * kCap;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = col<W>(j, lane);
+      if constexpr (W == 4) {
+        const float4 v = c < rank
+                             ? *reinterpret_cast<const float4*>(slot + c)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        x[4 * j] = v.x;
+        x[4 * j + 1] = v.y;
+        x[4 * j + 2] = v.z;
+        x[4 * j + 3] = v.w;
+      } else {
+        x[j] = c < rank ? slot[c] : 0.0f;
+      }
+    }
+    take_at = take_at + 1 == kStages ? 0 : take_at + 1;
+  }
+};
+
+// -- long segments: a block each ----------------------------------------------
+// The entries [beg, end) are cut into chunks of `chunk`, dealt round robin to
+// the block's warps, each walking its chunks in entry order through its ring
+// (the feed below queues the gathered rows; the walk loads each chunk's
+// scalars lane-parallel and reads them back by shuffle). Then warp 0 adds the
+// kWarps partial sums to the old row in warp order.
+
+// The rows a warp of a long block gathers, in its walk's order: `idx` holds
+// the gathered row of position lo + lane of the chunk being queued.
+struct LongFeed {
+  int lo, t, idx;
+};
+
+__device__ __forceinline__ int chunk_row(const int32_t* gather, int lo,
+                                         int end, int chunk, int lane,
+                                         uint64_t pol) {
+  return lane < chunk && lo + lane < end ? ld_int(gather + lo + lane, pol)
+                                         : 0;
+}
+
+template <int W, int NCH>
+__device__ __forceinline__ void feed_long(Ring<W, NCH>& ring, LongFeed& f,
+                                          const float* table,
+                                          const int32_t* gather, int end,
+                                          int chunk, int lane, int rank,
+                                          const Policies& pol) {
+  const float* src = nullptr;
+  if (f.lo < end) {
+    src = table + (int64_t)__shfl_sync(kFull, f.idx, f.t - f.lo) * rank;
+    if (++f.t == min(f.lo + chunk, end)) {
+      f.lo += kWarps * chunk;
+      f.t = f.lo;
+      if (f.lo < end) f.idx = chunk_row(gather, f.lo, end, chunk, lane,
+                                        pol.once);
+    }
+  }
+  ring.fill(src, pol.keep, lane, rank);
+}
+
+template <int W, int NCH>
+__device__ __forceinline__ LongFeed start_long(Ring<W, NCH>& ring,
+                                               const float* table,
+                                               const int32_t* gather,
+                                               int beg, int end, int chunk,
+                                               int warp, int lane, int rank,
+                                               const Policies& pol) {
+  LongFeed f{beg + warp * chunk, beg + warp * chunk, 0};
+  if (f.lo < end) f.idx = chunk_row(gather, f.lo, end, chunk, lane, pol.once);
+  for (int s = 0; s < kStages; ++s)
+    feed_long(ring, f, table, gather, end, chunk, lane, rank, pol);
+  return f;
 }
 
 // A long segment's kWarps partial sums, added to the old row in warp order
-// by warp 0 (the only warp that returns true).
-template <int NC>
-__device__ __forceinline__ bool combine_partials(float (&acc)[NC],
-                                                 const float (&old)[NC],
-                                                 int warp, int lane) {
-  __shared__ float part[kWarps][32 * kMaxCols];
+// by warp 0 (the only warp that returns true). The partials go through the
+// warps' rings, idle by then.
+template <int W, int NCH>
+__device__ __forceinline__ bool combine_partials(float (&acc)[W * NCH],
+                                                 const float (&old)[W * NCH],
+                                                 int warp, int lane,
+                                                 int rank) {
+  constexpr int N = W * NCH;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  float* mine = WarpSmem<W, NCH>(warp).ring;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) part[warp][lane + 32 * i] = acc[i];
+  for (int j = 0; j < NCH; ++j)
+#pragma unroll
+    for (int k = 0; k < W; ++k) mine[col<W>(j, lane) + k] = acc[W * j + k];
   __syncthreads();
   if (warp != 0) return false;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    acc[i] = old[i];
-    for (int w = 0; w < kWarps; ++w) acc[i] += part[w][lane + 32 * i];
+  for (int i = 0; i < N; ++i) acc[i] = old[i];
+  for (int w = 0; w < kWarps; ++w) {
+    const float* part = WarpSmem<W, NCH>(w).ring;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j)
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc[W * j + k] += part[col<W>(j, lane) + k];
   }
   return true;
 }
 
-// Short segments: a warp owns the short segments that start in kOwn
-// consecutive positions of the step's row-grouped order (a segment ends at
-// most chunk − 1 <= 31 positions later, inside the two 32-position windows
-// from there). Its lanes load the first window's plan streams in one
-// coalesced round (the second window only when the last owned segment
-// reaches it) and the warp reads them back by shuffle; then it walks the
-// owned positions in order, kAhead at a time, gathering each entry's row
-// (and, where a segment starts, that row's old value and ω) before using
-// any of them. A segment's deltas are added one at a time in entry order,
-// starting from its old row, and the row is stored when the next segment
-// starts.
+// Kernel A's long segment: per entry, the gathered u, e = (r − u·v)·w into
+// e_buf, dv added into acc in entry order; then the row and its snapshot.
+template <int W, int NCH>
+__device__ __forceinline__ void item_long(
+    const float* __restrict__ U, float* __restrict__ V,
+    const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ su, const float* __restrict__ sr,
+    const float* __restrict__ sw, const float* __restrict__ sc, int e0,
+    const int32_t* __restrict__ longs, int chunk, float* __restrict__ e_buf,
+    float* __restrict__ snap, int rank, float lr, float lam, int warp,
+    int lane, const Policies& pol) {
+  constexpr int N = W * NCH;
+  const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
+  const int64_t row = ~prow[beg];
+  Ring<W, NCH> ring(WarpSmem<W, NCH>(warp).ring);
+  LongFeed f = start_long(ring, U, su, beg, end, chunk, warp, lane, rank,
+                          pol);
+  float v[N], acc[N];
+  load_row<W, NCH>(v, V + row * rank, lane, rank, pol.once);
+  const float reg_v = lam / fmaxf(ld_float(omega_v + row, pol.once), 1.0f);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+  for (int lo = beg + warp * chunk; lo < end; lo += kWarps * chunk) {
+    const int hi = min(lo + chunk, end), p = lo + lane;
+    const bool in = lane < chunk && p < hi;
+    const float r_l = in ? ld_float(sr + p, pol.once) : 0.0f;
+    const float w_l = in ? ld_float(sw + p, pol.once) : 0.0f;
+    const float c_l = in ? ld_float(sc + p, pol.once) : 0.0f;
+    float e_l = 0.0f;
+    for (int t = lo; t < hi; ++t) {
+      float u[N];
+      ring.template take<kStages - 1>(u, lane, rank);
+      const int q = t - lo;
+      const float r = __shfl_sync(kFull, r_l, q);
+      const float w = __shfl_sync(kFull, w_l, q);
+      const float c = __shfl_sync(kFull, c_l, q);
+      const float err = (r - warp_dot(u, v)) * w;
+      if (lane == q) e_l = err;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        acc[i] += (lr * (err * u[i] - reg_v * v[i] * w)) * c;
+      __syncwarp();
+      feed_long(ring, f, U, su, end, chunk, lane, rank, pol);
+    }
+    if (in) st_float(e_buf + p - e0, e_l, pol.keep);
+  }
+  if (!combine_partials<W, NCH>(acc, v, warp, lane, rank)) return;
+  store_row<W, NCH>(V + row * rank, acc, lane, rank, pol.once);
+  store_row<W, NCH>(snap + row * rank, v, lane, rank, pol.keep);
+}
+
+// Kernel B's long segment: per entry, its e and its item's snapshot row, du
+// added into acc in entry order; then the row.
+template <int W, int NCH>
+__device__ __forceinline__ void user_long(
+    float* __restrict__ U, const float* __restrict__ omega_u,
+    const int32_t* __restrict__ prow, const int32_t* __restrict__ epos,
+    const int32_t* __restrict__ vrow, const float* __restrict__ sw,
+    const float* __restrict__ sc, int e0, const int32_t* __restrict__ longs,
+    int chunk, const float* __restrict__ e_buf,
+    const float* __restrict__ snap, int rank, float lr, float lam, int warp,
+    int lane, const Policies& pol) {
+  constexpr int N = W * NCH;
+  const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
+  const int64_t row = ~prow[beg];
+  Ring<W, NCH> ring(WarpSmem<W, NCH>(warp).ring);
+  LongFeed f = start_long(ring, snap, vrow, beg, end, chunk, warp, lane,
+                          rank, pol);
+  float u[N], acc[N];
+  load_row<W, NCH>(u, U + row * rank, lane, rank, pol.once);
+  const float reg_u = lam / fmaxf(ld_float(omega_u + row, pol.once), 1.0f);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+  for (int lo = beg + warp * chunk; lo < end; lo += kWarps * chunk) {
+    const int hi = min(lo + chunk, end), p = lo + lane;
+    const bool in = lane < chunk && p < hi;
+    const float e_l =
+        in ? ld_float(e_buf + ld_int(epos + p, pol.once) - e0, pol.once)
+           : 0.0f;
+    const float w_l = in ? ld_float(sw + p, pol.once) : 0.0f;
+    const float c_l = in ? ld_float(sc + p, pol.once) : 0.0f;
+    for (int t = lo; t < hi; ++t) {
+      float v[N];
+      ring.template take<kStages - 1>(v, lane, rank);
+      const int q = t - lo;
+      const float err = __shfl_sync(kFull, e_l, q);
+      const float w = __shfl_sync(kFull, w_l, q);
+      const float c = __shfl_sync(kFull, c_l, q);
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        acc[i] += (lr * (err * v[i] - reg_u * u[i] * w)) * c;
+      __syncwarp();
+      feed_long(ring, f, snap, vrow, end, chunk, lane, rank, pol);
+    }
+  }
+  if (!combine_partials<W, NCH>(acc, u, warp, lane, rank)) return;
+  store_row<W, NCH>(U + row * rank, acc, lane, rank, pol.once);
+}
+
+// -- short segments: a warp owns those that start in kOwn positions -----------
+// A segment ends at most chunk − 1 <= 31 positions after it starts, inside
+// the two 32-position windows from the warp's base. Its lanes load the first
+// window's rows in one coalesced round (the second window's only when the
+// last owned segment reaches it) and find the owned offsets by ballot; they
+// stage each owned position's scalars (and each start's row and λ/max(ω,1))
+// in shared memory, queue the first kStages row loads, and then the warp
+// walks the owned positions in order: at a segment start it stores the
+// previous row and takes the new row's old value from the ring, then per
+// position it takes the gathered row, adds the delta, and queues the next
+// loads. A segment's deltas are added one at a time in entry order, starting
+// from its old row.
+
 struct Window {
-  int first, end;  // owned offsets [first, end) from base; first < 0: none
+  int first, end;   // owned offsets [first, end) from base; first < 0: none
+  unsigned starts;  // bit o: an owned segment starts at offset o (< kOwn)
 };
 
 // Which offsets from `base` this warp owns, from each lane's row of the
@@ -261,35 +561,59 @@ struct Window {
 // it.
 __device__ __forceinline__ Window own_window(
     const int32_t* __restrict__ prow, int pb, int e1, int ra, int before,
-    int lane, int& rb) {
+    int lane, int& rb, uint64_t pol) {
   const int prev = __shfl_up_sync(kFull, ra, 1);
   const unsigned starts = __ballot_sync(
       kFull, lane < kOwn && ra >= 0 && ra != (lane == 0 ? before : prev));
   rb = kNone;
-  if (!starts) return Window{-1, -1};
+  if (!starts) return Window{-1, -1, 0u};
   const int last = 31 - __clz(starts);
   const int last_row = __shfl_sync(kFull, ra, last);
   // the first offset after `last` whose row differs: in this window, or
   // else in the next
   const unsigned diff_a =
       __ballot_sync(kFull, ra != last_row) & ~((2u << last) - 1);
-  if (diff_a) return Window{__ffs(starts) - 1, __ffs(diff_a) - 1};
-  rb = pb < e1 ? prow[pb] : kNone;
+  if (diff_a) return Window{__ffs(starts) - 1, __ffs(diff_a) - 1, starts};
+  rb = pb < e1 ? ld_int(prow + pb, pol) : kNone;
   const unsigned diff_b = __ballot_sync(kFull, rb != last_row);
   return Window{__ffs(starts) - 1,
-                kWindow + (diff_b ? __ffs(diff_b) - 1 : kWindow)};
+                kWindow + (diff_b ? __ffs(diff_b) - 1 : kWindow), starts};
 }
 
-// A lane's value for window offset o (0 <= o < 2·kWindow) from the two
-// windows' lane-parallel registers a, b.
-template <typename T>
-__device__ __forceinline__ T at(T a, T b, int o) {
-  const T x = __shfl_sync(kFull, a, o & 31);
-  const T y = __shfl_sync(kFull, b, o & 31);
-  return o < kWindow ? x : y;
+__device__ __forceinline__ bool starts_at(const Window& own, int o) {
+  return o < kOwn && ((own.starts >> o) & 1u);
 }
 
-template <int NC>
+// A short-segment warp's row loads in the order it uses them: at a segment
+// start the row's old value (from `olds`), then each position's gathered
+// row (from `gathered`).
+struct ShortFeed {
+  int o;     // next position to queue
+  bool old;  // its segment's old row is queued
+};
+
+template <int W, int NCH>
+__device__ __forceinline__ void feed_short(
+    Ring<W, NCH>& ring, ShortFeed& f, const Window& own,
+    const WarpSmem<W, NCH>& sm, const float* olds, uint64_t old_pol,
+    const float* gathered, uint64_t gather_pol, int lane, int rank) {
+  const float* src = nullptr;
+  uint64_t pol = gather_pol;
+  if (f.o < own.end) {
+    if (!f.old && starts_at(own, f.o)) {
+      src = olds + (int64_t)sm.starts[f.o].row * rank;
+      pol = old_pol;
+      f.old = true;
+    } else {
+      src = gathered + (int64_t)sm.entries[f.o].gather * rank;
+      ++f.o;
+      f.old = false;
+    }
+  }
+  ring.fill(src, pol, lane, rank);
+}
+
+template <int W, int NCH>
 __global__ void __launch_bounds__(kWarps * 32) sgd_item_rows_kernel(
     const float* __restrict__ U, float* __restrict__ V,
     const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
@@ -298,97 +622,87 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_item_rows_kernel(
     int e1, const int32_t* __restrict__ longs, int n_long, int chunk,
     float* __restrict__ e_buf, float* __restrict__ snap, int rank, float lr,
     float lam) {
+  constexpr int N = W * NCH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Policies pol = policies();
   if ((int)blockIdx.x < n_long) {
-    const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
-    const int64_t row = ~prow[beg];
-    float* vp = V + row * rank;
-    float v[NC], acc[NC];
-    load_row(v, vp, lane, rank);
-    const float reg_v = lam / fmaxf(omega_v[row], 1.0f);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] = 0.0f;
-    for (int lo = beg + warp * chunk; lo < end; lo += kWarps * chunk)
-      item_walk(U, su, sr, sw, sc, e_buf, e0, lo, min(lo + chunk, end), v,
-                reg_v, lr, lane, rank, acc);
-    if (!combine_partials(acc, v, warp, lane)) return;
-    store_row(vp, acc, lane, rank);
-    store_row(snap + row * rank, v, lane, rank);
+    item_long<W, NCH>(U, V, omega_v, prow, su, sr, sw, sc, e0, longs, chunk,
+                      e_buf, snap, rank, lr, lam, warp, lane, pol);
     return;
   }
   const int base = e0 + (((int)blockIdx.x - n_long) * kWarps + warp) * kOwn;
   if (base >= e1) return;
   const int pa = base + lane, pb = pa + kWindow;
-  const int ra = pa < e1 ? prow[pa] : kNone;
-  const int before = base > e0 ? prow[base - 1] : kNone;
-  const int ua = pa < e1 ? su[pa] : 0;
-  const float rva = pa < e1 ? sr[pa] : 0.0f;
-  const float wa = pa < e1 ? sw[pa] : 0.0f;
-  const float ca = pa < e1 ? sc[pa] : 0.0f;
+  const int ra = pa < e1 ? ld_int(prow + pa, pol.once) : kNone;
+  const int before = base > e0 ? ld_int(prow + base - 1, pol.once) : kNone;
   int rb;
-  const Window own = own_window(prow, pb, e1, ra, before, lane, rb);
+  const Window own = own_window(prow, pb, e1, ra, before, lane, rb,
+                                pol.once);
   if (own.first < 0) return;
-  int ub = 0;
-  float rvb = 0.0f, wb = 0.0f, cb = 0.0f;
-  if (own.end > kWindow && pb < e1) {
-    ub = su[pb];
-    rvb = sr[pb];
-    wb = sw[pb];
-    cb = sc[pb];
-  }
-  float acc[NC], vcur[NC], reg_v = 0.0f, ea = 0.0f, eb = 0.0f;
-  int cur = kNone, prev = kNone;
-  for (int o = own.first; o < own.end; o += kAhead) {
-    float u[kAhead][NC], vold[kAhead][NC], om[kAhead], r[kAhead], w[kAhead],
-        c[kAhead];
-    int row[kAhead];
+  const WarpSmem<W, NCH> sm(warp);
+  if (lane >= own.first && lane < own.end)
+    sm.entries[lane] = Entry{ld_int(su + pa, pol.once),
+                             ld_float(sr + pa, pol.once),
+                             ld_float(sw + pa, pol.once),
+                             ld_float(sc + pa, pol.once)};
+  if (kWindow + lane < own.end)
+    sm.entries[kWindow + lane] = Entry{ld_int(su + pb, pol.once),
+                                       ld_float(sr + pb, pol.once),
+                                       ld_float(sw + pb, pol.once),
+                                       ld_float(sc + pb, pol.once)};
+  const bool starter = (own.starts >> lane) & 1u;
+  if (starter) sm.starts[lane].row = ra;
+  __syncwarp();
+  Ring<W, NCH> ring(sm.ring);
+  ShortFeed f{own.first, false};
+  for (int s = 0; s < kStages; ++s)
+    feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
+  if (starter)
+    sm.starts[lane].reg = lam / fmaxf(ld_float(omega_v + ra, pol.once), 1.0f);
+  __syncwarp();
+  float acc[N], vcur[N], reg_v = 0.0f, ea = 0.0f, eb = 0.0f;
+  int cur = kNone;
+  for (int o = own.first; o < own.end; ++o) {
+    const bool st = starts_at(own, o);
+    float u[N];
+    if (st) {  // a segment starts: store the one before
+      if (cur != kNone) {
+        store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank,
+                          pol.once);
+        store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank,
+                          pol.keep);
+      }
+      const Start s = sm.starts[o];
+      cur = s.row;
+      reg_v = s.reg;
+      ring.template take<kStages - 1>(vcur, lane, rank);
+      ring.template take<kStages - 2>(u, lane, rank);
 #pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      const int oq = o + q;
-      row[q] = at(ra, rb, oq);
-      const int64_t urow = at(ua, ub, oq);
-      r[q] = at(rva, rvb, oq);
-      w[q] = at(wa, wb, oq);
-      c[q] = at(ca, cb, oq);
-      const bool live = oq < own.end && row[q] >= 0;
-      const bool starts = live && row[q] != (q == 0 ? prev : row[q - 1]);
-      load_row(u[q], U + urow * rank, lane, live ? rank : 0);
-      load_row(vold[q], V + (int64_t)(starts ? row[q] : 0) * rank, lane,
-               starts ? rank : 0);
-      om[q] = starts ? omega_v[row[q]] : 0.0f;
-      if (oq >= own.end) row[q] = kNone;
+      for (int i = 0; i < N; ++i) acc[i] = vcur[i];
+    } else {
+      ring.template take<kStages - 1>(u, lane, rank);
+    }
+    const Entry en = sm.entries[o];
+    const float err = (en.x - warp_dot(u, vcur)) * en.w;
+    if (lane == (o & 31)) {
+      if (o < kWindow) ea = err; else eb = err;
     }
 #pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      if (row[q] < 0) continue;
-      if (row[q] != cur) {  // a segment starts: store the one before
-        if (cur != kNone) {
-          store_row(V + (int64_t)cur * rank, acc, lane, rank);
-          store_row(snap + (int64_t)cur * rank, vcur, lane, rank);
-        }
-        cur = row[q];
-        reg_v = lam / fmaxf(om[q], 1.0f);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[i] = vcur[i] = vold[q][i];
-      }
-      const float err = (r[q] - warp_dot(u[q], vcur)) * w[q];
-      if (lane == ((o + q) & 31)) {
-        if (o + q < kWindow) ea = err; else eb = err;
-      }
-#pragma unroll
-      for (int i = 0; i < NC; ++i)
-        acc[i] += (lr * (err * u[q][i] - reg_v * vcur[i] * w[q])) * c[q];
-    }
-    prev = row[kAhead - 1];
+    for (int i = 0; i < N; ++i)
+      acc[i] += (lr * (err * u[i] - reg_v * vcur[i] * en.w)) * en.c;
+    __syncwarp();
+    feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
+    if (st)
+      feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
   }
-  store_row(V + (int64_t)cur * rank, acc, lane, rank);
-  store_row(snap + (int64_t)cur * rank, vcur, lane, rank);
-  if (lane >= own.first && lane < own.end && ra >= 0)
-    e_buf[pa - e0] = ea;
-  if (kWindow + lane < own.end && rb >= 0) e_buf[pb - e0] = eb;
+  store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank, pol.once);
+  store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank, pol.keep);
+  if (lane >= own.first && lane < own.end) st_float(e_buf + pa - e0, ea,
+                                                    pol.keep);
+  if (kWindow + lane < own.end) st_float(e_buf + pb - e0, eb, pol.keep);
 }
 
-template <int NC>
+template <int W, int NCH>
 __global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
     float* __restrict__ U, const float* __restrict__ omega_u,
     const int32_t* __restrict__ prow, const int32_t* __restrict__ epos,
@@ -397,84 +711,82 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
     const int32_t* __restrict__ longs, int n_long, int chunk,
     const float* __restrict__ e_buf, const float* __restrict__ snap,
     int rank, float lr, float lam) {
+  constexpr int N = W * NCH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Policies pol = policies();
   if ((int)blockIdx.x < n_long) {
-    const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
-    const int64_t row = ~prow[beg];
-    float* up = U + row * rank;
-    float u[NC], acc[NC];
-    load_row(u, up, lane, rank);
-    const float reg_u = lam / fmaxf(omega_u[row], 1.0f);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] = 0.0f;
-    for (int lo = beg + warp * chunk; lo < end; lo += kWarps * chunk)
-      user_walk(epos, vrow, sw, sc, e_buf, e0, snap, lo,
-                min(lo + chunk, end), u, reg_u, lr, lane, rank, acc);
-    if (!combine_partials(acc, u, warp, lane)) return;
-    store_row(up, acc, lane, rank);
+    user_long<W, NCH>(U, omega_u, prow, epos, vrow, sw, sc, e0, longs, chunk,
+                      e_buf, snap, rank, lr, lam, warp, lane, pol);
     return;
   }
   const int base = e0 + (((int)blockIdx.x - n_long) * kWarps + warp) * kOwn;
   if (base >= e1) return;
   const int pa = base + lane, pb = pa + kWindow;
-  const int ra = pa < e1 ? prow[pa] : kNone;
-  const int before = base > e0 ? prow[base - 1] : kNone;
-  const int va = pa < e1 ? vrow[pa] : 0;
-  const int ia = pa < e1 ? epos[pa] : e0;
-  const float wa = pa < e1 ? sw[pa] : 0.0f;
-  const float ca = pa < e1 ? sc[pa] : 0.0f;
+  const int ra = pa < e1 ? ld_int(prow + pa, pol.once) : kNone;
+  const int before = base > e0 ? ld_int(prow + base - 1, pol.once) : kNone;
   int rb;
-  const Window own = own_window(prow, pb, e1, ra, before, lane, rb);
+  const Window own = own_window(prow, pb, e1, ra, before, lane, rb,
+                                pol.once);
   if (own.first < 0) return;
-  const float era = ra >= 0 && lane >= own.first && lane < own.end
-                        ? e_buf[ia - e0] : 0.0f;
-  int vb = 0;
-  float wb = 0.0f, cb = 0.0f, erb = 0.0f;
-  if (own.end > kWindow && pb < e1) {
-    vb = vrow[pb];
-    wb = sw[pb];
-    cb = sc[pb];
-    if (rb >= 0 && kWindow + lane < own.end) erb = e_buf[epos[pb] - e0];
-  }
-  float acc[NC], ucur[NC], reg_u = 0.0f;
-  int cur = kNone, prev = kNone;
-  for (int o = own.first; o < own.end; o += kAhead) {
-    float v[kAhead][NC], uold[kAhead][NC], om[kAhead], err[kAhead], w[kAhead],
-        c[kAhead];
-    int row[kAhead];
+  const WarpSmem<W, NCH> sm(warp);
+  const bool in_a = lane >= own.first && lane < own.end;
+  const bool in_b = kWindow + lane < own.end;
+  if (in_a)
+    sm.entries[lane] = Entry{ld_int(vrow + pa, pol.once), 0.0f,
+                             ld_float(sw + pa, pol.once),
+                             ld_float(sc + pa, pol.once)};
+  if (in_b)
+    sm.entries[kWindow + lane] = Entry{ld_int(vrow + pb, pol.once), 0.0f,
+                                       ld_float(sw + pb, pol.once),
+                                       ld_float(sc + pb, pol.once)};
+  const bool starter = (own.starts >> lane) & 1u;
+  if (starter) sm.starts[lane].row = ra;
+  __syncwarp();
+  Ring<W, NCH> ring(sm.ring);
+  ShortFeed f{own.first, false};
+  for (int s = 0; s < kStages; ++s)
+    feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane, rank);
+  // the second round of scalars (each depends on a first-round load) while
+  // the first rows are in flight
+  if (in_a)
+    sm.entries[lane].x =
+        ld_float(e_buf + ld_int(epos + pa, pol.once) - e0, pol.once);
+  if (in_b)
+    sm.entries[kWindow + lane].x =
+        ld_float(e_buf + ld_int(epos + pb, pol.once) - e0, pol.once);
+  if (starter)
+    sm.starts[lane].reg = lam / fmaxf(ld_float(omega_u + ra, pol.once), 1.0f);
+  __syncwarp();
+  float acc[N], ucur[N], reg_u = 0.0f;
+  int cur = kNone;
+  for (int o = own.first; o < own.end; ++o) {
+    const bool st = starts_at(own, o);
+    float v[N];
+    if (st) {  // a segment starts: store the one before
+      if (cur != kNone)
+        store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank,
+                          pol.once);
+      const Start s = sm.starts[o];
+      cur = s.row;
+      reg_u = s.reg;
+      ring.template take<kStages - 1>(ucur, lane, rank);
+      ring.template take<kStages - 2>(v, lane, rank);
 #pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      const int oq = o + q;
-      row[q] = at(ra, rb, oq);
-      const int64_t item = at(va, vb, oq);
-      err[q] = at(era, erb, oq);
-      w[q] = at(wa, wb, oq);
-      c[q] = at(ca, cb, oq);
-      const bool live = oq < own.end && row[q] >= 0;
-      const bool starts = live && row[q] != (q == 0 ? prev : row[q - 1]);
-      load_row(v[q], snap + item * rank, lane, live ? rank : 0);
-      load_row(uold[q], U + (int64_t)(starts ? row[q] : 0) * rank, lane,
-               starts ? rank : 0);
-      om[q] = starts ? omega_u[row[q]] : 0.0f;
-      if (oq >= own.end) row[q] = kNone;
+      for (int i = 0; i < N; ++i) acc[i] = ucur[i];
+    } else {
+      ring.template take<kStages - 1>(v, lane, rank);
     }
+    const Entry en = sm.entries[o];
 #pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      if (row[q] < 0) continue;
-      if (row[q] != cur) {  // a segment starts: store the one before
-        if (cur != kNone) store_row(U + (int64_t)cur * rank, acc, lane, rank);
-        cur = row[q];
-        reg_u = lam / fmaxf(om[q], 1.0f);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[i] = ucur[i] = uold[q][i];
-      }
-#pragma unroll
-      for (int i = 0; i < NC; ++i)
-        acc[i] += (lr * (err[q] * v[q][i] - reg_u * ucur[i] * w[q])) * c[q];
-    }
-    prev = row[kAhead - 1];
+    for (int i = 0; i < N; ++i)
+      acc[i] += (lr * (en.x * v[i] - reg_u * ucur[i] * en.w)) * en.c;
+    __syncwarp();
+    feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane, rank);
+    if (st)
+      feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane,
+                 rank);
   }
-  store_row(U + (int64_t)cur * rank, acc, lane, rank);
+  store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank, pol.once);
 }
 
 // One block per long segment, then one warp per kOwn positions; at least
@@ -485,19 +797,57 @@ dim3 step_grid(int e0, int e1, int n_long) {
   return dim3((unsigned)(blocks > 0 ? blocks : 1));
 }
 
-// Runs the statement(s) with constexpr NC = columns per lane (rank <= 32·NC).
-#define DSGD_WITH_COLS(rank, ...)                             \
-  switch (((rank) + 31) / 32) {                               \
-    case 1: { constexpr int NC = 1; __VA_ARGS__; } break;     \
-    case 2: { constexpr int NC = 2; __VA_ARGS__; } break;     \
-    case 3: { constexpr int NC = 3; __VA_ARGS__; } break;     \
-    case 4: { constexpr int NC = 4; __VA_ARGS__; } break;     \
-    case 5: { constexpr int NC = 5; __VA_ARGS__; } break;     \
-    case 6: { constexpr int NC = 6; __VA_ARGS__; } break;     \
-    case 7: { constexpr int NC = 7; __VA_ARGS__; } break;     \
-    case 8: { constexpr int NC = 8; __VA_ARGS__; } break;     \
-    default: return (int)cudaErrorInvalidValue;               \
+// Above 48 KB a kernel's dynamic shared memory must be allowed first.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Runs the statement(s) with constexpr W (columns per chunk: 4 where `vec`,
+// else 1) and NCH (chunks per lane) for `rank` (<= 32·W·NCH).
+#define DSGD_WITH_COLS(rank, vec, ...)                                   \
+  if (vec) {                                                             \
+    switch (((rank) + 127) / 128) {                                      \
+      case 1: { constexpr int W = 4, NCH = 1; __VA_ARGS__; } break;      \
+      case 2: { constexpr int W = 4, NCH = 2; __VA_ARGS__; } break;      \
+      default: return (int)cudaErrorInvalidValue;                        \
+    }                                                                    \
+  } else {                                                               \
+    switch (((rank) + 31) / 32) {                                        \
+      case 1: { constexpr int W = 1, NCH = 1; __VA_ARGS__; } break;      \
+      case 2: { constexpr int W = 1, NCH = 2; __VA_ARGS__; } break;      \
+      case 3: { constexpr int W = 1, NCH = 3; __VA_ARGS__; } break;      \
+      case 4: { constexpr int W = 1, NCH = 4; __VA_ARGS__; } break;      \
+      case 5: { constexpr int W = 1, NCH = 5; __VA_ARGS__; } break;      \
+      case 6: { constexpr int W = 1, NCH = 6; __VA_ARGS__; } break;      \
+      case 7: { constexpr int W = 1, NCH = 7; __VA_ARGS__; } break;      \
+      case 8: { constexpr int W = 1, NCH = 8; __VA_ARGS__; } break;      \
+      default: return (int)cudaErrorInvalidValue;                        \
+    }                                                                    \
   }
+
+// Registers a thread, dynamic shared memory and resident blocks an SM of
+// one kernel at its launch shape.
+template <typename Kernel>
+int kernel_attrs(Kernel kernel, int smem, int* out) {
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  cudaFuncAttributes fa;
+  if (cudaError_t rc = cudaFuncGetAttributes(&fa, kernel)) return (int)rc;
+  int blocks = 0;
+  if (cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, kWarps * 32, smem))
+    return (int)rc;
+  out[0] = fa.numRegs;
+  out[1] = smem;
+  out[2] = blocks;
+  return 0;
+}
 
 constexpr int kCastThreads = 256;
 constexpr int kVec = 8;  // bf16 elements per 16-byte vector
@@ -578,7 +928,9 @@ unsigned cast_blocks(int64_t na, int64_t nb) {
 // One step's plan slice: its positions [e0, e1) of the per-position arrays
 // (`prow` rows, ~row in a long segment, then the streams), and `longs`
 // [n_long, 2] (the long segments' [beg, end) positions); e_buf is indexed
-// by position − e0, the snapshot by item row; 1 <= chunk <= 32.
+// by position − e0, the snapshot by item row; 1 <= chunk <= 32. The 16-byte
+// route (W = 4) runs where rank % 4 == 0 and every table is 16-byte
+// aligned, the 4-byte route otherwise.
 extern "C" int dsgd_sweep_max_rank() { return 32 * kMaxCols; }
 
 extern "C" int sgd_item_rows_launch(
@@ -587,9 +939,13 @@ extern "C" int sgd_item_rows_launch(
     int e1, const void* longs, int n_long, int chunk, void* e_buf,
     void* snap, int rank, float lr, float lam, void* stream) {
   if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
-  DSGD_WITH_COLS(rank,
-    sgd_item_rows_kernel<NC>
-        <<<step_grid(e0, e1, n_long), kWarps * 32, 0,
+  const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(V) &&
+                   aligned16(snap);
+  DSGD_WITH_COLS(rank, vec,
+    const int smem = block_smem_bytes<W, NCH>();
+    if (int rc = allow_smem(sgd_item_rows_kernel<W, NCH>, smem)) return rc;
+    sgd_item_rows_kernel<W, NCH>
+        <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
            (cudaStream_t)stream>>>(
             (const float*)U, (float*)V, (const float*)omega_v,
             (const int32_t*)prow, (const int32_t*)su, (const float*)sr,
@@ -605,15 +961,31 @@ extern "C" int sgd_user_rows_launch(
     const void* longs, int n_long, int chunk, const void* e_buf,
     const void* snap, int rank, float lr, float lam, void* stream) {
   if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
-  DSGD_WITH_COLS(rank,
-    sgd_user_rows_kernel<NC>
-        <<<step_grid(e0, e1, n_long), kWarps * 32, 0,
+  const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(snap);
+  DSGD_WITH_COLS(rank, vec,
+    const int smem = block_smem_bytes<W, NCH>();
+    if (int rc = allow_smem(sgd_user_rows_kernel<W, NCH>, smem)) return rc;
+    sgd_user_rows_kernel<W, NCH>
+        <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
            (cudaStream_t)stream>>>(
             (float*)U, (const float*)omega_u, (const int32_t*)prow,
             (const int32_t*)epos, (const int32_t*)vrow, (const float*)sw,
             (const float*)sc, e0, e1, (const int32_t*)longs, n_long, chunk,
             (const float*)e_buf, (const float*)snap, rank, lr, lam))
   return (int)cudaGetLastError();
+}
+
+// The step kernels at `rank` on the route `vec` selects (nonzero: 16-byte):
+// out[0..2] kernel A's registers a thread, dynamic shared memory bytes a
+// block and resident blocks an SM; out[3..5] kernel B's.
+extern "C" int dsgd_step_kernel_attrs(int rank, int vec, int* out) {
+  DSGD_WITH_COLS(rank, vec != 0,
+    const int smem = block_smem_bytes<W, NCH>();
+    if (int rc = kernel_attrs(sgd_item_rows_kernel<W, NCH>, smem, out))
+      return rc;
+    if (int rc = kernel_attrs(sgd_user_rows_kernel<W, NCH>, smem, out + 3))
+      return rc)
+  return 0;
 }
 
 // Both tables in one launch; every pointer 16-byte aligned.

@@ -102,6 +102,24 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the ctypes signatures of a ``dsgd_sweep`` library's entry
+    points; returns it."""
+    P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_float)
+    lib.dsgd_sweep_max_rank.restype = I
+    lib.dsgd_sweep_max_rank.argtypes = []
+    step = [I, I, P, I, I, P, P, I, F, F, P]  # e0 … stream
+    lib.sgd_item_rows_launch.restype = I
+    lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
+    lib.sgd_user_rows_launch.restype = I
+    lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
+    for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
+        fn.restype = I
+        fn.argtypes = [P, P, I64, P, P, I64, P]
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     """The built kernel library with its ctypes signatures declared (the
     first call from any thread builds it, under the library's build
@@ -111,21 +129,26 @@ def _lib() -> ctypes.CDLL:
         return _bound
     with _build.lock(_LIB):
         if _bound is None:
-            lib = _build.load_library(_LIB)
-            P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_float)
-            lib.dsgd_sweep_max_rank.restype = I
-            lib.dsgd_sweep_max_rank.argtypes = []
-            step = [I, I, P, I, I, P, P, I, F, F, P]  # e0 … stream
-            lib.sgd_item_rows_launch.restype = I
-            lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
-            lib.sgd_user_rows_launch.restype = I
-            lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
-            for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
-                fn.restype = I
-                fn.argtypes = [P, P, I64, P, P, I64, P]
-            _bound = lib
+            _bound = declare(_build.load_library(_LIB))
     return _bound
+
+
+def step_kernel_attrs(rank: int, vec: bool = True) -> dict:
+    """Kernel A's and kernel B's registers a thread, dynamic shared memory
+    a block and resident blocks an SM at ``rank`` on the card (the 16-byte
+    route when ``vec``; ``cudaFuncGetAttributes`` and the occupancy
+    calculator)."""
+    fn = _lib().dsgd_step_kernel_attrs
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    rc = fn(rank, int(vec), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"dsgd_step_kernel_attrs failed: CUDA error {rc}")
+    return {f"{kernel}_{key}": out[3 * i + j]
+            for i, kernel in enumerate(("a", "b"))
+            for j, key in enumerate(("registers", "smem_bytes",
+                                     "blocks_per_sm"))}
 
 
 def validate_cuda_contract(updater, collision: str, has_inv: bool):
@@ -187,9 +210,11 @@ class StepPlan:
     per-entry arrays, twice over:
 
     - in item order (``v_*``): grouped by V row, each group (an "item
-      segment": one per row and step) in the minibatch's entry order;
-    - in user order (``u_*``): the same by U row, with ``u_epos`` the
-      entry's item-order position and ``u_vrow`` its item row.
+      segment": one per row and step) in the minibatch's entry order, the
+      step's segments visit by visit (visit 0 first), then by row;
+    - in user order (``u_*``): the same by U row, the visits in reverse
+      (``_visit_order``), with ``u_epos`` the entry's item-order position
+      and ``u_vrow`` its item row.
 
     ``*_prow`` holds each position's row, as ``~row`` (negative) where its
     segment is longer than ``chunk``; those segments get a thread block
@@ -205,6 +230,8 @@ class StepPlan:
     chunk: int
     rows_u: int  # the tables must hold at least these many rows
     rows_v: int
+    low_u: int  # the lowest row a real entry names (0 without entries)
+    low_v: int
     v_prow: torch.Tensor  # int32[R] item row (~row: long segment)
     v_su: torch.Tensor  # int32[R] user row of each entry, item order
     v_r: torch.Tensor  # f32[R]
@@ -237,6 +264,16 @@ class StepPlan:
     def check_step(self, t: int) -> None:
         if not 0 <= t < self.steps:
             raise ValueError(f"step {t} outside the plan's {self.steps}")
+
+    def check_rows(self, rows_u: int, rows_v: int) -> None:
+        """The row-range check of ``dsgd_train_cuda`` on the plan's host
+        lists (no device read): the ValueError of ``_check_tables`` if a
+        real entry names a row outside a table of ``rows_u`` / ``rows_v``
+        rows (padding entries reach no kernel and are not checked)."""
+        for name, low, top, rows in (("su", self.low_u, self.rows_u, rows_u),
+                                     ("si", self.low_v, self.rows_v, rows_v)):
+            if low < 0 or top > rows:
+                raise ValueError(f"{name} holds rows outside [0, {rows})")
 
     def max_entries(self) -> int:
         return max(b - a for a, b in zip(self.entry_base,
@@ -299,15 +336,25 @@ def _bases(step_of: torch.Tensor, steps: int) -> torch.Tensor:
     return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
 
 
-def _group(step, rows, steps: int, chunk: int):
+def _visit_order(visit: torch.Tensor, visits: int):
+    """The order of a step's visits in each kernel's walk: kernel A walks
+    visit 0 first, kernel B the last visit first, so B starts on the U rows
+    and snapshot rows A touched last (still in the L2)."""
+    return visit, visits - 1 - visit
+
+
+def _group(step, sub, rows, steps: int, subs: int, chunk: int):
     """Group entries (``step``, ``rows`` int64, in entry order) by (step,
-    row) with a stable sort. Returns the order, each position's row
-    (``~row`` in a long segment), the long segments' [beg, end) positions
-    and their step bases, and per step the segment count and the longest
-    segment."""
+    row) with a stable sort, a step's segments ordered by ``sub`` (< subs,
+    one value per row and step), then by row. Returns the order, each
+    position's row (``~row`` in a long segment), the long segments' [beg,
+    end) positions and their step bases, and per step the segment count
+    and the longest segment."""
     n = step.numel()
     dev = step.device
-    key = (step << 32) + rows  # rows < 2^31: no host read for a row count
+    # rows < 2^31: no host read for a row count (a negative row sorts
+    # last, for StepPlan.check_rows to refuse)
+    key = ((step * subs + sub) << 32) + (rows & 0xFFFFFFFF)
     order = torch.sort(key, stable=True).indices
     skey = key[order]
     new = torch.ones(n, dtype=torch.bool, device=dev)
@@ -315,7 +362,7 @@ def _group(step, rows, steps: int, chunk: int):
     first = torch.nonzero(new).squeeze(1)
     end = torch.cat([first[1:], first.new_full((1,), n)])
     length = end - first
-    seg_step = skey[first] >> 32
+    seg_step = (skey[first] >> 32) // subs
     is_long = length > chunk
     row = skey & 0xFFFFFFFF
     prow = torch.where(is_long.repeat_interleave(length), ~row, row)
@@ -332,8 +379,11 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
     stratum-major layout ``[k, k, b]`` (global rows), or one rank's
     device-major strata ``[k, 1, b]`` (block-local rows). Built with torch
     on the arrays' device and read back once (the per-step bases and
-    counts). Stable sorts keep each segment in the minibatch's entry order,
-    whatever ``minibatch_sort`` the layout was built with."""
+    counts, and each side's row range for ``StepPlan.check_rows``). Stable
+    sorts keep each segment in the minibatch's entry order, whatever
+    ``minibatch_sort`` the layout was built with; a step's visits must be
+    row-disjoint (as the blockings make them), or a row would get a segment
+    in each visit."""
     if su.dim() != 3 or su.shape[-1] % minibatch:
         raise ValueError(f"su shape {tuple(su.shape)} is not [S, P, b] with "
                          f"b a multiple of {minibatch}")
@@ -345,19 +395,22 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
     steps = S * n_mb
     real = torch.nonzero(sw.reshape(-1) != 0).squeeze(1)
     step = (real // (P * b)) * n_mb + (real % b) // minibatch
+    v_sub, u_sub = _visit_order((real // b) % P, P)
     u_rows = su.reshape(-1)[real].long()
     i_rows = si.reshape(-1)[real].long()
     v_order, v_prow, v_long, v_long_base, v_segs, longest_v = _group(
-        step, i_rows, steps, SEGMENT_CHUNK)
+        step, v_sub, i_rows, steps, P, SEGMENT_CHUNK)
     u_order, u_prow, u_long, u_long_base, u_segs, longest_u = _group(
-        step, u_rows, steps, SEGMENT_CHUNK)
+        step, u_sub, u_rows, steps, P, SEGMENT_CHUNK)
     v_pos = torch.empty_like(v_order)
     v_pos[v_order] = torch.arange(v_order.numel(), device=v_order.device)
     w = sw.reshape(-1)[real].float()
     top = [(r.max() + 1).reshape(1) if r.numel() else r.new_zeros(1)
            for r in (u_rows, i_rows)]
+    low = [r.min().reshape(1) if r.numel() else r.new_zeros(1)
+           for r in (u_rows, i_rows)]
     parts = [_bases(step, steps), v_long_base, u_long_base, v_segs, u_segs,
-             longest_v, longest_u, *top]
+             longest_v, longest_u, *top, *low]
     host = torch.cat(parts).cpu().tolist()
     lists, at = [], 0
     for part in parts:
@@ -370,7 +423,8 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
     return StepPlan(
         num_blocks=S, visits=P, minibatch=minibatch, n_mb=n_mb,
         chunk=SEGMENT_CHUNK,
-        rows_u=lists[7][0], rows_v=lists[8][0],
+        rows_u=lists[7][0], rows_v=lists[8][0], low_u=lists[9][0],
+        low_v=lists[10][0],
         v_prow=i32(v_prow),
         v_su=i32(u_rows[v_order]), v_r=sv.reshape(-1)[real][v_order].float(),
         v_w=w[v_order], v_icv=icv.reshape(-1)[real][v_order].float(),
@@ -639,8 +693,9 @@ def f32_to_bf16(U32, V32, Ub, Vb):
 # -- the training loop ------------------------------------------------------
 
 
-def _check_tables(U, V, su, si, minibatch: int, k: int):
-    """The layout checks ``dsgd_train_cuda`` and its plain twin share."""
+def _check_layout(U, V, su, minibatch: int, k: int):
+    """The layout checks ``dsgd_train_cuda`` and its plain twin share (no
+    device read)."""
     if U.dtype != V.dtype or U.dtype not in FACTOR_DTYPES:
         raise ValueError(f"factor dtypes {U.dtype}/{V.dtype} unsupported; "
                          "both float32 or both bfloat16")
@@ -651,6 +706,12 @@ def _check_tables(U, V, su, si, minibatch: int, k: int):
     if tuple(su.shape[:2]) != (k, k) or su.shape[-1] % minibatch:
         raise ValueError(f"su shape {tuple(su.shape)} is not [{k}, {k}, b] "
                          f"with b a multiple of {minibatch}")
+
+
+def _check_tables(U, V, su, si, minibatch: int, k: int):
+    """The layout checks and the row ranges of every entry (two reductions
+    read back a side: the plain twin's checks)."""
+    _check_layout(U, V, su, minibatch, k)
     for name, idx, rows in (("su", su, U.shape[0]), ("si", si, V.shape[0])):
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= rows):
             raise ValueError(f"{name} holds rows outside [0, {rows})")
@@ -689,20 +750,24 @@ def dsgd_train_cuda(
     evaluated on the host once per sweep at ``t = sweep + 1 + t0`` and η
     enters the kernel as a runtime scalar (``schedule=None`` keeps η
     constant). ``plan`` is ``build_step_plan`` of these arrays (built here
-    when absent). Returns trained copies of U and V.
+    when absent); the rows are checked on its host lists, so the call reads
+    nothing back from the device when a plan is given. Returns trained
+    copies of U and V.
 
     bf16 tables: the steps run on f32 work tables, filled by
     ``bf16_to_f32`` at each stratum's start and rounded back by
     ``f32_to_bf16`` at its end (the TPU kernels' one downcast per visit).
     """
     k = num_blocks
-    _check_tables(U, V, su, si, minibatch, k)
+    _check_layout(U, V, su, minibatch, k)
     if plan is None:
         plan = build_step_plan(su, si, sv, sw, icu, icv, minibatch=minibatch)
     elif (plan.num_blocks, plan.visits, plan.minibatch) != (k, k, minibatch):
         raise ValueError(f"plan of {plan.num_blocks} strata × {plan.visits} "
                          f"visits, minibatch {plan.minibatch}; expected "
                          f"{k} × {k}, {minibatch}")
+    # the kernels read only the plan: its host lists bound the rows
+    plan.check_rows(int(U.shape[0]), int(V.shape[0]))
     U = U.clone()
     V = V.clone()
     half = U.dtype == torch.bfloat16

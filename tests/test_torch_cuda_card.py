@@ -219,6 +219,166 @@ def test_long_segments_split_across_a_block(dev):
         assert float((outs[0][1] - Vr).abs().max()) <= TOL
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (the kernels' 4-byte column route at any rank)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# ranks of the 16-byte route (4 columns a lane: 1 or 2 chunks) and of the
+# 4-byte route (rank % 4 != 0: 1 to 8 columns a lane)
+COLUMN_ROUTES = [8, 32, 128, 200, 256, 7, 45, 90, 127, 150, 190, 223, 255]
+
+
+@pytest.mark.parametrize("rank", COLUMN_ROUTES)
+def test_step_pair_every_column_route(dev, rank):
+    """One stratum through the step pair at each column route, on a
+    problem with weight-0 padding and duplicate rows in every minibatch:
+    within 1e-5 of ``stratum_sweep_reference`` and two runs bit-equal."""
+    k, mb = 2, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=6000, seed=rank)
+    sw = args[3]
+    assert (sw == 0).any()  # padding
+    su = args[0].reshape(-1, mb)
+    assert any(torch.unique(row).numel() < mb for row in su)  # duplicates
+    plan = _plan(args, mb)
+    idx, streams = _operands(problem, args, k, mb)
+    for s in range(k):
+        runs = []
+        for _ in range(2):
+            Uk, Vk = U.clone(), V.clone()
+            cuda_sgd.stratum_sweep(Uk, Vk, args[4], args[5], plan, s,
+                                   plan.new_work(rank), lr=0.5, lam=0.1)
+            runs.append((Uk, Vk))
+        Ur, Vr = cuda_sgd.stratum_sweep_reference(
+            U, V, idx, streams, s, lr=0.5, lam=0.1, minibatch=mb,
+            num_blocks=k)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        assert float((runs[0][0] - Ur).abs().max()) <= TOL
+        assert float((runs[0][1] - Vr).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rank", [128, 256])
+def test_step_pair_on_tables_off_16_byte_boundaries(dev, rank):
+    """Tables (and the snapshot) that do not start on a 16-byte boundary
+    take the 4-byte route at a rank the 16-byte route would take: the same
+    tables as aligned ones within 1e-5, kernel A's e and snapshot too."""
+    k, mb = 2, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=6000, seed=3)
+    plan = _plan(args, mb)
+    e, snap = plan.new_work(rank)
+    outs = []
+    for shift in (False, True):
+        Uk, Vk = U.clone(), V.clone()
+        work = (e.clone(), snap.clone())
+        if shift:
+            Uk, Vk, work = _misaligned(Uk), _misaligned(Vk), (
+                work[0], _misaligned(work[1]))
+        cuda_sgd.stratum_sweep(Uk, Vk, args[4], args[5], plan, 1, work,
+                               lr=0.5, lam=0.1)
+        outs.append((Uk, Vk))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rank", [45, 256])
+def test_long_segments_on_every_route(dev, rank):
+    """The block-owned long segments (~500 and ~760 entries against the
+    32-entry chunk) on the 4-byte route and on the 16-byte route at two
+    chunks a lane (the largest shared-memory ring): within 1e-5 of the
+    plain version, two runs bit-equal."""
+    k, mb = 2, 2048
+    problem, args, U, V = _problem(dev, k, rank, mb, n=20_000, seed=6,
+                                   users=24, items=16, skew=3.0)
+    plan = _plan(args, mb)
+    assert max(plan.longest_u) > 8 * plan.chunk
+    assert max(plan.longest_v) > 8 * plan.chunk
+    idx, streams = _operands(problem, args, k, mb)
+    outs = []
+    for _ in range(2):
+        Uk, Vk = U.clone(), V.clone()
+        cuda_sgd.stratum_sweep(Uk, Vk, args[4], args[5], plan, 0,
+                               plan.new_work(rank), lr=0.05, lam=0.1)
+        outs.append((Uk, Vk))
+    Ur, Vr = cuda_sgd.stratum_sweep_reference(
+        U, V, idx, streams, 0, lr=0.05, lam=0.1, minibatch=mb, num_blocks=k)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert float((outs[0][0] - Ur).abs().max()) <= TOL
+    assert float((outs[0][1] - Vr).abs().max()) <= TOL
+
+
+def test_step_with_no_real_entries(dev):
+    """A one-visit plan whose second minibatch is all padding: that step
+    launches both kernels on no entries (one block that returns) and
+    leaves the tables as the first step left them; the visit through
+    ``block_sweep`` equals ``block_sweep_reference``."""
+    rank, mb, rpb_u, rpb_v = 128, 512, 300, 200
+    rng = np.random.default_rng(5)
+
+    def put(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    ur = rng.integers(0, rpb_u, 2 * mb)
+    ir = rng.integers(0, rpb_v, 2 * mb)
+    w = np.ones(2 * mb, np.float32)
+    w[mb:] = 0.0
+    ur[mb:], ir[mb:] = 0, 0
+    vals = rng.normal(size=2 * mb)
+    icu = np.ones(2 * mb, np.float32)
+    icv = np.ones(2 * mb, np.float32)
+    cols = (put(ur, torch.int32), put(ir, torch.int32),
+            put(vals, torch.float32), put(w, torch.float32),
+            put(icu, torch.float32), put(icv, torch.float32))
+    plan = cuda_sgd.build_step_plan(*(c.view(1, 1, -1) for c in cols),
+                                    minibatch=mb)
+    assert plan.entry_base == [0, mb, mb]
+    ou = torch.ones(rpb_u, device=dev)
+    ov = torch.ones(rpb_v, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    U = 0.1 * torch.rand((rpb_u, rank), generator=g, device=dev)
+    V = 0.1 * torch.rand((rpb_v, rank), generator=g, device=dev)
+    work = plan.new_work(rank)
+    Uk, Vk = U.clone(), V.clone()
+    cuda_sgd.reset_launch_counts()
+    cuda_sgd.sgd_item_rows(Uk, Vk, ou, ov, plan, 0, work, lr=0.3, lam=0.1)
+    cuda_sgd.sgd_user_rows(Uk, Vk, ou, ov, plan, 0, work, lr=0.3, lam=0.1)
+    U1, V1 = Uk.clone(), Vk.clone()
+    cuda_sgd.sgd_item_rows(Uk, Vk, ou, ov, plan, 1, work, lr=0.3, lam=0.1)
+    cuda_sgd.sgd_user_rows(Uk, Vk, ou, ov, plan, 1, work, lr=0.3, lam=0.1)
+    torch.cuda.synchronize()
+    assert cuda_sgd.LAUNCHES == _pair_counts(2)
+    assert torch.equal(Uk, U1) and torch.equal(Vk, V1)
+    Ub, Vb = U.clone(), V.clone()
+    cuda_sgd.block_sweep(Ub, Vb, ou, ov, plan, 0, work, lr=0.3, lam=0.1)
+    Ur, Vr = cuda_sgd.block_sweep_reference(U, V, *cols, ou, ov, lr=0.3,
+                                            lam=0.1, minibatch=mb)
+    torch.cuda.synchronize()
+    assert torch.equal(Ub, Uk) and torch.equal(Vb, Vk)
+    assert float((Ub - Ur).abs().max()) <= TOL
+    assert float((Vb - Vr).abs().max()) <= TOL
+
+
+def test_step_kernel_attrs_report_the_launch_shape(dev):
+    """Registers, shared memory and resident blocks of both step kernels
+    on both column routes, as the occupancy calculator reports them: at
+    least one resident block, the ring's bytes as launched."""
+    for rank, vec in ((128, True), (256, True), (45, False), (255, False)):
+        attrs = cuda_sgd.step_kernel_attrs(rank, vec)
+        for side in ("a", "b"):
+            assert 0 < attrs[f"{side}_registers"] <= 255
+            assert attrs[f"{side}_smem_bytes"] > 0
+            assert attrs[f"{side}_blocks_per_sm"] >= 1
+
+
 def test_fit_on_card_matches_cpu_fit(dev):
     gen = SyntheticMFGenerator(num_users=500, num_items=400, rank=4,
                                noise=0.1, seed=2, skew_lam=2.0)

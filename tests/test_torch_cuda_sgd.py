@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -370,6 +371,12 @@ def _check_plan_invariants(a, mb, sort):
     # u_epos stays inside the entry's own step
     step_u = np.repeat(np.arange(plan.steps), np.diff(base))
     assert ((u_epos >= base[step_u]) & (u_epos < base[step_u + 1])).all()
+    # a step's item segments walk its visits in order, its user segments in
+    # reverse (kernel B starts where kernel A ended)
+    for t in range(plan.steps):
+        sl = slice(plan.entry_base[t], plan.entry_base[t + 1])
+        assert (np.diff((v_ent[sl] // b) % P) >= 0).all()
+        assert (np.diff((u_ent[sl] // b) % P) <= 0).all()
     if sort == "item":  # each visit's item grouping is its stored order
         visit = v_ent // b
         for t in range(plan.steps):
@@ -658,6 +665,63 @@ def test_dsgd_train_cuda_rejects_bad_layouts():
                    (common[0].to(torch.bfloat16), common[1])):
         with pytest.raises(ValueError, match="dtypes"):
             tc.dsgd_train_cuda(U_, V_, *common[2:], **kw)
+
+
+class _HostReads(TorchDispatchMode):
+    """Counts the operators that read a tensor's value back to the host
+    (``int()``, ``.item()``) or reduce an index stream for it."""
+
+    READS = ("aten._local_scalar_dense", "aten.min", "aten.max")
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += str(func.overloadpacket) in self.READS
+        return func(*args, **(kwargs or {}))
+
+
+def test_dsgd_train_cuda_given_a_plan_reads_nothing_back():
+    """With a plan the training call checks the rows on the plan's host
+    lists: no reduction of the index streams and no scalar read (on the
+    card, no implicit transfer under the ``dsgd.fit`` guard); without one
+    it reads only through the plan build's single batch."""
+    a, U, V, mb, _, _ = _blocked(2, 8, 2)
+    common = list(_torch_common(a, U, V))
+    kw = dict(lr=0.1, lam=0.1, minibatch=mb, num_blocks=2, iterations=2)
+    plan = tc.build_step_plan(*(common[i] for i in (2, 3, 4, 5, 8, 9)),
+                              minibatch=mb)
+    with _HostReads() as reads:
+        got = tc.dsgd_train_cuda(*common, **kw, plan=plan)
+    assert reads.count == 0
+    with _HostReads() as reads:
+        want = tc.dsgd_train_cuda(*common, **kw)
+    assert reads.count == 4  # the plan build's two maxima and two minima
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("with_plan", [False, True])
+@pytest.mark.parametrize("side,value", [(2, "rows"), (2, -1), (3, "rows"),
+                                        (3, -3)])
+def test_out_of_range_rows_raise_wherever_the_plan_is_built(with_plan, side,
+                                                            value):
+    """A real entry naming a row outside its table raises the layout
+    check's ValueError whether ``dsgd_train_cuda`` builds the plan or is
+    given one built by ``build_step_plan``."""
+    a, U, V, mb, _, _ = _blocked(2, 8, 2)
+    common = list(_torch_common(a, U, V))
+    common[side] = common[side].clone()
+    rows = (U if side == 2 else V).shape[0]
+    assert common[5][0, 0, 0] != 0  # a real entry
+    common[side][0, 0, 0] = rows if value == "rows" else value
+    kw = dict(lr=0.1, lam=0.1, minibatch=mb, num_blocks=2, iterations=1)
+    plan = (tc.build_step_plan(*(common[i] for i in (2, 3, 4, 5, 8, 9)),
+                               minibatch=mb) if with_plan else None)
+    name = "su" if side == 2 else "si"
+    with pytest.raises(ValueError,
+                       match=rf"{name} holds rows outside \[0, {rows}\)"):
+        tc.dsgd_train_cuda(*common, **kw, plan=plan)
 
 
 def test_cuda_contract_matches_pallas_contract():
