@@ -22,11 +22,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               ≤ 1e-5 per stratum (the plain version's dot order and
               ``index_add_`` atomics), and two kernel runs of each stratum
               bit-equal (no atomics in the kernels). ``[kernels.bf16]``:
-              the same with bf16 tables (upcast kernel, f32 steps,
-              downcast kernel) against the plain twin, every element within
-              one bf16 ulp (magnitudes below 2^-16 counted as 2^-16, where
-              a bf16 ulp is the size of the f32 kernel-vs-plain
-              difference), and the cast kernels bit-equal to ``Tensor.to``;
+              the same with bf16 tables through the flagged route (the
+              pair reads a row from its bf16 table at its first step of the
+              stratum and writes it back at its last) against the plain
+              twin, every element within one bf16 ulp (magnitudes below
+              2^-16 counted as 2^-16, where a bf16 ulp is the size of the
+              f32 kernel-vs-plain difference), bit-equal to the cast route
+              (upcast kernel, f32 steps, downcast kernel) after every
+              stratum, both routes' ms on stratum 0 (cast, flagged,
+              flagged, cast) beside the route's bound, and the cast kernels
+              bit-equal to ``Tensor.to``;
 3a. kernels.probe — ``cuda_sgd.probe_variants`` at the JAX probe's
               defaults (rank 128, minibatch 2,048, 5,080 × 1,848 rows,
               24,576 ratings, 5 reps), 16 sweeps a timed call, unsorted and
@@ -71,9 +76,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               per-id init timed apart, then ``DSGD().fit_device`` at f32 and
               at bf16, 3 sweeps each, from the same layout and initial
               tables. Holdout RMSE per sweep (``holdout_rows``) must be
-              finite and fall, launch counts must equal their formulas, bf16
-              must end within 5% of f32, and the plain twin's replay on the
-              card within 1e-4 (f32) / 1e-3 (bf16) of each fit;
+              finite and fall, launch counts must equal their formulas (the
+              step pair alone: no cast in bf16 either), bf16 must end
+              within 5% of f32 (its sweeps printed beside f32's), and the
+              plain twin's replay on the card within 1e-4 (f32) / 1e-3
+              (bf16) of each fit;
 9a. obs.train — the f32 ``fit_device`` again with observability on
               (``obs.enable``, the event journal, the library build hook,
               ``enable_introspection(interval_s=0.25)``,
@@ -293,7 +300,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               ``[k, 1, b]``): all 64 visits of a sweep (every rank, every
               stratum) on block-local slices, f32 and bf16; max-abs 0
               against the stratum's launch loop (each row's entries keep
-              their order), 1e-5 / one bf16 ulp against
+              their order; in bf16 the stratum's cast route), 1e-5 / one
+              bf16 ulp against
               ``block_sweep_reference``; stratum 0's 8 visits (192
               launches, counted) timed against the stratum's 24;
 25. mesh.dsgd — an NCCL process group of one rank in this process (its
@@ -302,7 +310,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               ``MESH_BENCH``), f32 and bf16, 3 sweeps, a sharded snapshot
               a sweep: tables bit-equal to ``DSGD.fit_device(
               num_blocks=1)``, sweeps timed beside it, a resume from sweep
-              2 bit-equal, launches by formula; the fit's one visit (k 1,
+              2 bit-equal, launches by formula (no cast in bf16); the
+              fit's one visit (k 1,
               the whole tables) through ``block_sweep`` on its own layout
               and plan against ``block_sweep_reference`` (1e-5 / one bf16
               ulp);
@@ -437,7 +446,8 @@ F32_FLOP_PER_S = 67e12
 SOURCE = "large_scale_recommendation_tpu_torch/csrc/dsgd_sweep.cu"
 # the step pair replaces the stratum kernel on the main path (and, by the
 # same launches, the per-visit _sweep_kernel at pallas_sgd.py:172); the cast
-# pair its half=True upcast and downcast
+# pair, the earlier route of its half=True branch, now the baseline of the
+# flagged bf16 route (the step pair again)
 _PALLAS = "large_scale_recommendation_tpu/ops/pallas_sgd.py"
 REPLACES = {"sgd_item_rows_kernel": f"{_PALLAS}:440",
             "sgd_user_rows_kernel": f"{_PALLAS}:440",
@@ -554,11 +564,13 @@ def bf16_ulps(a, b, floor=ULP_FLOOR) -> torch.Tensor:
 
 
 def check_strata_bf16(U, V, args, problem, plan, lr, lam, label):
-    """bf16 tables: upcast kernel, the stratum's f32 steps, downcast kernel,
-    against the plain twin (``stratum_sweep_reference`` on the bf16 tables)
-    for every stratum of one sweep, each from the same tables. Returns the
-    largest difference in bf16 ulps, the share of elements that differ, and
-    (how many, largest magnitude) of those beyond one ulp only when counted
+    """bf16 tables through the flagged route (``stratum_sweep(...,
+    store=)`` on NaN work tables) against the plain twin
+    (``stratum_sweep_reference`` on the bf16 tables) for every stratum of
+    one sweep, each from the same tables, and against the cast route
+    (``stratum_sweep_cast``): bit-equal, or raise. Returns the largest
+    difference in bf16 ulps, the share of elements that differ, and (how
+    many, largest magnitude) of those beyond one ulp only when counted
     below ``ULP_FLOOR``."""
     k = problem.ratings.num_blocks
     ou, ov = args[4], args[5]
@@ -570,14 +582,21 @@ def check_strata_bf16(U, V, args, problem, plan, lr, lam, label):
     worst, differ, total, tiny, tiny_mag = 0.0, 0, 0, 0, 0.0
     for s in range(k):
         Uk, Vk = Ub.clone(), Vb.clone()
-        cuda_sgd.bf16_to_f32(Uk, Vk, Uw, Vw)
+        Uw.fill_(float("nan"))
+        Vw.fill_(float("nan"))
         cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, lr=lr,
-                               lam=lam)
-        cuda_sgd.f32_to_bf16(Uw, Vw, Uk, Vk)
+                               lam=lam, store=(Uk, Vk))
+        Uc, Vc = cuda_sgd.stratum_sweep_cast(Ub.clone(), Vb.clone(), Uw, Vw,
+                                             ou, ov, plan, s, work, lr=lr,
+                                             lam=lam)
         Ur, Vr = cuda_sgd.stratum_sweep_reference(
             Ub, Vb, idx, streams, s, lr=lr, lam=lam, minibatch=minibatch,
             num_blocks=k)
         torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in ((Uk, Uc), (Vk, Vc))):
+            raise AssertionError(f"{label} bf16: stratum {s}: the flagged "
+                                 "route differs from the cast route")
         for a, b in ((Uk, Ur), (Vk, Vr)):
             worst = max(worst, float(bf16_ulps(a, b).max()))
             differ += int((a.view(torch.int16) != b.view(torch.int16)).sum())
@@ -591,6 +610,52 @@ def check_strata_bf16(U, V, args, problem, plan, lr, lam, label):
             raise AssertionError(f"{label} bf16: stratum {s} differs by "
                                  f"{worst} bf16 ulps > {BF16_ULPS}")
     return worst, differ / total, (tiny, tiny_mag)
+
+
+def stratum_bound_ms(plan, rank, s, half):
+    """The least time of stratum ``s``'s function on this card: its steps'
+    bounds (each distinct row of a step read and written once with its ω,
+    24 B of streams a slot), less, on bf16 tables (``half``), 2 B a column
+    of each distinct row's first read and last write in the stratum."""
+    row = rank * 4
+    n_all = plan.visits * plan.minibatch
+    steps = range(s * plan.n_mb, (s + 1) * plan.n_mb)
+    nbytes = sum((plan.u_segments[g] + plan.v_segments[g]) * (2 * row + 4)
+                 + n_all * 24 for g in steps)
+    if half:
+        nbytes -= (plan.u_touched[s] + plan.v_touched[s]) * row
+    flops = sum(plan.entry_base[g + 1] - plan.entry_base[g]
+                for g in steps) * 12 * rank
+    return bound_of(nbytes, flops)[0]
+
+
+def bf16_route_ms(U, V, args, plan, lr, lam, reps=3):
+    """Stratum 0 on bf16 tables by each route, cast, flagged, flagged, cast
+    (CUDA events, each from the same tables, every launch of the route
+    inside; the best of ``reps`` a turn): ``{route: [ms, ms]}``. These
+    launches are not counted."""
+    ou, ov = args[4], args[5]
+    work = plan.new_work(U.shape[-1])
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    Uw, Vw = torch.empty_like(U), torch.empty_like(V)
+    routes = {
+        "flagged": lambda A, B: cuda_sgd.stratum_sweep(
+            Uw, Vw, ou, ov, plan, 0, work, lr=lr, lam=lam, store=(A, B)),
+        "cast": lambda A, B: cuda_sgd.stratum_sweep_cast(
+            A, B, Uw, Vw, ou, ov, plan, 0, work, lr=lr, lam=lam)}
+    out = {"cast": [], "flagged": []}
+    for name in ("cast", "flagged", "flagged", "cast"):
+        best = math.inf
+        for _ in range(reps):
+            A, B = Ub.clone(), Vb.clone()
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            routes[name](A, B)
+            e.record()
+            e.synchronize()
+            best = min(best, a.elapsed_time(e))
+        out[name].append(best)
+    return out
 
 
 def check_casts(U, V):
@@ -654,6 +719,7 @@ def phase_small(dev):
         tol_per_stratum=STRATUM_TOL)
     ulps, share, below = check_strata_bf16(U, V, args, problem, plan, 0.75,
                                            lam, "small")
+    route_ms = bf16_route_ms(U, V, args, plan, 0.75, lam)
     kw = dict(lr=0.3, lam=lam, minibatch=mb, num_blocks=k, iterations=3,
               schedule=sched)
     Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
@@ -663,6 +729,9 @@ def phase_small(dev):
     say("kernels.bf16", problem="small", k=k, rank=rank, minibatch=mb,
         one_stratum_max_ulps=ulps, one_stratum_share_differ=share,
         beyond_one_ulp_below_floor=below[0], their_max_magnitude=below[1],
+        bit_equal_to_cast_route=True,
+        cast_route_stratum0_ms=route_ms["cast"],
+        flagged_route_stratum0_ms=route_ms["flagged"],
         three_sweeps_max_abs=f"{max_abs([(Uk.float(), Ur.float()), (Vk.float(), Vr.float())]):.3e}",
         cast_elements_bit_equal=check_casts(U, V), tol_ulps=BF16_ULPS)
 
@@ -950,10 +1019,21 @@ def run(scratch: str) -> int:
         tol_per_stratum=STRATUM_TOL)
     ulps, share, below = check_strata_bf16(
         U0, V0, args, problem, plan, sched(cfg.learning_rate, 1), lam, "full")
+    route_ms = bf16_route_ms(U0, V0, args, plan, sched(cfg.learning_rate, 1),
+                             lam)
+    bf16_bound = stratum_bound_ms(plan, cfg.num_factors, 0, True)
     say("kernels.bf16", problem="full", k=K, rank=cfg.num_factors,
         minibatch=mb, one_stratum_max_ulps=ulps,
         one_stratum_share_differ=share, beyond_one_ulp_below_floor=below[0],
-        their_max_magnitude=below[1],
+        their_max_magnitude=below[1], bit_equal_to_cast_route=True,
+        cast_route_stratum0_ms=route_ms["cast"],
+        flagged_route_stratum0_ms=route_ms["flagged"],
+        stratum0_bound_ms=bf16_bound,
+        f32_stratum0_bound_ms=stratum_bound_ms(plan, cfg.num_factors, 0,
+                                               False),
+        flagged_share_of_bound=bf16_bound / min(route_ms["flagged"]),
+        cast_share_of_bound=bf16_bound / min(route_ms["cast"]),
+        flag_bytes=plan.v_flag.nbytes + plan.u_flag.nbytes,
         cast_elements_bit_equal=check_casts(U0, V0), tol_ulps=BF16_ULPS)
 
     # -- the main path: DSGD().fit on the card, a snapshot per sweep ---------
@@ -984,7 +1064,7 @@ def run(scratch: str) -> int:
         raise AssertionError(f"model.rmse {rmse} != last sweep {curve[-1]}")
     if len(sweep_ms) != cfg.iterations:
         raise AssertionError(f"fit timed {len(sweep_ms)} sweeps")
-    check_launches(launches, n_mb, cfg.iterations, half=False)
+    check_launches(launches, n_mb, cfg.iterations)
     if tuple(model.U.shape) != (problem.users.num_rows, cfg.num_factors):
         raise AssertionError(f"U shape {tuple(model.U.shape)}")
 
@@ -1068,17 +1148,16 @@ def run(scratch: str) -> int:
     return 0
 
 
-def check_launches(launches, n_mb, iterations, half):
-    """Each stratum step launched both step kernels; in bf16 each stratum
-    launched one upcast and one downcast, in f32 none."""
+def check_launches(launches, n_mb, iterations):
+    """Each stratum step launched both step kernels, and nothing else ran:
+    no cast, in f32 or in bf16 (the flagged route)."""
     steps = n_mb * K * iterations
-    casts = K * iterations if half else 0
     want = {"sgd_item_rows_kernel": steps, "sgd_user_rows_kernel": steps,
-            "bf16_to_f32_kernel": casts, "f32_to_bf16_kernel": casts}
+            "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
     if launches != want:
         raise AssertionError(
             f"launches {launches}, expected {want} (2·n_mb·k·iterations "
-            f"step launches{', k·iterations of each cast' if half else ''})")
+            "step launches, no cast)")
 
 
 class DeviceHoldoutEval:
@@ -1135,7 +1214,7 @@ def phase_device(dev, cfg, scratch):
     args = (problem.su, problem.si, problem.sv, problem.sw, problem.omega_u,
             problem.omega_v, problem.icu, problem.icv)
     sched = schedule_from_name(cfg.lr_schedule, cfg.lambda_)
-    runs, final = {}, {}
+    runs, final, sweeps = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         dcfg = dataclasses.replace(cfg, factor_dtype=dtype)
         solver = DSGD(dcfg)
@@ -1163,8 +1242,12 @@ def phase_device(dev, cfg, scratch):
         e.record()
         e.synchronize()
         rmse_plain = solver.evaluator.of(Ur, Vr)
+        sweeps[dtype] = solver.segment_ms
+        beside = ({} if not half else dict(
+            f32_sweep_ms=sweeps["float32"],
+            bf16_over_f32=sum(sweeps["bfloat16"]) / sum(sweeps["float32"])))
         say(f"main.device.{dtype}", wall_s=wall, plan_build_s=solver.plan_s,
-            sweep_ms=solver.segment_ms,
+            sweep_ms=solver.segment_ms, **beside,
             ratings_per_s=problem.nnz * len(solver.segment_ms)
             / (sum(solver.segment_ms) / 1e3),
             rmse_per_sweep=curve, launches=launches,
@@ -1178,7 +1261,7 @@ def phase_device(dev, cfg, scratch):
         if not all(y < x for x, y in zip(curve, curve[1:])):
             raise AssertionError(f"{dtype} holdout RMSE did not fall every "
                                  f"sweep: {curve}")
-        check_launches(launches, n_mb, cfg.iterations, half)
+        check_launches(launches, n_mb, cfg.iterations)
         bar = 1e-3 if half else 1e-4
         if not abs(rmse_plain - curve[-1]) <= bar:
             raise AssertionError(f"{dtype}: plain twin RMSE {rmse_plain} vs "
@@ -1363,7 +1446,7 @@ def phase_obs_train(cfg, scratch, data):
     model, wall_on = timed(lambda: solver.fit_device(
         u, i, r, nu, ni, checkpoint_manager=ckpt, **fit))
     launches = dict(cuda_sgd.LAUNCHES)
-    check_launches(launches, n_mb, cfg.iterations, half=False)
+    check_launches(launches, n_mb, cfg.iterations)
     equal = (torch.equal(model.U, data["U"])
              and torch.equal(model.V, data["V"]))
     spans = [e for e in tracer.events() if e["name"] == "train/dsgd"]
@@ -1715,7 +1798,7 @@ def phase_obs_recorder(cfg, scratch, data, smi, implicit_before):
     torch.cuda.synchronize()
     fit_t1 = time.perf_counter()
     launches = dict(cuda_sgd.LAUNCHES)
-    check_launches(launches, n_mb, cfg.iterations, half=False)
+    check_launches(launches, n_mb, cfg.iterations)
     implicit = ledger.snapshot()["implicit_by_site"]
     during = {rt: sum(1 for e in scraper.log
                       if e[0] == rt and fit_t0 <= e[1] < fit_t1)
@@ -4423,7 +4506,7 @@ def phase_pipeline(train, holdout, dev):
             and np.array_equal(problem.items.ids, pm.model.items.ids)):
         raise AssertionError("pipeline: the rebuilt problem is not the fit's")
     check_launches(launches, problem.ratings.u_rows.shape[-1] // mb,
-                   cfg.iterations, half=False)
+                   cfg.iterations)
     args = device_args(problem,
                        *blocking.minibatch_inv_counts(problem.ratings, mb),
                        dev)
@@ -4728,7 +4811,7 @@ def phase_mesh_visit(U0, V0, args, problem, plan, lr, lam):
     twice (bit-equal), against ``block_sweep_reference`` on its slices
     (1e-5 / one bf16 ulp) and against ``stratum_sweep`` of stratum s over
     the whole tables (the same entries in the same order per row:
-    bit-equal expected; bf16 through the stratum's casts). The per-visit
+    bit-equal expected; bf16: the stratum's cast route). The per-visit
     launches of stratum 0 are timed against the stratum's one launch loop
     (CUDA events; interleaved). Returns the launch counts of the counted
     runs by dtype."""
@@ -4752,10 +4835,9 @@ def phase_mesh_visit(U0, V0, args, problem, plan, lr, lam):
     def stratum_run(U, V, s):
         Us, Vs = U.clone(), V.clone()
         if U.dtype == torch.bfloat16:
-            Uw, Vw = torch.empty_like(U0), torch.empty_like(V0)
-            cuda_sgd.bf16_to_f32(Us, Vs, Uw, Vw)
-            cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, work, **kw)
-            cuda_sgd.f32_to_bf16(Uw, Vw, Us, Vs)
+            cuda_sgd.stratum_sweep_cast(Us, Vs, torch.empty_like(U0),
+                                        torch.empty_like(V0), ou, ov, plan, s,
+                                        work, **kw)
         else:
             cuda_sgd.stratum_sweep(Us, Vs, ou, ov, plan, s, work, **kw)
         return Us, Vs
@@ -4772,10 +4854,9 @@ def phase_mesh_visit(U0, V0, args, problem, plan, lr, lam):
         got = dict(cuda_sgd.LAUNCHES)
         paths[f"mesh.visit_{name}"] = got
         want = k * plan.n_mb
-        casts = k if dtype == torch.bfloat16 else 0
         if (got["sgd_item_rows_kernel"], got["sgd_user_rows_kernel"],
                 got["bf16_to_f32_kernel"], got["f32_to_bf16_kernel"]) != (
-                    want, want, casts, casts):
+                    want, want, 0, 0):
             raise AssertionError(f"mesh.visit launches {got}")
         # every visit of the sweep: the stratum's launch loop (a
         # comparison: its launches are not counted) and the plain version
@@ -4890,7 +4971,6 @@ def phase_mesh_dsgd(dev, part, scratch):
             u, i, r, nu, ni, num_blocks=1, checkpoint_every=1))
         equal = (torch.equal(model.U, ref.U) and torch.equal(model.V, ref.V))
         steps = plan.n_mb * BENCH["iterations"]  # k = 1: one visit a sweep
-        casts = BENCH["iterations"] if dtype == "bfloat16" else 0
         rmse = model.rmse(holdout)
         # resume: the newest snapshot never happened
         newest = ckpt.latest_step()
@@ -4924,8 +5004,8 @@ def phase_mesh_dsgd(dev, part, scratch):
                                  f"{len(solver.segment_ms)} segments")
         if launches != {"sgd_item_rows_kernel": steps,
                         "sgd_user_rows_kernel": steps,
-                        "bf16_to_f32_kernel": casts,
-                        "f32_to_bf16_kernel": casts}:
+                        "bf16_to_f32_kernel": 0,
+                        "f32_to_bf16_kernel": 0}:
             raise AssertionError(f"mesh.dsgd {dtype} launches {launches}")
         paths[f"mesh.dsgd_{dtype}"] = launches
         if dtype == "float32":

@@ -108,19 +108,49 @@
 // bf16 factor storage (the half=True branch of both TPU kernels,
 // ops/pallas_sgd.py:193-198, :226-228, :270-274 and :475-478, :552-554,
 // :604-606): the tables rest in bf16; each visit works on an f32 copy of
-// its slices and rounds back once at the visit's end. Each U and V block is
-// visited exactly once per stratum, so that is one upcast and one downcast
-// of both whole tables per stratum:
-//   bf16_to_f32_kernel  fills the f32 work tables from the bf16 tables
-//                       (exact: the bf16 bits shifted into the f32 high half)
-//   [n_mb steps of the two f32 kernels above on the work tables]
-//   f32_to_bf16_kernel  rounds the work tables back (round to nearest even,
-//                       __float2bfloat16_rn, the rounding of Tensor.to and of
-//                       jnp.astype).
+// its slices and rounds back once at the visit's end. Every U and V block is
+// visited once per stratum, so a row's work value is its bf16 value until
+// its first step in the stratum, and its stored value after the stratum is
+// the bf16 rounding of its work value after its last step; a row the
+// stratum never touches round-trips unchanged. The same two kernels, built
+// with H = true (sgd_*_rows_bf16_launch), take the bf16 tables beside one
+// f32 work table a side and a touch-flag byte per plan position
+// (ops/cuda_sgd.py::build_step_plan): kFirst / kLast mark the position's
+// segment row at its first / last step in the stratum, kGatherFirst (kernel
+// A) the gathered U row at its first. A first-touch row is read from the
+// bf16 table and upcast exactly on its read from shared memory (the bf16
+// bits in the f32 high half); a last-touch row is rounded to nearest even
+// (__float2bfloat16_rn, the rounding of Tensor.to, of jnp.astype and of
+// f32_to_bf16_kernel) and written to the bf16 table; every other read and
+// write goes to the work table. The snapshot and e stay f32. Each lane keeps
+// its columns and the dot its reduction order, so the tables come out
+// bit-equal to the earlier route below, with no cast launch.
+// Bound: the f32 step's, less 2 B a column of each row's first read and
+// last write in the stratum (~0.61 ms a stratum at the bench geometry
+// against the f32 pair's ~0.64). What the design does about its costs:
+//   - the flags are dense only at a stratum's first and last steps; a warp
+//     whose window holds no flag runs the f32 body, paying one byte a
+//     position (loaded beside the rows) and one vote;
+//   - a bf16 row lands in its ring slot as it is (the slot's first 2·rank
+//     bytes), each lane copying its own 4 columns (one 8-byte cp.async.ca),
+//     so a lane reads back only what it copied, as in the f32 ring (16-byte
+//     copies of 8 columns by half the lanes, with a __syncwarp before the
+//     read, made the stratum slower: scripts/torch_step_pair_bench.py,
+//     variant wide16); the W = 1 route (no 2-byte cp.async) loads them
+//     plainly and stores them upcast;
+//   - f32 and bf16 rows are queued by separate fills and only a take that
+//     may meet a bf16 row tests for one (kernel B's snapshot rows never
+//     do), so the per-entry path of the bf16 body adds one test in A;
+//   - kernel A's bf16 build at rank <= 128 is held to 5 blocks an SM
+//     (kBlocksA), the f32 build's occupancy.
+//   bf16_to_f32_kernel  the earlier route, kept as the baseline the flagged
+//   f32_to_bf16_kernel  one is held against (no path of the port calls it):
+//                       both whole tables upcast (exact) at the stratum's
+//                       start, the f32 pair on the work tables, both rounded
+//                       back (round to nearest even) at its end.
 // Both cast kernels take the two tables in one launch, 16-byte loads and
 // stores, a grid-stride loop over 8-element vectors, and a scalar tail. Their
-// bound is bytes: n·(2 + 4) B per cast. Gathering bf16 rows in the step
-// kernels and dropping the whole-table casts is later work.
+// bound is bytes: n·(2 + 4) B per cast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,7 +169,31 @@ constexpr int kOwn = 16;      // positions whose short segments a warp owns
 constexpr int kWindow = 32;   // positions a warp loads in one round
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = INT_MIN;  // no row (outside the step)
+// resident blocks an SM that the bf16 build of kernel A at 4 columns a lane
+// and one chunk (rank <= 128) is held to: the f32 build's (left to itself
+// the bf16 build takes more registers and holds one block fewer)
+constexpr int kBlocksA = 5;
 static_assert(kStages >= 2, "a segment start takes two slots at once");
+
+// touch flags of a plan position (H = true): its segment's row at its first
+// / last step in the stratum; kernel A: the gathered U row at its first
+constexpr unsigned kFirst = 1u, kLast = 2u, kGatherFirst = 4u;
+
+using bf16_t = uint16_t;  // a bf16 table's raw bits
+
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ bf16_t round_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
 
 // -- L2 eviction priorities and hinted accesses ------------------------------
 
@@ -231,6 +285,58 @@ __device__ __forceinline__ void store_row(float* row,
   }
 }
 
+// A bf16 row's columns of this lane, upcast (plain loads: a segment's old
+// row on the long route).
+template <int W, int NCH>
+__device__ __forceinline__ void load_row16(float (&x)[W * NCH],
+                                           const bf16_t* row, int lane,
+                                           int rank) {
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = col<W>(j, lane);
+    if constexpr (W == 4) {
+      const uint2 v = c < rank ? *reinterpret_cast<const uint2*>(row + c)
+                               : make_uint2(0u, 0u);
+      x[4 * j] = bf16_bits_to_f32(v.x & 0xffffu);
+      x[4 * j + 1] = bf16_bits_to_f32(v.x >> 16);
+      x[4 * j + 2] = bf16_bits_to_f32(v.y & 0xffffu);
+      x[4 * j + 3] = bf16_bits_to_f32(v.y >> 16);
+    } else {
+      x[j] = c < rank ? bf16_bits_to_f32(row[c]) : 0.0f;
+    }
+  }
+}
+
+// This lane's columns rounded to bf16 (nearest even) into a bf16 row.
+template <int W, int NCH>
+__device__ __forceinline__ void store_row16(bf16_t* row,
+                                            const float (&x)[W * NCH],
+                                            int lane, int rank) {
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = col<W>(j, lane);
+    if (c >= rank) continue;
+    if constexpr (W == 4)
+      *reinterpret_cast<uint2*>(row + c) =
+          make_uint2(pack_bf16x2(x[4 * j], x[4 * j + 1]),
+                     pack_bf16x2(x[4 * j + 2], x[4 * j + 3]));
+    else
+      row[c] = round_bf16(x[j]);
+  }
+}
+
+// A segment's row into its table: the bf16 one at its last step (H), else
+// the f32 one.
+template <int W, int NCH, bool H>
+__device__ __forceinline__ void put_row(float* row32, bf16_t* row16,
+                                        bool last, const float (&x)[W * NCH],
+                                        int lane, int rank, uint64_t pol) {
+  if (H && last)
+    store_row16<W, NCH>(row16, x, lane, rank);
+  else
+    store_row<W, NCH>(row32, x, lane, rank, pol);
+}
+
 // u·v over the warp (each lane's columns, then a butterfly of shuffles).
 template <int N>
 __device__ __forceinline__ float warp_dot(const float (&u)[N],
@@ -290,7 +396,8 @@ constexpr int block_smem_bytes() {
 // cp.async.wait_group kStages − 1 means row n has landed. A lane copies and
 // reads back only its own chunks: its own wait is all the synchronisation.
 // A slot is refilled only after the row taken from it has been used and the
-// warp has passed a __syncwarp.
+// warp has passed a __syncwarp. With H, a queued row may be a bf16 row
+// (fill16, header): `half` marks its slot until its take (warp-uniform).
 
 template <int W>
 __device__ __forceinline__ void copy_async(float* dst, const float* src,
@@ -306,15 +413,24 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
         :: "r"(d), "l"(src), "l"(pol) : "memory");
 }
 
-template <int W, int NCH>
+// 8 bytes (4 bf16 columns).
+__device__ __forceinline__ void copy_async8(void* dst, const bf16_t* src,
+                                            uint64_t pol) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 8, %2;"
+               :: "r"(d), "l"(src), "l"(pol) : "memory");
+}
+
+template <int W, int NCH, bool H = false>
 struct Ring {
   static constexpr int kCap = WarpSmem<W, NCH>::kCap;
   float* slots;
   int fill_at = 0, take_at = 0;
+  unsigned half = 0u;  // H, W = 4: bit s while slot s holds bf16 bits
 
   __device__ explicit Ring(float* s) : slots(s) {}
 
-  // Queue one row (nullptr: nothing left to queue).
+  // Queue one f32 row (nullptr: nothing left to queue).
   __device__ __forceinline__ void fill(const float* row, uint64_t pol,
                                        int lane, int rank) {
     if (row != nullptr) {
@@ -329,21 +445,60 @@ struct Ring {
     fill_at = fill_at + 1 == kStages ? 0 : fill_at + 1;
   }
 
+  // Queue one bf16 row (H); its slot is marked until its take (B16).
+  __device__ __forceinline__ void fill16(const bf16_t* row, uint64_t pol,
+                                         int lane, int rank) {
+    float* slot = slots + fill_at * kCap;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = col<W>(j, lane);
+      if (c >= rank) continue;
+      if constexpr (W == 4)  // this lane's 4 columns at 2·c bytes
+        copy_async8(reinterpret_cast<bf16_t*>(slot) + c, row + c, pol);
+      else
+        slot[c] = bf16_bits_to_f32(row[c]);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if constexpr (W == 4) half |= 1u << fill_at;
+    fill_at = fill_at + 1 == kStages ? 0 : fill_at + 1;
+  }
+
   // The oldest queued row, into registers; kPending = the groups that may
   // still be in flight (kStages − 1, or kStages − 2 for a second take
-  // before a refill).
-  template <int kPending>
+  // before a refill); B16: the row may be a bf16 row (H; a take that never
+  // meets one skips the test).
+  template <int kPending, bool B16 = H>
   __device__ __forceinline__ void take(float (&x)[W * NCH], int lane,
                                        int rank) {
     asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
     const float* slot = slots + take_at * kCap;
+    const bool b16 = B16 && W == 4 && ((half >> take_at) & 1u);
+    if (b16) half &= ~(1u << take_at);
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
       const int c = col<W>(j, lane);
-      if constexpr (W == 4) {
+      if constexpr (W == 4 && !B16) {
         const float4 v = c < rank
                              ? *reinterpret_cast<const float4*>(slot + c)
                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        x[4 * j] = v.x;
+        x[4 * j + 1] = v.y;
+        x[4 * j + 2] = v.z;
+        x[4 * j + 3] = v.w;
+      } else if constexpr (W == 4) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (b16) {  // the row's bf16 bits: this lane's 4 at 2·c bytes
+          if (c < rank) {
+            const uint2 b = *reinterpret_cast<const uint2*>(
+                reinterpret_cast<const bf16_t*>(slot) + c);
+            v = make_float4(bf16_bits_to_f32(b.x & 0xffffu),
+                            bf16_bits_to_f32(b.x >> 16),
+                            bf16_bits_to_f32(b.y & 0xffffu),
+                            bf16_bits_to_f32(b.y >> 16));
+          }
+        } else if (c < rank) {
+          v = *reinterpret_cast<const float4*>(slot + c);
+        }
         x[4 * j] = v.x;
         x[4 * j + 1] = v.y;
         x[4 * j + 2] = v.z;
@@ -364,48 +519,66 @@ struct Ring {
 // kWarps partial sums to the old row in warp order.
 
 // The rows a warp of a long block gathers, in its walk's order: `idx` holds
-// the gathered row of position lo + lane of the chunk being queued.
+// the gathered row of position lo + lane of the chunk being queued (~row
+// where HG and the row is at its first step: read from the bf16 table).
 struct LongFeed {
   int lo, t, idx;
 };
 
-__device__ __forceinline__ int chunk_row(const int32_t* gather, int lo,
-                                         int end, int chunk, int lane,
-                                         uint64_t pol) {
-  return lane < chunk && lo + lane < end ? ld_int(gather + lo + lane, pol)
-                                         : 0;
+template <bool HG>
+__device__ __forceinline__ int chunk_row(const int32_t* gather,
+                                         const uint8_t* flag, int lo, int end,
+                                         int chunk, int lane, uint64_t pol) {
+  if constexpr (!HG) {
+    return lane < chunk && lo + lane < end ? ld_int(gather + lo + lane, pol)
+                                           : 0;
+  } else {
+    if (lane >= chunk || lo + lane >= end) return 0;
+    const int row = ld_int(gather + lo + lane, pol);
+    return flag[lo + lane] & kGatherFirst ? ~row : row;
+  }
 }
 
-template <int W, int NCH>
-__device__ __forceinline__ void feed_long(Ring<W, NCH>& ring, LongFeed& f,
+template <int W, int NCH, bool HG>
+__device__ __forceinline__ void feed_long(Ring<W, NCH, HG>& ring, LongFeed& f,
                                           const float* table,
-                                          const int32_t* gather, int end,
+                                          const bf16_t* table16,
+                                          const int32_t* gather,
+                                          const uint8_t* flag, int end,
                                           int chunk, int lane, int rank,
                                           const Policies& pol) {
   const float* src = nullptr;
+  const bf16_t* src16 = nullptr;  // HG: a first-touch row
   if (f.lo < end) {
-    src = table + (int64_t)__shfl_sync(kFull, f.idx, f.t - f.lo) * rank;
+    const int g = __shfl_sync(kFull, f.idx, f.t - f.lo);
+    if (HG && g < 0)
+      src16 = table16 + (int64_t)~g * rank;
+    else
+      src = table + (int64_t)g * rank;
     if (++f.t == min(f.lo + chunk, end)) {
       f.lo += kWarps * chunk;
       f.t = f.lo;
-      if (f.lo < end) f.idx = chunk_row(gather, f.lo, end, chunk, lane,
-                                        pol.once);
+      if (f.lo < end) f.idx = chunk_row<HG>(gather, flag, f.lo, end, chunk,
+                                            lane, pol.once);
     }
   }
-  ring.fill(src, pol.keep, lane, rank);
+  if (HG && src16 != nullptr)  // read once in the stratum
+    ring.fill16(src16, pol.once, lane, rank);
+  else
+    ring.fill(src, pol.keep, lane, rank);
 }
 
-template <int W, int NCH>
-__device__ __forceinline__ LongFeed start_long(Ring<W, NCH>& ring,
-                                               const float* table,
-                                               const int32_t* gather,
-                                               int beg, int end, int chunk,
-                                               int warp, int lane, int rank,
-                                               const Policies& pol) {
+template <int W, int NCH, bool HG>
+__device__ __forceinline__ LongFeed start_long(
+    Ring<W, NCH, HG>& ring, const float* table, const bf16_t* table16,
+    const int32_t* gather, const uint8_t* flag, int beg, int end, int chunk,
+    int warp, int lane, int rank, const Policies& pol) {
   LongFeed f{beg + warp * chunk, beg + warp * chunk, 0};
-  if (f.lo < end) f.idx = chunk_row(gather, f.lo, end, chunk, lane, pol.once);
+  if (f.lo < end)
+    f.idx = chunk_row<HG>(gather, flag, f.lo, end, chunk, lane, pol.once);
   for (int s = 0; s < kStages; ++s)
-    feed_long(ring, f, table, gather, end, chunk, lane, rank, pol);
+    feed_long(ring, f, table, table16, gather, flag, end, chunk, lane, rank,
+              pol);
   return f;
 }
 
@@ -438,25 +611,41 @@ __device__ __forceinline__ bool combine_partials(float (&acc)[W * NCH],
   return true;
 }
 
+// A long segment's old row: from the bf16 table at its first step (H).
+template <int W, int NCH, bool H>
+__device__ __forceinline__ void get_row(float (&x)[W * NCH],
+                                        const float* row32,
+                                        const bf16_t* row16, bool first,
+                                        int lane, int rank, uint64_t pol) {
+  if (H && first)
+    load_row16<W, NCH>(x, row16, lane, rank);
+  else
+    load_row<W, NCH>(x, row32, lane, rank, pol);
+}
+
 // Kernel A's long segment: per entry, the gathered u, e = (r − u·v)·w into
 // e_buf, dv added into acc in entry order; then the row and its snapshot.
-template <int W, int NCH>
+template <int W, int NCH, bool H>
 __device__ __forceinline__ void item_long(
     const float* __restrict__ U, float* __restrict__ V,
+    const bf16_t* __restrict__ U16, bf16_t* __restrict__ V16,
     const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
     const int32_t* __restrict__ su, const float* __restrict__ sr,
-    const float* __restrict__ sw, const float* __restrict__ sc, int e0,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0,
     const int32_t* __restrict__ longs, int chunk, float* __restrict__ e_buf,
     float* __restrict__ snap, int rank, float lr, float lam, int warp,
     int lane, const Policies& pol) {
   constexpr int N = W * NCH;
   const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
   const int64_t row = ~prow[beg];
-  Ring<W, NCH> ring(WarpSmem<W, NCH>(warp).ring);
-  LongFeed f = start_long(ring, U, su, beg, end, chunk, warp, lane, rank,
-                          pol);
+  const unsigned touch = H ? flag[beg] : 0u;  // the segment's: one row
+  Ring<W, NCH, H> ring(WarpSmem<W, NCH>(warp).ring);
+  LongFeed f = start_long(ring, U, U16, su, flag, beg, end, chunk, warp,
+                          lane, rank, pol);
   float v[N], acc[N];
-  load_row<W, NCH>(v, V + row * rank, lane, rank, pol.once);
+  get_row<W, NCH, H>(v, V + row * rank, V16 + row * rank, touch & kFirst,
+                     lane, rank, pol.once);
   const float reg_v = lam / fmaxf(ld_float(omega_v + row, pol.once), 1.0f);
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.0f;
@@ -480,34 +669,38 @@ __device__ __forceinline__ void item_long(
       for (int i = 0; i < N; ++i)
         acc[i] += (lr * (err * u[i] - reg_v * v[i] * w)) * c;
       __syncwarp();
-      feed_long(ring, f, U, su, end, chunk, lane, rank, pol);
+      feed_long(ring, f, U, U16, su, flag, end, chunk, lane, rank, pol);
     }
     if (in) st_float(e_buf + p - e0, e_l, pol.keep);
   }
   if (!combine_partials<W, NCH>(acc, v, warp, lane, rank)) return;
-  store_row<W, NCH>(V + row * rank, acc, lane, rank, pol.once);
+  put_row<W, NCH, H>(V + row * rank, V16 + row * rank, touch & kLast, acc,
+                     lane, rank, pol.once);
   store_row<W, NCH>(snap + row * rank, v, lane, rank, pol.keep);
 }
 
 // Kernel B's long segment: per entry, its e and its item's snapshot row, du
 // added into acc in entry order; then the row.
-template <int W, int NCH>
+template <int W, int NCH, bool H>
 __device__ __forceinline__ void user_long(
-    float* __restrict__ U, const float* __restrict__ omega_u,
-    const int32_t* __restrict__ prow, const int32_t* __restrict__ epos,
-    const int32_t* __restrict__ vrow, const float* __restrict__ sw,
-    const float* __restrict__ sc, int e0, const int32_t* __restrict__ longs,
-    int chunk, const float* __restrict__ e_buf,
-    const float* __restrict__ snap, int rank, float lr, float lam, int warp,
-    int lane, const Policies& pol) {
+    float* __restrict__ U, bf16_t* __restrict__ U16,
+    const float* __restrict__ omega_u, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ epos, const int32_t* __restrict__ vrow,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0,
+    const int32_t* __restrict__ longs, int chunk,
+    const float* __restrict__ e_buf, const float* __restrict__ snap,
+    int rank, float lr, float lam, int warp, int lane, const Policies& pol) {
   constexpr int N = W * NCH;
   const int beg = longs[2 * blockIdx.x], end = longs[2 * blockIdx.x + 1];
   const int64_t row = ~prow[beg];
+  const unsigned touch = H ? flag[beg] : 0u;
   Ring<W, NCH> ring(WarpSmem<W, NCH>(warp).ring);
-  LongFeed f = start_long(ring, snap, vrow, beg, end, chunk, warp, lane,
-                          rank, pol);
+  LongFeed f = start_long(ring, snap, nullptr, vrow, nullptr, beg, end,
+                          chunk, warp, lane, rank, pol);
   float u[N], acc[N];
-  load_row<W, NCH>(u, U + row * rank, lane, rank, pol.once);
+  get_row<W, NCH, H>(u, U + row * rank, U16 + row * rank, touch & kFirst,
+                     lane, rank, pol.once);
   const float reg_u = lam / fmaxf(ld_float(omega_u + row, pol.once), 1.0f);
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.0f;
@@ -530,11 +723,13 @@ __device__ __forceinline__ void user_long(
       for (int i = 0; i < N; ++i)
         acc[i] += (lr * (err * v[i] - reg_u * u[i] * w)) * c;
       __syncwarp();
-      feed_long(ring, f, snap, vrow, end, chunk, lane, rank, pol);
+      feed_long(ring, f, snap, nullptr, vrow, nullptr, end, chunk, lane,
+                rank, pol);
     }
   }
   if (!combine_partials<W, NCH>(acc, u, warp, lane, rank)) return;
-  store_row<W, NCH>(U + row * rank, acc, lane, rank, pol.once);
+  put_row<W, NCH, H>(U + row * rank, U16 + row * rank, touch & kLast, acc,
+                     lane, rank, pol.once);
 }
 
 // -- short segments: a warp owns those that start in kOwn positions -----------
@@ -585,95 +780,125 @@ __device__ __forceinline__ bool starts_at(const Window& own, int o) {
 }
 
 // A short-segment warp's row loads in the order it uses them: at a segment
-// start the row's old value (from `olds`), then each position's gathered
-// row (from `gathered`).
+// start the row's old value (from `olds`, or from `olds16` where H and bit o
+// of `firsts`), then each position's gathered row (from `gathered`, or from
+// `gathered16` where GH and the entry's gather is ~row).
 struct ShortFeed {
   int o;     // next position to queue
   bool old;  // its segment's old row is queued
 };
 
-template <int W, int NCH>
+template <bool GH, int W, int NCH, bool H>
 __device__ __forceinline__ void feed_short(
-    Ring<W, NCH>& ring, ShortFeed& f, const Window& own,
-    const WarpSmem<W, NCH>& sm, const float* olds, uint64_t old_pol,
-    const float* gathered, uint64_t gather_pol, int lane, int rank) {
-  const float* src = nullptr;
-  uint64_t pol = gather_pol;
-  if (f.o < own.end) {
-    if (!f.old && starts_at(own, f.o)) {
-      src = olds + (int64_t)sm.starts[f.o].row * rank;
-      pol = old_pol;
-      f.old = true;
-    } else {
-      src = gathered + (int64_t)sm.entries[f.o].gather * rank;
-      ++f.o;
-      f.old = false;
+    Ring<W, NCH, H>& ring, ShortFeed& f, const Window& own,
+    const WarpSmem<W, NCH>& sm, const float* olds, const bf16_t* olds16,
+    unsigned firsts, uint64_t old_pol, const float* gathered,
+    const bf16_t* gathered16, uint64_t gather_pol, int lane, int rank) {
+  if constexpr (!H) {
+    const float* src = nullptr;
+    uint64_t pol = gather_pol;
+    if (f.o < own.end) {
+      if (!f.old && starts_at(own, f.o)) {
+        src = olds + (int64_t)sm.starts[f.o].row * rank;
+        pol = old_pol;
+        f.old = true;
+      } else {
+        src = gathered + (int64_t)sm.entries[f.o].gather * rank;
+        ++f.o;
+        f.old = false;
+      }
     }
+    ring.fill(src, pol, lane, rank);
+  } else if (f.o >= own.end) {
+    ring.fill(nullptr, gather_pol, lane, rank);
+  } else if (!f.old && starts_at(own, f.o)) {
+    const int64_t at = (int64_t)sm.starts[f.o].row * rank;
+    if ((firsts >> f.o) & 1u)
+      ring.fill16(olds16 + at, old_pol, lane, rank);
+    else
+      ring.fill(olds + at, old_pol, lane, rank);
+    f.old = true;
+  } else {
+    const int g = sm.entries[f.o].gather;
+    if (GH && g < 0)  // read once in the stratum: the normal priority
+      ring.fill16(gathered16 + (int64_t)~g * rank, old_pol, lane, rank);
+    else
+      ring.fill(gathered + (int64_t)g * rank, gather_pol, lane, rank);
+    ++f.o;
+    f.old = false;
   }
-  ring.fill(src, pol, lane, rank);
 }
 
-template <int W, int NCH>
-__global__ void __launch_bounds__(kWarps * 32) sgd_item_rows_kernel(
+// H: the touch flags of the window's owned starts as two masks by offset
+// (the starts lie in the first window, whose flags `fa` the lanes hold).
+struct Touch {
+  unsigned firsts, lasts;
+};
+
+template <bool H>
+__device__ __forceinline__ Touch start_touch(bool starter, unsigned fa) {
+  if (!H) return Touch{0u, 0u};
+  return Touch{__ballot_sync(kFull, starter && (fa & kFirst)),
+               __ballot_sync(kFull, starter && (fa & kLast))};
+}
+
+// Kernel A's owned window (short segments); H: the flagged route, `fa` /
+// `fb` the touch flags of the window's positions (a first-touch gather is
+// staged as ~row).
+template <int W, int NCH, bool H>
+__device__ __forceinline__ void item_short(
     const float* __restrict__ U, float* __restrict__ V,
-    const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
-    const int32_t* __restrict__ su, const float* __restrict__ sr,
-    const float* __restrict__ sw, const float* __restrict__ sc, int e0,
-    int e1, const int32_t* __restrict__ longs, int n_long, int chunk,
-    float* __restrict__ e_buf, float* __restrict__ snap, int rank, float lr,
-    float lam) {
+    const bf16_t* __restrict__ U16, bf16_t* __restrict__ V16,
+    const float* __restrict__ omega_v, const int32_t* __restrict__ su,
+    const float* __restrict__ sr, const float* __restrict__ sw,
+    const float* __restrict__ sc, int e0, float* __restrict__ e_buf,
+    float* __restrict__ snap, int rank, float lr, float lam, int warp,
+    int lane, const Policies& pol, const Window& own, int pa, int pb, int ra,
+    bool in_a, bool in_b, unsigned fa, unsigned fb) {
   constexpr int N = W * NCH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Policies pol = policies();
-  if ((int)blockIdx.x < n_long) {
-    item_long<W, NCH>(U, V, omega_v, prow, su, sr, sw, sc, e0, longs, chunk,
-                      e_buf, snap, rank, lr, lam, warp, lane, pol);
-    return;
-  }
-  const int base = e0 + (((int)blockIdx.x - n_long) * kWarps + warp) * kOwn;
-  if (base >= e1) return;
-  const int pa = base + lane, pb = pa + kWindow;
-  const int ra = pa < e1 ? ld_int(prow + pa, pol.once) : kNone;
-  const int before = base > e0 ? ld_int(prow + base - 1, pol.once) : kNone;
-  int rb;
-  const Window own = own_window(prow, pb, e1, ra, before, lane, rb,
-                                pol.once);
-  if (own.first < 0) return;
   const WarpSmem<W, NCH> sm(warp);
-  if (lane >= own.first && lane < own.end)
-    sm.entries[lane] = Entry{ld_int(su + pa, pol.once),
+  if (in_a) {
+    const int g = ld_int(su + pa, pol.once);
+    sm.entries[lane] = Entry{H && (fa & kGatherFirst) ? ~g : g,
                              ld_float(sr + pa, pol.once),
                              ld_float(sw + pa, pol.once),
                              ld_float(sc + pa, pol.once)};
-  if (kWindow + lane < own.end)
-    sm.entries[kWindow + lane] = Entry{ld_int(su + pb, pol.once),
+  }
+  if (in_b) {
+    const int g = ld_int(su + pb, pol.once);
+    sm.entries[kWindow + lane] = Entry{H && (fb & kGatherFirst) ? ~g : g,
                                        ld_float(sr + pb, pol.once),
                                        ld_float(sw + pb, pol.once),
                                        ld_float(sc + pb, pol.once)};
+  }
   const bool starter = (own.starts >> lane) & 1u;
   if (starter) sm.starts[lane].row = ra;
+  const Touch touch = start_touch<H>(starter, fa);
   __syncwarp();
-  Ring<W, NCH> ring(sm.ring);
+  Ring<W, NCH, H> ring(sm.ring);
   ShortFeed f{own.first, false};
   for (int s = 0; s < kStages; ++s)
-    feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
+    feed_short<H>(ring, f, own, sm, V, V16, touch.firsts, pol.once, U, U16,
+                  pol.keep, lane, rank);
   if (starter)
     sm.starts[lane].reg = lam / fmaxf(ld_float(omega_v + ra, pol.once), 1.0f);
   __syncwarp();
   float acc[N], vcur[N], reg_v = 0.0f, ea = 0.0f, eb = 0.0f;
   int cur = kNone;
+  bool cur_last = false;
   for (int o = own.first; o < own.end; ++o) {
     const bool st = starts_at(own, o);
     float u[N];
     if (st) {  // a segment starts: store the one before
       if (cur != kNone) {
-        store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank,
-                          pol.once);
+        put_row<W, NCH, H>(V + (int64_t)cur * rank, V16 + (int64_t)cur * rank,
+                           cur_last, acc, lane, rank, pol.once);
         store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank,
                           pol.keep);
       }
       const Start s = sm.starts[o];
       cur = s.row;
+      cur_last = (touch.lasts >> o) & 1u;
       reg_v = s.reg;
       ring.template take<kStages - 1>(vcur, lane, rank);
       ring.template take<kStages - 2>(u, lane, rank);
@@ -691,32 +916,37 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_item_rows_kernel(
     for (int i = 0; i < N; ++i)
       acc[i] += (lr * (err * u[i] - reg_v * vcur[i] * en.w)) * en.c;
     __syncwarp();
-    feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
+    feed_short<H>(ring, f, own, sm, V, V16, touch.firsts, pol.once, U, U16,
+                  pol.keep, lane, rank);
     if (st)
-      feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);
+      feed_short<H>(ring, f, own, sm, V, V16, touch.firsts, pol.once, U, U16,
+                    pol.keep, lane, rank);
   }
-  store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank, pol.once);
+  put_row<W, NCH, H>(V + (int64_t)cur * rank, V16 + (int64_t)cur * rank,
+                     cur_last, acc, lane, rank, pol.once);
   store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank, pol.keep);
-  if (lane >= own.first && lane < own.end) st_float(e_buf + pa - e0, ea,
-                                                    pol.keep);
-  if (kWindow + lane < own.end) st_float(e_buf + pb - e0, eb, pol.keep);
+  if (in_a) st_float(e_buf + pa - e0, ea, pol.keep);
+  if (in_b) st_float(e_buf + pb - e0, eb, pol.keep);
 }
 
-template <int W, int NCH>
-__global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
-    float* __restrict__ U, const float* __restrict__ omega_u,
-    const int32_t* __restrict__ prow, const int32_t* __restrict__ epos,
-    const int32_t* __restrict__ vrow, const float* __restrict__ sw,
-    const float* __restrict__ sc, int e0, int e1,
+// Kernel A's body (the kernels below).
+template <int W, int NCH, bool H>
+__device__ __forceinline__ void item_rows(
+    const float* __restrict__ U, float* __restrict__ V,
+    const bf16_t* __restrict__ U16, bf16_t* __restrict__ V16,
+    const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ su, const float* __restrict__ sr,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0, int e1,
     const int32_t* __restrict__ longs, int n_long, int chunk,
-    const float* __restrict__ e_buf, const float* __restrict__ snap,
-    int rank, float lr, float lam) {
-  constexpr int N = W * NCH;
+    float* __restrict__ e_buf, float* __restrict__ snap, int rank, float lr,
+    float lam) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Policies pol = policies();
   if ((int)blockIdx.x < n_long) {
-    user_long<W, NCH>(U, omega_u, prow, epos, vrow, sw, sc, e0, longs, chunk,
-                      e_buf, snap, rank, lr, lam, warp, lane, pol);
+    item_long<W, NCH, H>(U, V, U16, V16, omega_v, prow, su, sr, sw, sc, flag,
+                         e0, longs, chunk, e_buf, snap, rank, lr, lam, warp,
+                         lane, pol);
     return;
   }
   const int base = e0 + (((int)blockIdx.x - n_long) * kWarps + warp) * kOwn;
@@ -724,13 +954,77 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
   const int pa = base + lane, pb = pa + kWindow;
   const int ra = pa < e1 ? ld_int(prow + pa, pol.once) : kNone;
   const int before = base > e0 ? ld_int(prow + base - 1, pol.once) : kNone;
+  // H: the touch flags, loaded beside the rows
+  const unsigned la = H && pa < e1 ? flag[pa] : 0u;
+  const unsigned lb = H && pb < e1 ? flag[pb] : 0u;
   int rb;
   const Window own = own_window(prow, pb, e1, ra, before, lane, rb,
                                 pol.once);
   if (own.first < 0) return;
-  const WarpSmem<W, NCH> sm(warp);
   const bool in_a = lane >= own.first && lane < own.end;
   const bool in_b = kWindow + lane < own.end;
+  if constexpr (H) {  // a window without a touch flag takes the f32 body
+    const unsigned fa = in_a ? la : 0u, fb = in_b ? lb : 0u;
+    if (__any_sync(kFull, fa | fb)) {
+      item_short<W, NCH, true>(U, V, U16, V16, omega_v, su, sr, sw, sc, e0,
+                               e_buf, snap, rank, lr, lam, warp, lane, pol,
+                               own, pa, pb, ra, in_a, in_b, fa, fb);
+      return;
+    }
+  }
+  item_short<W, NCH, false>(U, V, nullptr, nullptr, omega_v, su, sr, sw, sc,
+                            e0, e_buf, snap, rank, lr, lam, warp, lane, pol,
+                            own, pa, pb, ra, in_a, in_b, 0u, 0u);
+}
+
+template <int W, int NCH, bool H>
+__global__ void __launch_bounds__(kWarps * 32) sgd_item_rows_kernel(
+    const float* __restrict__ U, float* __restrict__ V,
+    const bf16_t* __restrict__ U16, bf16_t* __restrict__ V16,
+    const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ su, const float* __restrict__ sr,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0, int e1,
+    const int32_t* __restrict__ longs, int n_long, int chunk,
+    float* __restrict__ e_buf, float* __restrict__ snap, int rank, float lr,
+    float lam) {
+  item_rows<W, NCH, H>(U, V, U16, V16, omega_v, prow, su, sr, sw, sc, flag,
+                       e0, e1, longs, n_long, chunk, e_buf, snap, rank, lr,
+                       lam);
+}
+
+// The bf16 build at 4 columns a lane and one chunk (rank <= 128), held to
+// the f32 build's resident blocks (kBlocksA).
+template <>
+__global__ void __launch_bounds__(kWarps * 32, kBlocksA)
+    sgd_item_rows_kernel<4, 1, true>(
+    const float* __restrict__ U, float* __restrict__ V,
+    const bf16_t* __restrict__ U16, bf16_t* __restrict__ V16,
+    const float* __restrict__ omega_v, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ su, const float* __restrict__ sr,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0, int e1,
+    const int32_t* __restrict__ longs, int n_long, int chunk,
+    float* __restrict__ e_buf, float* __restrict__ snap, int rank, float lr,
+    float lam) {
+  item_rows<4, 1, true>(U, V, U16, V16, omega_v, prow, su, sr, sw, sc, flag,
+                        e0, e1, longs, n_long, chunk, e_buf, snap, rank, lr,
+                        lam);
+}
+
+// Kernel B's owned window (short segments); H: the flagged route, `fa` the
+// touch flags of the window's segment starts.
+template <int W, int NCH, bool H>
+__device__ __forceinline__ void user_short(
+    float* __restrict__ U, bf16_t* __restrict__ U16,
+    const float* __restrict__ omega_u, const int32_t* __restrict__ epos,
+    const int32_t* __restrict__ vrow, const float* __restrict__ sw,
+    const float* __restrict__ sc, int e0, const float* __restrict__ e_buf,
+    const float* __restrict__ snap, int rank, float lr, float lam, int warp,
+    int lane, const Policies& pol, const Window& own, int pa, int pb, int ra,
+    bool in_a, bool in_b, bool starter, unsigned fa) {
+  constexpr int N = W * NCH;
+  const WarpSmem<W, NCH> sm(warp);
   if (in_a)
     sm.entries[lane] = Entry{ld_int(vrow + pa, pol.once), 0.0f,
                              ld_float(sw + pa, pol.once),
@@ -739,13 +1033,14 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
     sm.entries[kWindow + lane] = Entry{ld_int(vrow + pb, pol.once), 0.0f,
                                        ld_float(sw + pb, pol.once),
                                        ld_float(sc + pb, pol.once)};
-  const bool starter = (own.starts >> lane) & 1u;
   if (starter) sm.starts[lane].row = ra;
+  const Touch touch = start_touch<H>(starter, fa);
   __syncwarp();
-  Ring<W, NCH> ring(sm.ring);
+  Ring<W, NCH, H> ring(sm.ring);
   ShortFeed f{own.first, false};
   for (int s = 0; s < kStages; ++s)
-    feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane, rank);
+    feed_short<false>(ring, f, own, sm, U, U16, touch.firsts, pol.once,
+                      snap, nullptr, pol.keep, lane, rank);
   // the second round of scalars (each depends on a first-round load) while
   // the first rows are in flight
   if (in_a)
@@ -759,34 +1054,83 @@ __global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
   __syncwarp();
   float acc[N], ucur[N], reg_u = 0.0f;
   int cur = kNone;
+  bool cur_last = false;
   for (int o = own.first; o < own.end; ++o) {
     const bool st = starts_at(own, o);
     float v[N];
     if (st) {  // a segment starts: store the one before
       if (cur != kNone)
-        store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank,
-                          pol.once);
+        put_row<W, NCH, H>(U + (int64_t)cur * rank, U16 + (int64_t)cur * rank,
+                           cur_last, acc, lane, rank, pol.once);
       const Start s = sm.starts[o];
       cur = s.row;
+      cur_last = (touch.lasts >> o) & 1u;
       reg_u = s.reg;
       ring.template take<kStages - 1>(ucur, lane, rank);
-      ring.template take<kStages - 2>(v, lane, rank);
+      ring.template take<kStages - 2, false>(v, lane, rank);  // snapshot
 #pragma unroll
       for (int i = 0; i < N; ++i) acc[i] = ucur[i];
     } else {
-      ring.template take<kStages - 1>(v, lane, rank);
+      ring.template take<kStages - 1, false>(v, lane, rank);
     }
     const Entry en = sm.entries[o];
 #pragma unroll
     for (int i = 0; i < N; ++i)
       acc[i] += (lr * (en.x * v[i] - reg_u * ucur[i] * en.w)) * en.c;
     __syncwarp();
-    feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane, rank);
+    feed_short<false>(ring, f, own, sm, U, U16, touch.firsts, pol.once,
+                      snap, nullptr, pol.keep, lane, rank);
     if (st)
-      feed_short(ring, f, own, sm, U, pol.once, snap, pol.keep, lane,
-                 rank);
+      feed_short<false>(ring, f, own, sm, U, U16, touch.firsts, pol.once,
+                        snap, nullptr, pol.keep, lane, rank);
   }
-  store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank, pol.once);
+  put_row<W, NCH, H>(U + (int64_t)cur * rank, U16 + (int64_t)cur * rank,
+                     cur_last, acc, lane, rank, pol.once);
+}
+
+template <int W, int NCH, bool H>
+__global__ void __launch_bounds__(kWarps * 32) sgd_user_rows_kernel(
+    float* __restrict__ U, bf16_t* __restrict__ U16,
+    const float* __restrict__ omega_u, const int32_t* __restrict__ prow,
+    const int32_t* __restrict__ epos, const int32_t* __restrict__ vrow,
+    const float* __restrict__ sw, const float* __restrict__ sc,
+    const uint8_t* __restrict__ flag, int e0, int e1,
+    const int32_t* __restrict__ longs, int n_long, int chunk,
+    const float* __restrict__ e_buf, const float* __restrict__ snap,
+    int rank, float lr, float lam) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Policies pol = policies();
+  if ((int)blockIdx.x < n_long) {
+    user_long<W, NCH, H>(U, U16, omega_u, prow, epos, vrow, sw, sc, flag, e0,
+                         longs, chunk, e_buf, snap, rank, lr, lam, warp, lane,
+                         pol);
+    return;
+  }
+  const int base = e0 + (((int)blockIdx.x - n_long) * kWarps + warp) * kOwn;
+  if (base >= e1) return;
+  const int pa = base + lane, pb = pa + kWindow;
+  const int ra = pa < e1 ? ld_int(prow + pa, pol.once) : kNone;
+  const int before = base > e0 ? ld_int(prow + base - 1, pol.once) : kNone;
+  const unsigned la = H && pa < e1 ? flag[pa] : 0u;  // beside the rows
+  int rb;
+  const Window own = own_window(prow, pb, e1, ra, before, lane, rb,
+                                pol.once);
+  if (own.first < 0) return;
+  const bool in_a = lane >= own.first && lane < own.end;
+  const bool in_b = kWindow + lane < own.end;
+  const bool starter = (own.starts >> lane) & 1u;
+  if constexpr (H) {  // a window without a touch flag takes the f32 body
+    const unsigned fa = starter ? la : 0u;
+    if (__any_sync(kFull, fa)) {
+      user_short<W, NCH, true>(U, U16, omega_u, epos, vrow, sw, sc, e0, e_buf,
+                               snap, rank, lr, lam, warp, lane, pol, own, pa,
+                               pb, ra, in_a, in_b, starter, fa);
+      return;
+    }
+  }
+  user_short<W, NCH, false>(U, nullptr, omega_u, epos, vrow, sw, sc, e0,
+                            e_buf, snap, rank, lr, lam, warp, lane, pol, own,
+                            pa, pb, ra, in_a, in_b, starter, 0u);
 }
 
 // One block per long segment, then one warp per kOwn positions; at least
@@ -807,6 +1151,10 @@ int allow_smem(Kernel kernel, int bytes) {
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+bool aligned8(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 8 == 0;
 }
 
 // Runs the statement(s) with constexpr W (columns per chunk: 4 where `vec`,
@@ -851,15 +1199,6 @@ int kernel_attrs(Kernel kernel, int smem, int* out) {
 
 constexpr int kCastThreads = 256;
 constexpr int kVec = 8;  // bf16 elements per 16-byte vector
-
-__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
 
 // Tables a and b as one index space of 8-element vectors: vector v < va is
 // a's, the rest are b's.
@@ -922,6 +1261,48 @@ unsigned cast_blocks(int64_t na, int64_t nb) {
   return (unsigned)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
 }
 
+// Kernel A / kernel B at <W, NCH, H> (H = false: the bf16 pointers and the
+// flags are null). Returns cudaGetLastError() of the launch.
+template <int W, int NCH, bool H>
+int launch_item(const void* U, void* V, const void* U16, void* V16,
+                const void* omega_v, const void* prow, const void* su,
+                const void* sr, const void* sw, const void* sc,
+                const void* flag, int e0, int e1, const void* longs,
+                int n_long, int chunk, void* e_buf, void* snap, int rank,
+                float lr, float lam, void* stream) {
+  const int smem = block_smem_bytes<W, NCH>();
+  if (int rc = allow_smem(sgd_item_rows_kernel<W, NCH, H>, smem)) return rc;
+  sgd_item_rows_kernel<W, NCH, H>
+      <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
+         (cudaStream_t)stream>>>(
+          (const float*)U, (float*)V, (const bf16_t*)U16, (bf16_t*)V16,
+          (const float*)omega_v, (const int32_t*)prow, (const int32_t*)su,
+          (const float*)sr, (const float*)sw, (const float*)sc,
+          (const uint8_t*)flag, e0, e1, (const int32_t*)longs, n_long, chunk,
+          (float*)e_buf, (float*)snap, rank, lr, lam);
+  return (int)cudaGetLastError();
+}
+
+template <int W, int NCH, bool H>
+int launch_user(void* U, void* U16, const void* omega_u, const void* prow,
+                const void* epos, const void* vrow, const void* sw,
+                const void* sc, const void* flag, int e0, int e1,
+                const void* longs, int n_long, int chunk, const void* e_buf,
+                const void* snap, int rank, float lr, float lam,
+                void* stream) {
+  const int smem = block_smem_bytes<W, NCH>();
+  if (int rc = allow_smem(sgd_user_rows_kernel<W, NCH, H>, smem)) return rc;
+  sgd_user_rows_kernel<W, NCH, H>
+      <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
+         (cudaStream_t)stream>>>(
+          (float*)U, (bf16_t*)U16, (const float*)omega_u,
+          (const int32_t*)prow, (const int32_t*)epos, (const int32_t*)vrow,
+          (const float*)sw, (const float*)sc, (const uint8_t*)flag, e0, e1,
+          (const int32_t*)longs, n_long, chunk, (const float*)e_buf,
+          (const float*)snap, rank, lr, lam);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points; each returns cudaGetLastError() of its launch.
@@ -941,18 +1322,13 @@ extern "C" int sgd_item_rows_launch(
   if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
   const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(V) &&
                    aligned16(snap);
+  int rc = 0;
   DSGD_WITH_COLS(rank, vec,
-    const int smem = block_smem_bytes<W, NCH>();
-    if (int rc = allow_smem(sgd_item_rows_kernel<W, NCH>, smem)) return rc;
-    sgd_item_rows_kernel<W, NCH>
-        <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
-           (cudaStream_t)stream>>>(
-            (const float*)U, (float*)V, (const float*)omega_v,
-            (const int32_t*)prow, (const int32_t*)su, (const float*)sr,
-            (const float*)sw, (const float*)sc, e0, e1,
-            (const int32_t*)longs, n_long, chunk, (float*)e_buf,
-            (float*)snap, rank, lr, lam))
-  return (int)cudaGetLastError();
+    rc = launch_item<W, NCH, false>(U, V, nullptr, nullptr, omega_v, prow,
+                                    su, sr, sw, sc, nullptr, e0, e1, longs,
+                                    n_long, chunk, e_buf, snap, rank, lr,
+                                    lam, stream))
+  return rc;
 }
 
 extern "C" int sgd_user_rows_launch(
@@ -962,17 +1338,51 @@ extern "C" int sgd_user_rows_launch(
     const void* snap, int rank, float lr, float lam, void* stream) {
   if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
   const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(snap);
+  int rc = 0;
   DSGD_WITH_COLS(rank, vec,
-    const int smem = block_smem_bytes<W, NCH>();
-    if (int rc = allow_smem(sgd_user_rows_kernel<W, NCH>, smem)) return rc;
-    sgd_user_rows_kernel<W, NCH>
-        <<<step_grid(e0, e1, n_long), kWarps * 32, smem,
-           (cudaStream_t)stream>>>(
-            (float*)U, (const float*)omega_u, (const int32_t*)prow,
-            (const int32_t*)epos, (const int32_t*)vrow, (const float*)sw,
-            (const float*)sc, e0, e1, (const int32_t*)longs, n_long, chunk,
-            (const float*)e_buf, (const float*)snap, rank, lr, lam))
-  return (int)cudaGetLastError();
+    rc = launch_user<W, NCH, false>(U, nullptr, omega_u, prow, epos, vrow,
+                                    sw, sc, nullptr, e0, e1, longs, n_long,
+                                    chunk, e_buf, snap, rank, lr, lam,
+                                    stream))
+  return rc;
+}
+
+// The bf16 route: U / V are the f32 work tables, U16 / V16 the bf16 tables
+// (the same shapes), `flag` the side's touch flags (one byte a position,
+// indexed like the streams). The 16-byte route also needs the bf16 tables
+// 8-byte aligned (4 bf16 columns a copy).
+extern "C" int sgd_item_rows_bf16_launch(
+    const void* U, void* V, const void* U16, void* V16, const void* flag,
+    const void* omega_v, const void* prow, const void* su, const void* sr,
+    const void* sw, const void* sc, int e0, int e1, const void* longs,
+    int n_long, int chunk, void* e_buf, void* snap, int rank, float lr,
+    float lam, void* stream) {
+  if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
+  const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(V) &&
+                   aligned16(snap) && aligned8(U16) && aligned8(V16);
+  int rc = 0;
+  DSGD_WITH_COLS(rank, vec,
+    rc = launch_item<W, NCH, true>(U, V, U16, V16, omega_v, prow, su, sr, sw,
+                                   sc, flag, e0, e1, longs, n_long, chunk,
+                                   e_buf, snap, rank, lr, lam, stream))
+  return rc;
+}
+
+extern "C" int sgd_user_rows_bf16_launch(
+    void* U, void* U16, const void* flag, const void* omega_u,
+    const void* prow, const void* epos, const void* vrow, const void* sw,
+    const void* sc, int e0, int e1, const void* longs, int n_long, int chunk,
+    const void* e_buf, const void* snap, int rank, float lr, float lam,
+    void* stream) {
+  if (chunk < 1 || chunk > kWindow) return (int)cudaErrorInvalidValue;
+  const bool vec = rank % 4 == 0 && aligned16(U) && aligned16(snap) &&
+                   aligned8(U16);
+  int rc = 0;
+  DSGD_WITH_COLS(rank, vec,
+    rc = launch_user<W, NCH, true>(U, U16, omega_u, prow, epos, vrow, sw, sc,
+                                   flag, e0, e1, longs, n_long, chunk, e_buf,
+                                   snap, rank, lr, lam, stream))
+  return rc;
 }
 
 // The step kernels at `rank` on the route `vec` selects (nonzero: 16-byte):
@@ -981,9 +1391,10 @@ extern "C" int sgd_user_rows_launch(
 extern "C" int dsgd_step_kernel_attrs(int rank, int vec, int* out) {
   DSGD_WITH_COLS(rank, vec != 0,
     const int smem = block_smem_bytes<W, NCH>();
-    if (int rc = kernel_attrs(sgd_item_rows_kernel<W, NCH>, smem, out))
+    if (int rc = kernel_attrs(sgd_item_rows_kernel<W, NCH, false>, smem, out))
       return rc;
-    if (int rc = kernel_attrs(sgd_user_rows_kernel<W, NCH>, smem, out + 3))
+    if (int rc = kernel_attrs(sgd_user_rows_kernel<W, NCH, false>, smem,
+                                 out + 3))
       return rc)
   return 0;
 }

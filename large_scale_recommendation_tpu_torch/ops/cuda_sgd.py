@@ -20,25 +20,32 @@ owning warp (or, for a long row, one thread block):
 Every row is written by one owner in a fixed order: no atomics, no
 per-entry delta scratch, and two runs give bit-equal tables.
 
-bf16 tables (the TPU kernels' ``half=True`` branch) rest in bf16 and the
-steps run on f32 work tables: per stratum, ``bf16_to_f32``
-(``bf16_to_f32_kernel``) fills them, and ``f32_to_bf16``
-(``f32_to_bf16_kernel``) rounds them back once at the stratum's end — one
-downcast per block visit, as in the TPU kernels, since every block is
-visited once per stratum.
+bf16 tables (the TPU kernels' ``half=True`` branch: one f32 work copy and
+one rounding per block visit, and every block is visited once per stratum)
+rest in bf16 beside one f32 work table a side, and the same two kernels
+take both (``store=(U16, V16)``): the plan marks each position's row at its
+first and last step in the stratum (``StepPlan.v_flag`` / ``u_flag``), a
+row is read from the bf16 table at its first step (upcast exactly) and
+written to it at its last (rounded to nearest even), and the work table
+carries it in between. The result is bit-equal to the earlier route,
+``stratum_sweep_cast``: ``bf16_to_f32`` (``bf16_to_f32_kernel``) upcasting
+both whole tables at each stratum's start and ``f32_to_bf16``
+(``f32_to_bf16_kernel``) rounding them back at its end. That route stays as
+the baseline the flagged one is held against; no path of the port takes
+it.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 ``LAUNCHES``) and uses its plain PyTorch version only for CPU tensors.
 There is no fallback: a CUDA tensor either goes through the kernel or the
-wrapper raises (the step kernels take f32 tables only; a bf16 table reaches
-them only through the cast kernels).
+wrapper raises (the step kernels take f32 tables, and bf16 ones only as
+``store`` beside them).
 
 The same pair runs one rank's visits on the mesh (``block_sweep``, the
 counterpart of ``pallas_block_sweep``, which the JAX mesh launches per
 device per sub-step): a plan of the rank's device-major strata ``[k, 1,
 b]`` (one visit per stratum, block-local rows), built once per fit, and
-one visit's ``n_mb`` steps per call, with bf16 tables cast around each
-visit.
+one visit's ``n_mb`` steps per call; a bf16 visit's work tables come from
+the caching allocator.
 
 Beside them, the plain versions of the TPU kernels' own contracts, for the
 tests and the on-card comparisons: ``block_sweep_reference`` (one visit,
@@ -88,6 +95,11 @@ from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 LAUNCHES = {"sgd_item_rows_kernel": 0, "sgd_user_rows_kernel": 0,
             "bf16_to_f32_kernel": 0, "f32_to_bf16_kernel": 0}
 FACTOR_DTYPES = (torch.float32, torch.bfloat16)
+# touch flags of a plan position (``StepPlan.v_flag`` / ``u_flag``): its
+# segment's row at its first / last step in the stratum; in item order also
+# the gathered user row at its first (``csrc/dsgd_sweep.cu``: kFirst, kLast,
+# kGatherFirst)
+FIRST, LAST, GATHER_FIRST = 1, 2, 4
 # a segment longer than this gets a thread block of its own, its entries
 # dealt to the block's warps in chunks of this many (at most 32: a shorter
 # segment must end inside the two 32-position windows its owner loads)
@@ -114,6 +126,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sgd_item_rows_launch.argtypes = [P] * 8 + step
     lib.sgd_user_rows_launch.restype = I
     lib.sgd_user_rows_launch.argtypes = [P] * 7 + step
+    if hasattr(lib, "sgd_item_rows_bf16_launch"):  # not in earlier sources
+        lib.sgd_item_rows_bf16_launch.restype = I
+        lib.sgd_item_rows_bf16_launch.argtypes = [P] * 11 + step
+        lib.sgd_user_rows_bf16_launch.restype = I
+        lib.sgd_user_rows_bf16_launch.argtypes = [P] * 9 + step
     for fn in (lib.bf16_to_f32_launch, lib.f32_to_bf16_launch):
         fn.restype = I
         fn.argtypes = [P, P, I64, P, P, I64, P]
@@ -220,7 +237,11 @@ class StepPlan:
     segment is longer than ``chunk``; those segments get a thread block
     each and are listed as ``[beg, end)`` position pairs in ``*_long``,
     cut by step at ``*_long_base``. Padding entries are in no segment.
-    Host lists carry what the launches need.
+    ``*_flag`` holds each position's touch flags for the bf16 route: its
+    row's first (``FIRST``) and last (``LAST``) step among the stratum's
+    real entries, and in item order the gathered user row's first
+    (``GATHER_FIRST``); one byte a position and side. Host lists carry what
+    the launches need.
     """
 
     num_blocks: int  # strata
@@ -244,6 +265,8 @@ class StepPlan:
     u_w: torch.Tensor
     u_icu: torch.Tensor
     u_long: torch.Tensor  # int32[Lu, 2]
+    v_flag: torch.Tensor  # uint8[R] FIRST | LAST | GATHER_FIRST, item order
+    u_flag: torch.Tensor  # uint8[R] FIRST | LAST, user order
     entry_base: list[int]
     v_long_base: list[int]
     u_long_base: list[int]
@@ -251,6 +274,8 @@ class StepPlan:
     u_segments: list[int]
     longest_v: list[int]  # per step
     longest_u: list[int]
+    v_touched: list[int]  # per stratum: its distinct item rows
+    u_touched: list[int]
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -293,15 +318,19 @@ class StepPlan:
                                       dataclasses.fields(self))
                    if isinstance(f, torch.Tensor))
 
-    def bound_bytes(self, rank: int) -> int:
+    def bound_bytes(self, rank: int, half: bool = False) -> int:
         """Device-memory bytes the step pair's function must move over the
         whole plan (one sweep): per step, each distinct row read and
         written once with its ω (f32), and 24 B of streams per real
-        entry — the quantity the step's bound counts."""
+        entry — the quantity the step's bound counts. ``half`` (bf16
+        tables): each row's first read and last write of a stratum at 2 B
+        a column, not 4."""
         row = rank * 4
         entries = self.entry_base[-1] - self.entry_base[0]
         rows = sum(self.u_segments) + sum(self.v_segments)
-        return rows * (2 * row + 4) + entries * 24
+        saved = (sum(self.u_touched) + sum(self.v_touched)) * row if half \
+            else 0
+        return rows * (2 * row + 4) + entries * 24 - saved
 
     def flops(self, rank: int) -> int:
         """Operations of the step pair over the plan: 7·rank per entry in
@@ -373,13 +402,40 @@ def _group(step, sub, rows, steps: int, subs: int, chunk: int):
             torch.bincount(seg_step, minlength=steps), longest)
 
 
+def plan_entries(su, si, sw, minibatch: int):
+    """The real (weight ≠ 0) entries of a layout ``[S, P, b]``: their flat
+    slots, steps (``s·n_mb + g``), user rows and item rows (int64)."""
+    P, b = int(su.shape[1]), int(su.shape[2])
+    real = torch.nonzero(sw.reshape(-1) != 0).squeeze(1)
+    step = (real // (P * b)) * (b // minibatch) + (real % b) // minibatch
+    return (real, step, su.reshape(-1)[real].long(),
+            si.reshape(-1)[real].long())
+
+
+def touch_flags(step, rows, n_mb: int, strata: int, num_rows: int):
+    """Per entry (``step``, ``rows`` int64 in ``[0, num_rows)``): FIRST
+    where its step is its row's first among the stratum's entries, LAST
+    where it is the last (stratum = step // n_mb); and each stratum's
+    distinct rows. The first and last steps of each (stratum, row) go
+    through a dense table of ``strata × num_rows`` cells (no host read)."""
+    cell = (step // n_mb) * num_rows + rows
+    first = torch.full((strata * num_rows,), strata * n_mb,
+                       dtype=step.dtype, device=step.device)
+    first.scatter_reduce_(0, cell, step, "amin")
+    last = torch.full_like(first, -1).scatter_reduce_(0, cell, step, "amax")
+    flags = ((step == first[cell]).to(torch.uint8) * FIRST
+             | (step == last[cell]).to(torch.uint8) * LAST)
+    return flags, (last.view(strata, num_rows) >= 0).sum(1)
+
+
 def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
     """The step plan of a layout ``[S, P, b]``: S strata of P row-disjoint
     visits, ``b`` a multiple of ``minibatch`` — the single-device
     stratum-major layout ``[k, k, b]`` (global rows), or one rank's
     device-major strata ``[k, 1, b]`` (block-local rows). Built with torch
-    on the arrays' device and read back once (the per-step bases and
-    counts, and each side's row range for ``StepPlan.check_rows``). Stable
+    on the arrays' device and read back twice (each side's row range, for
+    ``StepPlan.check_rows`` and to size the touch flags' tables; then the
+    per-step bases and counts and each stratum's distinct rows). Stable
     sorts keep each segment in the minibatch's entry order, whatever
     ``minibatch_sort`` the layout was built with; a step's visits must be
     row-disjoint (as the blockings make them), or a row would get a segment
@@ -393,24 +449,29 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
                          "2^31 − 1 slots")
     n_mb = b // minibatch
     steps = S * n_mb
-    real = torch.nonzero(sw.reshape(-1) != 0).squeeze(1)
-    step = (real // (P * b)) * n_mb + (real % b) // minibatch
+    real, step, u_rows, i_rows = plan_entries(su, si, sw, minibatch)
     v_sub, u_sub = _visit_order((real // b) % P, P)
-    u_rows = su.reshape(-1)[real].long()
-    i_rows = si.reshape(-1)[real].long()
     v_order, v_prow, v_long, v_long_base, v_segs, longest_v = _group(
         step, v_sub, i_rows, steps, P, SEGMENT_CHUNK)
     u_order, u_prow, u_long, u_long_base, u_segs, longest_u = _group(
         step, u_sub, u_rows, steps, P, SEGMENT_CHUNK)
     v_pos = torch.empty_like(v_order)
     v_pos[v_order] = torch.arange(v_order.numel(), device=v_order.device)
+    # each side's row range, read back first: it sizes the touch tables
+    # (rows outside [0, top) are refused by StepPlan.check_rows; clamped
+    # here, their flags are never read)
+    sides = (u_rows, i_rows)
+    top_u, top_v, low_u, low_v = torch.stack(
+        [r.max() + 1 if r.numel() else r.new_zeros(()) for r in sides]
+        + [r.min() if r.numel() else r.new_zeros(()) for r in sides]).tolist()
+    u_touch, u_touched = touch_flags(step, u_rows.clamp(0, max(top_u - 1, 0)),
+                                     n_mb, S, max(top_u, 1))
+    v_touch, v_touched = touch_flags(step, i_rows.clamp(0, max(top_v - 1, 0)),
+                                     n_mb, S, max(top_v, 1))
+    gather_first = (u_touch & FIRST) * GATHER_FIRST  # FIRST is bit 0
     w = sw.reshape(-1)[real].float()
-    top = [(r.max() + 1).reshape(1) if r.numel() else r.new_zeros(1)
-           for r in (u_rows, i_rows)]
-    low = [r.min().reshape(1) if r.numel() else r.new_zeros(1)
-           for r in (u_rows, i_rows)]
     parts = [_bases(step, steps), v_long_base, u_long_base, v_segs, u_segs,
-             longest_v, longest_u, *top, *low]
+             longest_v, longest_u, v_touched, u_touched]
     host = torch.cat(parts).cpu().tolist()
     lists, at = [], 0
     for part in parts:
@@ -422,18 +483,19 @@ def build_step_plan(su, si, sv, sw, icu, icv, *, minibatch: int) -> StepPlan:
 
     return StepPlan(
         num_blocks=S, visits=P, minibatch=minibatch, n_mb=n_mb,
-        chunk=SEGMENT_CHUNK,
-        rows_u=lists[7][0], rows_v=lists[8][0], low_u=lists[9][0],
-        low_v=lists[10][0],
+        chunk=SEGMENT_CHUNK, rows_u=top_u, rows_v=top_v, low_u=low_u,
+        low_v=low_v,
         v_prow=i32(v_prow),
         v_su=i32(u_rows[v_order]), v_r=sv.reshape(-1)[real][v_order].float(),
         v_w=w[v_order], v_icv=icv.reshape(-1)[real][v_order].float(),
         v_long=i32(v_long), u_prow=i32(u_prow), u_epos=i32(v_pos[u_order]),
         u_vrow=i32(i_rows[u_order]), u_w=w[u_order],
         u_icu=icu.reshape(-1)[real][u_order].float(), u_long=i32(u_long),
+        v_flag=(v_touch | gather_first)[v_order].contiguous(),
+        u_flag=u_touch[u_order].contiguous(),
         entry_base=lists[0], v_long_base=lists[1], u_long_base=lists[2],
         v_segments=lists[3], u_segments=lists[4], longest_v=lists[5],
-        longest_u=lists[6])
+        longest_u=lists[6], v_touched=lists[7], u_touched=lists[8])
 
 
 # -- the step pair ----------------------------------------------------------
@@ -444,15 +506,42 @@ def plan_rows(prow: torch.Tensor) -> torch.Tensor:
     return torch.where(prow < 0, ~prow, prow).long()
 
 
+def _flagged(flags: torch.Tensor, bit: int) -> torch.Tensor:
+    return (flags & bit) != 0
+
+
+def _first_reads(work, table16, rows, flags) -> None:
+    """The bf16 route's reads of a row's first step: its bf16 value,
+    upcast (exact), into the f32 work table."""
+    first = rows[_flagged(flags, FIRST)]
+    work[first] = table16[first].float()
+
+
+def _last_writes(work, table16, rows, flags) -> None:
+    """The bf16 route's writes of a row's last step: its work value
+    rounded to bf16 (nearest even) into the bf16 table."""
+    last = rows[_flagged(flags, LAST)]
+    table16[last] = work[last].to(torch.bfloat16)
+
+
 def sgd_item_rows_reference(U, V, omega_v, plan: StepPlan, t: int, work, *,
-                            lr: float, lam: float):
+                            lr: float, lam: float, store=None):
     """Plain version of ``sgd_item_rows_kernel`` for step ``t``: fills
     ``e`` (per entry, item order) and the snapshot (each item row's old
-    value, by row), and adds the item deltas into V in entry order."""
+    value, by row), and adds the item deltas into V in entry order.
+    ``store``: the bf16 tables ``(U16, V16)`` of the work tables U and V
+    (``v_flag`` says which reads come from them and which rows go back)."""
     e, snap = work
     e0, e1 = plan.entry_base[t], plan.entry_base[t + 1]
     rows = plan_rows(plan.v_prow[e0:e1])
-    u = U[plan.v_su[e0:e1].long()]
+    su = plan.v_su[e0:e1].long()
+    if store is not None:
+        flags = plan.v_flag[e0:e1]
+        _first_reads(V, store[1], rows, flags)
+        u = torch.where(_flagged(flags, GATHER_FIRST)[:, None],
+                        store[0][su].float(), U[su])
+    else:
+        u = U[su]
     v = V[rows]
     w = plan.v_w[e0:e1]
     err = _errors(plan.v_r[e0:e1], u, v) * w
@@ -461,28 +550,39 @@ def sgd_item_rows_reference(U, V, omega_v, plan: StepPlan, t: int, work, *,
     snap[rows] = v
     e[:e1 - e0] = err
     V.index_add_(0, rows, dv * plan.v_icv[e0:e1, None])
+    if store is not None:
+        _last_writes(V, store[1], rows, flags)
     return V
 
 
 def sgd_user_rows_reference(U, omega_u, plan: StepPlan, t: int, work, *,
-                            lr: float, lam: float):
+                            lr: float, lam: float, store=None):
     """Plain version of ``sgd_user_rows_kernel`` for step ``t``: adds the
-    user deltas, from ``e`` and the snapshot, into U in entry order."""
+    user deltas, from ``e`` and the snapshot, into U in entry order.
+    ``store``: the bf16 tables ``(U16, V16)`` of the work tables (``u_flag``
+    says which rows are read from U16 and which go back)."""
     e, snap = work
     e0, e1 = plan.entry_base[t], plan.entry_base[t + 1]
     rows = plan_rows(plan.u_prow[e0:e1])
+    if store is not None:
+        flags = plan.u_flag[e0:e1]
+        _first_reads(U, store[0], rows, flags)
     u = U[rows]
     v = snap[plan.u_vrow[e0:e1].long()]
     err = e[plan.u_epos[e0:e1].long() - e0]
     du, _ = _rule(lr, lam).delta_from_errors(
         err, u, v, weights=plan.u_w[e0:e1], omega_u=omega_u[rows])
     U.index_add_(0, rows, du * plan.u_icu[e0:e1, None])
+    if store is not None:
+        _last_writes(U, store[0], rows, flags)
     return U
 
 
-def _check_step(U, V, omega_u, omega_v, plan: StepPlan, work) -> int:
+def _check_step(U, V, omega_u, omega_v, plan: StepPlan, work,
+                store=None) -> int:
     """The step pair's operand checks (once per stratum on the sweep's
-    path); returns the rank."""
+    path; ``store``: the bf16 tables beside the f32 work tables U and V);
+    returns the rank."""
     rank = int(U.shape[-1]) if U.dim() == 2 else -1
     if U.dim() != 2 or V.dim() != 2 or V.shape[-1] != rank:
         raise ValueError(f"U {tuple(U.shape)} / V {tuple(V.shape)} must be "
@@ -503,18 +603,23 @@ def _check_step(U, V, omega_u, omega_v, plan: StepPlan, work) -> int:
                          "plan.new_work(rank)")
     if plan.device != U.device:
         raise ValueError(f"plan on {plan.device}, tables on {U.device}")
+    if store is not None:
+        for name, t, like in (("U16", store[0], U), ("V16", store[1], V)):
+            _check(name, t, torch.bfloat16, like.shape)
     top = _lib().dsgd_sweep_max_rank()
     if rank > top:
         raise ValueError(f"rank {rank} exceeds the kernels' {top}")
     return rank
 
 
-def note_launches(plan: StepPlan, rank: int, sweeps: int) -> None:
+def note_launches(plan: StepPlan, rank: int, sweeps: int, *,
+                  half: bool = False) -> None:
     """Give the installed introspector (``obs.enable_introspection``) the
-    step pair's record for ``sweeps`` sweeps over ``plan``, against the
-    enclosing span's compile key — the port's counterpart of the XLA
-    cost analysis the JAX introspector reads. One ``is not None`` test
-    when introspection is off. Called once per segment by
+    step pair's record for ``sweeps`` sweeps over ``plan`` (``half``: on
+    bf16 tables), against the enclosing span's compile key — the port's
+    counterpart of the XLA cost analysis the JAX introspector reads. The
+    step pair is all a sweep launches, in f32 and in bf16. One ``is not
+    None`` test when introspection is off. Called once per segment by
     ``dsgd_train_cuda`` and by the mesh's per-visit route (one
     ``block_sweep`` call is one visit of a segment, so its caller notes
     the segment)."""
@@ -524,7 +629,7 @@ def note_launches(plan: StepPlan, rank: int, sweeps: int) -> None:
     introspector.note_compiled(
         introspector.current_key(_LIB), module=_LIB,
         flops=sweeps * plan.flops(rank),
-        bytes_accessed=sweeps * plan.bound_bytes(rank))
+        bytes_accessed=sweeps * plan.bound_bytes(rank, half))
 
 
 def _launch(name: str, fn, args) -> None:
@@ -534,15 +639,27 @@ def _launch(name: str, fn, args) -> None:
     LAUNCHES[name] += 1
 
 
-def _launch_item(lib, U, V, omega_v, plan, t, tail):
-    _launch("sgd_item_rows_kernel", lib.sgd_item_rows_launch,
-            (U.data_ptr(), V.data_ptr(), omega_v.data_ptr())
-            + plan.item_args(t) + tail)
+def _launch_item(lib, U, V, omega_v, plan, t, tail, store=None):
+    if store is None:
+        _launch("sgd_item_rows_kernel", lib.sgd_item_rows_launch,
+                (U.data_ptr(), V.data_ptr(), omega_v.data_ptr())
+                + plan.item_args(t) + tail)
+    else:
+        _launch("sgd_item_rows_kernel", lib.sgd_item_rows_bf16_launch,
+                (U.data_ptr(), V.data_ptr(), store[0].data_ptr(),
+                 store[1].data_ptr(), plan.v_flag.data_ptr(),
+                 omega_v.data_ptr()) + plan.item_args(t) + tail)
 
 
-def _launch_user(lib, U, omega_u, plan, t, tail):
-    _launch("sgd_user_rows_kernel", lib.sgd_user_rows_launch,
-            (U.data_ptr(), omega_u.data_ptr()) + plan.user_args(t) + tail)
+def _launch_user(lib, U, omega_u, plan, t, tail, store=None):
+    if store is None:
+        _launch("sgd_user_rows_kernel", lib.sgd_user_rows_launch,
+                (U.data_ptr(), omega_u.data_ptr()) + plan.user_args(t)
+                + tail)
+    else:
+        _launch("sgd_user_rows_kernel", lib.sgd_user_rows_bf16_launch,
+                (U.data_ptr(), store[0].data_ptr(), plan.u_flag.data_ptr(),
+                 omega_u.data_ptr()) + plan.user_args(t) + tail)
 
 
 def _tail(work, rank: int, lr: float, lam: float, device) -> tuple:
@@ -552,55 +669,78 @@ def _tail(work, rank: int, lr: float, lam: float, device) -> tuple:
 
 
 def sgd_item_rows(U, V, omega_u, omega_v, plan: StepPlan, t: int, work, *,
-                  lr: float, lam: float):
+                  lr: float, lam: float, store=None):
     """Kernel A of step ``t``: V rows updated in place, ``e`` and the
     snapshot filled (``work`` from ``plan.new_work``). η (``lr``) is a
-    runtime scalar."""
+    runtime scalar. ``store``: the bf16 tables ``(U16, V16)`` of which U
+    and V are the f32 work tables (the bf16 route: a row is read from its
+    bf16 table at its first step in the stratum and written back to it at
+    its last)."""
     plan.check_step(t)
-    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work,
+                    *(store or ())):
         return sgd_item_rows_reference(U, V, omega_v, plan, t, work, lr=lr,
-                                       lam=lam)
-    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+                                       lam=lam, store=store)
+    rank = _check_step(U, V, omega_u, omega_v, plan, work, store)
     _launch_item(_lib(), U, V, omega_v, plan, t,
-                 _tail(work, rank, lr, lam, U.device))
+                 _tail(work, rank, lr, lam, U.device), store)
     return V
 
 
 def sgd_user_rows(U, V, omega_u, omega_v, plan: StepPlan, t: int, work, *,
-                  lr: float, lam: float):
+                  lr: float, lam: float, store=None):
     """Kernel B of step ``t``: U rows updated in place from ``e`` and the
-    snapshot that kernel A left in ``work`` (V is only checked)."""
+    snapshot that kernel A left in ``work`` (V is only checked);
+    ``store`` as in ``sgd_item_rows``."""
     plan.check_step(t)
-    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work,
+                    *(store or ())):
         return sgd_user_rows_reference(U, omega_u, plan, t, work, lr=lr,
-                                       lam=lam)
-    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+                                       lam=lam, store=store)
+    rank = _check_step(U, V, omega_u, omega_v, plan, work, store)
     _launch_user(_lib(), U, omega_u, plan, t,
-                 _tail(work, rank, lr, lam, U.device))
+                 _tail(work, rank, lr, lam, U.device), store)
     return U
 
 
 def stratum_sweep(U, V, omega_u, omega_v, plan: StepPlan, s: int, work, *,
-                  lr: float, lam: float):
+                  lr: float, lam: float, store=None):
     """Sweep stratum ``s`` (all k visits) in place: for each minibatch g,
     kernel A then kernel B of step ``s·n_mb + g``. The operands are checked
-    once; each step is two bare launches."""
+    once; each step is two bare launches. ``store``: the bf16 tables
+    ``(U16, V16)`` of which U and V are the f32 work tables; they come out
+    as one rounding of the stratum's work (``stratum_sweep_cast``'s tables,
+    bit for bit), and the work tables hold nothing the next stratum
+    reads."""
     plan.check_step(s * plan.n_mb)
     steps = range(s * plan.n_mb, (s + 1) * plan.n_mb)
-    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work):
+    if not _on_cuda(U, V, omega_u, omega_v, plan.v_prow, *work,
+                    *(store or ())):
         for t in steps:
             sgd_item_rows_reference(U, V, omega_v, plan, t, work, lr=lr,
-                                    lam=lam)
+                                    lam=lam, store=store)
             sgd_user_rows_reference(U, omega_u, plan, t, work, lr=lr,
-                                    lam=lam)
+                                    lam=lam, store=store)
         return U, V
-    rank = _check_step(U, V, omega_u, omega_v, plan, work)
+    rank = _check_step(U, V, omega_u, omega_v, plan, work, store)
     lib = _lib()
     tail = _tail(work, rank, lr, lam, U.device)
     for t in steps:
-        _launch_item(lib, U, V, omega_v, plan, t, tail)
-        _launch_user(lib, U, omega_u, plan, t, tail)
+        _launch_item(lib, U, V, omega_v, plan, t, tail, store)
+        _launch_user(lib, U, omega_u, plan, t, tail, store)
     return U, V
+
+
+def stratum_sweep_cast(U16, V16, Uw, Vw, omega_u, omega_v, plan: StepPlan,
+                       s: int, work, *, lr: float, lam: float):
+    """Stratum ``s`` on bf16 tables by the earlier route, kept as the
+    baseline the flagged route (``stratum_sweep(..., store=)``) is held
+    against: ``bf16_to_f32`` upcasts both whole tables into the f32 work
+    tables ``Uw``/``Vw``, the f32 pair sweeps them, ``f32_to_bf16`` rounds
+    both back. No path of the port calls it. Returns ``(U16, V16)``."""
+    bf16_to_f32(U16, V16, Uw, Vw)
+    stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr, lam=lam)
+    return f32_to_bf16(Uw, Vw, U16, V16)
 
 
 def block_sweep(U_blk, V_blk, omega_u, omega_v, plan: StepPlan, s: int, work,
@@ -613,13 +753,13 @@ def block_sweep(U_blk, V_blk, omega_u, omega_v, plan: StepPlan, s: int, work,
     ``work`` its ``plan.new_work(rank)``, η (``lr``) a runtime scalar.
 
     On CUDA tensors the step pair runs the visit's ``n_mb`` steps; bf16
-    tables go through ``bf16_to_f32`` into f32 work tables first and
-    ``f32_to_bf16`` after (one downcast per visit, the TPU kernel's
-    cadence). On CPU tensors the same plan runs through the step pair's
-    and the casts' plain versions. The step pair holds full factor rows:
-    rank-sharded tables do not reach it (``MeshDSGD`` refuses them). The
-    introspector's record is its caller's (``note_launches``, once per
-    segment)."""
+    tables stay the storage of f32 work tables from the caching allocator
+    (``stratum_sweep(..., store=)``: one rounding per visit, the TPU
+    kernel's cadence, and no cast launch). On CPU tensors the same plan
+    runs through the step pair's plain versions. The step pair holds full
+    factor rows: rank-sharded tables do not reach it (``MeshDSGD`` refuses
+    them). The introspector's record is its caller's (``note_launches``,
+    once per segment)."""
     if plan.visits != 1:
         raise ValueError(f"block_sweep takes a plan of one visit per stratum "
                          f"([k, 1, b]); this one has {plan.visits}")
@@ -627,13 +767,11 @@ def block_sweep(U_blk, V_blk, omega_u, omega_v, plan: StepPlan, s: int, work,
         stratum_sweep(U_blk, V_blk, omega_u, omega_v, plan, s, work, lr=lr,
                       lam=lam)
         return U_blk, V_blk
-    plan.check_step(s * plan.n_mb)
     # the visit's f32 work tables (from the caching allocator: no sync)
     Uw = torch.empty(U_blk.shape, dtype=torch.float32, device=U_blk.device)
     Vw = torch.empty(V_blk.shape, dtype=torch.float32, device=V_blk.device)
-    bf16_to_f32(U_blk, V_blk, Uw, Vw)
-    stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr, lam=lam)
-    f32_to_bf16(Uw, Vw, U_blk, V_blk)
+    stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr, lam=lam,
+                  store=(U_blk, V_blk))
     return U_blk, V_blk
 
 
@@ -754,9 +892,10 @@ def dsgd_train_cuda(
     nothing back from the device when a plan is given. Returns trained
     copies of U and V.
 
-    bf16 tables: the steps run on f32 work tables, filled by
-    ``bf16_to_f32`` at each stratum's start and rounded back by
-    ``f32_to_bf16`` at its end (the TPU kernels' one downcast per visit).
+    bf16 tables: the step pair reads each row from its bf16 table at the
+    row's first step of a stratum and writes it back at its last, through
+    one f32 work table a side allocated here (the TPU kernels' one
+    downcast per visit; no cast launch).
     """
     k = num_blocks
     _check_layout(U, V, su, minibatch, k)
@@ -771,21 +910,18 @@ def dsgd_train_cuda(
     U = U.clone()
     V = V.clone()
     half = U.dtype == torch.bfloat16
-    # the step kernels' tables: f32 work copies in bf16 mode
+    # the step kernels' tables: in bf16, f32 work tables beside the storage
     Uw, Vw = ((torch.empty(U.shape, dtype=torch.float32, device=U.device),
                torch.empty(V.shape, dtype=torch.float32, device=V.device))
               if half else (U, V))
+    store = (U, V) if half else None
     work = plan.new_work(int(U.shape[-1]))
     for sweep in range(iterations):
         lr_t = _lr_at(lr, schedule, sweep + 1 + int(t0))
         for s in range(k):
-            if half:
-                bf16_to_f32(U, V, Uw, Vw)
             stratum_sweep(Uw, Vw, omega_u, omega_v, plan, s, work, lr=lr_t,
-                          lam=lam)
-            if half:
-                f32_to_bf16(Uw, Vw, U, V)
-    note_launches(plan, int(U.shape[-1]), iterations)
+                          lam=lam, store=store)
+    note_launches(plan, int(U.shape[-1]), iterations, half=half)
     return U, V
 
 

@@ -135,7 +135,8 @@ def build_mesh_dsgd_step(mesh, updater: Any, minibatch: int,
                 cuda_sgd.block_sweep(U_l, V_l, omega_u, ov, plan, s, work,
                                      lr=lr, lam=float(updater.lambda_))
                 V_l, ov = part.ring_shift(V_l, ov)
-            cuda_sgd.note_launches(plan, int(U_l.shape[-1]), iterations)
+            cuda_sgd.note_launches(plan, int(U_l.shape[-1]), iterations,
+                                   half=U_l.dtype == torch.bfloat16)
             return U_l, V_l
         store = U_l.dtype
         if store == torch.bfloat16:  # one upcast per segment

@@ -5,7 +5,7 @@
 other on one NVIDIA GPU, on the main path's data.
 
     python3 scripts/torch_step_pair_bench.py [--variants current,no_keep]
-        [--parent DIR] [--yardstick] [--out step_pair.jsonl]
+        [--parent DIR] [--yardstick] [--bf16] [--out step_pair.jsonl]
 
 Each variant is a text of the kernel source: ``current`` is the checkout's
 file, ``parent`` the same file under ``--parent DIR`` (an unpacked earlier
@@ -23,7 +23,9 @@ and keyed initial tables.
 The variants run in the order given, then in reverse (A B C C B A), and
 each run prints one JSON line (and appends it to ``--out``):
 - ``max_abs``: stratum 0 through the variant against
-  ``stratum_sweep_reference`` (must be ≤ 1e-5);
+  ``stratum_sweep_reference`` (must be ≤ 1e-5), and ``tables_sha256``, the
+  first 16 hex digits of the SHA-256 of its tables (equal digests: two
+  variants' tables bit-equal);
 - ``a_ms`` / ``b_ms``: step 0 warm, 20 launches of each kernel (CUDA
   events), as ``chip_smoke.py``'s ``[kernels.timing]``;
 - ``stratum_a_ms`` / ``stratum_b_ms``: each kernel's mean over the 12
@@ -45,6 +47,22 @@ read and written back in place (the device-memory traffic kernel B must
 make) — each with its ms and GB/s (bytes read + written over the time).
 Variants whose name starts with ``diag_`` change what a kernel computes
 (timing only): their ``max_abs`` is reported, not held to 1e-5.
+
+With ``--bf16``, the two bf16 routes through each variant but ``parent``
+(in the same order, then in reverse), stratum 0 of the same data on bf16
+tables: ``cast`` (``cuda_sgd.stratum_sweep_cast``:
+both whole tables upcast, the f32 pair, both rounded back) against
+``flagged`` (``stratum_sweep(..., store=)``: the pair reads each row from
+the bf16 table at its first step of the stratum and writes it back at its
+last), first checked bit-equal, then run cast, flagged, flagged, cast, one
+JSON line each: the stratum's ms warm (best of 3, CUDA events, every
+launch of the route inside) and from a cold L2 (a 128 MB write and read
+before each of 5 repetitions; median), each beside the bound of the
+function both routes compute (``chip_smoke.stratum_bound_ms``: the
+stratum's f32 step bounds, each row's first read and last write at 2 B a
+column in bf16). Then one line of the plan's build: the whole
+``build_step_plan`` and its touch flags alone (``touch_flags`` of both
+sides over the plan's entries), best of 3 each, synchronized wall.
 """
 
 from __future__ import annotations
@@ -52,9 +70,11 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import hashlib
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -92,9 +112,10 @@ EDITS = {
     "own8": [("constexpr int kOwn = 16;", "constexpr int kOwn = 8;")],
     # timing only: kernel B stores no U row
     "diag_b_no_store": [
-        ("""        store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank,
-                          pol.once);""", ";"),
-        ("""  store_row<W, NCH>(U + (int64_t)cur * rank, acc, lane, rank, pol.once);
+        ("""        put_row<W, NCH, H>(U + (int64_t)cur * rank, U16 + (int64_t)cur * rank,
+                           cur_last, acc, lane, rank, pol.once);""", ";"),
+        ("""  put_row<W, NCH, H>(U + (int64_t)cur * rank, U16 + (int64_t)cur * rank,
+                     cur_last, acc, lane, rank, pol.once);
 }""", "}")],
     # timing only: each segment's old row read from the first 4,096 rows
     # of its table (2 MB, L2-resident), in both kernels
@@ -109,16 +130,13 @@ EDITS = {
     # kernel A's V rows (old-row reads and write-back) evict last in place
     # of its U gathers: V (30 MB at the bench) may stay from step to step
     "keep_v": [
-        ("feed_short(ring, f, own, sm, V, pol.once, U, pol.keep, lane, rank);",
-         "feed_short(ring, f, own, sm, V, pol.keep, U, pol.once, lane, rank);"),
-        ("""store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank,
-                          pol.once);""",
-         """store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank,
-                          pol.keep);"""),
-        ("store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank, "
+        (f"V, V16, touch.firsts, pol.once, U, U16,\n{pad}pol.keep,",
+         f"V, V16, touch.firsts, pol.keep, U, U16,\n{pad}pol.once,")
+        for pad in (" " * 18, " " * 20)] + [
+        (f"V16 + (int64_t)cur * rank,\n{pad}cur_last, acc, lane, rank, "
          "pol.once);",
-         "store_row<W, NCH>(V + (int64_t)cur * rank, acc, lane, rank, "
-         "pol.keep);")],
+         f"V16 + (int64_t)cur * rank,\n{pad}cur_last, acc, lane, rank, "
+         "pol.keep);") for pad in (" " * 27, " " * 21)],
     # the snapshot (A's writes, B's gathers) at the normal priority
     "snap_once": [
         ("store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank,\n"
@@ -128,8 +146,33 @@ EDITS = {
         ("store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank, "
          "pol.keep);",
          "store_row<W, NCH>(snap + (int64_t)cur * rank, vcur, lane, rank, "
-         "pol.once);"),
-        ("U, pol.once, snap, pol.keep,", "U, pol.once, snap, pol.once,")],
+         "pol.once);")] + [
+        ("snap, nullptr, pol.keep,", "snap, nullptr, pol.once,")],
+    # bf16 rows (the flagged route) copied as 16-byte chunks of 8 columns
+    # by half the lanes where rank % 8 == 0 and the row is 16-byte aligned,
+    # a lane then reading what its neighbour copied (a __syncwarp first)
+    "wide16": [
+        ("""#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = col<W>(j, lane);
+      if (c >= rank) continue;
+      if constexpr (W == 4)  // this lane's 4 columns at 2·c bytes""",
+         """if (W == 4 && rank % 8 == 0
+        && reinterpret_cast<uintptr_t>(row) % 16 == 0) {
+      if (8 * lane < rank)
+        copy_async<4>(slot + 4 * lane,
+                      reinterpret_cast<const float*>(row + 8 * lane), pol);
+    } else {
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = col<W>(j, lane);
+      if (c >= rank) continue;
+      if constexpr (W == 4)  // this lane's 4 columns at 2·c bytes"""),
+        ("        slot[c] = bf16_bits_to_f32(row[c]);\n    }\n",
+         "        slot[c] = bf16_bits_to_f32(row[c]);\n    }\n    }\n"),
+        ("    if (b16) half &= ~(1u << take_at);",
+         "    if (b16) {\n      half &= ~(1u << take_at);\n"
+         "      __syncwarp();\n    }")],
     # the current source on a plan whose segments follow row order alone
     # (the earlier layout: kernel B walks the visits in A's order)
     "rows_plan": [],
@@ -181,8 +224,10 @@ def rank128_registers(log: str) -> dict[str, int]:
             fn = m.group(1)
             kind = ("a" if "sgd_item_rows_kernel" in fn else
                     "b" if "sgd_user_rows_kernel" in fn else None)
-            name = kind if kind and re.search(
-                r"kernelILi4EE|kernelILi4ELi1EE", fn) else None
+            # <4>, <4, 1> in earlier sources; <4, 1, H> now (H: bf16)
+            m = re.search(r"kernelILi4E(?:Li1E)?(?:Lb([01])E)?E", fn)
+            name = (kind + ("_bf16" if m.group(1) == "1" else "")
+                    if kind and m else None)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[f"{name}_registers"] = int(m.group(1))
@@ -313,7 +358,10 @@ def run_variant(name, lib, regs, data, smi):
     torch.cuda.synchronize()
     err = cs.max_abs([(Uk, Ur), (Vk, Vr)])
     del Ur, Vr
-    out = dict(variant=name, card=smi, max_abs=err, **regs)
+    digest = hashlib.sha256(Uk.cpu().numpy().tobytes()
+                            + Vk.cpu().numpy().tobytes()).hexdigest()[:16]
+    out = dict(variant=name, card=smi, max_abs=err, tables_sha256=digest,
+               **regs)
     if hasattr(lib, "dsgd_step_kernel_attrs"):  # not in earlier sources
         out.update(cuda_sgd.step_kernel_attrs(rank))
     U, V = U0.clone(), V0.clone()
@@ -335,11 +383,101 @@ def run_variant(name, lib, regs, data, smi):
     return out
 
 
+def bf16_routes(variant, data, smi, lib, sink):
+    """The two bf16 routes on stratum 0 through ``variant``'s library
+    (module docstring); prints and writes one JSON line a run."""
+    cfg, problem, args, U0, V0, plan = data
+    cuda_sgd._bound = cuda_sgd.declare(lib)
+    ou, ov = args[4], args[5]
+    lam = cfg.lambda_
+    kw = dict(lr=schedule_from_name("warm_boost", lam)(0.3, 1), lam=lam)
+    rank = U0.shape[-1]
+    work = plan.new_work(rank)
+    U16, V16 = U0.to(torch.bfloat16), V0.to(torch.bfloat16)
+    Uw, Vw = torch.empty_like(U0), torch.empty_like(V0)
+    routes = {
+        "flagged": lambda U, V: cuda_sgd.stratum_sweep(
+            Uw, Vw, ou, ov, plan, 0, work, store=(U, V), **kw),
+        "cast": lambda U, V: cuda_sgd.stratum_sweep_cast(
+            U, V, Uw, Vw, ou, ov, plan, 0, work, **kw)}
+    outs = {}
+    for name, route in routes.items():
+        outs[name] = (U16.clone(), V16.clone())
+        route(*outs[name])
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(outs["flagged"], outs["cast"]))
+    if not equal:
+        raise AssertionError("bf16 routes: flagged and cast tables differ")
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device=U0.device)
+
+    def once(route, cold):
+        U, V = U16.clone(), V16.clone()
+        if cold:
+            flush.fill_(1.0)
+            flush.sum()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        route(U, V)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    bound = cs.stratum_bound_ms(plan, rank, 0, True)  # one function
+    f32_bound = cs.stratum_bound_ms(plan, rank, 0, False)
+    for name in ("cast", "flagged", "flagged", "cast"):
+        route = routes[name]
+        cuda_sgd.reset_launch_counts()
+        warm = min(once(route, False) for _ in range(3))
+        launches = {k: v // 3 for k, v in cuda_sgd.LAUNCHES.items()}
+        cold = statistics.median(once(route, True) for _ in range(5))
+        row = dict(route=f"bf16_{name}", variant=variant, card=smi, stratum=0,
+                   bit_equal_to_other=equal, stratum_ms=warm,
+                   cold_stratum_ms=cold, bound_ms=bound,
+                   share_of_bound=bound / warm,
+                   f32_stratum_bound_ms=f32_bound,
+                   launches_per_stratum=launches)
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.write(line + "\n")
+
+
+def plan_build(data, smi, sink):
+    """The plan's build and its touch flags alone (module docstring)."""
+    _, _, args, _, _, plan = data
+    su, si, sv, sw, _, _, icu, icv = args
+    walls = {"plan_build_s": [], "touch_flags_s": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
+                                 minibatch=plan.minibatch)
+        torch.cuda.synchronize()
+        walls["plan_build_s"].append(time.perf_counter() - t0)
+        _, step, u_rows, i_rows = cuda_sgd.plan_entries(su, si, sw,
+                                                        plan.minibatch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rows, top in ((u_rows, plan.rows_u), (i_rows, plan.rows_v)):
+            cuda_sgd.touch_flags(step, rows, plan.n_mb, plan.num_blocks, top)
+        torch.cuda.synchronize()
+        walls["touch_flags_s"].append(time.perf_counter() - t0)
+    line = json.dumps(dict(plan="build_step_plan", card=smi,
+                           **{k: min(v) for k, v in walls.items()},
+                           flag_bytes=plan.v_flag.nbytes
+                           + plan.u_flag.nbytes,
+                           plan_bytes=plan.nbytes(),
+                           entries=plan.entry_base[-1]))
+    print(line, flush=True)
+    sink.write(line + "\n")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default="current")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--yardstick", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--out", default="step_pair.jsonl")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -347,6 +485,9 @@ def main() -> int:
         return 2
     names = opts.variants.split(",")
     texts = {n: variant_source(n, opts.parent) for n in names}
+    bf16_names = [n for n in names if n != "parent"]
+    if opts.bf16 and not bf16_names:
+        raise SystemExit("--bf16 needs a variant of the current source")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -356,7 +497,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="step_pair_") as tmp, \
             concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         t0 = time.perf_counter()
-        builds = {n: pool.submit(build, n, texts[n], tmp) for n in names}
+        builds = {n: pool.submit(build, n, t, tmp) for n, t in texts.items()}
         if opts.yardstick:
             builds["yardstick"] = pool.submit(build, "yardstick",
                                               YARDSTICK_CU, tmp)
@@ -378,6 +519,10 @@ def main() -> int:
                 line = json.dumps(row)
                 print(line, flush=True)
                 sink.write(line + "\n")
+            if opts.bf16:
+                for n in bf16_names + bf16_names[::-1]:
+                    bf16_routes(n, data, smi, ctypes.CDLL(libs[n][0]), sink)
+                plan_build(data, smi, sink)
     return 0
 
 

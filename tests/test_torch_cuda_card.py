@@ -10,8 +10,10 @@ a fixed order, so two kernel runs are bit-equal; against the plain version
 card, and whose dot reduces in another order) they agree to max-abs 1e-5 per
 stratum; with bf16 tables, to one bf16 ulp per element (an f32 difference in
 the last place can flip one rounding; magnitudes below 2^-16 count as
-2^-16, where one bf16 ulp is the size of that f32 difference). The cast
-kernels are exact against ``Tensor.to``. Beside them, what runs on the
+2^-16, where one bf16 ulp is the size of that f32 difference). The bf16
+route (the pair reading and writing flagged rows of the bf16 tables) is
+bit-equal to the cast route after every stratum, and the cast kernels are
+exact against ``Tensor.to``. Beside them, what runs on the
 card around the kernels: top-K and ranking quality against the same model
 on the CPU, a resumed fit bit-equal to an uninterrupted one, a bf16
 checkpoint written from the card, ALS, online MF and the serving engine
@@ -463,6 +465,169 @@ def test_cast_kernels_are_exact(dev, n_u, n_v):
     assert cuda_sgd.LAUNCHES["bf16_to_f32_kernel"] == 1
 
 
+def _nan_work(U, V):
+    return (torch.full(U.shape, float("nan"), device=U.device),
+            torch.full(V.shape, float("nan"), device=V.device))
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _bf16_strata(dev, problem, args, U, V, mb, sweeps=2):
+    """``sweeps`` sweeps of strata on bf16 tables through the flagged
+    route (NaN work tables, so a read of an unreached row shows) and
+    through the cast route (``stratum_sweep_cast``), chained: the bf16
+    tables bit-equal after every stratum, the flagged route launching
+    only the step pair, n_mb times each a stratum, and each stratum within
+    one bf16 ulp of ``stratum_sweep_reference`` on the same tables."""
+    k = problem.ratings.num_blocks
+    ou, ov = args[4], args[5]
+    idx, streams = _operands(problem, args, k, mb)
+    plan = _plan(args, mb)
+    rank = U.shape[-1]
+    work, work_c = plan.new_work(rank), plan.new_work(rank)
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    Uc, Vc = Ub.clone(), Vb.clone()
+    Uw_c, Vw_c = torch.empty_like(U), torch.empty_like(V)
+    for _ in range(sweeps):
+        for s in range(k):
+            Ur, Vr = cuda_sgd.stratum_sweep_reference(
+                Ub, Vb, idx, streams, s, lr=0.5, lam=0.1, minibatch=mb,
+                num_blocks=k)
+            cuda_sgd.reset_launch_counts()
+            cuda_sgd.stratum_sweep(*_nan_work(U, V), ou, ov, plan, s, work,
+                                   lr=0.5, lam=0.1, store=(Ub, Vb))
+            torch.cuda.synchronize()
+            assert cuda_sgd.LAUNCHES == _pair_counts(plan.n_mb)
+            cuda_sgd.stratum_sweep_cast(Uc, Vc, Uw_c, Vw_c, ou, ov, plan, s,
+                                        work_c, lr=0.5, lam=0.1)
+            torch.cuda.synchronize()
+            assert _same_bits(Ub, Uc) and _same_bits(Vb, Vc)
+            assert _bf16_ulps(Ub, Ur) <= 1.0 and _bf16_ulps(Vb, Vr) <= 1.0
+    assert not torch.equal(Ub, U.to(torch.bfloat16))
+    return plan
+
+
+@pytest.mark.parametrize("rank", [7, 8, 45, 128, 256])
+def test_bf16_route_bit_equal_to_the_cast_route(dev, rank):
+    """The flagged bf16 route on both column routes (rank % 4 == 0: 4
+    columns a lane, 8-byte ``cp.async`` of bf16 rows; else one column a
+    lane, plain loads), on a problem with padding and duplicate rows:
+    bit-equal to the cast route after every stratum of two sweeps."""
+    k, mb = 2, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=6000, seed=rank + 1)
+    _bf16_strata(dev, problem, args, U, V, mb)
+
+
+@pytest.mark.parametrize("rank", [45, 256])
+def test_bf16_route_long_segments(dev, rank):
+    """The block-owned long segments (~500 and ~760 entries against the
+    32-entry chunk) on the bf16 route: the segment's old row from the bf16
+    table at its first step and back at its last, bit-equal to the cast
+    route."""
+    k, mb = 2, 2048
+    problem, args, U, V = _problem(dev, k, rank, mb, n=20_000, seed=6,
+                                   users=24, items=16, skew=3.0)
+    plan = _bf16_strata(dev, problem, args, U, V, mb, sweeps=1)
+    assert max(plan.longest_u) > 8 * plan.chunk
+    assert max(plan.longest_v) > 8 * plan.chunk
+
+
+def _offset(t, elements):
+    """A contiguous copy of ``t`` whose data starts ``elements`` past an
+    aligned allocation."""
+    flat = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = flat[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("rank", [128, 256])
+def test_bf16_route_on_tables_off_8_byte_boundaries(dev, rank):
+    """bf16 tables 2 bytes past an 8-byte boundary take the one-column
+    route at a rank the 4-column route would take; against the cast route
+    done with ``Tensor.copy_`` around the f32 pair on work tables 4 bytes
+    past a 16-byte boundary (the same column route): bit-equal."""
+    k, mb = 2, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=6000, seed=3)
+    ou, ov = args[4], args[5]
+    plan = _plan(args, mb)
+    Ub, Vb = (_offset(t.to(torch.bfloat16), 1) for t in (U, V))
+    assert Ub.data_ptr() % 8 == 2 and Vb.data_ptr() % 8 == 2
+    Uc, Vc = Ub.clone(), Vb.clone()
+    Uw, Vw = (_offset(t, 1) for t in (U, V))
+    for s in range(k):
+        cuda_sgd.stratum_sweep(*_nan_work(U, V), ou, ov, plan, s,
+                               plan.new_work(rank), lr=0.5, lam=0.1,
+                               store=(Ub, Vb))
+        Uw.copy_(Uc)
+        Vw.copy_(Vc)
+        cuda_sgd.stratum_sweep(Uw, Vw, ou, ov, plan, s, plan.new_work(rank),
+                               lr=0.5, lam=0.1)
+        Uc.copy_(Uw)
+        Vc.copy_(Vw)
+        torch.cuda.synchronize()
+        assert _same_bits(Ub, Uc) and _same_bits(Vb, Vc)
+
+
+def test_bf16_route_step_with_no_real_entries(dev):
+    """A one-visit plan whose second minibatch is all padding, through
+    ``block_sweep`` on bf16 tables: both steps launch the pair (the empty
+    one on no entries), no cast, and the tables are bit-equal to the cast
+    route's."""
+    rank, mb, rpb_u, rpb_v = 128, 512, 300, 200
+    rng = np.random.default_rng(7)
+    ur = rng.integers(0, rpb_u, 2 * mb)
+    ir = rng.integers(0, rpb_v, 2 * mb)
+    w = np.ones(2 * mb, np.float32)
+    w[mb:], ur[mb:], ir[mb:] = 0.0, 0, 0
+    cols = [torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
+        (ur, torch.int32), (ir, torch.int32), (rng.normal(size=2 * mb),
+                                               torch.float32),
+        (w, torch.float32), (np.ones(2 * mb), torch.float32),
+        (np.ones(2 * mb), torch.float32))]
+    plan = cuda_sgd.build_step_plan(*(c.view(1, 1, -1) for c in cols),
+                                    minibatch=mb)
+    assert plan.entry_base == [0, mb, mb]
+    ou = torch.ones(rpb_u, device=dev)
+    ov = torch.ones(rpb_v, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    Ub = (0.1 * torch.rand((rpb_u, rank), generator=g, device=dev)).to(
+        torch.bfloat16)
+    Vb = (0.1 * torch.rand((rpb_v, rank), generator=g, device=dev)).to(
+        torch.bfloat16)
+    Uc, Vc, U0 = Ub.clone(), Vb.clone(), Ub.clone()
+    cuda_sgd.reset_launch_counts()
+    cuda_sgd.block_sweep(Ub, Vb, ou, ov, plan, 0, plan.new_work(rank),
+                         lr=0.3, lam=0.1)
+    torch.cuda.synchronize()
+    assert cuda_sgd.LAUNCHES == _pair_counts(2)
+    cuda_sgd.stratum_sweep_cast(Uc, Vc, torch.empty(Uc.shape, device=dev),
+                                torch.empty(Vc.shape, device=dev), ou, ov,
+                                plan, 0, plan.new_work(rank), lr=0.3,
+                                lam=0.1)
+    torch.cuda.synchronize()
+    assert _same_bits(Ub, Uc) and _same_bits(Vb, Vc)
+    assert not torch.equal(Ub, U0)
+
+
+def test_bf16_route_refuses_mismatched_storage(dev):
+    """The flagged route takes bf16 storage of the work tables' shapes
+    only."""
+    k, rank, mb = 2, 32, 256
+    problem, args, U, V = _problem(dev, k, rank, mb, n=4000)
+    plan = _plan(args, mb)
+    work = plan.new_work(rank)
+    Ub, Vb = U.to(torch.bfloat16), V.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_sgd.sgd_item_rows(U, V, args[4], args[5], plan, 0, work,
+                               lr=0.1, lam=0.1, store=(U, Vb))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_sgd.stratum_sweep(U, V, args[4], args[5], plan, 0, work,
+                               lr=0.1, lam=0.1, store=(Ub[:-1], Vb))
+
+
 def test_bf16_table_never_reaches_an_f32_kernel(dev):
     k, rank, mb = 2, 32, 256
     problem, args, U, V = _problem(dev, k, rank, mb, n=4000)
@@ -511,8 +676,9 @@ def test_fit_device_on_card_matches_its_cpu_run(dev):
         on_card = DSGD(cfg)._fit_problem(problem.to(dev))
         assert on_card.U.device.type == "cuda"
         assert cuda_sgd.LAUNCHES["sgd_item_rows_kernel"] > 0
-        assert (cuda_sgd.LAUNCHES["f32_to_bf16_kernel"] > 0) == (
-            dtype == "bfloat16")
+        # bf16 too runs the step pair alone (the flagged route: no cast)
+        assert cuda_sgd.LAUNCHES["f32_to_bf16_kernel"] == 0
+        assert cuda_sgd.LAUNCHES["bf16_to_f32_kernel"] == 0
         on_cpu = DSGD(cfg, device="cpu")._fit_problem(problem)
         rmse[dtype] = on_card.rmse(hold)
         if dtype == "float32":
@@ -995,7 +1161,7 @@ def test_block_sweep_equals_the_stratum_launch(dev, dtype):
     ``block_sweep``, from the same tables, bit-equal to the slices of
     ``stratum_sweep`` of stratum s, and within 1e-5 (f32) / one bf16 ulp
     of ``block_sweep_reference``; stratum 0's k visits launch the pair
-    ``n_mb`` times each (and the casts once each in bf16)."""
+    ``n_mb`` times each (no cast in bf16: the flagged route)."""
     from large_scale_recommendation_tpu_torch.parallel.dsgd_mesh import (
         visit_plan,
     )
@@ -1034,8 +1200,7 @@ def test_block_sweep_equals_the_stratum_launch(dev, dtype):
             swept.append((rows_u, rows_v, Ub, Vb))
         torch.cuda.synchronize()
         if s == 0:
-            casts = k if dtype == torch.bfloat16 else 0
-            assert cuda_sgd.LAUNCHES == _pair_counts(k * plan.n_mb, casts)
+            assert cuda_sgd.LAUNCHES == _pair_counts(k * plan.n_mb)
         for p, (rows_u, rows_v, Ub, Vb) in enumerate(swept):
             Ur, Vr = cuda_sgd.block_sweep_reference(
                 Ut[rows_u], Vt[rows_v], *(a[s] for a in cells[p]),

@@ -174,9 +174,9 @@ def test_step_pair_record_on_the_mesh_route(port_defaults, monkeypatch):
     noted = []
     note = cuda_sgd.note_launches
 
-    def spy(plan, rank, sweeps):
+    def spy(plan, rank, sweeps, **kw):
         noted.append((plan, rank, sweeps))
-        note(plan, rank, sweeps)
+        note(plan, rank, sweeps, **kw)
 
     monkeypatch.setattr(cuda_sgd, "note_launches", spy)
     reg, tracer = obs.enable()
