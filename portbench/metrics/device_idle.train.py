@@ -1,0 +1,8 @@
+"""``device_idle.train``: the share of the traced training window in
+which no kernel, copy or set ran on the card, in %."""
+
+from portbench.trace import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx.profile)
