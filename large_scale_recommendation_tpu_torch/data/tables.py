@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.core.types import FactorVector
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 from large_scale_recommendation_tpu_torch.utils.shapes import (
     next_pow2 as _next_pow2,
@@ -63,58 +64,68 @@ class GrowableFactorTable:
     def ensure(self, ids: np.ndarray) -> np.ndarray:
         """Register any unseen ids (initializing their rows) and return the
         row of every input id, vectorized (bulk binary search +
-        ``np.unique``)."""
+        ``np.unique``). Spans ``online/ensure`` (args ``ids``, ``new``) and
+        its steps ``.lookup``, ``.unique``, ``.merge``, ``.install``."""
         ids = np.asarray(ids).astype(np.int64)
-        rows, found_f = self.rows_for(ids)
-        known = found_f > 0
-        if known.all():
-            return rows
-        new_mask = ~known
-        # dense rows for the unseen ids, in first-seen order
-        stream = ids[new_mask]
-        uniq, first_idx, inv = np.unique(stream, return_index=True,
-                                         return_inverse=True)
-        order = np.argsort(first_idx, kind="stable")
-        rank_of = np.empty(len(uniq), dtype=np.int64)
-        rank_of[order] = np.arange(len(uniq))
-        base = self._n
-        rows[new_mask] = base + rank_of[inv]
+        with span("online/ensure", ids=len(ids)) as sp:
+            with span("online/ensure.lookup"):
+                rows, found_f = self.rows_for(ids)
+            known = found_f > 0
+            if known.all():
+                sp.note(new=0)
+                return rows
+            new_mask = ~known
+            with span("online/ensure.unique"):
+                # dense rows for the unseen ids, in first-seen order
+                stream = ids[new_mask]
+                uniq, first_idx, inv = np.unique(stream, return_index=True,
+                                                 return_inverse=True)
+                order = np.argsort(first_idx, kind="stable")
+                rank_of = np.empty(len(uniq), dtype=np.int64)
+                rank_of[order] = np.arange(len(uniq))
+                base = self._n
+                rows[new_mask] = base + rank_of[inv]
 
-        m = len(uniq)
-        # the install is pow2-padded with a capacity-scaled floor taken
-        # from the post-growth capacity (the JAX package's install shapes);
-        # pad rows land in unregistered capacity
-        floor = min(65536, max(8, self.capacity >> 3))
-        pad = _pow2_pad(m, floor)
-        if base + pad > self.capacity:
-            if base + m == self.capacity:
-                pad = m  # exact fill: no growth for padding headroom alone
-            else:
-                # a partial boundary install grows rather than clamps (at
-                # most two rounds: the floor is capped, the pad converges)
-                while base + pad > self.capacity:
-                    self._grow(base + pad)
-                    floor = min(65536, max(8, self.capacity >> 3))
-                    pad = _pow2_pad(m, floor)
-        self._ids_buf[base:base + m] = uniq[order]
-        self._n = base + m
-        if self._sorted_cache is not None:
-            # merge the m new (value-sorted) ids into the sorted index:
-            # O(n + m), not a full re-sort per micro-batch
-            s_ids, s_rows = self._sorted_cache
-            pos = np.searchsorted(s_ids, uniq)
-            self._sorted_cache = (
-                np.insert(s_ids, pos, uniq),
-                np.insert(s_rows, pos, base + rank_of),
-            )
-        # pad with a REPEATED REAL id: a domain-sensitive initializer only
-        # ever sees ids the caller registered
-        ids_pad = np.full(pad, self._ids_buf[base + m - 1], np.int64)
-        ids_pad[:m] = self._ids_buf[base:base + m]
-        fresh = self.initializer(torch.as_tensor(ids_pad, device=self.device))
-        self._install(fresh.to(device=self.device, dtype=torch.float32),
-                      base)
-        return rows
+            m = len(uniq)
+            sp.note(new=m)
+            # the install is pow2-padded with a capacity-scaled floor taken
+            # from the post-growth capacity (the JAX package's install
+            # shapes); pad rows land in unregistered capacity
+            floor = min(65536, max(8, self.capacity >> 3))
+            pad = _pow2_pad(m, floor)
+            if base + pad > self.capacity:
+                if base + m == self.capacity:
+                    pad = m  # exact fill: no growth for padding headroom alone
+                else:
+                    # a partial boundary install grows rather than clamps
+                    # (at most two rounds: the floor is capped, the pad
+                    # converges)
+                    while base + pad > self.capacity:
+                        self._grow(base + pad)
+                        floor = min(65536, max(8, self.capacity >> 3))
+                        pad = _pow2_pad(m, floor)
+            with span("online/ensure.merge"):
+                self._ids_buf[base:base + m] = uniq[order]
+                self._n = base + m
+                if self._sorted_cache is not None:
+                    # merge the m new (value-sorted) ids into the sorted
+                    # index: O(n + m), not a full re-sort per micro-batch
+                    s_ids, s_rows = self._sorted_cache
+                    pos = np.searchsorted(s_ids, uniq)
+                    self._sorted_cache = (
+                        np.insert(s_ids, pos, uniq),
+                        np.insert(s_rows, pos, base + rank_of),
+                    )
+            with span("online/ensure.install", pad=pad):
+                # pad with a REPEATED REAL id: a domain-sensitive
+                # initializer only ever sees ids the caller registered
+                ids_pad = np.full(pad, self._ids_buf[base + m - 1], np.int64)
+                ids_pad[:m] = self._ids_buf[base:base + m]
+                fresh = self.initializer(
+                    torch.as_tensor(ids_pad, device=self.device))
+                self._install(
+                    fresh.to(device=self.device, dtype=torch.float32), base)
+            return rows
 
     def _install(self, fresh: torch.Tensor, base: int) -> None:
         """Rows [base, base + len(fresh)) ← ``fresh``, into a NEW tensor."""

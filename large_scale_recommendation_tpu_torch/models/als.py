@@ -35,6 +35,7 @@ from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.obs.instrument import (
     TrainSegmentTimer,
 )
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
@@ -71,7 +72,8 @@ class ALS:
         self.round_ms: list[float] = []
         # seconds to build the last fit's two plans: ``fit``'s host plans
         # (the buckets go to the device inside the rounds' call), or
-        # ``fit_device``'s device plans (synchronized)
+        # ``fit_device``'s device plans (on the card CUDA events, read
+        # after the rounds' last wait)
         self.plan_s: float | None = None
 
     def fit(self, ratings: Ratings) -> MFModel:
@@ -133,21 +135,31 @@ class ALS:
             return torch.as_tensor(a, device=dev).to(dtype)
 
         u, i, r = put(u, torch.int32), put(i, torch.int32), put(r, torch.float32)
-        start = self._clock()
-        omega_u = torch.bincount(u.long(), minlength=num_users)
-        omega_v = torch.bincount(i.long(), minlength=num_items)
+        on_card = dev.type == "cuda"
+        if on_card:
+            plan_start = torch.cuda.Event(enable_timing=True)
+            plan_end = torch.cuda.Event(enable_timing=True)
+            plan_start.record()
+        else:
+            start = time.perf_counter()
         wr = cfg.reg_mode == "als_wr"
         k = cfg.num_factors
-        prep_u = als_ops.device_prepare_side(
-            u, i, r, num_users, omega=omega_u.float() if wr else None,
-            min_pad=cfg.min_pad, rank_for_chunking=k)
-        prep_v = als_ops.device_prepare_side(
-            i, u, r, num_items, omega=omega_v.float() if wr else None,
-            min_pad=cfg.min_pad, rank_for_chunking=k)
-        if cfg.implicit_alpha is not None:
-            prep_u = als_ops.implicit_prepared(prep_u, cfg.implicit_alpha)
-            prep_v = als_ops.implicit_prepared(prep_v, cfg.implicit_alpha)
-        self.plan_s = self._clock() - start
+        with span("als/plan", device=on_card):
+            omega_u = torch.bincount(u.long(), minlength=num_users)
+            omega_v = torch.bincount(i.long(), minlength=num_items)
+            prep_u = als_ops.device_prepare_side(
+                u, i, r, num_users, omega=omega_u.float() if wr else None,
+                min_pad=cfg.min_pad, rank_for_chunking=k)
+            prep_v = als_ops.device_prepare_side(
+                i, u, r, num_items, omega=omega_v.float() if wr else None,
+                min_pad=cfg.min_pad, rank_for_chunking=k)
+            if cfg.implicit_alpha is not None:
+                prep_u = als_ops.implicit_prepared(prep_u, cfg.implicit_alpha)
+                prep_v = als_ops.implicit_prepared(prep_v, cfg.implicit_alpha)
+        if on_card:
+            plan_end.record()
+        else:
+            self.plan_s = time.perf_counter() - start
 
         V = self._init_factors_device(num_items, omega_v)
         self.round_ms = []
@@ -159,6 +171,9 @@ class ALS:
                 cfg.iterations, implicit=cfg.implicit_alpha is not None,
                 gram_dtype=gram_dtype, round_ms=self.round_ms)
             h.out = (U, V)
+        if on_card:
+            plan_end.synchronize()  # reached by the rounds' last wait
+            self.plan_s = plan_start.elapsed_time(plan_end) / 1e3
         timer.finish(int(len(u)))
         if self.evaluator is not None:
             self.evaluator.on_segment(U, V, label="als_device_rounds",
@@ -179,12 +194,6 @@ class ALS:
         self.model = MFModel(U=U, V=V, users=index(omega_u, num_users),
                              items=index(omega_v, num_items))
         return self.model
-
-    def _clock(self) -> float:
-        """Host clock after the device's queue has drained."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
     def _gram_dtype(self):
         d = self.config.gram_dtype

@@ -44,7 +44,6 @@ touches the card.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any
 
 import torch
@@ -65,6 +64,7 @@ from large_scale_recommendation_tpu_torch.obs.events import get_events
 from large_scale_recommendation_tpu_torch.obs.instrument import (
     TrainSegmentTimer,
 )
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.obs.transfers import guard_scope
 from large_scale_recommendation_tpu_torch.ops import cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
@@ -129,8 +129,10 @@ class DSGD:
         # around the segment's launches; hooks and snapshots excluded);
         # empty on the CPU
         self.segment_ms: list[float] = []
-        # host seconds to build the last fit's step plan (card only)
+        # seconds the card took to build the last fit's step plan (CUDA
+        # events, read after the fit's last wait; card only)
         self.plan_s: float | None = None
+        self._plan_events: tuple | None = None
         # the last fit's step plan (card only): the introspector's byte
         # model counts its rows
         self._plan: cuda_sgd.StepPlan | None = None
@@ -203,11 +205,13 @@ class DSGD:
         cfg = self.config
         k = num_blocks or cfg.num_blocks or 1
         self._check_route()
-        problem = device_blocking.device_block_problem(
-            u, i, r, num_users, num_items, num_blocks=k,
-            minibatch_multiple=cfg.minibatch_size,
-            seed=cfg.seed if cfg.seed is not None else 0,
-            minibatch_sort=cfg.minibatch_sort, device=self.device)
+        with span("dsgd/blocking", device=self.device.type == "cuda",
+                  ratings=len(u)):
+            problem = device_blocking.device_block_problem(
+                u, i, r, num_users, num_items, num_blocks=k,
+                minibatch_multiple=cfg.minibatch_size,
+                seed=cfg.seed if cfg.seed is not None else 0,
+                minibatch_sort=cfg.minibatch_sort, device=self.device)
         return self._fit_problem(problem, checkpoint_manager,
                                  checkpoint_every, resume)
 
@@ -220,14 +224,17 @@ class DSGD:
         cfg = self.config
         use_inv = self._check_route()
         p = problem
-        U, V = self._init_factors_device(p)
+        on_card = self.device.type == "cuda"
+        with span("dsgd/init", device=on_card):
+            U, V = self._init_factors_device(p)
         args = (p.su, p.si, p.sv, p.sw, p.omega_u, p.omega_v,
                 *((p.icu, p.icv) if use_inv else (None, None)))
         U, V = self._train_segments(U, V, args, p.num_blocks,
                                     "dsgd_device_segment",
                                     checkpoint_manager, checkpoint_every,
                                     resume, n_ratings=int(p.nnz))
-        users, items = p.to_id_indices()
+        with span("dsgd/id_maps", device=on_card):
+            users, items = p.to_id_indices()
         self.model = MFModel(U=U, V=V, users=users, items=items)
         return self.model
 
@@ -302,6 +309,11 @@ class DSGD:
         if events:
             events[-1][1].synchronize()
         self.segment_ms = [a.elapsed_time(b) for a, b in events]
+        if self._plan_events is not None:
+            start, end = self._plan_events
+            end.synchronize()  # reached already where a segment ran
+            self.plan_s = start.elapsed_time(end) / 1e3
+            self._plan_events = None
         rank = int(U.shape[-1])
         timer.finish(n_ratings,
                      bytes_per_iteration=self._sweep_bytes(n_ratings, rank),
@@ -331,11 +343,14 @@ class DSGD:
         upd = self.updater
         if self.device.type == "cuda":
             su, si, sv, sw, _, _, icu, icv = args
-            torch.cuda.synchronize(self.device)
-            start = time.perf_counter()
-            plan = cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
-                                            minibatch=cfg.minibatch_size)
-            self.plan_s = time.perf_counter() - start  # ends in a host read
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with span("dsgd/plan", device=True):
+                start.record()
+                plan = cuda_sgd.build_step_plan(su, si, sv, sw, icu, icv,
+                                                minibatch=cfg.minibatch_size)
+                end.record()
+            self._plan_events = (start, end)
             self._plan = plan
 
             def cuda(U, V, *, iterations, t0):

@@ -405,10 +405,12 @@ class OnlineMF:
         of ``U``/``V`` on them inside the ``online.partial_fit`` guard.
         Returns the trained copies."""
         cfg = self.config
-        staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
-                                         cfg.minibatch_size)
-        ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
-                           for a in staged)
+        with self._trace.span("online/stage") as sp:
+            staged = sgd_ops.pad_minibatches(u_rows, i_rows, rv,
+                                             cfg.minibatch_size)
+            ur, ir, vals, w = (torch.from_numpy(a).to(self.device)
+                               for a in staged)
+            sp.note(padded=len(ur))
         ledger = get_transfers()
         if ledger is not None:
             ledger.note_transfer("online.minibatch_stage", "h2d",

@@ -8,7 +8,17 @@ the base planes and the planes that touch the device.
   ``span.out`` makes a span wait for its CUDA work on the producing stream
   before the clock stops, and a compile key splits first (``compile``) and
   steady (``execute``) calls. ``Tracer.install_build_hook`` publishes the
-  kernel libraries' builds and loads (``kernel_build_s{library=}``).
+  kernel libraries' builds and loads (``kernel_build_s{library=}``). A
+  span is *live* when the tracer is enabled or a ``torch.profiler``
+  capture records (one flag read). A live span opens a host profiler range
+  of its name (``_RecordFunctionFast``, not ``record_function``). A
+  ``record_function`` range would be a user annotation, which Kineto
+  mirrors onto the device timeline as if it were device work. A live span
+  also adds its wall, self time, numeric args and, with ``device=True``, a
+  CUDA event pair's ms to ``span_totals()``. The program's layers open
+  such spans (``online/ensure``, ``dsgd/blocking``, ``als/solve``,
+  ``serving/lookup``, ...), so a device trace names the host phase around
+  each idle gap.
 - ``obs.events`` — the ring-bounded, span-correlated ``EventJournal``.
 - ``obs.instrument`` — ``TrainSegmentTimer``, the per-segment timing and
   throughput of every batch trainer.
@@ -47,7 +57,8 @@ the base planes and the planes that touch the device.
   endpoints merged into one pod view.
 
 Zero-cost when disabled: the module defaults are a ``NullRegistry`` and a
-``NullTracer`` whose instruments are shared stateless singletons, the
+``NullTracer`` whose instruments are shared stateless singletons (a span
+is the shared no-op unless a profiler records), the
 introspector, journal, ledger, recorder and store default to ``None``,
 and call sites cache ``registry.enabled`` at construction — off, a fit
 reads no clock, records no CUDA event and waits on no stream for obs,
@@ -189,7 +200,9 @@ from large_scale_recommendation_tpu_torch.obs.trace import (
     Tracer,
     get_tracer,
     process_namespace,
+    reset_span_totals,
     set_tracer,
+    span_totals,
     validate_chrome_trace,
 )
 from large_scale_recommendation_tpu_torch.obs.transfers import (
@@ -208,6 +221,8 @@ __all__ = [
     "set_registry",
     "get_tracer",
     "set_tracer",
+    "span_totals",
+    "reset_span_totals",
     "validate_chrome_trace",
     "enable",
     "disable",

@@ -20,8 +20,32 @@ Spans nest per thread, carry namespaced ids (``process_namespace()``) and
 ``TraceContext`` causal links, and export as Chrome *complete* events
 (``"ph": "X"``, microsecond ``ts``/``dur``) that Perfetto loads;
 ``validate_chrome_trace`` is the schema contract. ``NullTracer`` is the
-zero-cost disabled twin: ``span()`` returns one shared no-op context
-manager.
+disabled twin.
+
+**Liveness.** A span is *live* when the tracer is enabled or when a
+``torch.profiler`` capture is recording (one flag read,
+``torch.autograd.profiler._is_profiler_enabled``). With neither,
+``NullTracer.span`` returns the shared no-op ``NULL_SPAN``: no clock, no
+table, no CUDA event. ``span(name, ...)`` at module level opens a span on
+the module-level tracer, for code that holds none of its own. A live span:
+
+- opens a host profiler range of its own name
+  (``torch._C._profiler._RecordFunctionFast``), so its phase shares
+  Kineto's clock with the kernels and a device trace can name the host
+  work around an idle gap. Not ``torch.profiler.record_function``: that
+  makes a *user annotation*, which Kineto mirrors onto the device
+  timeline as if it were device work; a fast record function is a plain
+  host op (``is_user_annotation() is False``);
+- adds to a per-name table, ``span_totals()``: the count, the wall, the
+  self time (the wall less that of the live spans opened inside it on the
+  same thread) and the sums of the numeric args, which serve as counters
+  (``span.note(**args)`` adds args known only inside the span);
+- with ``device=True``, records a CUDA event pair on the current stream;
+  the table resolves the pairs into ``device_ms`` when it is read, so
+  nothing waits on the hot path.
+
+``reset_span_totals()`` clears the table. An enabled tracer keeps its
+Chrome buffer and key walls as well.
 """
 
 from __future__ import annotations
@@ -35,6 +59,12 @@ import time
 from typing import Any
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# a host profiler range that is no user annotation (absent before torch
+# 2.2: live spans then only feed the table)
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              None)
 
 # cap on buffered events: a runaway instrumented loop must not grow the
 # host heap without bound; overflow is counted, not silently dropped
@@ -45,6 +75,12 @@ DEFAULT_MAX_EVENTS = 200_000
 # bounded-memory discipline as the flight recorder's series table and
 # the introspector's record table
 DEFAULT_MAX_KEY_WALLS = 4096
+
+# caps of the span table: distinct names, and CUDA event pairs waiting to
+# be resolved (past it, finished pairs are folded in without a wait, and
+# a pair that still finds no room is counted in ``device_dropped``)
+DEFAULT_MAX_SPAN_NAMES = 4096
+DEFAULT_MAX_PENDING_PAIRS = 1 << 16
 
 # span sequence numbers are PROCESS-unique (module-level, not
 # per-tracer): an enable()/disable()/enable() cycle must not restart the
@@ -175,8 +211,164 @@ def _block(x: Any) -> None:
         ev.synchronize()
 
 
-class Span:
-    """One open span. Set ``out`` to the computation's result (a tensor,
+class _SpanTable:
+    """Per-name totals of the live spans (``span_totals()``)."""
+
+    def __init__(self):
+        self.max_names = DEFAULT_MAX_SPAN_NAMES
+        self.max_pending = DEFAULT_MAX_PENDING_PAIRS
+        self._lock = threading.Lock()
+        self._rows: dict[str, dict] = {}
+        self._pending: list = []  # (row, start event, end event)
+        self.names_dropped = 0
+        self.device_dropped = 0
+
+    def add(self, name: str, wall_s: float, self_s: float, args: dict,
+            pair) -> None:
+        with self._lock:
+            row = self._rows.get(name)
+            if row is None:
+                if len(self._rows) >= self.max_names:
+                    self.names_dropped += 1
+                    return
+                row = self._rows[name] = {"count": 0, "wall_ms": 0.0,
+                                          "self_ms": 0.0, "args": {}}
+            row["count"] += 1
+            row["wall_ms"] += 1e3 * wall_s
+            row["self_ms"] += 1e3 * self_s
+            sums = row["args"]
+            for k, v in args.items():
+                if isinstance(v, (int, float)):
+                    sums[k] = sums.get(k, 0) + v
+            if pair is None:
+                return
+            row.setdefault("device_ms", 0.0)
+            if len(self._pending) >= self.max_pending:
+                self._fold_finished()
+            if len(self._pending) >= self.max_pending:
+                self.device_dropped += 1
+                return
+            self._pending.append((row, *pair))
+
+    def _fold_finished(self) -> None:
+        """Resolve the leading pairs whose end has been reached, without a
+        wait (caller holds the lock)."""
+        done = 0
+        for row, a, b in self._pending:
+            if not b.query():
+                break
+            row["device_ms"] += a.elapsed_time(b)
+            done += 1
+        del self._pending[:done]
+
+    def totals(self) -> dict:
+        with self._lock:
+            pending, self._pending = self._pending, []
+        resolved = []
+        for row, a, b in pending:
+            b.synchronize()
+            resolved.append((row, a.elapsed_time(b)))
+        with self._lock:
+            for row, ms in resolved:
+                row["device_ms"] += ms
+            return {name: dict(row, args=dict(row["args"]))
+                    for name, row in self._rows.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._rows.clear()
+            self._pending.clear()
+            self.names_dropped = 0
+            self.device_dropped = 0
+
+
+_TABLE = _SpanTable()
+# the live spans open on each thread, innermost last: a span's self time
+# is its wall less its children's
+_OPEN = threading.local()
+
+
+def _open_spans() -> list:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
+def span_totals() -> dict:
+    """The live spans' totals by name since the last
+    ``reset_span_totals()``: ``{name: {"count", "wall_ms", "self_ms",
+    "args": {arg: sum}, "device_ms" (spans opened with device=True)}}``.
+    Waits for the recorded CUDA event pairs to resolve them: call it off
+    the hot path."""
+    return _TABLE.totals()
+
+
+def reset_span_totals() -> None:
+    """Clear the table of ``span_totals()``."""
+    _TABLE.reset()
+
+
+class _LiveSpan:
+    """A span something listens to (the module docstring's liveness
+    rule): a host profiler range, a row of the span table and, with
+    ``device``, a CUDA event pair. ``out`` is taken and ignored: only an
+    enabled tracer's ``Span`` waits for it."""
+
+    __slots__ = ("name", "args", "device", "out", "t0", "_rf", "_ev0",
+                 "_child_s")
+
+    def __init__(self, name: str, args: dict, device: bool = False):
+        self.name = name
+        self.args = args
+        self.device = device
+        self.out = None
+        self.t0 = 0.0
+        self._rf = None
+        self._ev0 = None
+        self._child_s = 0.0
+
+    def note(self, **args) -> None:
+        """Add args (counters) known only inside the span."""
+        self.args.update(args)
+
+    def _open(self) -> None:
+        if _RecordFunctionFast is not None:
+            self._rf = _RecordFunctionFast(self.name)
+            self._rf.__enter__()
+        if self.device:
+            self._ev0 = torch.cuda.Event(enable_timing=True)
+            self._ev0.record()
+        _open_spans().append(self)
+        self.t0 = time.perf_counter()
+
+    def _close(self, t1: float) -> None:
+        wall = t1 - self.t0
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        if stack:
+            stack[-1]._child_s += wall
+        pair = None
+        if self._ev0 is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            pair = (self._ev0, end)
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        _TABLE.add(self.name, wall, wall - self._child_s, self.args, pair)
+
+    def __enter__(self) -> "_LiveSpan":
+        self._open()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._close(time.perf_counter())
+
+
+class Span(_LiveSpan):
+    """One open span of an enabled tracer (always live). Set ``out`` to
+    the computation's result (a tensor,
     or tuples, lists and dicts of them) to have the tracer wait for it
     before the clock stops; add
     display attributes via ``args``. ``id`` is a NAMESPACED
@@ -191,21 +383,17 @@ class Span:
     active ``TraceContext``'s parent for a top-level span — the
     cross-thread causal link) and ``trace_id`` (the active context's)."""
 
-    __slots__ = ("name", "cat", "t0", "args", "out", "id", "key",
-                 "parent_id", "trace_id", "_tracer")
+    __slots__ = ("cat", "id", "key", "parent_id", "trace_id", "_tracer")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict,
-                 span_id: str, key: Any = None):
+                 span_id: str, key: Any = None, device: bool = False):
+        super().__init__(name, args, device)
         self._tracer = tracer
-        self.name = name
         self.cat = cat
-        self.args = args
-        self.out = None
         self.id = span_id
         self.key = key
         self.parent_id = None
         self.trace_id = None
-        self.t0 = 0.0
 
     def __enter__(self) -> "Span":
         stack = self._tracer._stack()
@@ -220,7 +408,7 @@ class Span:
             # lane's link back to its triggering batch)
             self.parent_id = ctx.parent_span_id
         stack.append(self)
-        self.t0 = time.perf_counter()
+        self._open()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
@@ -230,12 +418,14 @@ class Span:
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
+        self._close(t1)
         self._tracer._record(self, t1)
 
 
 class _NullSpan:
     """Shared stateless no-op span/context manager — the whole disabled
-    tracing path is two attribute lookups and two no-op calls."""
+    tracing path is a flag read, two attribute lookups and two no-op
+    calls."""
 
     __slots__ = ()
     name = ""
@@ -254,6 +444,9 @@ class _NullSpan:
 
     @out.setter
     def out(self, value):
+        pass
+
+    def note(self, **args) -> None:
         pass
 
     def __enter__(self):
@@ -337,14 +530,16 @@ class Tracer:
 
     # -- span API -----------------------------------------------------------
 
-    def span(self, name: str, key: Any = None, **args) -> Span:
+    def span(self, name: str, key: Any = None, device: bool = False,
+             **args) -> Span:
         """Open a span (use as a context manager).
 
         ``key`` opts into compile/execute categorization: the first span
         with a given key is labeled ``compile`` (it pays the first-call
         costs: library build or load, allocator growth), later ones
         ``execute``. Keys must be hashable; a good key is
-        (fn_name, shape-tuple)."""
+        (fn_name, shape-tuple). ``device=True`` (work queued on the card)
+        adds a CUDA event pair: ``device_ms`` in ``span_totals()``."""
         cat = "span"
         if key is not None:
             with self._lock:
@@ -354,7 +549,7 @@ class Tracer:
                     self._compile_keys.add(key)
                     cat = "compile"
         return Span(self, name, cat, args,
-                    f"{process_namespace()}:{next(_SPAN_IDS)}", key)
+                    f"{process_namespace()}:{next(_SPAN_IDS)}", key, device)
 
     def depth(self) -> int:
         """Current nesting depth on the calling thread."""
@@ -604,7 +799,9 @@ class Tracer:
 
 
 class NullTracer(Tracer):
-    """Disabled tracer: every span is the shared no-op singleton."""
+    """Disabled tracer: every span is the shared no-op singleton, unless a
+    ``torch.profiler`` capture is recording (then a live span without the
+    Chrome buffer)."""
 
     enabled = False
 
@@ -614,8 +811,11 @@ class NullTracer(Tracer):
         self.max_key_walls = 0
         self.key_walls_dropped = 0
 
-    def span(self, name: str, key: Any = None, **args):
-        return NULL_SPAN
+    def span(self, name: str, key: Any = None, device: bool = False,
+             **args):
+        if not _autograd_profiler._is_profiler_enabled:
+            return NULL_SPAN
+        return _LiveSpan(name, args, device)
 
     def complete(self, name: str, t0: float, t1: float,
                  cat: str = "complete", tid: int | None = None,
@@ -678,6 +878,15 @@ def get_tracer() -> Tracer:
 def set_tracer(tracer: Tracer) -> None:
     global _TRACER
     _TRACER = tracer
+
+
+def span(name: str, device: bool = False, **args):
+    """A span on the module-level tracer (``get_tracer().span``), for code
+    that holds no tracer of its own."""
+    tracer = _TRACER
+    if not (tracer.enabled or _autograd_profiler._is_profiler_enabled):
+        return NULL_SPAN
+    return tracer.span(name, device=device, **args)
 
 
 def validate_chrome_trace(doc: dict) -> list[dict]:

@@ -43,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 from large_scale_recommendation_tpu_torch.utils.metrics import _ieee_f32
 
@@ -285,24 +286,28 @@ def implicit_prepared(prepared, alpha: float):
 
 def _gram_chunk(factors, oi, va, wi, G=None):
     """One chunk's per-row grams ``A [rc, k, k]`` and right-hand sides
-    ``b [rc, k]``: gather the fixed side's rows and contract them in f32.
-    ``G`` adds a shared [k, k] term to every gram (implicit VᵀV)."""
+    ``b [rc, k]``: gather the fixed side's rows and contract them in f32
+    (spans ``als/gather`` and ``als/gram``). ``G`` adds a shared [k, k]
+    term to every gram (implicit VᵀV)."""
     rc, pad = oi.shape
     k = factors.shape[-1]
-    g = torch.index_select(factors, 0, oi.reshape(-1)).view(rc, pad, k)
-    if g.dtype != torch.float32:
-        # the JAX bf16 route: weights and targets rounded to the table's
-        # dtype, products (exact in f32) and sums in f32
-        wi = wi.to(g.dtype).float()
-        va = va.to(g.dtype).float()
-        g = g.float()
-    gw = g * wi[..., None]
-    A = torch.bmm(gw.transpose(1, 2), g)
-    if G is not None:
-        A = A + G
-    # b uses the RAW gathered rows: ``va`` is the per-entry b-weight
-    # (explicit: the masked rating; implicit: the masked confidence)
-    b = torch.bmm(g.transpose(1, 2), va[..., None])[..., 0]
+    on_card = factors.is_cuda
+    with span("als/gather", device=on_card):
+        g = torch.index_select(factors, 0, oi.reshape(-1)).view(rc, pad, k)
+        if g.dtype != torch.float32:
+            # the JAX bf16 route: weights and targets rounded to the
+            # table's dtype, products (exact in f32) and sums in f32
+            wi = wi.to(g.dtype).float()
+            va = va.to(g.dtype).float()
+            g = g.float()
+        gw = g * wi[..., None]
+    with span("als/gram", device=on_card):
+        A = torch.bmm(gw.transpose(1, 2), g)
+        if G is not None:
+            A = A + G
+        # b uses the RAW gathered rows: ``va`` is the per-entry b-weight
+        # (explicit: the masked rating; implicit: the masked confidence)
+        b = torch.bmm(g.transpose(1, 2), va[..., None])[..., 0]
     return A, b
 
 
@@ -316,11 +321,14 @@ def _solve_bucket(factors, out, rows3, oidx3, vals3, w3, scale3, lambda_,
                   G=None):
     """Gram + solve + write-back for one bucket, chunk by chunk, into
     ``out`` (``[num_rows + 1, k]``, in place). Peak memory is one chunk's
-    gather and grams."""
+    gather and grams. Spans ``als/gather``, ``als/gram`` (in
+    ``_gram_chunk``) and ``als/solve`` (arg ``rows``) a chunk."""
     for c in range(rows3.shape[0]):
-        x = _gram_solve_chunk(factors, oidx3[c], vals3[c], w3[c], scale3[c],
-                              lambda_, G)
-        out.index_copy_(0, rows3[c].long(), x)
+        A, b = _gram_chunk(factors, oidx3[c], vals3[c], w3[c], G)
+        rows = rows3[c]
+        with span("als/solve", device=factors.is_cuda, rows=rows.shape[0]):
+            x = solve_normal_eq(A, b, lambda_, scale3[c])
+            out.index_copy_(0, rows.long(), x)
     return out
 
 

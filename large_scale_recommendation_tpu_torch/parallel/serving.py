@@ -41,6 +41,7 @@ import torch
 
 from large_scale_recommendation_tpu_torch.obs.budget import get_budget
 from large_scale_recommendation_tpu_torch.obs.requests import get_requests
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.parallel import collectives
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
@@ -391,7 +392,8 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
     dispatched bucket; ``on_drain()`` fires after each drain, once the
     chunk's copy event has been waited on (the request plane marks its
     ``topk_merge`` stage there, so the card's time of the chunk lands in
-    it). Returns ``(rows int32 [n, k], scores f32 [n, k])``.
+    it). A drain is the span ``serving/drain``. Returns ``(rows int32
+    [n, k], scores f32 [n, k])``.
     """
     n = len(user_rows)
     out_rows = np.zeros((n, k), np.int32)
@@ -402,8 +404,9 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
 
     def drain(p):
         p0, pc, pv, pr = p
-        out_rows[p0:p0 + pc, :k_out] = pr.numpy()[:pc]
-        out_scores[p0:p0 + pc, :k_out] = pv.numpy()[:pc]
+        with span("serving/drain"):
+            out_rows[p0:p0 + pc, :k_out] = pr.numpy()[:pc]
+            out_scores[p0:p0 + pc, :k_out] = pv.numpy()[:pc]
         if on_drain is not None:
             on_drain()
 

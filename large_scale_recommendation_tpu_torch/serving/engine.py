@@ -578,15 +578,17 @@ class ServingEngine:
                 for ts in stamps:
                     self._m_qwait.observe(t0 - ts)
             # id → row space per request, then one shared row stream
-            known_masks, row_slices, bounds = [], [], [0]
-            for ids in requests:
-                u_rows, u_mask = self.model.users.rows_for(ids)
-                known = u_mask > 0
-                known_masks.append((len(ids), known))
-                row_slices.append(u_rows[known])
-                bounds.append(bounds[-1] + int(known.sum()))
-            rows_all = (np.concatenate(row_slices) if row_slices
-                        else np.zeros(0, np.int64))
+            with self._trace.span("serving/lookup") as sp:
+                known_masks, row_slices, bounds = [], [], [0]
+                for ids in requests:
+                    u_rows, u_mask = self.model.users.rows_for(ids)
+                    known = u_mask > 0
+                    known_masks.append((len(ids), known))
+                    row_slices.append(u_rows[known])
+                    bounds.append(bounds[-1] + int(known.sum()))
+                rows_all = (np.concatenate(row_slices) if row_slices
+                            else np.zeros(0, np.int64))
+                sp.note(users=len(rows_all))
             if self._obs_on or led is not None:
                 # one clock read feeds the assembly histogram and the
                 # ledger's batch_form mark
@@ -595,30 +597,27 @@ class ServingEngine:
                     self._m_assembly.observe(t_asm - t0)
                 if led is not None:
                     led.mark("batch_form", t_asm)
-            if self._trace.enabled:
-                # compile-keyed on the catalog geometry, as the JAX span;
-                # catalog_version is the record trace's serve-side join
-                geom = (self._catalog.rows_per_shard
-                        if self._catalog is not None
-                        else self._retriever.n_rows)
-                with self._trace.span(
-                        "serving/flush", key=("serving_flush", geom),
-                        rows=len(rows_all), requests=len(requests),
-                        catalog_version=int(self.version)):
-                    top_rows, top_scores = self._serve_rows(
-                        rows_all, stage1_only=degraded, ledger=led)
-            else:
+            # compile-keyed on the catalog geometry, as the JAX span;
+            # catalog_version is the record trace's serve-side join
+            geom = (self._catalog.rows_per_shard
+                    if self._catalog is not None
+                    else self._retriever.n_rows)
+            with self._trace.span(
+                    "serving/flush", key=("serving_flush", geom),
+                    rows=len(rows_all), requests=len(requests),
+                    catalog_version=int(self.version)):
                 top_rows, top_scores = self._serve_rows(
                     rows_all, stage1_only=degraded, ledger=led)
             version = self.version
-            results = []
-            for (n_ids, known), b0, b1 in zip(known_masks, bounds,
-                                              bounds[1:]):
-                results.append(RecResult(
-                    _assemble_topk(n_ids, self.k, known, top_rows[b0:b1],
-                                   top_scores[b0:b1], self._item_ids_of_row,
-                                   return_mask),
-                    catalog_version=version, degraded=degraded))
+            with self._trace.span("serving/assemble"):
+                results = []
+                for (n_ids, known), b0, b1 in zip(known_masks, bounds,
+                                                  bounds[1:]):
+                    results.append(RecResult(
+                        _assemble_topk(n_ids, self.k, known,
+                                       top_rows[b0:b1], top_scores[b0:b1],
+                                       self._item_ids_of_row, return_mask),
+                        catalog_version=version, degraded=degraded))
             self.stats["requests"] += len(requests)
             self.stats["rows"] += len(rows_all)
             self.stats["flushes"] += 1
@@ -673,19 +672,27 @@ class ServingEngine:
         reads back. ``ledger`` (an ``obs.requests.FlushLedger``, None when
         the plane is off) marks the stage seams: exclusion builds in
         ``batch_form``, user gathers in ``gather``, score dispatches in
-        ``score_stage1`` / ``score_stage2``, drains in ``topk_merge``."""
+        ``score_stage1`` / ``score_stage2``, drains in ``topk_merge``. The
+        same seams are spans: ``serving/exclusions`` (arg ``pairs``, the
+        staged exclusion slots), ``serving/gather``, ``serving/score`` and
+        ``run_pipelined_topk``'s ``serving/drain``."""
         dev = self._device
         store = self._user_store
+        trace = self._trace
 
         def stage(cu, c):
-            excl = tuple(to_device(a, dev) for a in self._build_excl(cu, c))
+            with trace.span("serving/exclusions") as sp:
+                built = self._build_excl(cu, c)
+                excl = tuple(to_device(a, dev) for a in built)
+                sp.note(pairs=len(built[0]))
             if ledger is not None:
                 ledger.mark("batch_form")  # exclusion build + staging
-            if store is not None:
-                U_chunk = store.serve_rows(cu).to(self._want)
-            else:
-                idx = to_device(cu.astype(np.int64), dev)
-                U_chunk = self._U.index_select(0, idx)
+            with trace.span("serving/gather"):
+                if store is not None:
+                    U_chunk = store.serve_rows(cu).to(self._want)
+                else:
+                    idx = to_device(cu.astype(np.int64), dev)
+                    U_chunk = self._U.index_select(0, idx)
             if ledger is not None:
                 ledger.mark("gather")
             return excl, U_chunk
@@ -695,10 +702,11 @@ class ServingEngine:
 
             def score_chunk(cu, c):
                 excl, U_chunk = stage(cu, c)
-                return ret.topk(U_chunk, excl, k=self.k,
-                                stage1_only=stage1_only,
-                                mark=(ledger.mark if ledger is not None
-                                      else None))
+                with trace.span("serving/score"):
+                    return ret.topk(U_chunk, excl, k=self.k,
+                                    stage1_only=stage1_only,
+                                    mark=(ledger.mark if ledger is not None
+                                          else None))
 
             k_out = min(self.k, ret.candidate_count(self.k))
             n_rows = ret.n_rows
@@ -709,14 +717,15 @@ class ServingEngine:
             def score_chunk(cu, c):
                 excl, U_chunk = stage(cu, c)
                 self._shapes_seen.add(("exact", len(cu), self._k_out))
-                if part is not None:
-                    out = mesh_topk_step(
-                        part, U_chunk, cat.V_sh, cat.w_sh, *excl,
-                        k_local=self._k_local, k_out=self._k_out,
-                        rows_per_shard=cat.rows_per_shard)
-                else:
-                    out = topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
-                                    k_out=self._k_out)
+                with trace.span("serving/score"):
+                    if part is not None:
+                        out = mesh_topk_step(
+                            part, U_chunk, cat.V_sh, cat.w_sh, *excl,
+                            k_local=self._k_local, k_out=self._k_out,
+                            rows_per_shard=cat.rows_per_shard)
+                    else:
+                        out = topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
+                                        k_out=self._k_out)
                 if ledger is not None:
                     # the exact path's one score dispatch: stage 1
                     ledger.mark("score_stage1")
