@@ -130,7 +130,7 @@ def _adopt_table(table, jt, device) -> None:
     table._ids_buf = np.empty(table.capacity, np.int64)
     table._ids_buf[:len(ids)] = ids
     table._n = len(ids)
-    table._sorted_cache = None
+    table._reindex()
     table.array = torch.from_numpy(
         np.array(jt.array, dtype=np.float32)).to(device)
 
@@ -255,7 +255,7 @@ def tiered_store_from_jax(jax_store, device=None,
         ids = np.asarray(jax_store.id_array(), np.int64)
         store._ids_buf[:len(ids)] = ids
         store._n = len(ids)
-        store._sorted_cache = None
+        store._reindex()
         store._row_slot[:] = np.asarray(jax_store._row_slot, np.int64)
         for f in ("_slot_row", "_slot_dirty", "_slot_pin", "_slot_tick"):
             getattr(store, f)[:] = np.asarray(getattr(jax_store, f))

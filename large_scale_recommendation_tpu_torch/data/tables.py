@@ -3,8 +3,11 @@ tensors (counterpart of the ``GrowableFactorTable`` of
 ``large_scale_recommendation_tpu.data.tables``).
 
 - a dense ``float32[capacity, rank]`` tensor on the table's device,
-- a host-side id buffer in row order and a sorted id index (vectorized
-  binary search, no per-id Python),
+- a host-side id buffer in row order, and an id → row lookup with no
+  per-id Python: a dense direct-address map (one gather) while every
+  registered id lies in ``[0, 8 × capacity)``, else a sorted id index
+  (vectorized binary search). The ids a table sees choose: the first id
+  outside that range drops the map for the sorted index for good,
 - power-of-two capacity growth,
 - new rows initialized from the pluggable initializer BY ID, in padded
   installs of the JAX package's sizes.
@@ -28,6 +31,10 @@ from large_scale_recommendation_tpu_torch.utils.shapes import (
     pow2_pad as _pow2_pad,
 )
 
+# the dense map holds ids in [0, _DIRECT_SPAN × capacity): at most 32 B of
+# int32 map a table row
+_DIRECT_SPAN = 8
+
 
 class GrowableFactorTable:
     """A factor matrix with ``getOrElseUpdate`` semantics on a device: row
@@ -39,6 +46,9 @@ class GrowableFactorTable:
         self.rank = initializer.rank
         self.device = resolve_device(device)
         self._sorted_cache: tuple[np.ndarray, np.ndarray] | None = None
+        # id → row (−1: unregistered) while the ids stay dense; None once
+        # an id left the map's range (the sorted index answers then)
+        self._row_of: np.ndarray | None = np.empty(0, np.int32)
         self.capacity = max(_next_pow2(capacity), 8)
         # registered ids in row order; row of _ids_buf[j] is j
         self._ids_buf = np.empty(self.capacity, np.int64)
@@ -63,14 +73,15 @@ class GrowableFactorTable:
 
     def ensure(self, ids: np.ndarray) -> np.ndarray:
         """Register any unseen ids (initializing their rows) and return the
-        row of every input id, vectorized (bulk binary search +
-        ``np.unique``). Spans ``online/ensure`` (args ``ids``, ``new``) and
-        its steps ``.lookup``, ``.unique``, ``.merge``, ``.install``."""
+        row of every input id, vectorized (one lookup + ``np.unique``).
+        Spans ``online/ensure`` (args ``ids``, ``new``) and its steps
+        ``.lookup`` (counter ``direct``: ids the dense map resolved),
+        ``.unique``, ``.merge``, ``.install``."""
         ids = np.asarray(ids).astype(np.int64)
         with span("online/ensure", ids=len(ids)) as sp:
-            with span("online/ensure.lookup"):
-                rows, found_f = self.rows_for(ids)
-            known = found_f > 0
+            with span("online/ensure.lookup") as lk:
+                rows, known, direct = self._resolve(ids)
+                lk.note(direct=len(ids) if direct else 0)
             if known.all():
                 sp.note(new=0)
                 return rows
@@ -107,6 +118,7 @@ class GrowableFactorTable:
             with span("online/ensure.merge"):
                 self._ids_buf[base:base + m] = uniq[order]
                 self._n = base + m
+                self._map_rows(uniq, base + rank_of)
                 if self._sorted_cache is not None:
                     # merge the m new (value-sorted) ids into the sorted
                     # index: O(n + m), not a full re-sort per micro-batch
@@ -135,15 +147,61 @@ class GrowableFactorTable:
 
     def rows_for(self, ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Look up rows WITHOUT registering; unknown ids → row 0, mask 0."""
-        ids = np.asarray(ids).astype(np.int64)
+        rows, found, _ = self._resolve(np.asarray(ids).astype(np.int64))
+        return rows, found.astype(np.float32)
+
+    def _resolve(self, ids: np.ndarray):
+        """``(rows, found, direct)`` of int64 ``ids``: int64 rows (0 where
+        unknown), a bool mask, and whether the dense map answered."""
+        row_of = self._row_of
+        if row_of is not None:
+            if ids.size and (ids.min() < 0 or ids.max() >= row_of.size):
+                inside = (ids >= 0) & (ids < row_of.size)
+                r = np.full(len(ids), -1, np.int32)
+                r[inside] = row_of[ids[inside]]
+            else:
+                r = row_of[ids]
+            found = r >= 0
+            rows = r.astype(np.int64)
+            rows[~found] = 0
+            return rows, found, True
         sorted_ids, sorted_rows = self._sorted_index()
         if sorted_ids.size == 0:
-            return np.zeros(len(ids), np.int64), np.zeros(len(ids), np.float32)
+            return (np.zeros(len(ids), np.int64), np.zeros(len(ids), bool),
+                    False)
         pos = np.searchsorted(sorted_ids, ids)
         pos = np.clip(pos, 0, sorted_ids.size - 1)
         found = sorted_ids[pos] == ids
-        rows = np.where(found, sorted_rows[pos], 0)
-        return rows, found.astype(np.float32)
+        return np.where(found, sorted_rows[pos], 0), found, False
+
+    def _map_rows(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        """Enter value-sorted ``ids`` at ``rows`` in the dense map, grown
+        by powers of two into a new array (a concurrent reader sees the
+        old map or the new one). An id outside ``[0, _DIRECT_SPAN ×
+        capacity)`` drops the map: the sorted index answers from then on."""
+        row_of = self._row_of
+        if row_of is None or ids.size == 0:
+            return
+        if ids[0] < 0 or ids[-1] >= _DIRECT_SPAN * self.capacity:
+            self._row_of = None
+            return
+        if ids[-1] >= row_of.size:
+            grown = np.full(_next_pow2(int(ids[-1]) + 1), -1, np.int32)
+            grown[:row_of.size] = row_of
+            grown[ids] = rows
+            self._row_of = grown
+        else:
+            row_of[ids] = rows
+
+    def _reindex(self) -> None:
+        """Rebuild the id → row lookup from ``_ids_buf[:_n]``, for callers
+        that rewrote the ids behind the table's back (adopting another
+        table's state)."""
+        self._sorted_cache = None
+        self._row_of = np.empty(0, np.int32)
+        ids = self._ids_buf[:self._n]
+        order = np.argsort(ids)
+        self._map_rows(ids[order], order)
 
     def _sorted_index(self) -> tuple[np.ndarray, np.ndarray]:
         if self._sorted_cache is None or self._sorted_cache[0].size != self._n:
@@ -157,7 +215,8 @@ class GrowableFactorTable:
         return self._ids_buf[:self._n].copy()
 
     def sorted_index(self) -> tuple[np.ndarray, np.ndarray]:
-        """The (sorted_ids, sorted_rows) pair of the maintained index."""
+        """The (sorted_ids, sorted_rows) pair of the maintained index
+        (built on first use on the dense path, then kept up to date)."""
         return self._sorted_index()
 
     def _grow(self, need: int) -> None:

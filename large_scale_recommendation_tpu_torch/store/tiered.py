@@ -220,7 +220,7 @@ class TieredFactorStore(GrowableFactorTable):
             return super().ensure(ids)
 
     def rows_for(self, ids: np.ndarray):
-        with self._lock:  # the sorted cache mutates under a concurrent ensure
+        with self._lock:  # the id lookup mutates under a concurrent ensure
             return super().rows_for(ids)
 
     def _publish_host_bytes(self) -> None:
