@@ -674,8 +674,10 @@ class ServingEngine:
         ``batch_form``, user gathers in ``gather``, score dispatches in
         ``score_stage1`` / ``score_stage2``, drains in ``topk_merge``. The
         same seams are spans: ``serving/exclusions`` (arg ``pairs``, the
-        staged exclusion slots), ``serving/gather``, ``serving/score`` and
-        ``run_pipelined_topk``'s ``serving/drain``."""
+        staged exclusion slots), ``serving/gather``, ``serving/score`` (on
+        the fast path around the retriever's ``serving/stage1`` and
+        ``serving/stage2``) and ``run_pipelined_topk``'s
+        ``serving/drain``."""
         dev = self._device
         store = self._user_store
         trace = self._trace
@@ -706,7 +708,7 @@ class ServingEngine:
                     return ret.topk(U_chunk, excl, k=self.k,
                                     stage1_only=stage1_only,
                                     mark=(ledger.mark if ledger is not None
-                                          else None))
+                                          else None), rows=c)
 
             k_out = min(self.k, ret.candidate_count(self.k))
             n_rows = ret.n_rows

@@ -56,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.obs.trace import span
 from large_scale_recommendation_tpu_torch.parallel.collectives import (
     group_sum,
 )
@@ -646,43 +647,59 @@ class TwoStageRetriever:
                    hard)
 
     def topk(self, U_chunk, excl, k: int, stage1_only: bool = False,
-             mark=None):
+             mark=None, rows: int | None = None):
         """Top-``k`` of one padded f32 query chunk (on the catalog's
         device) under the exclusion triple ``excl`` (tensors there):
         ``(values f32 [b, k'], rows int64 [b, k'])``, ``k' = min(k, kc)``;
         rows ≥ ``n_rows`` only for slab pads (callers clamp). ``mark`` (the
         request plane's ``FlushLedger.mark``, None when off) splits the
         host's dispatch wall at the stage-1 / stage-2 seam, under
-        ``stage1_only`` too."""
+        ``stage1_only`` too. ``rows`` is the chunk's real query rows
+        (default: all ``b``), a counter of span ``serving/stage1``.
+
+        The stages are the spans ``serving/stage1`` (counters ``rows``,
+        ``padded`` = ``b`` and ``items``, the catalog rows each query
+        scores) and ``serving/stage2`` (``candidates``, the ``b · kc``
+        slots it finalizes), with device time on the card."""
         cat = self.catalog
         kc = self.candidate_count(k)
-        if U_chunk.shape[0] * (cat.n_rows + 1) >= 2**32:
+        b = U_chunk.shape[0]
+        if b * (cat.n_rows + 1) >= 2**32:
             # the JAX package packs (query, item) into one uint32 key
             raise ValueError(
-                f"bucket {U_chunk.shape[0]} × catalog {cat.n_rows} "
+                f"bucket {b} × catalog {cat.n_rows} "
                 f"exceeds the uint32 membership-key capacity — lower "
                 f"RetrievalConfig.max_bucket")
         excl_rows, excl_cols, excl_w = (
             torch.as_tensor(e, device=U_chunk.device) for e in excl)
+        on_card = U_chunk.is_cuda
         if cat.clustered:
             n_probe = min(self.config.n_probe, cat.slab_q.shape[0])
-            self.buckets_seen.add(("clustered", U_chunk.shape[0], kc))
-            cand_v, cand_rows = _stage1_clustered(
-                U_chunk, cat.centroids, cat.slab_q, cat.slab_scale,
-                cat.slab_w, cat.slab_rows, cat.ovf_q, cat.ovf_scale,
-                cat.ovf_w, cat.ovf_rows, kc=kc, n_probe=n_probe,
-                part=self.partitioner)
+            items = n_probe * cat.slab_q.shape[1] + int(cat.ovf_q.shape[0])
         else:
-            qU, u_scale = quantize_rows(U_chunk)  # full query rows
-            self.buckets_seen.add(("flat", U_chunk.shape[0], kc))
-            cand_v, cand_rows = _stage1_flat(
-                qU, u_scale, cat.q, cat.scale, cat.item_w, excl_rows,
-                excl_cols, excl_w, kc=kc, part=self.partitioner)
+            items = cat.n_rows
+        with span("serving/stage1", device=on_card,
+                  rows=b if rows is None else int(rows), padded=b,
+                  items=items):
+            if cat.clustered:
+                self.buckets_seen.add(("clustered", b, kc))
+                cand_v, cand_rows = _stage1_clustered(
+                    U_chunk, cat.centroids, cat.slab_q, cat.slab_scale,
+                    cat.slab_w, cat.slab_rows, cat.ovf_q, cat.ovf_scale,
+                    cat.ovf_w, cat.ovf_rows, kc=kc, n_probe=n_probe,
+                    part=self.partitioner)
+            else:
+                qU, u_scale = quantize_rows(U_chunk)  # full query rows
+                self.buckets_seen.add(("flat", b, kc))
+                cand_v, cand_rows = _stage1_flat(
+                    qU, u_scale, cat.q, cat.scale, cat.item_w, excl_rows,
+                    excl_cols, excl_w, kc=kc, part=self.partitioner)
         if mark is not None:
             mark("score_stage1")
-        out = _stage2(U_chunk, self.V, cat.item_w, cand_v, cand_rows,
-                      excl_rows, excl_cols, excl_w, k=min(k, kc),
-                      exact=not stage1_only, part=self.partitioner)
+        with span("serving/stage2", device=on_card, candidates=b * kc):
+            out = _stage2(U_chunk, self.V, cat.item_w, cand_v, cand_rows,
+                          excl_rows, excl_cols, excl_w, k=min(k, kc),
+                          exact=not stage1_only, part=self.partitioner)
         if mark is not None:
             mark("score_stage2")
         return out
