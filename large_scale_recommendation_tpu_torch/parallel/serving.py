@@ -48,6 +48,7 @@ from large_scale_recommendation_tpu_torch.parallel.partitioner import (
 )
 from large_scale_recommendation_tpu_torch.utils.metrics import (
     DEAD_SLOT_OFFSET,
+    DEAD_SLOT_THRESHOLD,
     _exclusion_builder,
     _ieee_f32,
     apply_exclusions,
@@ -377,9 +378,21 @@ class _Readback:
         return self._host.numpy()
 
 
+def ids_of_top(values, rows, ids_of_row, n_rows: int):
+    """One chunk's row-space top-K in external ids, on its device:
+    ``(scores f32, ids int64)``, ``ids_of_row[rows]`` and the scores, with
+    -1 / 0.0 in a dead slot (``values <= DEAD_SLOT_THRESHOLD``: an
+    excluded or masked row, -inf mesh padding) or a surfaced pad row
+    (``rows >= n_rows``): ``models.mf._assemble_topk``'s conventions, by
+    the same f32 comparison."""
+    real = (values > DEAD_SLOT_THRESHOLD) & (rows < n_rows)
+    ids = torch.where(real, ids_of_row[rows.clamp(max=n_rows - 1)], -1)
+    return torch.where(real, values, 0.0), ids
+
+
 def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
                        slice_size: int, bucket_fn, score_chunk,
-                       on_batch=None, on_drain=None):
+                       on_batch=None, on_drain=None, ids_of_row=None):
     """The chunk loop of the serving engine: walk ``user_rows`` in
     ``slice_size`` slices, pad each to ``bucket_fn(len(slice))`` rows,
     score via ``score_chunk(cu_padded, c) -> (v_top, r_top)`` (device
@@ -394,10 +407,21 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
     ``topk_merge`` stage there, so the card's time of the chunk lands in
     it). A drain is the span ``serving/drain``. Returns ``(rows int32
     [n, k], scores f32 [n, k])``.
+
+    ``ids_of_row`` (the catalog's row → external id map, an int64 tensor
+    on the scoring device) turns each chunk's rows into ids on the device
+    before its copy back (``ids_of_top``), so no host pass follows the
+    drains and there is no clamp: the result is then ``(ids int64 [n, k],
+    scores f32 [n, k])``, -1 / 0.0 in dead slots, surfaced pad rows and
+    past ``k_out``.
     """
     n = len(user_rows)
-    out_rows = np.zeros((n, k), np.int32)
-    out_scores = np.full((n, k), -np.inf, np.float32)
+    if ids_of_row is None:
+        out_rows = np.zeros((n, k), np.int32)
+        out_scores = np.full((n, k), -np.inf, np.float32)
+    else:
+        out_rows = np.full((n, k), -1, np.int64)
+        out_scores = np.zeros((n, k), np.float32)
     if n == 0:
         return out_rows, out_scores
     pending = None  # (c0, c, values readback, rows readback)
@@ -417,6 +441,8 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
         if c < bucket:
             cu = np.concatenate([cu, np.zeros(bucket - c, cu.dtype)])
         v_top, r_top = score_chunk(cu, c)
+        if ids_of_row is not None:
+            v_top, r_top = ids_of_top(v_top, r_top, ids_of_row, n_rows)
         current = (c0, c, _Readback(v_top), _Readback(r_top))
         if on_batch is not None:
             on_batch(bucket)
@@ -424,7 +450,8 @@ def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
             drain(pending)
         pending = current
     drain(pending)
-    pad_hits = out_rows >= n_rows  # surfaced padding rows
-    out_rows[pad_hits] = 0
-    out_scores[pad_hits] = -np.inf
+    if ids_of_row is None:
+        pad_hits = out_rows >= n_rows  # surfaced padding rows
+        out_rows[pad_hits] = 0
+        out_scores[pad_hits] = -np.inf
     return out_rows, out_scores

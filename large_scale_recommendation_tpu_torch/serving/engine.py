@@ -73,10 +73,7 @@ import time
 import numpy as np
 import torch
 
-from large_scale_recommendation_tpu_torch.models.mf import (
-    MFModel,
-    _assemble_topk,
-)
+from large_scale_recommendation_tpu_torch.models.mf import MFModel
 from large_scale_recommendation_tpu_torch.obs.budget import get_budget
 from large_scale_recommendation_tpu_torch.obs.contention import named_rlock
 from large_scale_recommendation_tpu_torch.obs.disttrace import get_disttrace
@@ -260,8 +257,8 @@ class ServingEngine:
         # a full rebuild supersedes anything still deferred
         self._pending_items.clear()
         self._pending_users.clear()
-        self._item_ids_of_row = np.asarray(model.items.ids)
-        item_mask = self._item_ids_of_row >= 0
+        ids_of_row = np.asarray(model.items.ids, np.int64)
+        item_mask = ids_of_row >= 0
         part = self.partitioner
         V = model.V if part is None else model.V.to(part.device)
         if self._retrieval_cfg is not None:
@@ -281,6 +278,9 @@ class ServingEngine:
             want = self._dtype
         self._want = want
         self._device = V.device
+        # the row → item-id map beside the catalog: each chunk's top-K rows
+        # become ids on the device (deltas keep it: no vocab growth)
+        self._item_ids = to_device(ids_of_row, self._device)
         if self._user_store is not None:
             # no engine-held user table: the store is the live user state
             self._U = None
@@ -518,7 +518,8 @@ class ServingEngine:
         into shared micro-batches. One result per request, in order: a
         ``RecResult``, or the ``AdmissionRejectedError`` instance of a
         request the ladder shed. Requests queued before the call are
-        served but not returned."""
+        served but not returned. Answers may be views into a flush's
+        result pair, as ``flush`` says."""
         with self._lock:
             out: list = []
             next_fill = 0  # first not-yet-filled placeholder in out
@@ -559,7 +560,16 @@ class ServingEngine:
     def flush(self, return_mask: bool = False) -> list:
         """Run every queued request through bucketed micro-batches and
         return their ``RecResult``s in submit order, all from one catalog
-        version."""
+        version.
+
+        The flush maps ids once: one lookup over all its requests' ids,
+        one scoring pass whose rows become item ids on the device, one
+        ``[n, k]`` pair of ids and scores. A request whose users are all
+        known is answered by views into that pair (disjoint rows per
+        request), so an answer kept keeps its whole flush's pair alive
+        (~6 MB at k = 500 and 1,024 rows); a request with an unknown user
+        gets its own arrays. The span ``serving/assemble`` counts
+        ``requests`` and ``views``."""
         with self._lock:
             requests, self._pending = self._pending, []
             if not requests:
@@ -577,17 +587,20 @@ class ServingEngine:
             if self._obs_on:
                 for ts in stamps:
                     self._m_qwait.observe(t0 - ts)
-            # id → row space per request, then one shared row stream
+            # id → row space once for the flush: request j owns ids
+            # [offs[j], offs[j+1]) and known rows [bounds[j], bounds[j+1])
             with self._trace.span("serving/lookup") as sp:
-                known_masks, row_slices, bounds = [], [], [0]
-                for ids in requests:
-                    u_rows, u_mask = self.model.users.rows_for(ids)
-                    known = u_mask > 0
-                    known_masks.append((len(ids), known))
-                    row_slices.append(u_rows[known])
-                    bounds.append(bounds[-1] + int(known.sum()))
-                rows_all = (np.concatenate(row_slices) if row_slices
-                            else np.zeros(0, np.int64))
+                lens = np.fromiter(map(len, requests), np.int64,
+                                   len(requests))
+                offs = np.zeros(len(requests) + 1, np.int64)
+                np.cumsum(lens, out=offs[1:])
+                u_rows, u_mask = self.model.users.rows_for(np.concatenate(
+                    requests, dtype=np.int64, casting="unsafe"))
+                known_all = u_mask > 0
+                rows_all = u_rows[known_all]
+                known_before = np.zeros(len(known_all) + 1, np.int64)
+                np.cumsum(known_all, out=known_before[1:])
+                bounds = known_before[offs]
                 sp.note(users=len(rows_all))
             if self._obs_on or led is not None:
                 # one clock read feeds the assembly histogram and the
@@ -606,18 +619,28 @@ class ServingEngine:
                     "serving/flush", key=("serving_flush", geom),
                     rows=len(rows_all), requests=len(requests),
                     catalog_version=int(self.version)):
-                top_rows, top_scores = self._serve_rows(
+                top_ids, top_scores = self._serve_rows(
                     rows_all, stage1_only=degraded, ledger=led)
             version = self.version
-            with self._trace.span("serving/assemble"):
+            with self._trace.span("serving/assemble") as sp:
+                whole = (np.diff(bounds) == lens).tolist()
+                b, o = bounds.tolist(), offs.tolist()
                 results = []
-                for (n_ids, known), b0, b1 in zip(known_masks, bounds,
-                                                  bounds[1:]):
+                for j, all_known in enumerate(whole):
+                    b0, b1 = b[j], b[j + 1]
+                    known = known_all[o[j]:o[j + 1]]
+                    if all_known:
+                        ids, scores = top_ids[b0:b1], top_scores[b0:b1]
+                    else:  # unknown users: -1 / 0.0 rows
+                        ids = np.full((len(known), self.k), -1, np.int64)
+                        scores = np.zeros((len(known), self.k), np.float32)
+                        ids[known] = top_ids[b0:b1]
+                        scores[known] = top_scores[b0:b1]
                     results.append(RecResult(
-                        _assemble_topk(n_ids, self.k, known,
-                                       top_rows[b0:b1], top_scores[b0:b1],
-                                       self._item_ids_of_row, return_mask),
+                        (ids, scores, known) if return_mask
+                        else (ids, scores),
                         catalog_version=version, degraded=degraded))
+                sp.note(views=sum(whole), requests=len(requests))
             self.stats["requests"] += len(requests)
             self.stats["rows"] += len(rows_all)
             self.stats["flushes"] += 1
@@ -658,7 +681,7 @@ class ServingEngine:
             # construction
             self._requests.note_flush(
                 led, end, stamps, version=version, degraded=degraded,
-                rows=[b1 - b0 for b0, b1 in zip(bounds, bounds[1:])],
+                rows=np.diff(bounds).tolist(),
                 admission_level=adm_level)
         return results
 
@@ -677,7 +700,9 @@ class ServingEngine:
         staged exclusion slots), ``serving/gather``, ``serving/score`` (on
         the fast path around the retriever's ``serving/stage1`` and
         ``serving/stage2``) and ``run_pipelined_topk``'s
-        ``serving/drain``."""
+        ``serving/drain``. Each chunk's rows become item ids on the device
+        (``parallel.serving.ids_of_top``); returns ``(ids int64 [n, k],
+        scores f32 [n, k])``, -1 / 0.0 in dead slots."""
         dev = self._device
         store = self._user_store
         trace = self._trace
@@ -768,4 +793,5 @@ class ServingEngine:
                                         slice_size),
                 score_chunk=score_chunk, on_batch=on_batch,
                 on_drain=(None if ledger is None
-                          else lambda: ledger.mark("topk_merge")))
+                          else lambda: ledger.mark("topk_merge")),
+                ids_of_row=self._item_ids)

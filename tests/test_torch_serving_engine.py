@@ -5,7 +5,10 @@ The JAX engine runs on a one-device mesh (``make_block_mesh(1)``), the
 port's engine on CPU tensors. Bars: the exact engine's lists tie-aware,
 scores within 1e-5·max(1, |s|) (the two matmuls sum in other orders);
 the flat two-stage engine the same (its stage 1 is bit-equal, stage 2's
-rescore at that bar). Then the engine contracts: bucket validation,
+rescore at that bar). The flush's one id translation (one lookup, item
+ids mapped on the device, answers as views) is held bit-equal to the
+per-request path it replaced, kept here as the reference. Then the engine
+contracts: bucket validation,
 ``serve`` alignment past pre-queued submits, the bounded shape family,
 deferred deltas equal to eager ones, vocab growth, the version moving on
 ``refresh``, on ``apply_delta`` and after in-place modification, the part
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from torch.profiler import ProfilerActivity, profile
 
 from large_scale_recommendation_tpu.data.blocking import (
     flat_index as jflat_index,
@@ -39,6 +43,9 @@ from large_scale_recommendation_tpu_torch.core.initializers import (
     PseudoRandomFactorInitializer,
 )
 from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.data.blocking import flat_index
+from large_scale_recommendation_tpu_torch.models.mf import _assemble_topk
+from large_scale_recommendation_tpu_torch.obs import trace as ptr
 from large_scale_recommendation_tpu_torch.parallel import serving as tps
 from large_scale_recommendation_tpu_torch.store import TieredFactorStore
 from large_scale_recommendation_tpu_torch.serving import (
@@ -274,6 +281,189 @@ def test_run_pipelined_topk_clamps_pads_and_keeps_order():
                                    bucket_fn=lambda c: 8,
                                    score_chunk=score_chunk)
     assert empty[0].shape == (0, 3)
+
+
+# -- one id translation per flush -------------------------------------------
+
+
+def per_request_answers(eng, requests, return_mask=False):
+    """The engine's answers as its per-request path assembled them (kept
+    as the reference): a lookup per request, the known rows scored
+    through ``run_pipelined_topk``'s row-space route (pad rows clamped on
+    the host), ``_assemble_topk`` per request over the host id map. Also
+    returns whether a pad row (≥ the catalog's rows) surfaced."""
+    known, rows = [], []
+    for ids in requests:
+        r, m = eng.model.users.rows_for(ids)
+        known.append(m > 0)
+        rows.append(r[m > 0])
+    ret, surfaced = eng.retriever, []
+    if ret is not None:
+        k_out, n_rows = min(eng.k, ret.candidate_count(eng.k)), ret.n_rows
+        size = min(eng.max_batch, ret.config.max_bucket)
+    else:
+        k_out, n_rows, size = eng._k_out, eng._catalog.n_rows, eng.max_batch
+
+    def score_chunk(cu, c):
+        excl = tuple(torch.from_numpy(a) for a in eng._build_excl(cu, c))
+        U_chunk = eng._U.index_select(0, torch.from_numpy(
+            cu.astype(np.int64)))
+        if ret is not None:
+            v, r = ret.topk(U_chunk, excl, k=eng.k, rows=c)
+        else:
+            cat = eng._catalog
+            v, r = tps.topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
+                                 k_out=k_out)
+        surfaced.append(bool((r[:c] >= n_rows).any()))
+        return v, r
+
+    top_rows, top_scores = tps.run_pipelined_topk(
+        np.concatenate(rows), k=eng.k, k_out=k_out, n_rows=n_rows,
+        slice_size=size,
+        bucket_fn=lambda c: min(tshapes.pow2_pad(c, eng.min_bucket), size),
+        score_chunk=score_chunk)
+    ids_of_row = np.asarray(eng.model.items.ids)
+    out, b0 = [], 0
+    for kn in known:
+        b1 = b0 + int(kn.sum())
+        out.append(_assemble_topk(len(kn), eng.k, kn, top_rows[b0:b1],
+                                  top_scores[b0:b1], ids_of_row,
+                                  return_mask))
+        b0 = b1
+    return out, any(surfaced)
+
+
+def _stage1_only(retriever):
+    """Every ``retriever.topk`` call at the degraded point."""
+    topk = retriever.topk
+    retriever.topk = lambda *a, **kw: topk(*a, **{**kw, "stage1_only": True})
+
+
+def _other_item_index(tm, seed):
+    """``tm`` with new item factors under a permuted item index (ids move
+    to other rows, padding rows too)."""
+    rng = np.random.default_rng(seed)
+    return dataclasses.replace(
+        tm, V=torch.from_numpy(rng.normal(size=tuple(tm.V.shape)).astype(
+            np.float32)),
+        items=flat_index(rng.permutation(tm.items.ids)))
+
+
+FLUSH_CASES = {
+    "exact": dict(),
+    "exact_mask": dict(return_mask=True),
+    # k above the catalog's 256 rows, 29 of them masked: dead slots
+    "exact_dead_slots": dict(k=300, return_mask=True),
+    "two_stage": dict(retrieval=RetrievalConfig(overfetch=4),
+                      num_items=1024),
+    "stage1_only": dict(retrieval=RetrievalConfig(overfetch=4),
+                        num_items=1024, stage1_only=True),
+    # clusters of ~32 items, one probed, k = 48: slab pad rows surface
+    "clustered_pads": dict(retrieval=RetrievalConfig(
+        n_clusters=8, n_probe=1, overfetch=1, kmeans_sample=256), k=48,
+        pads=True),
+    "refresh": dict(refresh=True),
+    "two_stage_refresh": dict(retrieval=RetrievalConfig(overfetch=4),
+                              refresh=True, return_mask=True),
+}
+
+
+@pytest.mark.parametrize("case", list(FLUSH_CASES))
+def test_flush_answers_equal_the_per_request_path(case):
+    """The flush's one lookup, device id map and views give bit-equal
+    ids, scores and masks to the per-request path: known and unknown
+    users mixed, an empty request and an all-unknown one, several
+    micro-batches a flush; dead slots, surfaced slab pads, the degraded
+    point; and after ``refresh()`` onto another item index, the new map."""
+    c = FLUSH_CASES[case]
+    jm, tm = models(num_items=c.get("num_items", 256), seed=30)
+    tr = train_pairs(jm, seed=31)
+    eng = ServingEngine(tm, k=c.get("k", 6), train=tr, max_batch=16,
+                        retrieval=c.get("retrieval"))
+    users = real_users(tm)
+    requests = [users[:5], np.array([999_999, users[5], -5]),
+                np.zeros(0, np.int64), users[6:7], np.array([424_242]),
+                users[7:40], users[40:], np.array([users[3], 31_337])]
+    if c.get("refresh"):
+        eng.serve(requests)
+        eng.refresh(_other_item_index(tm, 32))
+    if c.get("stage1_only"):
+        _stage1_only(eng.retriever)
+    rm = c.get("return_mask", False)
+    for r in requests:
+        eng.submit(r)
+    got = eng.flush(return_mask=rm)  # one flush, as the reference
+    want, surfaced = per_request_answers(eng, requests, rm)
+    assert surfaced == c.get("pads", False)
+    assert len(got) == len(want) == len(requests)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == (3 if rm else 2)
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()
+    if c.get("k", 6) > 256 or c.get("pads"):
+        assert (got[0][0] == -1).any()
+
+
+def test_assemble_counts_views_and_answers_are_disjoint_views():
+    """``serving/assemble`` counts ``views == requests`` when every user
+    is known, and each request with an unknown user as a non-view (it gets
+    its own arrays); adjacent answers are disjoint views of the flush's
+    pair, so writing into one leaves its neighbour as it was."""
+    _, tm = models(seed=33)
+    eng = ServingEngine(tm, k=5, max_batch=16)
+    users = real_users(tm)
+    known = [users[:3], users[3:4], np.zeros(0, np.int64), users[4:9]]
+    mixed = [users[:2], np.array([999_999]), users[2:4],
+             np.array([users[5], -7])]
+    counts = []
+    try:
+        for reqs in (known, mixed):
+            ptr.reset_span_totals()
+            with profile(activities=[ProfilerActivity.CPU]):
+                res = eng.serve(reqs)  # under 16 rows: one flush
+            counts.append(ptr.span_totals()["serving/assemble"]["args"])
+            if reqs is known:
+                kres = res
+    finally:
+        ptr.reset_span_totals()
+    assert counts[0]["views"] == counts[0]["requests"] == 4
+    assert counts[1]["requests"] == 4 and counts[1]["views"] == 2
+    assert res[1][0].base is None and res[3][0].base is None
+    a, b = kres[0], kres[1]
+    assert a[0].base is b[0].base is not None
+    assert a[1].base is b[1].base is not None
+    before = b[0].copy(), b[1].copy()
+    a[0][:] = -99
+    a[1][:] = 7.0
+    np.testing.assert_array_equal(b[0], before[0])
+    np.testing.assert_array_equal(b[1], before[1])
+
+
+def test_run_pipelined_topk_id_route_equals_host_assembly():
+    """With ``ids_of_row`` the chunks' rows become ids on the device: the
+    result equals the row-space route's clamp plus ``_assemble_topk``,
+    bit for bit — pad rows (finite scores here) and dead slots -1 / 0.0,
+    slots past ``k_out`` too — and the row-space route is unchanged."""
+    def score_chunk(cu, c):
+        rows = torch.from_numpy(np.stack([cu, cu + 100, cu * 0], 1))
+        vals = rows.float()
+        vals[:, 2] = tmetrics.DEAD_SLOT_OFFSET
+        return vals, rows
+
+    ids_of_row = np.arange(110, dtype=np.int64) * 7 + 3
+    kw = dict(k=4, k_out=3, n_rows=110, slice_size=8,
+              bucket_fn=lambda c: 8, score_chunk=score_chunk)
+    rows, scores = tps.run_pipelined_topk(np.arange(20), **kw)
+    want = _assemble_topk(20, 4, np.ones(20, bool), rows, scores,
+                          ids_of_row, False)
+    got = tps.run_pipelined_topk(np.arange(20), **kw,
+                                 ids_of_row=torch.from_numpy(ids_of_row))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert (got[0][10:, 1] == -1).all() and (got[1][10:, 1] == 0.0).all()
+    assert (got[0][:10, 1] == ids_of_row[100:110]).all()
+    assert (got[0][:, 2:] == -1).all()
 
 
 def test_sharded_catalog_delta_bit_equals_rebuild():
