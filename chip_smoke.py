@@ -382,6 +382,7 @@ from large_scale_recommendation_tpu_torch.models.pipeline import (
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.ops import topk
 from large_scale_recommendation_tpu_torch.obs import registry as obs_registry
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
 from large_scale_recommendation_tpu_torch.obs.introspect import TRACE_FILE
@@ -2199,9 +2200,9 @@ def pipeline_overlap(eng, users):
         cu = rows[i * SERVE_MAX_BATCH:(i + 1) * SERVE_MAX_BATCH]
 
         def stage():
-            excl = tuple(psrv.to_device(a, dev) for a in eng._build_excl(
+            excl = tuple(topk.to_device(a, dev) for a in eng._build_excl(
                 cu, len(cu)))
-            return excl, eng._U.index_select(0, psrv.to_device(cu, dev))
+            return excl, eng._U.index_select(0, topk.to_device(cu, dev))
 
         stage()
         torch.cuda.synchronize()
@@ -2210,7 +2211,7 @@ def pipeline_overlap(eng, users):
             excl, U_chunk = stage()
         host.append((time.perf_counter() - t0) / reps * 1e3)
         torch.cuda.synchronize()
-        device.append(cuda_ms(lambda: psrv.topk_step(
+        device.append(cuda_ms(lambda: topk.topk_step(
             U_chunk, cat.V_sh, cat.w_sh, *excl, k_out=eng._k_out), reps=reps))
     eng.recommend(sub)
     flush_ms = timed(lambda: eng.recommend(sub))[1] * 1e3
@@ -2610,7 +2611,7 @@ def two_stage_parts(ret, U_chunk, reps=5):
     p, O = min(ret.config.n_probe, C), cat.ovf_q.shape[0]
     kc = ret.candidate_count(SERVE_K)
     excl = tuple(torch.from_numpy(a).to(dev) for a in
-                 metrics._exclusion_builder(None, None, 1)(np.zeros(b), b))
+                 topk.exclusion_builder(None, None, 1)(np.zeros(b), b))
     names = ("route", "probes", "overflow", "topkc", "stage2")
     ms = dict.fromkeys(names, 0.0)
     for rep in range(reps + 1):
@@ -2630,7 +2631,7 @@ def two_stage_parts(ret, U_chunk, reps=5):
             U_chunk, cat.ovf_q, cat.ovf_scale, cat.ovf_w)
         rows[:, p * m:] = cat.ovf_rows[None, :]
         ev[3].record()
-        v, pos = metrics.lax_top_k(scores, kc)
+        v, pos = topk.lax_top_k(scores, kc)
         cand = rows.gather(1, pos)
         ev[4].record()
         out = ret_ops._stage2(U_chunk, ret.V, cat.item_w, v, cand, *excl,
@@ -2683,7 +2684,7 @@ def phase_serve_two_stage(dev):
         model, k=SERVE_K, retrieval=cfg, max_batch=SERVE_MAX_BATCH))
     exact = ServingEngine(model, k=SERVE_K, max_batch=SERVE_MAX_BATCH)
     empty = tuple(torch.from_numpy(a).to(dev) for a in
-                  metrics._exclusion_builder(None, None, 1)(np.zeros(8), 8))
+                  topk.exclusion_builder(None, None, 1)(np.zeros(8), 8))
     bucket = 8
     while bucket <= min(SERVE_MAX_BATCH, cfg.max_bucket):
         for stage1_only in (False, True):
@@ -2810,14 +2811,14 @@ def half_step_parts(V, prepared, num_rows):
     lam = ALS_LAMBDA
 
     def grams():
-        with metrics._ieee_f32():
+        with topk.ieee_f32():
             for rows3, oidx3, vals3, w3, sc3 in prepared:
                 for c in range(rows3.shape[0]):
                     als_ops._gram_chunk(V, oidx3[c], vals3[c], w3[c])
 
     def cholesky():
         eye = torch.eye(V.shape[-1], device=V.device)
-        with metrics._ieee_f32():
+        with topk.ieee_f32():
             for rows3, oidx3, vals3, w3, sc3 in prepared:
                 for c in range(rows3.shape[0]):
                     A, _ = als_ops._gram_chunk(V, oidx3[c], vals3[c], w3[c])

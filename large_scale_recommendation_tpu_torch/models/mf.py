@@ -4,7 +4,7 @@ serving and ranking quality (counterpart of
 
 Factors live as dense float32 or bfloat16 tables on the model's device;
 pair scoring and the factor exports compute in float32, full-catalog
-ranking as ``utils.metrics`` says. External ids map to rows through the
+ranking as ``ops.topk`` says. External ids map to rows through the
 host-side ``IdIndex`` lookup tables.
 """
 
@@ -19,6 +19,8 @@ import torch
 from large_scale_recommendation_tpu_torch.core.types import FactorVector, Ratings
 from large_scale_recommendation_tpu_torch.data.blocking import IdIndex
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
+from large_scale_recommendation_tpu_torch.ops import topk
+from large_scale_recommendation_tpu_torch.parallel import serving as psrv
 from large_scale_recommendation_tpu_torch.utils import metrics
 
 
@@ -30,20 +32,35 @@ def masked_scores(scores, u_mask, i_mask, return_mask: bool):
     return (out, seen) if return_mask else out
 
 
-def _assemble_topk(n: int, k: int, known, top_rows, top_scores,
-                   ids_of_row, return_mask: bool):
-    """Row-space top-K → external ids with the ``predict`` conventions:
-    unknown queries get -1/0.0 rows; slots below
-    ``metrics.DEAD_SLOT_THRESHOLD`` (excluded or masked rows) become -1/0.0
-    too."""
-    ids = np.full((n, k), -1, np.int64)
-    scores = np.zeros((n, k), np.float32)
-    real = top_scores > metrics.DEAD_SLOT_THRESHOLD
-    ids[known] = np.where(real, ids_of_row[top_rows], -1)
-    scores[known] = np.where(real, top_scores, 0.0)
-    if return_mask:
-        return ids, scores, known
-    return ids, scores
+def _top_ids(queries: IdIndex, Q, catalog: IdIndex, C, query_ids, *,
+             k: int, train, chunk: int, return_mask: bool):
+    """Top-K of ``C``'s rows per known query id by
+    ``ops.topk.recommend_rows`` in id space (the id map on the device, as
+    the serving engine maps); ``train``: (query, catalog) exclusion rows."""
+    rows, mask = queries.rows_for(np.asarray(query_ids))
+    ids_of_row = np.asarray(catalog.ids, np.int64)
+    ids, scores = topk.recommend_rows(
+        Q, C, rows[mask > 0], k=k, train_u=train[0], train_i=train[1],
+        chunk=chunk, item_mask=ids_of_row >= 0,
+        ids_of_row=topk.to_device(ids_of_row, Q.device))
+    out = topk.fill_unknown(mask > 0, ids, scores)
+    return (*out, mask > 0) if return_mask else out
+
+
+def _mesh_top_ids(users: IdIndex, items: IdIndex, U, catalog, user_ids, *,
+                  k: int, train, chunk: int, return_mask: bool):
+    """``mesh_top_k_recommend`` of the known users, its rows in item ids
+    by ``ops.topk.ids_of_top``."""
+    rows, mask = users.rows_for(np.asarray(user_ids))
+    top_rows, top_scores = psrv.mesh_top_k_recommend(
+        U, None, rows[mask > 0], k=k, train_u=train[0], train_i=train[1],
+        chunk=chunk, catalog=catalog)
+    ids_of_row = torch.from_numpy(np.asarray(items.ids, np.int64))
+    scores, ids = topk.ids_of_top(
+        torch.from_numpy(top_scores), torch.from_numpy(top_rows).long(),
+        ids_of_row, len(ids_of_row))
+    out = topk.fill_unknown(mask > 0, ids.numpy(), scores.numpy())
+    return (*out, mask > 0) if return_mask else out
 
 
 @dataclasses.dataclass
@@ -127,16 +144,10 @@ class MFModel:
         swapped (``train`` pairs are still (user, item)). Returns
         ``(user_ids int64 [n, k], scores)`` with the same unknown-id and
         below-catalog conventions."""
-        i_rows, i_mask = self.items.rows_for(np.asarray(item_ids))
-        known = i_mask > 0
         tu, ti = self._train_rows(train)
-        user_ids_of_row = np.asarray(self.users.ids)
-        top_rows, top_scores = metrics.top_k_recommend(
-            self.V, self.U, i_rows[known], k=k,
-            train_u=ti, train_i=tu,  # exclusion pairs swap roles too
-            chunk=chunk, item_mask=user_ids_of_row >= 0)
-        return _assemble_topk(len(i_rows), k, known, top_rows, top_scores,
-                              user_ids_of_row, return_mask)
+        return _top_ids(self.items, self.V, self.users, self.U, item_ids,
+                        k=k, train=(ti, tu),  # exclusion pairs swap too
+                        chunk=chunk, return_mask=return_mask)
 
     def _train_rows(self, train: "Ratings | tuple | None"):
         """A ``Ratings`` / ``(user_ids, item_ids)`` exclusion set in row
@@ -158,8 +169,8 @@ class MFModel:
                   chunk: int = 2048, return_mask: bool = False,
                   mesh=None):
         """Top-K items per user by full-catalog score, on the scoring
-        protocol of ``ranking_quality`` (``metrics.top_k_recommend``), so
-        HR@K/NDCG@K evaluate the list served here.
+        protocol of ``ranking_quality`` (``ops.topk``, as the serving
+        engine scores), so HR@K/NDCG@K evaluate the list served here.
 
         ``train`` (a ``Ratings`` or ``(user_ids, item_ids)`` pair) excludes
         each user's already-interacted items. Returns ``(item_ids int64
@@ -175,29 +186,19 @@ class MFModel:
         Every rank calls it with the same arguments, and every rank gets
         the lists. The sharded catalog is built once per partitioner and
         rebuilt when ``V`` changes (its ``catalog_version``)."""
-        u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
-        known = u_mask > 0
         tu, ti = self._train_rows(train)
-        item_ids_of_row = np.asarray(self.items.ids)
-        if mesh is not None:
-            from large_scale_recommendation_tpu_torch.parallel import (
-                serving as psrv,
-            )
-
-            cache = self.__dict__.setdefault("_serving_catalogs", {})
-            cat = cache.get(mesh)
-            if cat is None or cat.version != psrv.catalog_version(self.V):
-                cat = cache[mesh] = psrv.shard_catalog(
-                    self.V, mesh, item_mask=item_ids_of_row >= 0)
-            top_rows, top_scores = psrv.mesh_top_k_recommend(
-                self.U, None, u_rows[known], k=k, train_u=tu, train_i=ti,
-                chunk=chunk, catalog=cat)
-        else:
-            top_rows, top_scores = metrics.top_k_recommend(
-                self.U, self.V, u_rows[known], k=k, train_u=tu, train_i=ti,
-                chunk=chunk, item_mask=item_ids_of_row >= 0)
-        return _assemble_topk(len(u_rows), k, known, top_rows, top_scores,
-                              item_ids_of_row, return_mask)
+        if mesh is None:
+            return _top_ids(self.users, self.U, self.items, self.V, user_ids,
+                            k=k, train=(tu, ti), chunk=chunk,
+                            return_mask=return_mask)
+        cache = self.__dict__.setdefault("_serving_catalogs", {})
+        cat = cache.get(mesh)
+        if cat is None or cat.version != psrv.catalog_version(self.V):
+            cat = cache[mesh] = psrv.shard_catalog(
+                self.V, mesh, item_mask=np.asarray(self.items.ids) >= 0)
+        return _mesh_top_ids(self.users, self.items, self.U, cat, user_ids,
+                             k=k, train=(tu, ti), chunk=chunk,
+                             return_mask=return_mask)
 
     def user_factors(self) -> Iterator[FactorVector]:
         """(id, float32 factors) for every real user row."""
@@ -278,27 +279,19 @@ class ShardedMFModel:
         until a shard changes (its ``catalog_version``), as
         ``MFModel.recommend(mesh=)`` keeps its catalog; a shard written in
         place is written on every rank, so the ranks rebuild together."""
-        from large_scale_recommendation_tpu_torch.parallel import (
-            serving as psrv,
-        )
-
         part = self.partitioner
-        u_rows, u_mask = self.users.rows_for(np.asarray(user_ids))
-        known = u_mask > 0
         tu, ti = self._train_rows(train)
-        item_ids_of_row = np.asarray(self.items.ids)
         cache = self.__dict__.setdefault("_serving_cache", {})
         if cache.get("V") != psrv.catalog_version(self.V):
             cache["catalog"] = psrv.catalog_from_shard(
-                self.V, part, item_mask=item_ids_of_row >= 0)
+                self.V, part, item_mask=np.asarray(self.items.ids) >= 0)
             cache["V"] = cache["catalog"].version
         if cache.get("U") != psrv.catalog_version(self.U):
             cache["U_all"] = part.gather(self.U, "users", "rank")
             cache["U"] = psrv.catalog_version(self.U)
-        top_rows, top_scores = psrv.mesh_top_k_recommend(
-            cache["U_all"], None, u_rows[known], k=k, train_u=tu, train_i=ti,
-            chunk=chunk, catalog=cache["catalog"])
-        return _assemble_topk(len(u_rows), k, known, top_rows, top_scores,
-                              item_ids_of_row, return_mask)
+        return _mesh_top_ids(self.users, self.items, cache["U_all"],
+                             cache["catalog"], user_ids, k=k,
+                             train=(tu, ti), chunk=chunk,
+                             return_mask=return_mask)
 
     _train_rows = MFModel._train_rows

@@ -4,7 +4,7 @@ tail-based exemplar sampling and the ``/slowz`` surface (counterpart of
 
 - **stage ledgers** — the engine's flush seams (``serving.engine``,
   ``serving.retrieval.TwoStageRetriever.topk(mark=)``, the drain of
-  ``parallel.serving.run_pipelined_topk(on_drain=)``) mark a per-flush
+  ``ops.topk.run_pipelined_topk(on_drain=)``) mark a per-flush
   ``FlushLedger`` whose stages — ``batch_form``, ``gather``,
   ``score_stage1``, ``score_stage2``, ``topk_merge``, ``host_post`` —
   partition the flush wall exactly by construction: every ``mark`` is one
@@ -33,8 +33,8 @@ under its asynchronous dispatch: ``gather``, ``score_stage1`` and
 card's time lands in ``topk_merge``, whose mark fires in the pipeline's
 drain after the chunk's device→host copy event has been waited on. No mark
 synchronizes the card (a ``torch.cuda.synchronize()`` per stage would
-serialize the two-deep overlap ``run_pipelined_topk`` exists to give), and
-no mark reads a tensor.
+serialize the two-deep overlap ``ops.topk.run_pipelined_topk`` exists to
+give), and no mark reads a tensor.
 
 Zero-cost when unused: the module default is ``None`` (``get_requests``),
 every noting seam is one ``is not None`` test, ``request_scope`` hands back

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.obs.trace import span
+from large_scale_recommendation_tpu_torch.ops.topk import ieee_f32
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
-from large_scale_recommendation_tpu_torch.utils.metrics import _ieee_f32
 
 # classes of the device plan: rows with up to 2^30 ratings
 _N_POW2 = 31
@@ -348,7 +348,7 @@ def solve_side(
         factors_other = factors_other.to(dtype)
     out = torch.zeros((num_rows + 1, k), dtype=torch.float32,
                       device=factors_other.device)
-    with _ieee_f32():
+    with ieee_f32():
         for chunked in prepared:
             _solve_bucket(factors_other, out, *chunked, lambda_, G)
     return out[:num_rows]
@@ -445,7 +445,7 @@ def solve_side_local(
     omega_ext = (None if omega_local is None else torch.cat(
         [omega_local.float(), torch.ones(1, dtype=torch.float32,
                                          device=dev)]))
-    with _ieee_f32():
+    with ieee_f32():
         for rows3, oidx3, vals3, w3 in chunked_buckets:
             for c in range(rows3.shape[0]):
                 rows = rows3[c].long()
@@ -458,7 +458,7 @@ def solve_side_local(
 
 def _full_gram(F: torch.Tensor) -> torch.Tensor:
     """FᵀF in IEEE f32."""
-    with _ieee_f32():
+    with ieee_f32():
         return F.T @ F
 
 

@@ -1,22 +1,18 @@
-"""Top-K serving over a prepared catalog (counterpart of
+"""Catalogs and top-K over a mesh (counterpart of
 ``large_scale_recommendation_tpu.parallel.serving``).
 
-Without a mesh a catalog is one unpadded table on the caller's device and
-each query chunk runs
-
-    scores [chunk, n] = U_chunk @ Vᵀ   (f32 accumulate, TF32 off)
-                        + item_w          (masked rows: DEAD_SLOT_OFFSET)
-    scatter-min of the exclusion triple
-    top-k in ``lax.top_k``'s order (score descending, lower row first)
-
-Over a mesh (a ``Partitioner``) the catalog is padded to a multiple of the
-data ring's size k and each rank holds its rows (``'items'``) and, with
-``model_parallel > 1``, its columns (``'rank'``) of it. Every rank scores
-its rows (a rank-sharded rank sums its partial product over the model
-group first), applies the exclusions that fall in its range and keeps a
-local top-k; the ``[chunk, k]`` candidates are gathered over the ring and
-merged by one more top-k (exact: the global top-k is a subset of the
-local ones). Padding rows score -inf and come back as row 0 / -inf.
+Without a mesh a catalog is one unpadded table on the caller's device,
+scored by ``ops.topk.topk_step`` (the port's one top-K contract: score
+surface, exclusions, ``lax.top_k`` order, chunk loop and row → id map
+live there). Over a mesh (a ``Partitioner``) the catalog is padded to a
+multiple of the data ring's size k and each rank holds its rows
+(``'items'``) and, with ``model_parallel > 1``, its columns (``'rank'``)
+of it. Every rank scores its rows (a rank-sharded rank sums its partial
+product over the model group first), applies the exclusions that fall in
+its range and keeps a local top-k; the ``[chunk, k]`` candidates are
+gathered over the ring and merged by one more top-k (exact: the global
+top-k is a subset of the local ones). Padding rows score -inf and come
+back as row 0 / -inf.
 
 Catalogs are VERSIONED (``catalog_version``) so a serving cache can tell a
 retrain swap with one integer compare. A JAX array is immutable, so the
@@ -41,18 +37,18 @@ import torch
 
 from large_scale_recommendation_tpu_torch.obs.budget import get_budget
 from large_scale_recommendation_tpu_torch.obs.requests import get_requests
-from large_scale_recommendation_tpu_torch.obs.trace import span
+from large_scale_recommendation_tpu_torch.ops.topk import (
+    apply_exclusions,
+    exclusion_builder,
+    ieee_f32,
+    item_weights,
+    lax_top_k,
+    run_pipelined_topk,
+    to_device,
+)
 from large_scale_recommendation_tpu_torch.parallel import collectives
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
-)
-from large_scale_recommendation_tpu_torch.utils.metrics import (
-    DEAD_SLOT_OFFSET,
-    DEAD_SLOT_THRESHOLD,
-    _exclusion_builder,
-    _ieee_f32,
-    apply_exclusions,
-    lax_top_k,
 )
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
 
@@ -89,7 +85,8 @@ def catalog_version(V) -> int:
     return tok
 
 
-def _catalog_dtype(dtype) -> torch.dtype:
+def catalog_dtype(dtype) -> torch.dtype:
+    """A catalog's storage dtype: float32 (the default) or bfloat16."""
     if dtype is None:
         return torch.float32
     if isinstance(dtype, torch.dtype):
@@ -154,15 +151,6 @@ class ShardedCatalog:
                      else version))
 
 
-def _item_weights(n_rows: int, item_mask) -> np.ndarray:
-    """The catalog's additive row weights: 0 for a real item,
-    ``DEAD_SLOT_OFFSET`` where ``item_mask`` is False."""
-    item_w = np.zeros(n_rows, np.float32)
-    if item_mask is not None:
-        item_w[~np.asarray(item_mask, dtype=bool)] = DEAD_SLOT_OFFSET
-    return item_w
-
-
 def shard_catalog(V: torch.Tensor, mesh=None, item_mask=None,
                   dtype=None) -> ShardedCatalog:
     """The catalog of the whole table ``V``, as its own copy in ``dtype``
@@ -173,9 +161,9 @@ def shard_catalog(V: torch.Tensor, mesh=None, item_mask=None,
     ``mesh=None``: one table on ``V``'s device. A ``Partitioner``: ``V``
     (the whole table on every rank) is padded to a multiple of the ring's
     size and this rank keeps its slice, on the partitioner's device."""
-    cat_dtype = _catalog_dtype(dtype)
+    cat_dtype = catalog_dtype(dtype)
     n_rows = int(V.shape[0])
-    item_w = _item_weights(n_rows, item_mask)
+    item_w = item_weights(n_rows, item_mask)
     version = catalog_version(V)
     name = str(cat_dtype).split(".")[-1]
     if mesh is None:
@@ -207,10 +195,10 @@ def catalog_from_shard(V_local: torch.Tensor, partitioner, item_mask=None,
     so there is no padding): this rank's shard, cast to ``dtype``, with no
     table gathered. ``item_mask`` covers the whole table."""
     part = partitioner
-    cat_dtype = _catalog_dtype(dtype)
+    cat_dtype = catalog_dtype(dtype)
     rpb = int(V_local.shape[0])
     n_rows = rpb * part.num_blocks
-    item_w = _item_weights(n_rows, item_mask)
+    item_w = item_weights(n_rows, item_mask)
     return ShardedCatalog(
         V_sh=V_local.to(cat_dtype, copy=True),
         w_sh=part.place(item_w, "items"), n_rows=n_rows,
@@ -219,23 +207,8 @@ def catalog_from_shard(V_local: torch.Tensor, partitioner, item_mask=None,
 
 
 # --------------------------------------------------------------------------
-# Scoring step (the one-device counterpart of _mesh_topk_step)
+# Top-K over the mesh
 # --------------------------------------------------------------------------
-
-
-def topk_step(U_chunk, V, item_w, excl_rows, excl_cols, excl_w, *,
-              k_out: int):
-    """Score one query chunk against the whole catalog and keep the top
-    ``k_out``: one f32-accumulated ``U_chunk @ Vᵀ`` (bf16 operands are
-    upcast first, TF32 off), ``+ item_w``, the exclusion triple
-    scatter-min'ed, ``torch.topk`` in ``lax.top_k``'s order. Returns
-    ``(values f32 [b, k_out], rows int64 [b, k_out])`` on the device, with
-    no host read."""
-    with _ieee_f32():
-        scores = U_chunk.float() @ V.float().T
-    scores += item_w
-    apply_exclusions(scores, excl_rows, excl_cols, excl_w)
-    return lax_top_k(scores, k_out)
 
 
 def mesh_topk_step(part, U_chunk, V_l, w_l, excl_rows, excl_cols, excl_w,
@@ -248,7 +221,7 @@ def mesh_topk_step(part, U_chunk, V_l, w_l, excl_rows, excl_cols, excl_w,
     rank; the exclusions carry global item rows. Returns ``(values f32
     [b, k_out], global rows int64 [b, k_out])`` on the device."""
     data = part.data
-    with _ieee_f32():
+    with ieee_f32():
         scores = collectives.group_sum(
             part.model, part.rank_slice(U_chunk).float() @ V_l.float().T)
     scores += w_l
@@ -309,7 +282,7 @@ def mesh_top_k_recommend(U, V, user_rows, k: int = 10, train_u=None,
         return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
     k_local = min(k, rpb)
     k_out = min(k, part.num_blocks * k_local)
-    build_excl = _exclusion_builder(train_u, train_i, int(U.shape[0]))
+    build_excl = exclusion_builder(train_u, train_i, int(U.shape[0]))
     dev = catalog.V_sh.device
     U_dev = U.to(dev)
     cat_dtype = catalog.V_sh.dtype
@@ -343,115 +316,3 @@ def mesh_top_k_recommend(U, V, user_rows, k: int = 10, train_u=None,
             rt.note_flush(led, t_end, (t_serve,), version=catalog.version,
                           rows=(n,), residual_stage="topk_merge")
     return out
-
-
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array onto ``device`` without the host waiting on the card:
-    staged through pinned memory and copied with ``non_blocking=True``
-    (from pageable memory the copy would block the host behind every
-    kernel already queued)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-class _Readback:
-    """A device→host copy started now and waited for later: on the card a
-    ``non_blocking`` copy into pinned memory plus an event recorded after
-    it, so waiting covers this chunk only, never the chunk queued
-    behind it."""
-
-    def __init__(self, t: torch.Tensor):
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host, self._event = t, None
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
-
-
-def ids_of_top(values, rows, ids_of_row, n_rows: int):
-    """One chunk's row-space top-K in external ids, on its device:
-    ``(scores f32, ids int64)``, ``ids_of_row[rows]`` and the scores, with
-    -1 / 0.0 in a dead slot (``values <= DEAD_SLOT_THRESHOLD``: an
-    excluded or masked row, -inf mesh padding) or a surfaced pad row
-    (``rows >= n_rows``): ``models.mf._assemble_topk``'s conventions, by
-    the same f32 comparison."""
-    real = (values > DEAD_SLOT_THRESHOLD) & (rows < n_rows)
-    ids = torch.where(real, ids_of_row[rows.clamp(max=n_rows - 1)], -1)
-    return torch.where(real, values, 0.0), ids
-
-
-def run_pipelined_topk(user_rows, *, k: int, k_out: int, n_rows: int,
-                       slice_size: int, bucket_fn, score_chunk,
-                       on_batch=None, on_drain=None, ids_of_row=None):
-    """The chunk loop of the serving engine: walk ``user_rows`` in
-    ``slice_size`` slices, pad each to ``bucket_fn(len(slice))`` rows,
-    score via ``score_chunk(cu_padded, c) -> (v_top, r_top)`` (device
-    work only, no host read), and drain results ONE chunk behind the
-    dispatch, so host work for chunk i+1 (exclusion building, staging)
-    overlaps device scoring of chunk i. Each chunk's results are copied
-    back asynchronously right after its own kernels; the drain waits for
-    that copy alone. Ends with the pad-row clamp: rows ≥ ``n_rows`` (slab
-    pads) become row 0 / -inf. ``on_batch(bucket)`` observes each
-    dispatched bucket; ``on_drain()`` fires after each drain, once the
-    chunk's copy event has been waited on (the request plane marks its
-    ``topk_merge`` stage there, so the card's time of the chunk lands in
-    it). A drain is the span ``serving/drain``. Returns ``(rows int32
-    [n, k], scores f32 [n, k])``.
-
-    ``ids_of_row`` (the catalog's row → external id map, an int64 tensor
-    on the scoring device) turns each chunk's rows into ids on the device
-    before its copy back (``ids_of_top``), so no host pass follows the
-    drains and there is no clamp: the result is then ``(ids int64 [n, k],
-    scores f32 [n, k])``, -1 / 0.0 in dead slots, surfaced pad rows and
-    past ``k_out``.
-    """
-    n = len(user_rows)
-    if ids_of_row is None:
-        out_rows = np.zeros((n, k), np.int32)
-        out_scores = np.full((n, k), -np.inf, np.float32)
-    else:
-        out_rows = np.full((n, k), -1, np.int64)
-        out_scores = np.zeros((n, k), np.float32)
-    if n == 0:
-        return out_rows, out_scores
-    pending = None  # (c0, c, values readback, rows readback)
-
-    def drain(p):
-        p0, pc, pv, pr = p
-        with span("serving/drain"):
-            out_rows[p0:p0 + pc, :k_out] = pr.numpy()[:pc]
-            out_scores[p0:p0 + pc, :k_out] = pv.numpy()[:pc]
-        if on_drain is not None:
-            on_drain()
-
-    for c0 in range(0, n, slice_size):
-        cu = user_rows[c0:c0 + slice_size]
-        c = len(cu)
-        bucket = bucket_fn(c)
-        if c < bucket:
-            cu = np.concatenate([cu, np.zeros(bucket - c, cu.dtype)])
-        v_top, r_top = score_chunk(cu, c)
-        if ids_of_row is not None:
-            v_top, r_top = ids_of_top(v_top, r_top, ids_of_row, n_rows)
-        current = (c0, c, _Readback(v_top), _Readback(r_top))
-        if on_batch is not None:
-            on_batch(bucket)
-        if pending is not None:
-            drain(pending)
-        pending = current
-    drain(pending)
-    if ids_of_row is None:
-        pad_hits = out_rows >= n_rows  # surfaced padding rows
-        out_rows[pad_hits] = 0
-        out_scores[pad_hits] = -np.inf
-    return out_rows, out_scores

@@ -17,7 +17,7 @@ serving loop around one model snapshot:
 - **bf16 catalog** (``dtype="bfloat16"``) — scores still accumulate in
   f32.
 - **two-deep dispatch** — micro-batches run two deep
-  (``parallel.serving.run_pipelined_topk``): host exclusion building and
+  (``ops.topk.run_pipelined_topk``): host exclusion building and
   pinned staging of chunk i+1 overlap device scoring of chunk i.
 - **two-stage fast path** (``retrieval=RetrievalConfig(...)``) — int8
   stage 1, exact f32 stage 2 (``serving.retrieval``).
@@ -86,17 +86,21 @@ from large_scale_recommendation_tpu_torch.obs.transfers import (
     get_transfers,
     guard_scope,
 )
+from large_scale_recommendation_tpu_torch.ops.topk import (
+    exclusion_builder,
+    fill_unknown,
+    run_pipelined_topk,
+    to_device,
+    topk_step,
+)
 from large_scale_recommendation_tpu_torch.parallel.partitioner import (
     as_partitioner,
 )
 from large_scale_recommendation_tpu_torch.parallel.serving import (
-    _catalog_dtype,
+    catalog_dtype,
     catalog_version,
-    run_pipelined_topk,
     mesh_topk_step,
     shard_catalog,
-    to_device,
-    topk_step,
 )
 from large_scale_recommendation_tpu_torch.serving.admission import (
     AdmissionController,
@@ -106,10 +110,7 @@ from large_scale_recommendation_tpu_torch.serving.retrieval import (
     RetrievalConfig,
     TwoStageRetriever,
 )
-from large_scale_recommendation_tpu_torch.utils.metrics import (
-    ThroughputMeter,
-    _exclusion_builder,
-)
+from large_scale_recommendation_tpu_torch.utils.metrics import ThroughputMeter
 from large_scale_recommendation_tpu_torch.utils.shapes import (
     pow2_buckets,
     pow2_pad,
@@ -175,7 +176,7 @@ class ServingEngine:
         self.min_bucket = int(min_bucket)
         # the static shape family requests dispatch against
         self.bucket_family = pow2_buckets(min_bucket, max_batch)
-        self._dtype = _catalog_dtype(dtype)
+        self._dtype = catalog_dtype(dtype)
         self._train = train
         self._pending: list[np.ndarray] = []
         self._pending_t: list[float] = []  # submit stamps (queue wait)
@@ -290,7 +291,7 @@ class ServingEngine:
             self._U = model.U.to(self._device, want, copy=True)
             n_users = int(model.U.shape[0])
         tu, ti = model._train_rows(self._train)
-        self._build_excl = _exclusion_builder(tu, ti, n_users)
+        self._build_excl = exclusion_builder(tu, ti, n_users)
         self.stats["refreshes"] += 1
         if self._obs_on:
             # version-labeled: which builds reached this engine
@@ -632,10 +633,8 @@ class ServingEngine:
                     if all_known:
                         ids, scores = top_ids[b0:b1], top_scores[b0:b1]
                     else:  # unknown users: -1 / 0.0 rows
-                        ids = np.full((len(known), self.k), -1, np.int64)
-                        scores = np.zeros((len(known), self.k), np.float32)
-                        ids[known] = top_ids[b0:b1]
-                        scores[known] = top_scores[b0:b1]
+                        ids, scores = fill_unknown(known, top_ids[b0:b1],
+                                                   top_scores[b0:b1])
                     results.append(RecResult(
                         (ids, scores, known) if return_mask
                         else (ids, scores),
@@ -701,7 +700,7 @@ class ServingEngine:
         the fast path around the retriever's ``serving/stage1`` and
         ``serving/stage2``) and ``run_pipelined_topk``'s
         ``serving/drain``. Each chunk's rows become item ids on the device
-        (``parallel.serving.ids_of_top``); returns ``(ids int64 [n, k],
+        (``ops.topk.ids_of_top``); returns ``(ids int64 [n, k],
         scores f32 [n, k])``, -1 / 0.0 in dead slots."""
         dev = self._device
         store = self._user_store

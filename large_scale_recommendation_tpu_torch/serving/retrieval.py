@@ -57,6 +57,13 @@ import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.obs.trace import span
+from large_scale_recommendation_tpu_torch.ops.topk import (
+    DEAD_SLOT_OFFSET,
+    apply_exclusions,
+    ieee_f32,
+    item_weights,
+    lax_top_k,
+)
 from large_scale_recommendation_tpu_torch.parallel.collectives import (
     group_sum,
 )
@@ -64,12 +71,6 @@ from large_scale_recommendation_tpu_torch.parallel.serving import (
     catalog_version,
 )
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
-from large_scale_recommendation_tpu_torch.utils.metrics import (
-    DEAD_SLOT_OFFSET,
-    _ieee_f32,
-    apply_exclusions,
-    lax_top_k,
-)
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
 
 _INV_127 = float(np.float32(1.0 / 127.0))
@@ -168,7 +169,7 @@ def int8_scores(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     if qa.shape[1] >= 1040:
         raise ValueError(f"rank {qa.shape[1]} >= 1040: int8 products no "
                          "longer sum exactly in f32")
-    with _ieee_f32():
+    with ieee_f32():
         return qa.float() @ qb.float().T
 
 
@@ -196,7 +197,7 @@ def _assign(X: np.ndarray, centroids: np.ndarray, top: int = 1,
     C_dev = torch.from_numpy(np.ascontiguousarray(centroids.T)).to(dev)
     top = min(top, len(centroids))
     out = np.empty((len(X), top), np.int32)
-    with _ieee_f32():
+    with ieee_f32():
         for c0 in range(0, len(X), chunk):
             sl = torch.from_numpy(np.ascontiguousarray(
                 X[c0:c0 + chunk])).to(dev)
@@ -424,9 +425,7 @@ def build_quantized_catalog(V, item_mask=None,
     V = _table(V).float()
     dev = V.device
     n, r = V.shape
-    item_w = np.zeros(n, np.float32)
-    if item_mask is not None:
-        item_w[~np.asarray(item_mask, dtype=bool)] = DEAD_SLOT_OFFSET
+    item_w = item_weights(n, item_mask)
     q_dev, s_dev = quantize_rows(V)
     stats = {"n_rows": n, "rank": r, "mode": "flat"}
     if cfg.n_clusters is None:
@@ -509,7 +508,7 @@ def _stage1_flat(qU, u_scale, Q, scale, item_w, excl_rows, excl_cols,
 
 def _route(U_chunk, centroids, n_probe):
     """Each query's top-``n_probe`` clusters by centroid inner product."""
-    with _ieee_f32():
+    with ieee_f32():
         return lax_top_k(U_chunk @ centroids.T, n_probe)[1]
 
 
@@ -517,14 +516,14 @@ def _score_probe(U_chunk, c, slab_q, slab_scale, slab_w, part=None):
     """One probe: each query against the slab of its cluster ``c[query]``
     (one ``[b, m, r]`` gather, upcast to f32; queries stay f32; ``U_chunk``
     holds the slab's columns)."""
-    with _ieee_f32():
+    with ieee_f32():
         sc = torch.bmm(slab_q[c].float(), U_chunk[:, :, None])[..., 0]
     return _sum(sc, part) * slab_scale[c] + slab_w[c]
 
 
 def _score_overflow(U_chunk, ovf_q, ovf_scale, ovf_w, part=None):
     """The overflow block every query scores: a plain ``[b, O]`` product."""
-    with _ieee_f32():
+    with ieee_f32():
         ov = U_chunk @ ovf_q.float().T
     return _sum(ov, part) * ovf_scale[None, :] + ovf_w[None, :]
 
@@ -568,7 +567,7 @@ def _stage2(U_chunk, V, item_w, cand_v, cand_rows, excl_rows, excl_cols,
     n = V.shape[0]
     safe_rows = cand_rows.clamp(max=n - 1)  # slab pads carry n
     if exact:
-        with _ieee_f32():
+        with ieee_f32():
             sc = torch.bmm(V[safe_rows], _cols(U_chunk, part)[:, :, None]
                            )[..., 0]
         sc = _sum(sc, part) + item_w[safe_rows]

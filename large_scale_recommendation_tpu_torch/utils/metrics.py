@@ -9,22 +9,12 @@ keeps the JAX package's surface and mirrors into the process registry when
 is a no-op).
 
 The JAX package leaves this to XLA, so the port uses ordinary torch ops on
-the tables' device: per chunk of users one ``[chunk, n_items]`` matmul,
-the phantom-row mask ``item_w``, train-seen exclusion as a scatter-min,
-then ``torch.topk`` (serving) or compare-and-count (the rank of a held-out
-positive).
-
-- bf16 tables score as the JAX package's compiled kernel scores them: the
-  rows are upcast and the product accumulates in f32. The jitted
-  ``U_rows @ V.T + item_w`` is typed bf16 before the add, but XLA drops
-  that f32→bf16→f32 pair (excess precision is allowed), so the scores
-  are never rounded to bf16; neither are the port's.
-- f32 products run in IEEE f32: TF32 is off for the duration of a call,
-  whatever the process set.
-- Ties: ``lax.top_k`` puts the lower index first; ``torch.topk`` makes no
-  promise, so each returned list is re-sorted by (score descending, row
-  ascending). Which of several tied rows enters at the k-th place may still
-  differ from the JAX package.
+the tables' device: full-catalog serving and ranking score through
+``ops.topk`` (the port's one top-K contract: its score surface, exclusion
+triple, ``lax.top_k`` order and chunk loop), then ``torch.topk`` (serving)
+or compare-and-count (the rank of a held-out positive). f32 products run
+in IEEE f32: TF32 is off for the duration of a call, whatever the process
+set.
 """
 
 from __future__ import annotations
@@ -38,26 +28,10 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from large_scale_recommendation_tpu_torch.ops import topk
+# DEAD_SLOT_OFFSET: looked up here by callers of this module
+from large_scale_recommendation_tpu_torch.ops.topk import DEAD_SLOT_OFFSET
 from large_scale_recommendation_tpu_torch.utils.shapes import pow2_pad
-
-# The top-K dead-slot sentinel contract shared by every scoring surface:
-# excluded/masked catalog slots get DEAD_SLOT_OFFSET (scatter-min for
-# exclusions, added for masked rows), so a surfaced dead slot scores near
-# the offset; consumers classify by ``score > DEAD_SLOT_THRESHOLD``.
-DEAD_SLOT_OFFSET = -1e30
-DEAD_SLOT_THRESHOLD = -1e29
-
-
-@contextlib.contextmanager
-def _ieee_f32():
-    """f32 matmuls in IEEE f32 (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
 
 logger = logging.getLogger("large_scale_recommendation_tpu_torch")
 
@@ -235,101 +209,6 @@ def publish_fields(fields: dict, registry=None, prefix: str = "ingest",
         registry.gauge(f"{prefix}_{field}", **labels).set(value)
 
 
-def _exclusion_builder(train_u, train_i, num_users: int):
-    """Per-chunk train-seen exclusion lists, pow2-padded.
-
-    Returns ``build(cu, c) -> (excl_rows, excl_cols, excl_w)`` (int32,
-    int32, float32 numpy, one length, a power of two ≥ 8) for a padded
-    chunk ``cu`` of user rows whose first ``c`` are real: entry j excludes
-    item row ``excl_cols[j]`` for chunk position ``excl_rows[j]`` with
-    weight ``DEAD_SLOT_OFFSET``; pads are ``(0, 0, +inf)``, no-ops under a
-    scatter-min, and are told apart from real entries by ``excl_w < 0``.
-    Shared by evaluation and serving so the exclusion semantics cannot
-    drift between them."""
-    if train_u is None:
-        ep = pow2_pad(1)  # the same padded shape as an empty train slice
-
-        def build_empty(cu, c):
-            z = np.zeros(ep, np.int32)
-            return z, z, np.full(ep, np.inf, np.float32)
-
-        return build_empty
-
-    train_u = np.asarray(train_u, dtype=np.int64)
-    order = np.argsort(train_u, kind="stable")
-    tu = train_u[order]
-    ti = np.asarray(train_i, dtype=np.int32)[order]
-    starts = np.searchsorted(tu, np.arange(num_users + 1))
-
-    def build(cu, c):
-        cu = np.asarray(cu, dtype=np.int64)
-        counts = (starts[cu + 1] - starts[cu])[:c]
-        e = int(counts.sum())
-        rows = np.repeat(np.arange(c, dtype=np.int32), counts)
-        # absolute positions of each user's train slice, vectorized
-        offs = np.repeat(
-            starts[cu[:c]] - np.concatenate([[0], np.cumsum(counts)[:-1]]),
-            counts)
-        cols = ti[np.arange(e) + offs] if e else np.zeros(0, np.int32)
-        ep = pow2_pad(max(e, 1))
-        excl_rows = np.zeros(ep, np.int32)
-        excl_cols = np.zeros(ep, np.int32)
-        excl_w = np.full(ep, np.inf, np.float32)  # pads: min() no-ops
-        excl_rows[:e], excl_cols[:e], excl_w[:e] = (
-            rows, cols, DEAD_SLOT_OFFSET)
-        return excl_rows, excl_cols, excl_w
-
-    return build
-
-
-def apply_exclusions(scores: torch.Tensor, excl_rows, excl_cols,
-                     excl_w) -> torch.Tensor:
-    """Scatter-min the exclusion triple (tensors on ``scores``' device)
-    onto ``scores`` [b, n] in place: idempotent under duplicate train
-    pairs, where an add would stack."""
-    n = scores.shape[1]
-    flat = excl_rows.long() * n + excl_cols.long()
-    scores.view(-1).scatter_reduce_(0, flat, excl_w, "amin")
-    return scores
-
-
-def lax_top_k(scores: torch.Tensor, k: int):
-    """``torch.topk`` along the last axis, re-sorted to ``lax.top_k``'s
-    order: score descending, lower index first among equal scores. Which of
-    several tied indices enters at the k-th place is ``torch.topk``'s
-    choice."""
-    top, idx = torch.topk(scores, k, dim=-1)
-    idx, by_idx = idx.sort(dim=-1)
-    top = top.gather(-1, by_idx)
-    top, by_score = top.sort(dim=-1, descending=True, stable=True)
-    return top, idx.gather(-1, by_score)
-
-
-class _Scorer:
-    """The score surface shared by serving and evaluation: ``U[rows] @ V.T``
-    in f32 + ``item_w``, then the chunk's exclusions scatter-min'ed to
-    ``DEAD_SLOT_OFFSET``."""
-
-    def __init__(self, U, V, train_u, train_i, item_mask):
-        self.U, self.device = U, U.device
-        self.Vt = V.float().T
-        self.n_items = int(V.shape[0])
-        w = np.zeros(self.n_items, np.float32)
-        if item_mask is not None:
-            w[~np.asarray(item_mask, dtype=bool)] = DEAD_SLOT_OFFSET
-        self.item_w = torch.from_numpy(w).to(self.device)
-        self.exclusions = _exclusion_builder(train_u, train_i,
-                                             int(U.shape[0]))
-
-    def __call__(self, cu: np.ndarray) -> torch.Tensor:
-        rows = torch.as_tensor(cu, dtype=torch.int64, device=self.device)
-        scores = self.U[rows].float() @ self.Vt
-        scores += self.item_w
-        excl = self.exclusions(cu, len(cu))
-        return apply_exclusions(scores, *(torch.from_numpy(a).to(
-            self.device) for a in excl))
-
-
 def ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
                     train_u=None, train_i=None, chunk: int = 2048,
                     item_mask=None) -> dict:
@@ -347,17 +226,21 @@ def ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
     n = len(eval_u)
     if n == 0:
         return {"hr": float("nan"), "ndcg": float("nan"), "n": 0}
-    score = _Scorer(U, V, train_u, train_i, item_mask)
+    dev = U.device
+    w = topk.to_device(topk.item_weights(int(V.shape[0]), item_mask), dev)
+    excl = topk.exclusion_builder(train_u, train_i, int(U.shape[0]))
     hits = ndcg = 0.0
-    with _ieee_f32():
+    with topk.ieee_f32():
         for c0 in range(0, n, chunk):
-            scores = score(eval_u[c0:c0 + chunk])
-            pos = torch.as_tensor(eval_i[c0:c0 + chunk], device=U.device)
+            cu = eval_u[c0:c0 + chunk]
+            scores = topk.score_rows(U[topk.to_device(cu, dev)], V, w, *(
+                topk.to_device(a, dev) for a in excl(cu, len(cu))))
+            pos = torch.as_tensor(eval_i[c0:c0 + chunk], device=dev)
             st = scores.gather(1, pos[:, None])
             rank = (scores > st).sum(dim=1)
             hit = rank < k
             nd = torch.where(hit, 1.0 / torch.log2(rank.float() + 2.0),
-                             torch.zeros((), device=U.device))
+                             torch.zeros((), device=dev))
             hits += float(hit.sum())
             ndcg += float(nd.double().sum())
     return {"hr": hits / n, "ndcg": ndcg / n, "n": n}
@@ -367,28 +250,17 @@ def top_k_recommend(U, V, user_rows, k: int = 10,
                     train_u=None, train_i=None, chunk: int = 2048,
                     item_mask=None):
     """Top-K item rows per user by full-catalog score, the serving twin of
-    ``ranking_metrics`` (same score surface).
+    ``ranking_metrics`` (same score surface): ``ops.topk.recommend_rows``
+    in row space.
 
     Inputs are ROW indices into ``U``/``V``; returns ``(top_rows int32
     [n, k], top_scores float32 [n, k])`` as numpy, sorted by descending
     score (ties: lower row first). Excluded or masked slots that still
     surface score below ``DEAD_SLOT_THRESHOLD``; with ``k`` above the
     catalog size the slots past it carry row 0 and score ``-inf``."""
-    user_rows = np.asarray(user_rows, dtype=np.int64)
-    n = len(user_rows)
-    out_rows = np.zeros((n, k), np.int32)
-    out_scores = np.full((n, k), -np.inf, np.float32)
-    if n == 0:
-        return out_rows, out_scores
-    score = _Scorer(U, V, train_u, train_i, item_mask)
-    kk = min(k, score.n_items)
-    with _ieee_f32():
-        for c0 in range(0, n, chunk):
-            top, idx = lax_top_k(score(user_rows[c0:c0 + chunk]), kk)
-            c = idx.shape[0]
-            out_rows[c0:c0 + c, :kk] = idx.cpu().numpy()
-            out_scores[c0:c0 + c, :kk] = top.cpu().numpy()
-    return out_rows, out_scores
+    return topk.recommend_rows(U, V, user_rows, k=k, train_u=train_u,
+                               train_i=train_i, chunk=chunk,
+                               item_mask=item_mask)
 
 
 def sampled_ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
@@ -438,7 +310,7 @@ def sampled_ranking_metrics(U, V, eval_u, eval_i, k: int = 10,
     hits = ndcg = valid_total = 0.0
     # the JAX package's fixed chunk shape (the draws depend on it)
     chunk = min(chunk, pow2_pad(max(1, n)))
-    with _ieee_f32():
+    with topk.ieee_f32():
         for c0 in range(0, n, chunk):
             cu = eval_u[c0:c0 + chunk]
             ci = eval_i[c0:c0 + chunk]
@@ -489,5 +361,5 @@ def catalog_coverage(U, V, user_rows, k: int = 10, train_u=None,
     rows, scores = top_k_recommend(U, V, user_rows, k=k, train_u=train_u,
                                    train_i=train_i, chunk=chunk,
                                    item_mask=item_mask)
-    real = scores > DEAD_SLOT_THRESHOLD  # dead/below-catalog slots out
+    real = scores > topk.DEAD_SLOT_THRESHOLD  # dead/below-catalog slots out
     return float(len(np.unique(rows[real])) / n_items)

@@ -332,8 +332,8 @@ def retriever(part: Partitioner, job) -> dict:
     the one-device retriever on this rank: stage-2 and stage-1-only top-k
     of the queries, and both after ``apply_delta``; the local shapes."""
     from large_scale_recommendation_tpu_torch.serving import retrieval as rt
-    from large_scale_recommendation_tpu_torch.utils.metrics import (
-        _exclusion_builder,
+    from large_scale_recommendation_tpu_torch.ops.topk import (
+        exclusion_builder,
     )
 
     cfg = rt.RetrievalConfig(n_clusters=job.get("n_clusters"),
@@ -342,7 +342,7 @@ def retriever(part: Partitioner, job) -> dict:
     shd = rt.TwoStageRetriever(V, config=cfg, partitioner=part)
     base = rt.TwoStageRetriever(V, config=cfg)
     tu, ti = job.get("train", (None, None))
-    excl = tuple(torch.from_numpy(a) for a in _exclusion_builder(
+    excl = tuple(torch.from_numpy(a) for a in exclusion_builder(
         tu, ti, len(Q))(np.arange(len(Q)), len(Q)))
     out = {}
     for name, r in (("sharded", shd), ("base", base)):
@@ -369,8 +369,8 @@ def jax_catalog(part: Partitioner, job) -> dict:
 
     from large_scale_recommendation_tpu_torch import convert
     from large_scale_recommendation_tpu_torch.serving import retrieval as rt
-    from large_scale_recommendation_tpu_torch.utils.metrics import (
-        _exclusion_builder,
+    from large_scale_recommendation_tpu_torch.ops.topk import (
+        exclusion_builder,
     )
 
     ns = types.SimpleNamespace(**job["cat"])
@@ -381,7 +381,7 @@ def jax_catalog(part: Partitioner, job) -> dict:
                                                      partitioner=part)
     base = rt.TwoStageRetriever(V, config=cfg)
     base.catalog = convert.quantized_catalog_from_jax(ns, device="cpu")
-    excl = tuple(torch.from_numpy(a) for a in _exclusion_builder(
+    excl = tuple(torch.from_numpy(a) for a in exclusion_builder(
         None, None, len(Q))(np.arange(len(Q)), len(Q)))
     out = {name: tuple(t.numpy() for t in r.topk(Q, excl, k=10))
            for name, r in (("sharded", shd), ("base", base))}

@@ -32,7 +32,7 @@ def test_port_has_the_slice_modules():
     for m in ("core.types", "core.updaters", "core.initializers",
               "core.generators", "utils.shapes", "data.native",
               "data.blocking", "data.device_blocking", "data.movielens",
-              "ops.sgd", "ops.cuda_sgd", "ops._build", "models.mf",
+              "ops.sgd", "ops.cuda_sgd", "ops._build", "ops.topk", "models.mf",
               "models.dsgd", "utils.device", "convert", "utils.metrics",
               "utils.checkpoint", "utils.config", "core.limiter",
               "ops.als", "models.als", "data.tables", "models.online",

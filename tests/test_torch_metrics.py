@@ -23,6 +23,7 @@ from large_scale_recommendation_tpu.models.mf import MFModel as JMFModel
 from large_scale_recommendation_tpu.utils import metrics as jmetrics
 from large_scale_recommendation_tpu_torch import convert
 from large_scale_recommendation_tpu_torch.core.types import Ratings
+from large_scale_recommendation_tpu_torch.ops import topk
 from large_scale_recommendation_tpu_torch.utils import metrics
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -92,7 +93,7 @@ def test_top_k_recommend_matches_jax(dtype, k, dup, mask):
     # no excluded slot surfaces above the dead-slot threshold
     tset = set(zip(tu.tolist(), ti.tolist()))
     for r, u in enumerate(rows):
-        live = got[1][r] > metrics.DEAD_SLOT_THRESHOLD
+        live = got[1][r] > topk.DEAD_SLOT_THRESHOLD
         assert not any((u, c) in tset for c in got[0][r][live])
 
 
@@ -189,13 +190,13 @@ def test_tf32_is_off_inside_and_restored_after(monkeypatch):
     _, tm, _, _ = _models("float32")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     seen = []
-    real = metrics._Scorer.__call__
+    real = topk.score_rows
 
-    def spy(self, cu):
+    def spy(*args):
         seen.append(torch.backends.cuda.matmul.allow_tf32)
-        return real(self, cu)
+        return real(*args)
 
-    monkeypatch.setattr(metrics._Scorer, "__call__", spy)
+    monkeypatch.setattr(topk, "score_rows", spy)  # the shared surface
     tm.recommend(tm.users.sorted_ids[:4], k=2)
     tm.ranking_quality(tm.users.sorted_ids[:4], tm.items.sorted_ids[:4])
     assert len(seen) == 2 and not any(seen)
@@ -205,5 +206,5 @@ def test_tf32_is_off_inside_and_restored_after(monkeypatch):
 def test_model_rank_and_dead_slot_contract():
     jm, tm, _, _ = _models("float32")
     assert tm.rank == jm.rank == 8
-    assert metrics.DEAD_SLOT_OFFSET == jmetrics.DEAD_SLOT_OFFSET
-    assert metrics.DEAD_SLOT_THRESHOLD == jmetrics.DEAD_SLOT_THRESHOLD
+    assert topk.DEAD_SLOT_OFFSET == jmetrics.DEAD_SLOT_OFFSET
+    assert topk.DEAD_SLOT_THRESHOLD == jmetrics.DEAD_SLOT_THRESHOLD

@@ -24,8 +24,8 @@ import jax.numpy as jnp
 from large_scale_recommendation_tpu.serving import retrieval as jret
 from large_scale_recommendation_tpu.utils import metrics as jmetrics
 from large_scale_recommendation_tpu_torch import convert
+from large_scale_recommendation_tpu_torch.ops import topk
 from large_scale_recommendation_tpu_torch.serving import retrieval as tret
-from large_scale_recommendation_tpu_torch.utils import metrics as tmetrics
 
 CPU = torch.device("cpu")
 
@@ -82,7 +82,7 @@ def both_excl(tu, ti, n_users, cu):
     """The exclusion triple of one chunk from both packages' builders
     (bit-equal), as (jax arrays, torch tensors)."""
     jx = jmetrics._exclusion_builder(tu, ti, n_users)(cu, len(cu))
-    tx = tmetrics._exclusion_builder(tu, ti, n_users)(cu, len(cu))
+    tx = topk.exclusion_builder(tu, ti, n_users)(cu, len(cu))
     for a, b in zip(jx, tx):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
@@ -329,7 +329,7 @@ def test_topk_refuses_uint32_key_overflow():
     tr = tret.TwoStageRetriever(torch.from_numpy(catalog_V(64, 4, seed=1)))
     tr.catalog = dataclasses.replace(tr.catalog, n_rows=2**26)
     excl = tuple(torch.from_numpy(a) for a in
-                 tmetrics._exclusion_builder(None, None, 1)(np.zeros(64), 64))
+                 topk.exclusion_builder(None, None, 1)(np.zeros(64), 64))
     with pytest.raises(ValueError, match="uint32"):
         tr.topk(torch.zeros((64, 4)), excl, k=5)
 

@@ -1,5 +1,6 @@
-"""The port's serving engine (``serving.engine``, ``parallel.serving``)
-against the JAX package's on the CPU, from the same seeded numpy inputs.
+"""The port's serving engine (``serving.engine``, ``parallel.serving``,
+``ops.topk``) against the JAX package's on the CPU, from the same seeded
+numpy inputs.
 
 The JAX engine runs on a one-device mesh (``make_block_mesh(1)``), the
 port's engine on CPU tensors. Bars: the exact engine's lists tie-aware,
@@ -44,8 +45,8 @@ from large_scale_recommendation_tpu_torch.core.initializers import (
 )
 from large_scale_recommendation_tpu_torch.core.types import Ratings
 from large_scale_recommendation_tpu_torch.data.blocking import flat_index
-from large_scale_recommendation_tpu_torch.models.mf import _assemble_topk
 from large_scale_recommendation_tpu_torch.obs import trace as ptr
+from large_scale_recommendation_tpu_torch.ops import topk
 from large_scale_recommendation_tpu_torch.parallel import serving as tps
 from large_scale_recommendation_tpu_torch.store import TieredFactorStore
 from large_scale_recommendation_tpu_torch.serving import (
@@ -138,7 +139,7 @@ def test_two_stage_engine_matches_jax(stage1_only):
     uids = np.concatenate([real_users(tm), [123_456]])
     rows = tm.users.rows_for(uids)[0][:-1]
     jx = jmetrics._exclusion_builder(*jm._train_rows(tr), 60)
-    tx = tmetrics._exclusion_builder(*tm._train_rows(tr), 60)
+    tx = topk.exclusion_builder(*tm._train_rows(tr), 60)
     if stage1_only:  # the degraded point, straight through the retriever
         cu = np.concatenate([rows, np.zeros(64 - len(rows), np.int64)])
         jv, jr = j.retriever.topk(jm.U[cu], jx(cu, len(rows)), k=10,
@@ -193,17 +194,51 @@ def test_bf16_catalog_parity_with_f32():
     np.testing.assert_allclose(s16, s32, rtol=2e-2, atol=2e-2)
 
 
-def test_engine_matches_model_recommend():
-    _, tm = models(seed=6)
-    tr = Ratings.from_arrays(*train_pairs(models(seed=6)[0]),
-                             np.ones(900, np.float32))
-    eng = ServingEngine(tm, k=6, train=tr)
-    uids = np.concatenate([real_users(tm, 20), [99_999]])
-    i1, s1, m1 = eng.recommend(uids, return_mask=True)
-    i0, s0, m0 = tm.recommend(uids, k=6, train=tr, return_mask=True)
+def _swapped(tm):
+    """``tm`` with the roles of users and items swapped: its engine serves
+    ``tm.recommend_users``' lists."""
+    return dataclasses.replace(tm, U=tm.V, V=tm.U, users=tm.items,
+                               items=tm.users)
+
+
+MODEL_CASES = {
+    "recommend": dict(padded=False),
+    "recommend_users": dict(padded=False, users=True),
+    "unknown_ids": dict(padded=False, unknown=True),
+    "k_above_catalog": dict(padded=False, k=300),
+    # -1 ids on padding rows of both tables: masked item rows
+    "masked_rows": dict(unknown=True),
+}
+
+
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_engine_matches_model_recommend(case):
+    """``MFModel.recommend`` / ``recommend_users`` and ``ServingEngine``
+    give bit-equal ids, scores and masks: both score through
+    ``ops.topk`` and map rows to ids on the device."""
+    c = MODEL_CASES[case]
+    jm, tm = models(seed=6, padded=c.get("padded", True))
+    tu, ti = train_pairs(jm)
+    k = c.get("k", 6)
+    if c.get("users"):
+        eng = ServingEngine(_swapped(tm), k=k, train=(ti, tu))
+        queries = tm.items.ids[tm.items.ids >= 0][:40]
+        ask = tm.recommend_users
+    else:
+        eng = ServingEngine(tm, k=k, train=Ratings.from_arrays(
+            tu, ti, np.ones(len(tu), np.float32)))
+        queries = real_users(tm, 20)
+        ask = tm.recommend
+    if c.get("unknown"):
+        queries = np.concatenate([queries[:7], [99_999], queries[7:], [-5]])
+    i1, s1, m1 = eng.recommend(queries, return_mask=True)
+    i0, s0, m0 = ask(queries, k=k, train=(tu, ti), return_mask=True)
     np.testing.assert_array_equal(m1, m0)
     np.testing.assert_array_equal(i1, i0)
     np.testing.assert_array_equal(s1, s0)
+    assert m0.all() != c.get("unknown", False)
+    if k > tm.V.shape[0]:
+        assert (i0[:, tm.V.shape[0]:] == -1).all()
 
 
 def test_exclusion_builder_bit_equal_to_jax():
@@ -213,11 +248,11 @@ def test_exclusion_builder_bit_equal_to_jax():
     for cu, c in ((np.arange(16), 16), (rng.integers(0, 50, 32), 20),
                   (np.array([49, 49, 0]), 3)):
         for a, b in zip(jmetrics._exclusion_builder(tu, ti, 50)(cu, c),
-                        tmetrics._exclusion_builder(tu, ti, 50)(cu, c)):
+                        topk.exclusion_builder(tu, ti, 50)(cu, c)):
             np.testing.assert_array_equal(a, b)
             assert a.dtype == b.dtype
     for a, b in zip(jmetrics._exclusion_builder(None, None, 50)(cu, 3),
-                    tmetrics._exclusion_builder(None, None, 50)(cu, 3)):
+                    topk.exclusion_builder(None, None, 50)(cu, 3)):
         np.testing.assert_array_equal(a, b)
 
 
@@ -243,7 +278,7 @@ def test_topk_step_matches_jax_step():
     U = rng.normal(size=(16, 8)).astype(np.float32)
     mask = np.ones(50, bool)
     mask[::4] = False
-    excl = tmetrics._exclusion_builder(rng.integers(0, 16, 80),
+    excl = topk.exclusion_builder(rng.integers(0, 16, 80),
                                        rng.integers(0, 50, 80), 16)(
         np.arange(16), 16)
     jcat = jps.shard_catalog(jnp.asarray(V), make_block_mesh(1),
@@ -253,7 +288,7 @@ def test_topk_step_matches_jax_step():
                   *(jnp.asarray(a) for a in excl))
     tcat = tps.shard_catalog(torch.from_numpy(V), item_mask=mask)
     np.testing.assert_array_equal(tcat.w_sh.numpy(), np.asarray(jcat.w_sh))
-    tv, tr = tps.topk_step(torch.from_numpy(U), tcat.V_sh, tcat.w_sh,
+    tv, tr = topk.topk_step(torch.from_numpy(U), tcat.V_sh, tcat.w_sh,
                            *(torch.from_numpy(a) for a in excl), k_out=10)
     assert_topk_tie_aware(tr.numpy(), tv.numpy(), jr, jv)
 
@@ -268,7 +303,7 @@ def test_run_pipelined_topk_clamps_pads_and_keeps_order():
         rows = torch.from_numpy(np.stack([cu, cu + 100], 1))
         return rows.float(), rows
 
-    rows, scores = tps.run_pipelined_topk(
+    rows, scores = topk.run_pipelined_topk(
         np.arange(20), k=3, k_out=2, n_rows=110, slice_size=8,
         bucket_fn=lambda c: 8, score_chunk=score_chunk)
     assert calls == [(8, 8), (8, 8), (8, 4)]
@@ -276,7 +311,7 @@ def test_run_pipelined_topk_clamps_pads_and_keeps_order():
     assert (rows[:10, 1] == np.arange(100, 110)).all()
     assert (rows[10:, 1] == 0).all() and np.isneginf(scores[10:, 1]).all()
     assert np.isneginf(scores[:, 2]).all()  # past k_out
-    empty = tps.run_pipelined_topk(np.zeros(0, np.int64), k=3, k_out=2,
+    empty = topk.run_pipelined_topk(np.zeros(0, np.int64), k=3, k_out=2,
                                    n_rows=5, slice_size=8,
                                    bucket_fn=lambda c: 8,
                                    score_chunk=score_chunk)
@@ -286,11 +321,28 @@ def test_run_pipelined_topk_clamps_pads_and_keeps_order():
 # -- one id translation per flush -------------------------------------------
 
 
+def assemble_topk(n, k, known, top_rows, top_scores, ids_of_row,
+                  return_mask):
+    """Row-space top-K → external ids on the host, the rule the device
+    route (``ops.topk.ids_of_top``) replaced, kept as its reference:
+    unknown queries get -1 / 0.0 rows; slots below
+    ``DEAD_SLOT_THRESHOLD`` (excluded or masked rows) become -1 / 0.0
+    too."""
+    ids = np.full((n, k), -1, np.int64)
+    scores = np.zeros((n, k), np.float32)
+    real = top_scores > topk.DEAD_SLOT_THRESHOLD
+    ids[known] = np.where(real, ids_of_row[top_rows], -1)
+    scores[known] = np.where(real, top_scores, 0.0)
+    if return_mask:
+        return ids, scores, known
+    return ids, scores
+
+
 def per_request_answers(eng, requests, return_mask=False):
     """The engine's answers as its per-request path assembled them (kept
     as the reference): a lookup per request, the known rows scored
     through ``run_pipelined_topk``'s row-space route (pad rows clamped on
-    the host), ``_assemble_topk`` per request over the host id map. Also
+    the host), ``assemble_topk`` per request over the host id map. Also
     returns whether a pad row (≥ the catalog's rows) surfaced."""
     known, rows = [], []
     for ids in requests:
@@ -312,12 +364,12 @@ def per_request_answers(eng, requests, return_mask=False):
             v, r = ret.topk(U_chunk, excl, k=eng.k, rows=c)
         else:
             cat = eng._catalog
-            v, r = tps.topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
+            v, r = topk.topk_step(U_chunk, cat.V_sh, cat.w_sh, *excl,
                                  k_out=k_out)
         surfaced.append(bool((r[:c] >= n_rows).any()))
         return v, r
 
-    top_rows, top_scores = tps.run_pipelined_topk(
+    top_rows, top_scores = topk.run_pipelined_topk(
         np.concatenate(rows), k=eng.k, k_out=k_out, n_rows=n_rows,
         slice_size=size,
         bucket_fn=lambda c: min(tshapes.pow2_pad(c, eng.min_bucket), size),
@@ -326,9 +378,9 @@ def per_request_answers(eng, requests, return_mask=False):
     out, b0 = [], 0
     for kn in known:
         b1 = b0 + int(kn.sum())
-        out.append(_assemble_topk(len(kn), eng.k, kn, top_rows[b0:b1],
-                                  top_scores[b0:b1], ids_of_row,
-                                  return_mask))
+        out.append(assemble_topk(len(kn), eng.k, kn, top_rows[b0:b1],
+                                 top_scores[b0:b1], ids_of_row,
+                                 return_mask))
         b0 = b1
     return out, any(surfaced)
 
@@ -442,22 +494,22 @@ def test_assemble_counts_views_and_answers_are_disjoint_views():
 
 def test_run_pipelined_topk_id_route_equals_host_assembly():
     """With ``ids_of_row`` the chunks' rows become ids on the device: the
-    result equals the row-space route's clamp plus ``_assemble_topk``,
+    result equals the row-space route's clamp plus ``assemble_topk``,
     bit for bit — pad rows (finite scores here) and dead slots -1 / 0.0,
     slots past ``k_out`` too — and the row-space route is unchanged."""
     def score_chunk(cu, c):
         rows = torch.from_numpy(np.stack([cu, cu + 100, cu * 0], 1))
         vals = rows.float()
-        vals[:, 2] = tmetrics.DEAD_SLOT_OFFSET
+        vals[:, 2] = topk.DEAD_SLOT_OFFSET
         return vals, rows
 
     ids_of_row = np.arange(110, dtype=np.int64) * 7 + 3
     kw = dict(k=4, k_out=3, n_rows=110, slice_size=8,
               bucket_fn=lambda c: 8, score_chunk=score_chunk)
-    rows, scores = tps.run_pipelined_topk(np.arange(20), **kw)
-    want = _assemble_topk(20, 4, np.ones(20, bool), rows, scores,
-                          ids_of_row, False)
-    got = tps.run_pipelined_topk(np.arange(20), **kw,
+    rows, scores = topk.run_pipelined_topk(np.arange(20), **kw)
+    want = assemble_topk(20, 4, np.ones(20, bool), rows, scores,
+                         ids_of_row, False)
+    got = topk.run_pipelined_topk(np.arange(20), **kw,
                                  ids_of_row=torch.from_numpy(ids_of_row))
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
