@@ -197,6 +197,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               256-row bucket split into routing, probes, overflow, top-kc
               and stage 2 beside their bounds. No serving path launches a
               DSGD kernel;
+15a. kernels.stage1 — the flat stage-1 kernels (``csrc/stage1_select.cu``)
+              at ``mpd_r64.serve_two_stage``'s bucket: 256 query rows ×
+              2,262,292 items at rank 64, top 2,000, ~66 exclusions a row:
+              values bit-equal to the score-matrix route (``int8_scores``,
+              scales, weights, scatter-min, ``lax_top_k``) and the row sets
+              equal but at ties with the 2,000th value, against the plain
+              version too; per bucket the kernels' ms (CUDA events, 10
+              calls), the bound (2·b·N·r over 1,979 TOP/s int8 and N·(r +
+              8) B over 3.35 TB/s), the plain version's ms and the route's
+              as ``library_ms``; the call's peak memory above its inputs;
 16. streams.log — the event log at the Netflix stream's shape: 32 ×
               100,000 records appended over 4 partitions and read back by a
               new instance (records/s and bytes/s each way; the re-read
@@ -380,6 +390,7 @@ from large_scale_recommendation_tpu_torch.models.pipeline import (
     Pipeline,
 )
 from large_scale_recommendation_tpu_torch.ops import _build, cuda_sgd
+from large_scale_recommendation_tpu_torch.ops import stage1_select
 from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.ops import topk
@@ -1114,6 +1125,7 @@ def run(scratch: str) -> int:
     pipeline_launches = phase_pipeline(train, holdout, dev)
     del train, holdout, model, solver, cpu_model
     phase_serve_two_stage(dev)
+    phase_kernels_stage1(dev)
 
     device_runs, (Ud, Vd), obs_data = phase_device(dev, cfg, scratch)
     paths = {"fit": launches, "kernels.probe": probe_launches,
@@ -2720,6 +2732,91 @@ def phase_serve_two_stage(dev):
         exact_chunk_gb=SERVE_MAX_BATCH * n_items * 4 / 1e9,
         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, **parts,
         launches=no_dsgd_launches("serve.two_stage"))
+
+
+STAGE1 = dict(b=256, n=2_262_292, rank=64, kc=2000, per_row=66)
+INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 (NVIDIA's data sheet)
+
+
+def stage1_route(args, kc):
+    """Flat stage 1 as the port ran it before its kernels: the ``[b, N]``
+    f32 score matrix (``int8_scores``, the scales' outer product, the
+    weights, the scatter-min) and ``lax_top_k``; the yardstick
+    ``library_ms`` times."""
+    qU, u_scale, Q, scale, item_w, er, ec, ew = args
+    scores = ret_ops.int8_scores(qU, Q)
+    scores *= u_scale[:, None] * scale[None, :]
+    scores += item_w[None, :]
+    topk.apply_exclusions(scores, er, ec, ew)
+    return scores, topk.lax_top_k(scores, kc)
+
+
+def same_selection(label, got, want, scores):
+    """Values bit-equal, each row's items returned with their own scores,
+    items equal wherever their score is above the kc-th value."""
+    (v, r), (wv, wr) = got, want
+    if not torch.equal(v.view(torch.int32), wv.view(torch.int32)):
+        raise AssertionError(f"{label}: values differ from the route's")
+    if not torch.equal(scores.gather(1, r).view(torch.int32),
+                       v.view(torch.int32)):
+        raise AssertionError(f"{label}: an item carries another's score")
+    above = v > v[:, -1:]
+    if not torch.equal(r[above], wr[above]):
+        raise AssertionError(f"{label}: items above the kc-th value differ")
+    if not bool((r.sort(dim=1).values.diff(dim=1) > 0).all()):
+        raise AssertionError(f"{label}: an item appears twice in a row")
+
+
+def phase_kernels_stage1(dev):
+    """``[kernels.stage1]``: the kernels at the two-stage cell's bucket
+    against the score-matrix route and the plain version, each timed."""
+    b, n, rank, kc = (STAGE1[k] for k in ("b", "n", "rank", "kc"))
+    g = torch.Generator(device=dev).manual_seed(23)
+    Q, scale = ret_ops.quantize_rows(torch.randn((n, rank), generator=g,
+                                                 device=dev))
+    qU, u_scale = ret_ops.quantize_rows(torch.randn((b, rank), generator=g,
+                                                    device=dev))
+    item_w = torch.zeros(n, device=dev)
+    e = STAGE1["per_row"] * b
+    args = (qU, u_scale, Q, scale, item_w,
+            torch.randint(0, b, (e,), generator=g, device=dev).int(),
+            torch.randint(0, n, (e,), generator=g, device=dev).int(),
+            torch.full((e,), topk.DEAD_SLOT_OFFSET, device=dev))
+    got = stage1_select.stage1_select(*args, kc=kc)  # builds and warms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stage1_select.reset_launch_counts()
+    got = stage1_select.stage1_select(*args, kc=kc)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(stage1_select.LAUNCHES)  # the checked call's alone
+    if launches != {"stage1_select_launch": 1}:
+        raise AssertionError(f"stage1: the checked call launched {launches}")
+    scores, want = stage1_route(args, kc)
+    same_selection("stage1 kernels vs route", got, want, scores)
+    del scores
+    plain = stage1_select.stage1_select_reference(*args, kc=kc)
+    route = stage1_route(args, kc)
+    same_selection("stage1 plain vs route", plain, route[1], route[0])
+    same_selection("stage1 kernels vs plain", got, plain, route[0])
+    del route, plain
+    ms = cuda_ms(lambda: stage1_select.stage1_select(*args, kc=kc), 10)
+    library_ms = cuda_ms(lambda: stage1_route(args, kc), 3)
+    plain_ms = cuda_ms(lambda: stage1_select.stage1_select_reference(
+        *args, kc=kc), 2, warmup=1)
+    ops_s = 2.0 * b * n * rank / INT8_OP_PER_S
+    bytes_s = n * (rank + 8) / HBM_BYTES_PER_S
+    say("kernels.stage1", route="cuda",
+        source="large_scale_recommendation_tpu_torch/csrc/stage1_select.cu",
+        replaces="none (the JAX package leaves stage 1 to XLA)", bucket=b,
+        items=n, rank=rank, kc=kc, exclusions=e, ms=ms,
+        bound_ms=1e3 * max(ops_s, bytes_s),
+        bound_by="operations" if ops_s >= bytes_s else "bytes",
+        roofline_pct=100.0 * 1e3 * max(ops_s, bytes_s) / ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        peak_above_inputs_gb=peak / 1e9, matrix_gb=b * n * 4 / 1e9,
+        launches=launches)
 
 
 # -- ALS and online MF (no kernel of their own: torch ops on the card) ------

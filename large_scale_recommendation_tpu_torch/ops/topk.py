@@ -102,16 +102,20 @@ def apply_exclusions(scores: torch.Tensor, excl_rows, excl_cols,
     return scores
 
 
-def lax_top_k(scores: torch.Tensor, k: int):
-    """``torch.topk`` along the last axis, re-sorted to ``lax.top_k``'s
-    order: score descending, lower index first among equal scores. Which of
-    several tied indices enters at the k-th place is ``torch.topk``'s
-    choice."""
-    top, idx = torch.topk(scores, k, dim=-1)
+def lax_order(top: torch.Tensor, idx: torch.Tensor):
+    """Top-k pairs in any order re-sorted to ``lax.top_k``'s: score
+    descending, lower index first among equal scores."""
     idx, by_idx = idx.sort(dim=-1)
     top = top.gather(-1, by_idx)
     top, by_score = top.sort(dim=-1, descending=True, stable=True)
     return top, idx.gather(-1, by_score)
+
+
+def lax_top_k(scores: torch.Tensor, k: int):
+    """``torch.topk`` along the last axis in ``lax.top_k``'s order. Which
+    of several tied indices enters at the k-th place is ``torch.topk``'s
+    choice."""
+    return lax_order(*torch.topk(scores, k, dim=-1))
 
 
 def score_rows(U_chunk, V, item_w, excl_rows, excl_cols,

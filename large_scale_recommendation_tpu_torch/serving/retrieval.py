@@ -15,16 +15,20 @@
   point of the admission ladder.
 
 The JAX package computes these with XLA ops (no Pallas kernel); the port
-runs them as torch ops on the tables' device:
+runs them as torch ops on the tables' device, except flat stage 1 on one
+device:
 
-- The flat int8 × int8 product runs as an f32 product of the int8 values.
-  Every partial sum is an integer of magnitude ≤ 127²·rank, below 2²⁴
-  while rank < 1,040, so every order of summation gives the exact int32
-  value: the scores equal XLA's int32 product converted to f32, bit for
-  bit, on the CPU and on the card (``torch._int_mm`` would need padding
-  of small buckets and of the catalog on the card). JAX's op order after
-  the product is kept (``scores * (u_scale ⊗ scale)``, ``+ item_w``,
-  scatter-min), so the flat candidates are bit-equal to JAX's.
+- Flat stage 1 on one device is ``ops.stage1_select.stage1_select``: on
+  the card one fused int8 tensor-core kernel family scores the catalog
+  and radix-selects the top ``kc`` without a ``[bucket, N]`` score matrix;
+  on the CPU its plain version. Its int8 dots are exact integers and
+  JAX's op order after the product is kept (``scores * (u_scale ⊗
+  scale)``, ``+ item_w``, scatter-min), so the flat candidates' values are
+  bit-equal to JAX's (rows too, away from ties at the ``kc``-th value).
+- Rank-sharded flat stage 1 runs the int8 × int8 product as an f32
+  product of the int8 values. Every partial sum is an integer of
+  magnitude ≤ 127²·rank, below 2²⁴ while rank < 1,040, so every order of
+  summation gives the exact int32 value, on the CPU and on the card.
 - The clustered probe loop gathers one ``[bucket, m, rank]`` slab block
   at a time (JAX's ``lax.map``); its f32 contraction sums in another
   order than XLA, so candidate sets can differ at near-ties.
@@ -57,6 +61,10 @@ import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.obs.trace import span
+from large_scale_recommendation_tpu_torch.ops.stage1_select import (
+    int8_scores,
+    stage1_select,
+)
 from large_scale_recommendation_tpu_torch.ops.topk import (
     DEAD_SLOT_OFFSET,
     apply_exclusions,
@@ -161,16 +169,6 @@ def quantize_rows(X) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_rows(q, scale) -> torch.Tensor:
     return q.float() * scale[:, None]
-
-
-def int8_scores(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
-    """``qa @ qbᵀ`` of two int8 tables as exact integers in f32 (see the
-    module docstring: exact while rank < 1,040)."""
-    if qa.shape[1] >= 1040:
-        raise ValueError(f"rank {qa.shape[1]} >= 1040: int8 products no "
-                         "longer sum exactly in f32")
-    with ieee_f32():
-        return qa.float() @ qb.float().T
 
 
 # --------------------------------------------------------------------------
@@ -494,11 +492,17 @@ def _shard_quantized(cat: QuantizedCatalog, part) -> QuantizedCatalog:
 
 def _stage1_flat(qU, u_scale, Q, scale, item_w, excl_rows, excl_cols,
                  excl_w, *, kc, part=None):
-    """Flat int8 stage 1: the exact int8 product over the whole catalog
-    (rank-sharded: the slices' partial products summed over the model
-    group, exact), dequantized by the outer product of scales,
-    ``+ item_w``, the exclusions scatter-min'ed, top-``kc`` candidates
-    out."""
+    """Flat int8 stage 1: the exact int8 product over the whole catalog,
+    dequantized by the outer product of scales, ``+ item_w``, the
+    exclusions scatter-min'ed, top-``kc`` candidates out. On one device
+    that is ``ops.stage1_select.stage1_select`` (the fused kernels on the
+    card, their plain version on the CPU), which never holds the score
+    matrix. Rank-sharded, the slices' partial products are summed over the
+    model group (exact) before any selection, so that route keeps the
+    ``[b, N]`` score matrix."""
+    if part is None:
+        return stage1_select(qU, u_scale, Q, scale, item_w, excl_rows,
+                             excl_cols, excl_w, kc=kc)
     scores = _sum(int8_scores(_cols(qU, part), Q), part)
     scores *= u_scale[:, None] * scale[None, :]
     scores += item_w[None, :]
@@ -657,9 +661,11 @@ class TwoStageRetriever:
         (default: all ``b``), a counter of span ``serving/stage1``.
 
         The stages are the spans ``serving/stage1`` (counters ``rows``,
-        ``padded`` = ``b`` and ``items``, the catalog rows each query
-        scores) and ``serving/stage2`` (``candidates``, the ``b · kc``
-        slots it finalizes), with device time on the card."""
+        ``padded`` = ``b``, ``items``, the catalog rows each query scores,
+        and ``fused``, the real rows that went through ``stage1_select``:
+        the flat catalog on one device) and ``serving/stage2``
+        (``candidates``, the ``b · kc`` slots it finalizes), with device
+        time on the card."""
         cat = self.catalog
         kc = self.candidate_count(k)
         b = U_chunk.shape[0]
@@ -677,9 +683,10 @@ class TwoStageRetriever:
             items = n_probe * cat.slab_q.shape[1] + int(cat.ovf_q.shape[0])
         else:
             items = cat.n_rows
-        with span("serving/stage1", device=on_card,
-                  rows=b if rows is None else int(rows), padded=b,
-                  items=items):
+        real = b if rows is None else int(rows)
+        fused = not cat.clustered and self.partitioner is None
+        with span("serving/stage1", device=on_card, rows=real, padded=b,
+                  items=items, fused=real if fused else 0):
             if cat.clustered:
                 self.buckets_seen.add(("clustered", b, kc))
                 cand_v, cand_rows = _stage1_clustered(

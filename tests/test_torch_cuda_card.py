@@ -17,7 +17,10 @@ exact against ``Tensor.to``. Beside them, what runs on the
 card around the kernels: top-K and ranking quality against the same model
 on the CPU, a resumed fit bit-equal to an uninterrupted one, a bf16
 checkpoint written from the card, ALS, online MF and the serving engine
-(exact, bf16, two-stage, deltas) against their CPU runs.
+(exact, bf16, two-stage, deltas) against their CPU runs, and the flat
+stage-1 kernels (``csrc/stage1_select.cu``) against the score-matrix route
+and their plain versions: values bit-equal, candidate rows equal but at
+ties with the ``kc``-th value.
 """
 
 import os
@@ -1274,3 +1277,199 @@ def test_probe_cuda_variant_launches_the_step_pair(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert float((a - b).abs().max()) <= TOL
+
+
+# -- fused flat stage 1 (csrc/stage1_select.cu) -------------------------------
+
+
+def _stage1_kernel_vs_route(dev, args, kc):
+    """The kernels against the score-matrix route and the plain version on
+    the card: values bit-equal, the same selection up to ties at the
+    ``kc``-th value."""
+    from _stage1_cases import assert_same_selection, score_matrix_route
+
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+
+    before = s1.LAUNCHES["stage1_select_launch"]
+    got = s1.stage1_select(*args, kc=kc)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES["stage1_select_launch"] == before + 1
+    scores, want = score_matrix_route(*args, kc)
+    assert_same_selection(got, want, scores)
+    plain = s1.stage1_select_reference(*args, kc=kc)
+    assert_same_selection(got, plain, scores)
+    return got
+
+
+@pytest.mark.parametrize("kc", [1, 8, "n"])
+@pytest.mark.parametrize("rank", [8, 33, 64])
+@pytest.mark.parametrize("b", [1, 7, 256])
+def test_stage1_select_kernel_equals_the_route(dev, b, rank, kc):
+    from _stage1_cases import stage1_inputs
+
+    n = 6000  # many item chunks a row tile
+    kc = n if kc == "n" else kc
+    args = stage1_inputs(b, rank, n, seed=b * 100 + rank, device=dev)
+    _stage1_kernel_vs_route(dev, args, kc)
+
+
+@pytest.mark.parametrize("n", [3000, 200_000])
+@pytest.mark.parametrize("case", ["masked", "repeated_rows", "row0_all",
+                                  "ties_at_kc"])
+def test_stage1_select_kernel_at_ties_and_dead_slots(dev, case, n):
+    """At rank 32 the fast path: at 200,000 items (≥ 800 · kc) pass 0
+    counts above a sample's bound; ties fill the last bin's lists past
+    their slots, so the emit pass runs after all."""
+    from _stage1_cases import SPECIAL, stage1_inputs
+
+    args = stage1_inputs(40, 32, n, seed=5, device=dev, **SPECIAL[case])
+    v, _ = _stage1_kernel_vs_route(dev, args, 40)
+    if case == "row0_all":
+        assert (v[0] == -1e30).all()
+
+
+@pytest.mark.parametrize("b,rank", [(64, 64), (300, 128), (3, 32)])
+def test_stage1_select_kernel_after_a_sample(dev, b, rank):
+    from _stage1_cases import stage1_inputs
+
+    args = stage1_inputs(b, rank, 250_000, seed=b, device=dev, mask=True,
+                         n_pairs=5000)
+    _stage1_kernel_vs_route(dev, args, 100)
+
+
+def test_stage1_select_kernel_at_the_cell_shape(dev):
+    """``mpd_r64.serve_two_stage``'s bucket: 256 rows, 2,262,292 items,
+    rank 64, top 2,000, ~66 exclusions a row; no ``[b, N]`` tensor is
+    allocated."""
+    from _stage1_cases import assert_same_selection, score_matrix_route
+
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+    from large_scale_recommendation_tpu_torch.ops.topk import (
+        DEAD_SLOT_OFFSET,
+    )
+    from large_scale_recommendation_tpu_torch.serving.retrieval import (
+        quantize_rows,
+    )
+
+    b, n, rank, kc = 256, 2_262_292, 64, 2000
+    g = torch.Generator(device=dev).manual_seed(0)
+    Q, scale = quantize_rows(torch.randn((n, rank), generator=g, device=dev))
+    qU, u_scale = quantize_rows(torch.randn((b, rank), generator=g,
+                                            device=dev))
+    item_w = torch.zeros(n, device=dev)
+    e = 66 * b
+    er = torch.randint(0, b, (e,), generator=g, device=dev).int()
+    ec = torch.randint(0, n, (e,), generator=g, device=dev).int()
+    ew = torch.full((e,), DEAD_SLOT_OFFSET, device=dev)
+    args = (qU, u_scale, Q, scale, item_w, er, ec, ew)
+    s1.stage1_select(*args, kc=kc)  # builds and warms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = s1.stage1_select(*args, kc=kc)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < b * n * 4 // 8
+    scores, want = score_matrix_route(*args, kc)
+    assert_same_selection(got, want, scores)
+    plain = s1.stage1_select_reference(*args, kc=kc)
+    assert_same_selection(got, plain, scores)
+
+
+@pytest.mark.parametrize("name", ["odd", "ties", "row0_all", "sampled"])
+def test_stage1_select_kernel_equals_the_jax_answer(dev, name):
+    """The kernels against the JAX package's ``_stage1_flat`` on the same
+    codes, scales, weights and exclusions (its answers in
+    ``tests/data/stage1_jax_golden.npz``, which the CPU tests hold to JAX):
+    values bit-equal, rows equal but among those tied with the ``kc``-th
+    value."""
+    from _stage1_cases import (
+        JAX_GOLDEN,
+        assert_same_selection,
+        codes_sum,
+        golden_inputs,
+        score_matrix_route,
+    )
+
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+
+    golden = np.load(JAX_GOLDEN)
+    args, kc = golden_inputs(name)
+    assert codes_sum(args) == int(golden[name + ".codes_sum"])
+    got = s1.stage1_select(*(t.to(dev) for t in args), kc=kc)
+    assert_same_selection(
+        tuple(t.cpu() for t in got),
+        (torch.from_numpy(golden[name + ".values"]),
+         torch.from_numpy(golden[name + ".rows"]).long()),
+        score_matrix_route(*args, kc)[0])
+
+
+def test_stage1_select_kernel_refuses_what_it_does_not_take(dev):
+    from _stage1_cases import stage1_inputs
+
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+
+    args = list(stage1_inputs(8, 16, 100, seed=1, device=dev))
+    bad = {0: args[0].float(), 2: args[2].t().contiguous().t(),
+           3: args[3].cpu(), 4: args[4][:50]}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            s1.stage1_select(*(t if j == i else a for j, a in
+                               enumerate(args)), kc=4)
+
+
+def test_engine_flat_path_runs_the_stage1_kernels(dev):
+    """The engine's flat two-stage path launches the kernels once a chunk
+    (degraded ``stage1_only`` too), and span ``serving/stage1`` counts
+    every real row as ``fused``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from large_scale_recommendation_tpu_torch.obs import trace as ptr
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+    from large_scale_recommendation_tpu_torch.ops import topk
+    from large_scale_recommendation_tpu_torch.serving import (
+        RetrievalConfig,
+        ServingEngine,
+    )
+
+    rng = np.random.default_rng(1)
+    train = (rng.integers(0, 300, 5000), rng.integers(0, 4096, 5000))
+    eng = ServingEngine(_engine_model(dev), k=10, train=train, max_batch=64,
+                        retrieval=RetrievalConfig(overfetch=4, max_bucket=32))
+    users = rng.integers(0, 300, 100)
+    eng.serve([users])  # warm
+    before = s1.LAUNCHES["stage1_select_launch"]
+    ptr.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        eng.serve([users])
+    row = ptr.span_totals()["serving/stage1"]
+    ptr.reset_span_totals()
+    chunks = row["count"]
+    assert s1.LAUNCHES["stage1_select_launch"] == before + chunks
+    assert row["args"]["fused"] == row["args"]["rows"] == len(users)
+    excl = tuple(torch.from_numpy(a).to(dev) for a in
+                 topk.exclusion_builder(None, None, 1)(np.zeros(8), 8))
+    eng.retriever.topk(torch.zeros((8, 16), device=dev), excl, k=10,
+                       stage1_only=True)
+    assert s1.LAUNCHES["stage1_select_launch"] == before + chunks + 1
+
+
+def test_rank_sharded_stage1_keeps_the_score_matrix(dev):
+    """The rank-sharded route sums partial products before selecting, so
+    it never reaches the kernels; with one member it equals them."""
+    import types
+
+    from _stage1_cases import stage1_inputs
+
+    from large_scale_recommendation_tpu_torch.ops import stage1_select as s1
+    from large_scale_recommendation_tpu_torch.serving import retrieval
+
+    args = stage1_inputs(64, 32, 4000, seed=3, device=dev)
+    part = types.SimpleNamespace(model=types.SimpleNamespace(size=1),
+                                 rank_slice=lambda X: X)
+    before = dict(s1.LAUNCHES)
+    v, r = retrieval._stage1_flat(*args, kc=100, part=part)
+    assert s1.LAUNCHES == before
+    kv, kr = retrieval._stage1_flat(*args, kc=100)
+    assert s1.LAUNCHES["stage1_select_launch"] == \
+        before["stage1_select_launch"] + 1
+    assert torch.equal(v, kv)

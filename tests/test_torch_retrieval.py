@@ -10,7 +10,11 @@ Bars:
   (flat, clustered on the JAX package's own layout through
   ``convert.quantized_catalog_from_jax``, and ``stage1_only``);
 - the recall pins of ``tests/test_serving_retrieval.py`` (≥ 0.95 at
-  overfetch 4).
+  overfetch 4);
+- ``ops.stage1_select``'s plain version (the flat route on the CPU)
+  against the score-matrix route it replaces (``tests/_stage1_cases.py``):
+  values bit-equal, ``lax.top_k``'s order, rows equal but among those tied
+  with the ``kc``-th value.
 """
 
 import dataclasses
@@ -24,8 +28,18 @@ import jax.numpy as jnp
 from large_scale_recommendation_tpu.serving import retrieval as jret
 from large_scale_recommendation_tpu.utils import metrics as jmetrics
 from large_scale_recommendation_tpu_torch import convert
-from large_scale_recommendation_tpu_torch.ops import topk
+from large_scale_recommendation_tpu_torch.ops import stage1_select, topk
 from large_scale_recommendation_tpu_torch.serving import retrieval as tret
+from _stage1_cases import (
+    GOLDEN_CASES,
+    JAX_GOLDEN,
+    SPECIAL,
+    assert_same_selection,
+    codes_sum,
+    golden_inputs,
+    score_matrix_route,
+    stage1_inputs,
+)
 
 CPU = torch.device("cpu")
 
@@ -531,3 +545,138 @@ def test_bytes_per_device_equal_jax(cfg_kw):
             == tr.catalog.nbytes() + V.size * V.itemsize)
     if not cfg_kw:
         assert tr.nbytes_per_device() == jr.nbytes_per_device()
+
+
+# -- fused flat stage 1 (ops.stage1_select) ---------------------------------
+# its plain version against the score-matrix route (tests/_stage1_cases.py)
+
+
+@pytest.mark.parametrize("kc", [1, 8, "n"])
+@pytest.mark.parametrize("rank", [8, 33, 64])
+@pytest.mark.parametrize("b", [1, 7, 256])
+def test_stage1_select_plain_equals_score_matrix_route(b, rank, kc):
+    n = 300
+    kc = n if kc == "n" else kc
+    args = stage1_inputs(b, rank, n, seed=b * 100 + rank)
+    scores, want = score_matrix_route(*args, kc)
+    got = stage1_select.stage1_select(*args, kc=kc)
+    assert_same_selection(got, want, scores)
+
+
+@pytest.mark.parametrize("case", ["masked", "repeated_rows", "row0_all",
+                                  "ties_at_kc"])
+def test_stage1_select_plain_at_ties_and_dead_slots(case):
+    b, rank, n, kc = 16, 32, 500, 40
+    args = stage1_inputs(b, rank, n, seed=5, **SPECIAL[case])
+    scores, want = score_matrix_route(*args, kc)
+    got = stage1_select.stage1_select(*args, kc=kc)
+    assert_same_selection(got, want, scores)
+    if case in ("repeated_rows", "ties_at_kc"):  # ties cut at the kc-th
+        v = got[0]
+        assert ((scores == v[:, -1:]).sum(1) > (v == v[:, -1:]).sum(1)).any()
+    if case == "row0_all":  # every slot dead, tied at the offset
+        assert (got[0][0] == topk.DEAD_SLOT_OFFSET).all()
+
+
+def test_stage1_select_emit_takes_tied_keys_lower_row_first():
+    args = stage1_inputs(4, 16, 200, seed=9, repeat=2)
+    scores, _ = score_matrix_route(*args, 50)
+    v, r = stage1_select.stage1_select_reference(*args, kc=50)
+    for i in range(4):
+        tied = torch.nonzero(scores[i] == v[i, -1]).flatten()
+        taken = r[i][v[i] == v[i, -1]]
+        assert torch.equal(taken, tied[:len(taken)])
+
+
+def test_stage1_select_keys_keep_the_order_of_scores():
+    s = torch.tensor([[-np.inf, -1e30, -2.5, -0.0, 0.0, 1e-40, 3.0, np.inf]],
+                     dtype=torch.float32)
+    k = stage1_select.order_keys(s)[0]
+    assert (k[1:] >= k[:-1]).all() and (k >= 0).all() and (k < 2**32).all()
+
+
+def test_stage1_select_refuses_inexact_rank_and_kc():
+    q = torch.zeros((2, 1040), dtype=torch.int8)
+    w = torch.zeros(2)
+    e = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1040"):
+        stage1_select.stage1_select(q, w, q, w, w, e, e, w.new_full((8,), 1),
+                                    kc=1)
+    q = torch.zeros((2, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="kc 3"):
+        stage1_select.stage1_select(q, w, q, w, w, e, e, w.new_full((8,), 1),
+                                    kc=3)
+
+
+def test_stage1_exclusion_lists_sorted_per_row():
+    er = torch.tensor([2, 0, 2, 1, 2, 0, 0], dtype=torch.int32)
+    ec = torch.tensor([9, 4, 1, 3, 1, 0, 7], dtype=torch.int32)
+    ew = torch.tensor([-1, -2, -3, np.inf, -4, 5, -6], dtype=torch.float32)
+    off, cols, w = stage1_select.exclusion_lists(er, ec, ew, 3, 10)
+    assert off.tolist() == [0, 2, 2, 5]
+    assert cols[:5].tolist() == [4, 7, 1, 1, 9]
+    assert sorted(w[2:4].tolist()) == [-4, -3] and w[:2].tolist() == [-2, -6]
+
+
+def test_topk_routes_flat_stage1_through_stage1_select(monkeypatch):
+    """The flat one-device retriever (and its degraded ``stage1_only``
+    point) calls ``stage1_select`` once a chunk, bit-equal to the score
+    matrix route, and span ``serving/stage1`` counts its rows as
+    ``fused``; a catalog smaller than ``k · overfetch`` asks for all of
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from large_scale_recommendation_tpu_torch.obs import trace as ptr
+
+    n_items, rank = 30, 16
+    V = torch.from_numpy(catalog_V(n_items, rank, seed=3))
+    ret = tret.TwoStageRetriever(V, config=tret.RetrievalConfig(overfetch=4))
+    assert ret.candidate_count(10) == n_items
+    calls = []
+    orig = tret.stage1_select
+
+    def spy(*a, **k):
+        calls.append(k["kc"])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tret, "stage1_select", spy)
+    U = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(8, rank)).astype(np.float32))
+    excl = topk.exclusion_builder(np.array([0, 0, 3]), np.array([5, 5, 9]),
+                                  8)(np.arange(8), 8)
+    ptr.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        v1, r1 = ret.topk(U, excl, k=10, stage1_only=True, rows=6)
+    totals = ptr.span_totals()["serving/stage1"]["args"]
+    ptr.reset_span_totals()
+    assert calls == [n_items]
+    assert totals["fused"] == 6 and totals["rows"] == 6
+    qU, us = tret.quantize_rows(U)
+    ex = [torch.from_numpy(a) for a in excl]
+    scores, (wv, wr) = score_matrix_route(qU, us, ret.catalog.q,
+                                          ret.catalog.scale,
+                                          ret.catalog.item_w, *ex, n_items)
+    assert torch.equal(v1, wv[:, :10]) and torch.equal(r1, wr[:, :10])
+    assert (v1[0, :] != topk.DEAD_SLOT_OFFSET).sum() == 10
+    assert 5 not in r1[0, :].tolist()
+
+
+
+@pytest.mark.parametrize("name", list(GOLDEN_CASES))
+def test_stage1_jax_golden_is_the_jax_answer(name):
+    """``tests/data/stage1_jax_golden.npz`` (what the card's kernels are
+    held to, with no JAX there) is the JAX package's ``_stage1_flat``
+    answer, bit for bit, and the plain version gives it: values bit-equal,
+    rows equal but among those tied with the ``kc``-th value."""
+    golden = np.load(JAX_GOLDEN)
+    args, kc = golden_inputs(name)
+    assert codes_sum(args) == int(golden[name + ".codes_sum"])
+    jv, jr = jret._stage1_flat(*(jnp.asarray(t.numpy()) for t in args),
+                               kc=kc)
+    np.testing.assert_array_equal(np.array(jv).view(np.int32),
+                                  golden[name + ".values"].view(np.int32))
+    np.testing.assert_array_equal(np.array(jr), golden[name + ".rows"])
+    got = stage1_select.stage1_select(*args, kc=kc)
+    assert_same_selection(got, (torch.from_numpy(np.array(jv)),
+                                torch.from_numpy(np.array(jr)).long()),
+                          score_matrix_route(*args, kc)[0])

@@ -203,7 +203,7 @@ def test_stage_spans_and_their_counters(live_spans):
     s1, s2 = tot["serving/stage1"], tot["serving/stage2"]
     assert s1["count"] == s2["count"] == 3
     assert s1["args"] == {"rows": SERVED - 11, "padded": 3 * BUCKET,
-                          "items": 3 * N_ITEMS}
+                          "items": 3 * N_ITEMS, "fused": SERVED - 11}
     assert s2["args"] == {"candidates": 3 * BUCKET * KC}
     assert "device_ms" not in s1 and "device_ms" not in s2  # CPU only
     assert tot["serving/score"]["count"] == 3
@@ -220,7 +220,7 @@ def test_stage_spans_count_a_direct_call_whole(live_spans):
         ret.topk(U[:16], excl, k=K)
     tot = ptr.span_totals()
     assert tot["serving/stage1"]["args"] == {"rows": 16, "padded": 16,
-                                             "items": N_ITEMS}
+                                             "items": N_ITEMS, "fused": 16}
 
 
 def test_stage_spans_cost_nothing_unheard(live_spans):
