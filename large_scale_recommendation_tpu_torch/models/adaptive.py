@@ -3,8 +3,22 @@
 
 The online flow is ``models.online.OnlineMF``; the retrain is
 ``models.dsgd.DSGD`` or ``models.als.ALS`` over the accumulated history, on
-the model's device (on a card, ``DSGD.fit`` runs the CUDA step pair). The
-state machine:
+the model's device (on a card, ``DSGD.fit`` runs the CUDA step pair). Two
+routes keep the history and run the retrain:
+
+- the host route (``AdaptiveMFConfig``, the JAX package's): the history is a
+  host list of batches, concatenated at each retrain and blocked on the
+  host (``DSGD.fit`` / ``ALS.fit``); the install registers the retrained
+  ids in the online tables and loads their rows;
+- the device route (``DeviceAdaptiveMFConfig``): the history is a ring on
+  the model's device of the newest ``history_limit`` ratings, held in the
+  online tables' row space (a batch's ids are registered in the tables as
+  it enters the ring), so the retrain is ``DSGD.fit_device`` on dense ids
+  with the config's settings, and the install copies each retrained row to
+  its table row. Ids outside the window keep their online rows on both
+  routes.
+
+The state machine:
 
     Online  — micro-batches update the live tables directly
     Batch   — a retrain runs (optionally on a background thread); arriving
@@ -20,14 +34,21 @@ skipped in silence; the port does not swallow it). ``watchdog`` (on the
 online model) also gates the swap.
 
 Observability binds at construction, as in the JAX package: each retrain
-is an ``adaptive/retrain`` span (on the retrain thread in background mode,
-under the triggering batch's captured ``TraceContext``) timed into
+is an ``adaptive/retrain`` span (counters ``rows``, ``sweeps``; on the
+retrain thread in background mode, under the triggering batch's captured
+``TraceContext``; the device route's DSGD spans ``dsgd/blocking``,
+``/plan``, ``/init``, ``/id_maps`` nest inside it) timed into
 ``adaptive_retrain_s`` / ``adaptive_retrains_total``; the journal gets
-``adaptive.retrain_start`` / ``_install`` / ``_abort``; each swap enriches
-every engine's lineage record with the retrain id, the online step and,
-per partition, the WAL offset the tables absorbed, marks the critical-path
-swap at that record's ``wall_time`` and drops a ``lineage/swap_watermark``
-instant. ``apply_lock`` is the contention plane's ``adaptive.apply_lock``.
+``adaptive.retrain_start`` / ``_install`` / ``_abort``. On the device
+route each ring append and each window taken from the ring is an
+``adaptive/history`` span (counter ``rows``) and each install an
+``adaptive/install`` span (counters ``rows_u``, ``rows_v``, ``kept``: the
+registered rows outside the window); a window and an install wait for
+their device work. Each swap enriches every engine's lineage record with
+the retrain id, the online step and, per partition, the WAL offset the
+tables absorbed, marks the critical-path swap at that record's
+``wall_time`` and drops a ``lineage/swap_watermark`` instant.
+``apply_lock`` is the contention plane's ``adaptive.apply_lock``.
 """
 
 from __future__ import annotations
@@ -64,7 +85,8 @@ class AdaptiveMFConfig:
     """The online knobs plus the retrain's: every ``offline_every``
     batches (``None``: only on ``trigger_batch_training``) a from-scratch
     ``offline_algorithm`` fit of ``offline_iterations`` over the history
-    (the newest ``history_limit`` rows, ``None``: all)."""
+    (the newest ``history_limit`` rows, ``None``: all). Field for field
+    the JAX package's config (the host route)."""
 
     num_factors: int = 10
     learning_rate: float = 0.01
@@ -77,6 +99,16 @@ class AdaptiveMFConfig:
     history_limit: int | None = None
     checkpoint_every: int | None = None  # snapshot online state each N batches
     checkpoint_dir: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceAdaptiveMFConfig(AdaptiveMFConfig):
+    """The device route (module docstring): a DSGD retrain with exactly
+    ``retrain``'s settings (rank, λ, sweeps, schedule, minibatch, blocks,
+    init, dtype; ``offline_iterations`` and ``lambda_`` are unused) over a
+    ring of exactly ``history_limit`` ratings, which must be set."""
+
+    retrain: DSGDConfig = DSGDConfig()
 
 
 class AdaptiveMF:
@@ -93,6 +125,19 @@ class AdaptiveMF:
         self.device = self.online.device
         self._history: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._history_rows = 0
+        # the device route's history: int32 columns (user row, item row,
+        # rating bits) of the newest ``history_limit`` ratings, written at
+        # ``_ring_head``
+        self._ring: torch.Tensor | None = None
+        self._ring_head = 0
+        if isinstance(cfg, DeviceAdaptiveMFConfig):
+            if cfg.offline_algorithm != "dsgd" or cfg.history_limit is None:
+                raise ValueError(
+                    "the device route (DeviceAdaptiveMFConfig) retrains "
+                    "with DSGD over a ring of history_limit ratings: set "
+                    "offline_algorithm='dsgd' and history_limit")
+            self._ring = torch.empty((3, int(cfg.history_limit)),
+                                     dtype=torch.int32, device=self.device)
         self._batches_since_retrain = 0
         self.retrain_count = 0
         self._state = "Online"  # "Online" | "Batch"
@@ -158,29 +203,35 @@ class AdaptiveMF:
         return self._serialize_process
 
     def process(self, batch: Ratings,
-                offset: tuple[int, int] | None = None) -> BatchUpdates:
+                offset: tuple[int, int] | None = None,
+                emit_updates: bool = True) -> BatchUpdates | None:
         """One micro-batch: history ∪= batch, online update, counters;
         retrain and swap when due. ``offset=(partition, end_offset)`` is
         the stream-position stamp; batches buffered during a background
-        retrain keep their stamps and apply them in replay order."""
+        retrain keep their stamps and apply them in replay order.
+        ``emit_updates=False`` is ingest mode (``OnlineMF.partial_fit``'s):
+        no updates-only output, ``None`` returned."""
         if self._serialize_process:
             with self.apply_lock:
-                return self._process(batch, offset)
-        return self._process(batch, offset)
+                return self._process(batch, offset, emit_updates)
+        return self._process(batch, offset, emit_updates)
 
     def _process(self, batch: Ratings,
-                 offset: tuple[int, int] | None = None) -> BatchUpdates:
+                 offset: tuple[int, int] | None = None,
+                 emit_updates: bool = True) -> BatchUpdates | None:
         cfg = self.config
         self._append_history(batch)
 
         if self._state == "Batch":
             self._buffer.append((batch, offset))
             if self._thread is not None and self._thread.is_alive():
-                return BatchUpdates([], [], rank=cfg.num_factors)
+                return (BatchUpdates([], [], rank=cfg.num_factors)
+                        if emit_updates else None)
             # retrain finished: swap, then replay the queue (this batch last)
-            return self._finish_batch()
+            return self._finish_batch(emit_updates)
 
-        out = self.online.partial_fit(batch, offset=offset)
+        out = self.online.partial_fit(batch, offset=offset,
+                                      emit_updates=emit_updates)
         self._batches_since_retrain += 1
         self._maybe_checkpoint()
         if (cfg.offline_every is not None
@@ -219,11 +270,12 @@ class AdaptiveMF:
         if self._state == "Batch" or self._history_rows == 0:
             return
         self._batches_since_retrain = 0
-        history = self._history_ratings()
+        history = (self._history_window() if self._ring is not None
+                   else self._history_ratings())
         if self._events is not None:
             self._events.emit("adaptive.retrain_start",
                               algorithm=self.config.offline_algorithm,
-                              rows=int(history.n),
+                              rows=_rows_of(history),
                               background=self.config.background)
         if self.config.background:
             self._state = "Batch"
@@ -260,15 +312,21 @@ class AdaptiveMF:
 
     # -- retrain machinery --------------------------------------------------
 
-    def _retrain(self, history: Ratings) -> MFModel:
+    def _retrain(self, history) -> MFModel:
         """A from-scratch fit on the whole history (``_offline_solver``),
         inside an ``adaptive/retrain`` span that waits for the fitted
-        tables, so the card's time is inside it."""
+        tables, so the card's time is inside it. ``history`` is the host
+        route's ``Ratings`` or the device route's ``_history_window``."""
+        solver = self._offline_solver()
         with self._trace.span("adaptive/retrain",
                               algorithm=self.config.offline_algorithm,
-                              rows=int(history.n)) as sp:
+                              rows=_rows_of(history),
+                              sweeps=solver.config.iterations) as sp:
             t0 = time.perf_counter() if self._obs_on else 0.0
-            model = self._offline_solver().fit(history)
+            if isinstance(history, Ratings):
+                model = solver.fit(history)
+            else:
+                model = solver.fit_device(*history)
             sp.out = (model.U, model.V)
         if self._obs_on:
             self._m_retrain_s.observe(time.perf_counter() - t0)
@@ -276,18 +334,22 @@ class AdaptiveMF:
         return model
 
     def _offline_solver(self) -> DSGD | ALS:
-        """The retrain's solver, on the model's device: DSGD (constant lr
-        0.05, minibatch ≤ 1,024: the CUDA kernels' contract on a card) or
-        ALS.
+        """The retrain's solver, on the model's device. The device route:
+        DSGD with ``config.retrain`` as given. The host route: DSGD with
+        the JAX package's retrain settings (constant lr 0.05, minibatch
+        capped at 1,024; the step pair itself takes any minibatch, 32,768 in
+        the benchmark's fits) or ALS.
 
-        One departure from the JAX package: the DSGD retrain starts its
-        factors at the online tables' ``init_scale`` (0.1), where JAX keeps
-        ``DSGDConfig``'s default of 1.0. At rank 128 that default starts
-        every prediction near 32 and the constant-lr-0.05 fit diverges to
-        NaN (the JAX package's own retrain does, on 60,000 ratings:
-        tests/test_torch_adaptive.py), and the swap would install NaN rows
-        into the live tables."""
+        One departure from the JAX package: the host route's DSGD retrain
+        starts its factors at the online tables' ``init_scale`` (0.1), where
+        JAX keeps ``DSGDConfig``'s default of 1.0. At rank 128 that default
+        starts every prediction near 32 and the constant-lr-0.05 fit
+        diverges to NaN (the JAX package's own retrain does, on 60,000
+        ratings: tests/test_torch_adaptive.py), and the swap would install
+        NaN rows into the live tables."""
         cfg = self.config
+        if self._ring is not None:
+            return DSGD(cfg.retrain, device=self.device)
         if cfg.offline_algorithm == "als":
             return ALS(ALSConfig(
                 num_factors=cfg.num_factors, lambda_=cfg.lambda_,
@@ -301,14 +363,15 @@ class AdaptiveMF:
             init_scale=self.online.config.init_scale,
         ), device=self.device)
 
-    def _retrain_into_slot(self, history: Ratings, ctx=None) -> None:
+    def _retrain_into_slot(self, history, ctx=None) -> None:
         try:
             with self._trace.activate(ctx):
                 self._retrained = self._retrain(history)
         except BaseException as exc:  # re-raised by _finish_batch
             self._retrain_error = exc
 
-    def _finish_batch(self) -> BatchUpdates:
+    def _finish_batch(self, emit_updates: bool = True
+                      ) -> BatchUpdates | None:
         """Swap the retrained model in and replay the buffered queue. A
         retrain fault is raised here once, with the state left in Batch and
         the buffer kept: the next ``process`` / ``flush`` replays the
@@ -327,10 +390,13 @@ class AdaptiveMF:
         users: list = []
         items: list = []
         for b, off in buffered:
-            out = self.online.partial_fit(b, offset=off)
-            users.extend(out.user_updates)
-            items.extend(out.item_updates)
-        return BatchUpdates(users, items, rank=self.config.num_factors)
+            out = self.online.partial_fit(b, offset=off,
+                                          emit_updates=emit_updates)
+            if emit_updates:
+                users.extend(out.user_updates)
+                items.extend(out.item_updates)
+        return (BatchUpdates(users, items, rank=self.config.num_factors)
+                if emit_updates else None)
 
     def _install(self, model: MFModel) -> None:
         """Replace the online tables' rows with the retrained factors. Ids
@@ -348,12 +414,15 @@ class AdaptiveMF:
                                       reason="diverged_retrain",
                                       retrain_count=self.retrain_count)
                 raise
-        for table, T, index in ((self.online.users, model.U, model.users),
-                                (self.online.items, model.V, model.items)):
-            real = index.ids >= 0
-            rows = table.ensure(index.ids[real])
-            picked = torch.from_numpy(np.nonzero(real)[0]).to(T.device)
-            table.load_rows(rows, T[picked])
+        if self._ring is not None:
+            self._install_rows(model)
+        else:
+            for table, T, index in ((self.online.users, model.U, model.users),
+                                    (self.online.items, model.V, model.items)):
+                real = index.ids >= 0
+                rows = table.ensure(index.ids[real])
+                picked = torch.from_numpy(np.nonzero(real)[0]).to(T.device)
+                table.load_rows(rows, T[picked])
         # the swap is complete once serving sees it; the registry lock
         # covers only the membership read (refresh takes each engine's own)
         with self._engines_lock:
@@ -369,6 +438,28 @@ class AdaptiveMF:
             self._events.emit("adaptive.retrain_install",
                               retrain_count=self.retrain_count + 1,
                               engines_refreshed=len(engines))
+
+    def _install_rows(self, model: MFModel) -> None:
+        """The device route's install: the retrain's ids are the online
+        tables' rows, so each retrained row is copied to its own row, and
+        the registered rows outside the window keep their online values."""
+        with self._trace.span("adaptive/install") as sp:
+            kept = 0
+            for side, table, T, index in (
+                    ("rows_u", self.online.users, model.U, model.users),
+                    ("rows_v", self.online.items, model.V, model.items)):
+                picked = torch.as_tensor(index.sorted_rows, device=T.device)
+                table.load_rows(index.sorted_ids, T[picked])
+                sp.note(**{side: len(index.sorted_ids)})
+                kept += table.num_rows - len(index.sorted_ids)
+            sp.note(kept=kept)
+            self._settle()
+
+    def _settle(self) -> None:
+        """Wait for the work queued on the model's card (a span's own work:
+        no retrain thread has work queued where it is called)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _stamp_swap(self, engines) -> None:
         """Enrich each engine's fresh lineage record (``refresh`` stamped
@@ -419,6 +510,9 @@ class AdaptiveMF:
         real = rw > 0
         if not real.any():
             return
+        if self._ring is not None:
+            self._append_ring(ru[real], ri[real], rv[real])
+            return
         self._history.append((ru[real], ri[real], rv[real]))
         self._history_rows += int(real.sum())
         limit = self.config.history_limit
@@ -427,15 +521,55 @@ class AdaptiveMF:
                 dropped = self._history.pop(0)
                 self._history_rows -= len(dropped[0])
 
+    def _append_ring(self, ru, ri, rv) -> None:
+        """The device route's append: register the ids in the online
+        tables (rows keyed by id, as the online step would), then one
+        upload of the (row, row, rating) columns into the ring, keeping
+        its newest ``history_limit`` ratings."""
+        ring = self._ring
+        cap = ring.shape[1]
+        with self._trace.span("adaptive/history", rows=len(ru)):
+            cols = np.empty((3, len(ru)), np.int32)
+            cols[0] = self.online.users.ensure(ru)
+            cols[1] = self.online.items.ensure(ri)
+            cols[2] = np.ascontiguousarray(rv, np.float32).view(np.int32)
+            cols = cols[:, -cap:]
+            n = cols.shape[1]
+            new = torch.from_numpy(cols).to(self.device)
+            a = self._ring_head
+            m = min(n, cap - a)
+            ring[:, a:a + m] = new[:, :m]
+            ring[:, :n - m] = new[:, m:]
+            self._ring_head = (a + n) % cap
+            self._history_rows = min(self._history_rows + n, cap)
+
+    def _history_window(self):
+        """The device route's retrain input, a copy (appends go on during a
+        background retrain): the ring's ratings in arrival order, as
+        ``fit_device``'s ``(u, i, r, num_users, num_items)`` with the
+        tables' rows as the dense ids."""
+        n, head = self._history_rows, self._ring_head
+        with self._trace.span("adaptive/history", rows=n):
+            if n < self._ring.shape[1]:  # never wrapped: head == n
+                window = self._ring[:, :n].clone()
+            else:
+                window = torch.cat([self._ring[:, head:],
+                                    self._ring[:, :head]], dim=1)
+            self._settle()
+        return (window[0], window[1], window[2].view(torch.float32),
+                self.online.users.num_rows, self.online.items.num_rows)
+
     def clear_history(self) -> None:
         """Drop the retrain history (the crash-recovery refill resets it
         before rebuilding from the log)."""
         self._history.clear()
         self._history_rows = 0
+        self._ring_head = 0
 
     def preload_history(self, batch: Ratings) -> None:
         """Refill the retrain history without a gradient step (the
-        crash-recovery path); ``history_limit`` applies."""
+        crash-recovery path); ``history_limit`` applies. The device route
+        registers the batch's ids in the online tables."""
         self._append_history(batch)
 
     def _history_ratings(self) -> Ratings:
@@ -457,3 +591,10 @@ class AdaptiveMF:
         """The current serving state (the online tables, which absorb each
         retrain's swap) as an ``MFModel``."""
         return self.online.to_model()
+
+
+def _rows_of(history) -> int:
+    """Ratings in a retrain's input (either route's)."""
+    if isinstance(history, Ratings):
+        return int(history.n)
+    return int(history[0].shape[0])

@@ -326,7 +326,8 @@ class StreamingDriver:
         if self.evaluator is not None:
             ratings = self.evaluator.split_batch(ratings)
         if self._adaptive:
-            self.model.process(ratings, offset=offset)
+            self.model.process(ratings, offset=offset,
+                               emit_updates=self.config.emit_updates)
         else:
             self.model.partial_fit(
                 ratings, offset=offset,
