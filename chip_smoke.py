@@ -141,6 +141,17 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               in f32 and bf16 grams, RMSE gap < 0.01;
 12. als.conv — rank-32 time to holdout RMSE 0.155 on 25,000,095 ratings
               (``bench.py:851-907``), up to 7 rounds; the curve must fall;
+12a. kernels.als — the fused ALS half-step (``csrc/als_solve.cu``) at
+              ``ml25m_r128.als_fit``'s shapes (23,750,090 ratings, 162,541 ×
+              59,047, rank 128), each side: the kernel against its plain
+              version and the bucketed route (largest difference over the
+              largest |x|, within 2e-4), two launches bit-equal, one launch
+              a half-step; its ms (CUDA events, 5 calls) beside the bound
+              (the lower grams, right-hand sides, factorisations and
+              solves in f32 FMAs at 67 TFLOP/s; the fixed side, the plan
+              and the solved table once at 3.35 TB/s), the plain
+              version's ms and the bucketed route's (gathers, ``bmm``,
+              ``cholesky_ex``, two ``solve_triangular``) as ``library_ms``;
 13. online  — ``OnlineMF.partial_fit`` on the Netflix-shaped stream
               (``bench.py:919-975``): 10 batches of 100,000 at rank 128,
               each synchronized (ratings/s, p50/p99/max, steady half); the
@@ -1143,6 +1154,7 @@ def run(scratch: str) -> int:
     del U0, V0, args, plan
     phase_als(dev)
     phase_als_conv(dev)
+    phase_kernels_als(dev)
     phase_online(dev, scratch, smi)
     paths["streams.adaptive"] = phase_streams(scratch)
     paths["obs.serve"] = obs_serve_launches
@@ -3017,12 +3029,18 @@ def phase_als(dev):
     cfg = ALSConfig(num_factors=64, lambda_=ALS_LAMBDA, iterations=2,
                     init_scale=0.1)
     solver = ALS(cfg)
+    als_ops.reset_launch_counts()
     model, wall = timed(lambda: solver.fit_device(au, ai, ar, nu, ni))
+    fused = dict(als_ops.LAUNCHES)
     U, V, _, _ = als_rounds_timed(init[64], prep_u, prep_v, nu, ni, 2)
     rmse, rmse_route = holdout.of(model.U, model.V), holdout.of(U, V)
     say("als.fit_device", rank=64, rounds=2, wall_s=wall,
         plan_build_s=solver.plan_s, round_ms=solver.round_ms, rmse=rmse,
-        rmse_bench_route=rmse_route, launches=no_dsgd_launches("als"))
+        rmse_bench_route=rmse_route, launches=no_dsgd_launches("als"),
+        fused_launches=fused)
+    if fused != {"als_solve_launch": 2 * 2}:
+        raise AssertionError(f"fit_device took the fused route {fused} "
+                             "times, expected once a half-step")
     if not abs(rmse - rmse_route) <= 1e-4:
         raise AssertionError(f"fit_device RMSE {rmse} vs the bench route "
                              f"{rmse_route}")
@@ -3141,6 +3159,87 @@ def phase_als_conv(dev):
     if not (all(math.isfinite(x) for x in curve)
             and curve[-1] < curve[0] and curve[-1] == min(curve)):
         raise AssertionError(f"ALS holdout RMSE did not fall: {curve}")
+
+
+ALS_KERNEL = dict(nnz=25_000_095, rank=128, lam=0.1)  # ml25m_r128.als_fit
+ALS_KERNEL_TOL = 2e-4  # of the largest |x|: sums in another order
+
+
+def fused_half_step_counts(plan, k, n_other):
+    """(FLOPs, bytes) of one fused half-step: per rating the gram's lower
+    triangle and b (k(k + 1)/2 + k FMAs), per row a Cholesky and two
+    triangular solves (k³/6 + k² FMAs); the fixed side read once, 8 B of
+    plan a rating and 16 B a row, the solved table written once."""
+    e, n = plan.cols.numel(), plan.rows.numel()
+    fmas = e * (k * (k + 1) / 2 + k) + n * (k ** 3 / 6 + k * k)
+    nbytes = 4 * k * (n_other + plan.num_rows) + 8 * e + 16 * n
+    return 2 * fmas, nbytes
+
+
+def phase_kernels_als(dev):
+    """``[kernels.als]``: the fused half-step at ML-25M shapes, both
+    sides, against its plain version and the bucketed route, each timed."""
+    k, lam = ALS_KERNEL["rank"], ALS_KERNEL["lam"]
+    (train, _, (nu, ni)), gen_s = timed(
+        lambda: device_blocking.synthetic_like_device(
+            "ml-25m", nnz=ALS_KERNEL["nnz"], rank=16, noise=0.1, seed=5,
+            skew_lam=2.0, device=dev))
+    u, i, r = train
+    (pu, pv), plan_s = timed(lambda: (
+        als_ops.device_csr_plan(u, i, r, nu),
+        als_ops.device_csr_plan(i, u, r, ni)))
+    (bu, bv), bucket_s = timed(lambda: (
+        als_ops.device_prepare_side(u, i, r, nu, rank_for_chunking=k),
+        als_ops.device_prepare_side(i, u, r, ni, rank_for_chunking=k)))
+    F = PseudoRandomFactorInitializer(k, scale=0.1)(
+        torch.arange(ni, device=dev))
+    for side, plan, buckets, n_rows in (("users", pu, bu, nu),
+                                        ("items", pv, bv, ni)):
+        als_ops.reset_launch_counts()
+        got = als_ops.als_solve(F, plan, lam)
+        again = als_ops.als_solve(F, plan, lam)
+        torch.cuda.synchronize()
+        launches = dict(als_ops.LAUNCHES)
+        bit_equal = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        del again
+        scale = got.abs().max().item()
+        plain = als_ops.als_solve_reference(F, plan, lam)
+        vs_plain = (got - plain).abs().max().item() / scale
+        del plain
+        bucketed = als_ops.solve_side(F, buckets, n_rows, lam)
+        vs_bucketed = (got - bucketed).abs().max().item() / scale
+        del bucketed
+        ms = cuda_ms(lambda: als_ops.als_solve(F, plan, lam), 5)
+        plain_ms = cuda_ms(lambda: als_ops.als_solve_reference(F, plan, lam),
+                           2, warmup=1)
+        library_ms = cuda_ms(
+            lambda: als_ops.solve_side(F, buckets, n_rows, lam), 2, warmup=1)
+        flops, nbytes = fused_half_step_counts(plan, k, F.shape[0])
+        bound_ms, bound_by = bound_of(nbytes, flops)
+        say("kernels.als", side=side, route="cuda",
+            source="large_scale_recommendation_tpu_torch/csrc/als_solve.cu",
+            replaces="none (the JAX package solves ALS with XLA ops)",
+            rows=plan.rows.numel(), ratings=plan.cols.numel(), rank=k,
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+            roofline_pct=100.0 * bound_ms / ms, gflop=flops / 1e9,
+            mbytes=nbytes / 1e6, plain_ms=plain_ms, library_ms=library_ms,
+            max_rel_vs_plain=vs_plain, max_rel_vs_bucketed=vs_bucketed,
+            two_launches_bit_equal=bit_equal, launches=launches,
+            generation_wall_s=gen_s, csr_plans_wall_s=plan_s,
+            bucket_plans_wall_s=bucket_s, ptxas=[
+                line.strip() for line in _build.build_log.get(
+                    "als_solve", "").splitlines() if "registers" in line
+                or "spill" in line])
+        if launches != {"als_solve_launch": 2}:
+            raise AssertionError(f"kernels.als: launched {launches}")
+        if not (bit_equal and torch.isfinite(got).all()):
+            raise AssertionError("kernels.als: two launches differ or NaN")
+        if not max(vs_plain, vs_bucketed) <= ALS_KERNEL_TOL:
+            raise AssertionError(f"kernels.als {side}: {vs_plain:.3e} from "
+                                 f"the plain version, {vs_bucketed:.3e} from "
+                                 "the bucketed route")
+        F = got  # the item side solves from the users just solved
+    del pu, pv, bu, bv, train, F, got
 
 
 def online_parts(om, batch):
@@ -3884,9 +3983,9 @@ def phase_streams_adaptive(scratch):
         retrains.append((history, out))
         return out
 
-    def finish():
+    def finish(*args):
         buffered.append(len(model._buffer))
-        return real_finish()
+        return real_finish(*args)
 
     model._retrain, model._finish_batch = retrain, finish
     drv = StreamingDriver(model, log, os.path.join(scratch, "adapt_ck"),

@@ -8,10 +8,14 @@ Two data paths feed the same rounds (``ops.als.als_rounds``):
   buckets then live on the solver's device for the whole fit;
 - ``fit_device``: dense ids, planned on the solver's device
   (``device_prepare_side``); only the 32-entry class counts come back.
+  On a card in f32 at rank ≤ 128 (``ops.als.fused_route``) it builds the
+  fused route's ``CsrPlan`` instead (``device_csr_plan``; one count comes
+  back).
 
 Each round is a user half-step then an item half-step: bucketed gathers,
 batched grams and batched Cholesky solves, in torch ops on the device (the
-JAX package leaves them to XLA; there is no Pallas kernel on this path).
+JAX package leaves them to XLA; there is no Pallas kernel on this path), or
+on the fused route one launch of ``csrc/als_solve.cu`` a half-step.
 """
 
 from __future__ import annotations
@@ -147,15 +151,25 @@ class ALS:
         with span("als/plan", device=on_card):
             omega_u = torch.bincount(u.long(), minlength=num_users)
             omega_v = torch.bincount(i.long(), minlength=num_items)
-            prep_u = als_ops.device_prepare_side(
-                u, i, r, num_users, omega=omega_u.float() if wr else None,
-                min_pad=cfg.min_pad, rank_for_chunking=k)
-            prep_v = als_ops.device_prepare_side(
-                i, u, r, num_items, omega=omega_v.float() if wr else None,
-                min_pad=cfg.min_pad, rank_for_chunking=k)
+            om_u = omega_u.float() if wr else None
+            om_v = omega_v.float() if wr else None
+            if als_ops.fused_route(dev, k, gram_dtype):
+                prep_u = als_ops.device_csr_plan(u, i, r, num_users,
+                                                 omega=om_u)
+                prep_v = als_ops.device_csr_plan(i, u, r, num_items,
+                                                 omega=om_v)
+                reweigh = als_ops.implicit_csr
+            else:
+                prep_u = als_ops.device_prepare_side(
+                    u, i, r, num_users, omega=om_u, min_pad=cfg.min_pad,
+                    rank_for_chunking=k)
+                prep_v = als_ops.device_prepare_side(
+                    i, u, r, num_items, omega=om_v, min_pad=cfg.min_pad,
+                    rank_for_chunking=k)
+                reweigh = als_ops.implicit_prepared
             if cfg.implicit_alpha is not None:
-                prep_u = als_ops.implicit_prepared(prep_u, cfg.implicit_alpha)
-                prep_v = als_ops.implicit_prepared(prep_v, cfg.implicit_alpha)
+                prep_u = reweigh(prep_u, cfg.implicit_alpha)
+                prep_v = reweigh(prep_v, cfg.implicit_alpha)
         if on_card:
             plan_end.record()
         else:

@@ -34,21 +34,42 @@ rows, as the JAX package does; the row weights and targets are rounded to
 bf16 as there, and the products (exact in f32: bf16 × bf16), the
 contractions and the solve run in f32, as the JAX einsums'
 ``preferred_element_type=f32`` compile on the CPU. The solved side is f32.
+
+The fused route (``fused_route``: a card, f32, k ≤ 128; ``ALS.fit_device``
+takes it there) has a plan of its own, a ``CsrPlan`` (``device_csr_plan``:
+the rows with ratings longest first, each row's entries contiguous with
+partners ascending), and solves a half-step in ONE launch of
+``csrc/als_solve.cu``: per row, the partner rows gathered into shared
+memory, the gram's lower triangle and b in registers, the ridge, a
+Cholesky factorisation and both solves on the SM, so no padded gather,
+gram or library solve reaches device memory. ``als_solve`` launches it for
+CUDA tensors (counted in ``LAUNCHES``) and runs ``als_solve_reference``,
+its plain version (rows in chunks of similar length, the bucketed route's
+gram and ``solve_normal_eq``), for CPU tensors. Everything else (the CPU,
+bf16 grams, k > 128, host plans, the mesh) stays on the bucketed route.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from large_scale_recommendation_tpu_torch.obs.trace import span
+from large_scale_recommendation_tpu_torch.ops import _build
 from large_scale_recommendation_tpu_torch.ops.topk import ieee_f32
 from large_scale_recommendation_tpu_torch.utils.device import resolve_device
 
 # classes of the device plan: rows with up to 2^30 ratings
 _N_POW2 = 31
+# the fused route's largest rank (csrc/als_solve.cu: 128×128 systems)
+FUSED_MAX_K = 128
+# launches since the last reset: one a fused half-step
+LAUNCHES = {"als_solve_launch": 0}
+_LIB = "als_solve"
+_bound: ctypes.CDLL | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,12 +203,25 @@ def prepare_side(plan: SolvePlan, omega, k: int,
                  for b in buckets)
 
 
+def _row_major_entries(out_rows, other_rows, num_out_rows: int):
+    """Per-row counts, the entries' order by (out_row, other_row) and each
+    row's first entry in that order: the sort both device plans share."""
+    counts = torch.bincount(out_rows.long(), minlength=num_out_rows)
+    # lexsort by (out_row, other_row) as two stable passes: row-contiguous
+    # runs with ascending partners, as the host plan's np.lexsort
+    o1 = torch.sort(other_rows, stable=True).indices
+    entry_order = o1[torch.sort(out_rows[o1], stable=True).indices]
+    starts = torch.cumsum(counts, 0) - counts
+    return counts, entry_order, starts
+
+
 def _device_plan_keys(out_rows, other_rows, num_out_rows: int,
                       n_pow2: int):
     """Per-row counts, pad classes, and the two sort orders of the device
     plan, plus the per-class row counts that are read back."""
     dev = out_rows.device
-    counts = torch.bincount(out_rows.long(), minlength=num_out_rows)
+    counts, entry_order, starts = _row_major_entries(out_rows, other_rows,
+                                                     num_out_rows)
     pow2s = torch.pow(2, torch.arange(n_pow2, dtype=torch.int64, device=dev))
     # smallest pow2 ≥ count in exact integer logic; empty rows get a
     # trailing pseudo-class that is sliced off
@@ -195,11 +229,6 @@ def _device_plan_keys(out_rows, other_rows, num_out_rows: int,
     pclass = torch.where(counts == 0, n_pow2, pclass)
     row_order = torch.sort(pclass, stable=True).indices  # rows by class
     rows_per_class = torch.bincount(pclass, minlength=n_pow2 + 1)
-    # lexsort by (out_row, other_row) as two stable passes: row-contiguous
-    # runs with ascending partners, as the host plan's np.lexsort
-    o1 = torch.sort(other_rows, stable=True).indices
-    entry_order = o1[torch.sort(out_rows[o1], stable=True).indices]
-    starts = torch.cumsum(counts, 0) - counts
     return counts, row_order, rows_per_class, entry_order, starts
 
 
@@ -284,6 +313,69 @@ def implicit_prepared(prepared, alpha: float):
                  for rows3, oidx3, vals3, w3, sc3 in prepared)
 
 
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """One orientation's plan for the fused half-step, on one device.
+
+    ``rows`` int32 [n]: the solved rows with ratings, longest first (ties
+    by row); ``ptr`` int64 [n] and ``cnt`` int32 [n]: each one's entries,
+    ``cols[ptr:ptr + cnt]`` (partner rows, ascending) beside ``vals``
+    (b-weights: the ratings, or the implicit confidences) and ``w`` (gram
+    weights; None: 1); ``scale`` f32 [n] (ALS-WR's ω) or None;
+    ``num_rows``: the solved side's table height."""
+
+    rows: torch.Tensor
+    ptr: torch.Tensor
+    cnt: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+    w: torch.Tensor | None
+    scale: torch.Tensor | None
+    num_rows: int
+
+
+def fused_route(device, k: int, gram_dtype=None) -> bool:
+    """Whether a half-step takes the fused kernel: the fixed side on a
+    card, in f32, at rank ≤ ``FUSED_MAX_K``."""
+    return (torch.device(device).type == "cuda" and gram_dtype is None
+            and k <= FUSED_MAX_K)
+
+
+def device_csr_plan(out_rows, other_rows, values, num_out_rows: int,
+                    omega=None, device=None) -> CsrPlan:
+    """One orientation's ``CsrPlan`` on the device (``device_prepare_side``'s
+    sort, without its buckets). Inputs as ``device_prepare_side``'s; the
+    count of rows with ratings is the one readback."""
+    dev = (out_rows.device if isinstance(out_rows, torch.Tensor)
+           else resolve_device(device))
+
+    def put(a, dtype):
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    out_rows = put(out_rows, torch.int32)
+    other_rows = put(other_rows, torch.int32)
+    values = put(values, torch.float32)
+    counts, entry_order, starts = _row_major_entries(out_rows, other_rows,
+                                                     num_out_rows)
+    by_length = torch.sort(counts, descending=True, stable=True).indices
+    rows = by_length[:int((counts > 0).sum())]
+    return CsrPlan(
+        rows=rows.to(torch.int32), ptr=starts[rows].contiguous(),
+        cnt=counts[rows].to(torch.int32),
+        cols=other_rows[entry_order].contiguous(),
+        vals=values[entry_order].contiguous(), w=None,
+        scale=None if omega is None else put(omega, torch.float32)[rows],
+        num_rows=num_out_rows)
+
+
+def implicit_csr(plan: CsrPlan, alpha: float) -> CsrPlan:
+    """iALS weights on an explicit ``CsrPlan``: b-weights 1 + α·r, gram
+    weights α·r (``implicit_prepared``'s values entry for entry)."""
+    a = float(np.float32(alpha))
+    return dataclasses.replace(plan, vals=1.0 + a * plan.vals,
+                               w=a * plan.vals)
+
+
 def _gram_chunk(factors, oi, va, wi, G=None):
     """One chunk's per-row grams ``A [rc, k, k]`` and right-hand sides
     ``b [rc, k]``: gather the fixed side's rows and contract them in f32
@@ -340,9 +432,22 @@ def solve_side(
     G: torch.Tensor | None = None,
     dtype=None,
 ) -> torch.Tensor:
-    """One ALS half-step over the prepared buckets; with ``G`` (the fixed
-    side's VᵀV) the iALS half-step. ``dtype`` (``torch.bfloat16``) casts
-    the fixed side once before the gathers; the solved side is f32."""
+    """One ALS half-step over the prepared buckets or a ``CsrPlan`` (the
+    fused route, f32 only: span ``als/solve`` with counters ``rows`` and
+    ``fused``, the rows the kernel solved); with ``G`` (the fixed side's
+    VᵀV) the iALS half-step. ``dtype`` (``torch.bfloat16``) casts the fixed
+    side once before the gathers; the solved side is f32."""
+    if isinstance(prepared, CsrPlan):
+        if dtype is not None:
+            raise ValueError("the fused half-step solves in f32 only")
+        if prepared.num_rows != num_rows:
+            raise ValueError(f"plan of {prepared.num_rows} rows, expected "
+                             f"{num_rows}")
+        n = prepared.rows.shape[0]
+        on_card = factors_other.is_cuda
+        with span("als/solve", device=on_card, rows=n,
+                  fused=n if on_card else 0):
+            return als_solve(factors_other, prepared, lambda_, G)
     k = factors_other.shape[-1]
     if dtype is not None:
         factors_other = factors_other.to(dtype)
@@ -572,3 +677,127 @@ def solve_normal_eq(
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
     return torch.where((info == 0)[:, None], x, float("nan"))
+
+
+# -- the fused half-step (csrc/als_solve.cu) ---------------------------------
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with its ctypes signature declared."""
+    global _bound
+    if _bound is not None:
+        return _bound
+    with _build.lock(_LIB):
+        if _bound is None:
+            lib = _build.load_library(_LIB)
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.als_solve_launch.restype = I
+            lib.als_solve_launch.argtypes = ([P, I] + [P] * 8
+                                             + [ctypes.c_float, P, I, P])
+            _bound = lib
+    return _bound
+
+
+def _check_fused(F, plan: CsrPlan, G):
+    """Refuse what the kernel does not take (on any device)."""
+    if F.dim() != 2 or F.dtype != torch.float32:
+        raise ValueError(f"the fused half-step takes an f32 [n, k] fixed "
+                         f"side, got {F.dtype} {tuple(F.shape)}")
+    k = F.shape[1]
+    if not 1 <= k <= FUSED_MAX_K:
+        raise ValueError(f"rank {k} outside [1, {FUSED_MAX_K}]: the fused "
+                         "half-step solves at most 128×128 systems")
+    n, e = plan.rows.shape[0], plan.cols.shape[0]
+    want = [("F", F, torch.float32, None),
+            ("rows", plan.rows, torch.int32, n),
+            ("ptr", plan.ptr, torch.int64, n),
+            ("cnt", plan.cnt, torch.int32, n),
+            ("cols", plan.cols, torch.int32, e),
+            ("vals", plan.vals, torch.float32, e)]
+    if plan.w is not None:
+        want.append(("w", plan.w, torch.float32, e))
+    if plan.scale is not None:
+        want.append(("scale", plan.scale, torch.float32, n))
+    if G is not None:
+        want.append(("G", G, torch.float32, None))
+        if tuple(G.shape) != (k, k):
+            raise ValueError(f"G has shape {tuple(G.shape)}, expected "
+                             f"({k}, {k})")
+    for name, t, dtype, length in want:
+        if t.device != F.device:
+            raise ValueError(f"{name} on {t.device}, expected {F.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+        if length is not None and (t.dim() != 1 or t.shape[0] != length):
+            raise ValueError(f"{name} must be 1-D of length {length}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def als_solve(F: torch.Tensor, plan: CsrPlan, lambda_: float,
+              G: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused half-step: ``[plan.num_rows, k]`` f32, rows without
+    ratings 0, rows whose system is not positive definite NaN. The kernel
+    for CUDA tensors, ``als_solve_reference`` for CPU tensors; there is no
+    fallback."""
+    _check_fused(F, plan, G)
+    if not F.is_cuda:
+        return als_solve_reference(F, plan, lambda_, G)
+    k = F.shape[1]
+    out = torch.zeros((plan.num_rows, k), dtype=torch.float32,
+                      device=F.device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    rc = _lib().als_solve_launch(
+        F.data_ptr(), k, plan.rows.data_ptr(), plan.ptr.data_ptr(),
+        plan.cnt.data_ptr(), plan.cols.data_ptr(), plan.vals.data_ptr(),
+        ptr(plan.w), ptr(plan.scale), ptr(G),
+        float(np.float32(lambda_)), out.data_ptr(),
+        int(plan.rows.shape[0]),
+        torch.cuda.current_stream(F.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"als_solve_launch failed: CUDA error {rc}")
+    LAUNCHES["als_solve_launch"] += 1
+    return out
+
+
+def als_solve_reference(F: torch.Tensor, plan: CsrPlan, lambda_: float,
+                        G: torch.Tensor | None = None,
+                        target_bytes: int = 256 << 20) -> torch.Tensor:
+    """The kernel's plain version: the plan's rows in chunks (rows of
+    similar length, longest first, each padded to its chunk's longest with
+    weight-0 entries), each chunk's grams, ridge, Cholesky and two solves
+    as the bucketed route computes them (``_gram_chunk``,
+    ``solve_normal_eq``), written to the rows of a zeroed table."""
+    k = F.shape[1]
+    dev = F.device
+    out = torch.zeros((plan.num_rows, k), dtype=torch.float32, device=dev)
+    cnt = plan.cnt.cpu().numpy()
+    n = cnt.shape[0]
+    a = 0
+    with ieee_f32():
+        while a < n:
+            longest = int(cnt[a])
+            rc = max(1, target_bytes // (4 * k * (longest + k)))
+            b = min(n, a + rc)
+            ar = torch.arange(longest, dtype=torch.int64, device=dev)
+            pos = plan.ptr[a:b, None] + ar[None, :]
+            valid = ar[None, :] < plan.cnt[a:b, None]
+            pos = torch.where(valid, pos, 0)
+            oi = torch.where(valid, plan.cols[pos], 0)
+            va = torch.where(valid, plan.vals[pos], 0.0)
+            wi = (valid.to(torch.float32) if plan.w is None
+                  else torch.where(valid, plan.w[pos], 0.0))
+            A, rhs = _gram_chunk(F, oi, va, wi, G)
+            sc = None if plan.scale is None else plan.scale[a:b]
+            out.index_copy_(0, plan.rows[a:b].long(),
+                            solve_normal_eq(A, rhs, lambda_, sc))
+            a = b
+    return out

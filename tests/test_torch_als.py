@@ -12,9 +12,14 @@ the largest |x| per half-step and the ``fit`` bar over 3 rounds (measured
 3e-6 max-abs there; both round the same weights and targets to bf16 and
 multiply in f32); within the port,
 bf16 against f32 at relative error < 0.05 and RMSE gap < 0.01
-(tests/test_als.py:738, :753). Sampled HR/NDCG within 1e-5 on the same
-negatives; catalog coverage exactly.
+(tests/test_als.py:738, :753). The fused route's plain version (its CSR
+plan, then per-row grams, ridge, Cholesky and solves) holds the half-step
+bar against both the bucketed route and JAX at ranks 8, 64 and 128; its
+plan holds the buckets' entries row for row. Sampled HR/NDCG within 1e-5
+on the same negatives; catalog coverage exactly.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -353,6 +358,184 @@ def test_bf16_half_step_matches_jax_bf16_and_stays_near_f32(implicit):
     err = np.abs(x16 - x32).max() / scale
     assert err < 0.05, err
     assert not np.allclose(x16, x32)  # the bf16 route engaged
+
+
+# -- the fused route's plan and plain version ------------------------------
+
+
+def _skewed_problem(seed, skew, e=4000, n_rows=80, n_other=300, k=8):
+    """Ratings with ids uniform (skew 0) or from the benchmark's truncated
+    exponential (skew λ: low ids hot), partners well spread, so the rank-128
+    systems stay well conditioned; four rows without ratings at the end."""
+    rng = np.random.default_rng(seed)
+
+    def ids(n_ids):
+        u = rng.random(e)
+        if skew == 0:
+            return np.minimum((u * n_ids).astype(np.int64), n_ids - 1)
+        v = np.floor(-np.log1p(-u * (1 - np.exp(-skew))) / skew * n_ids)
+        return np.minimum(v.astype(np.int64), n_ids - 1)
+
+    out_rows, other = ids(n_rows), ids(n_other)
+    vals = rng.normal(0, 1, e).astype(np.float32)
+    F = (0.3 * rng.normal(size=(n_other, k))).astype(np.float32)
+    return out_rows, other, vals, F, n_rows + 4
+
+
+def _fused_inputs(mode, out_rows, other, vals, F, n_rows):
+    om = (np.bincount(out_rows, minlength=n_rows).astype(np.float32)
+          if mode == "als_wr" else None)
+    alpha = 5.0 if mode == "implicit" else None
+    if alpha is not None:
+        vals = np.abs(vals)
+    G = (F.T @ F).astype(np.float32) if alpha is not None else None
+    return om, alpha, vals, G
+
+
+@pytest.mark.parametrize("skew", [0, 2])
+@pytest.mark.parametrize("k", [8, 64, 128])
+@pytest.mark.parametrize("mode", ["direct", "als_wr", "implicit"])
+def test_fused_plain_half_step_matches_bucketed_and_jax(mode, k, skew):
+    """The fused route's plain version (``solve_side`` on a ``CsrPlan`` on
+    the CPU: ``als_solve_reference``) against the bucketed route and the
+    JAX package's half-step, at the half-step bar."""
+    out_rows, other, vals, F, n_rows = _skewed_problem(10 + k + skew, skew,
+                                                       k=k)
+    om, alpha, vals, G = _fused_inputs(mode, out_rows, other, vals, F,
+                                       n_rows)
+    plan = als_ops.device_csr_plan(out_rows, other, vals, n_rows, omega=om,
+                                   device="cpu")
+    prep = als_ops.device_prepare_side(out_rows, other, vals, n_rows,
+                                       omega=om, rank_for_chunking=k,
+                                       device="cpu")
+    jprep = jals.device_prepare_side(out_rows, other, vals, n_rows, omega=om,
+                                     rank_for_chunking=k)
+    if alpha is not None:
+        plan = als_ops.implicit_csr(plan, alpha)
+        prep = als_ops.implicit_prepared(prep, alpha)
+        jprep = jals.implicit_prepared(jprep, alpha)
+    Ft, Gt = torch.from_numpy(F), None if G is None else torch.from_numpy(G)
+    got = als_ops.solve_side(Ft, plan, n_rows, 0.3, Gt).numpy()
+    bucketed = als_ops.solve_side(Ft, prep, n_rows, 0.3, Gt).numpy()
+    want = np.asarray(jals.solve_side(jnp.asarray(F), jprep, n_rows, 0.3,
+                                      None if G is None else jnp.asarray(G)))
+    assert got.shape == (n_rows, k) and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, bucketed, **HALF)
+    np.testing.assert_allclose(got, want, **HALF)
+    empty = np.bincount(out_rows, minlength=n_rows) == 0
+    assert empty[-4:].all() and (got[empty] == 0).all()
+    assert als_ops.LAUNCHES["als_solve_launch"] == 0  # no kernel on the CPU
+
+
+def test_fused_plain_keeps_empty_rows_zero_and_non_pd_rows_nan():
+    """A row with no entries stays 0; a row whose system is not positive
+    definite (negative gram weights) solves to NaN, as ``solve_normal_eq``
+    does, and leaves the other rows alone."""
+    out_rows, other, vals, F, n_rows = _skewed_problem(3, 0, k=16)
+    plan = als_ops.device_csr_plan(out_rows, other, vals, n_rows,
+                                   device="cpu")
+    rows = plan.rows.numpy()
+    bad = int(rows[3])
+    w = torch.ones_like(plan.vals)
+    a, c = int(plan.ptr[3]), int(plan.cnt[3])
+    w[a:a + c] = -50.0
+    broken = dataclasses.replace(plan, w=w)
+    Ft = torch.from_numpy(F)
+    got = als_ops.solve_side(Ft, broken, n_rows, 0.3)
+    clean = als_ops.solve_side(Ft, plan, n_rows, 0.3)
+    assert torch.isnan(got[bad]).all()
+    others = torch.ones(n_rows, dtype=torch.bool)
+    others[bad] = False
+    assert torch.equal(got[others], clean[others])
+    empty = torch.from_numpy(np.bincount(out_rows, minlength=n_rows) == 0)
+    assert empty.any() and (got[empty] == 0).all()
+    # the same system through solve_normal_eq: NaN too
+    g = Ft[plan.cols[a:a + c].long()]
+    A = (g * -50.0).T @ g
+    b = g.T @ plan.vals[a:a + c]
+    assert torch.isnan(als_ops.solve_normal_eq(A[None], b[None], 0.3)).all()
+
+
+@pytest.mark.parametrize("omega", [False, True])
+@pytest.mark.parametrize("skew", [0, 2])
+def test_csr_plan_holds_the_buckets_entries_row_by_row(omega, skew):
+    """Row for row, the ``CsrPlan`` holds the (partner, value) entries and
+    the scale of ``device_prepare_side``'s buckets; rows come longest
+    first (ties by row) and only rows with ratings are in it."""
+    out_rows, other, vals, _, n_rows = _skewed_problem(5 + skew, skew)
+    om = (np.bincount(out_rows, minlength=n_rows).astype(np.float32)
+          if omega else None)
+    plan = als_ops.device_csr_plan(out_rows, other, vals, n_rows, omega=om,
+                                   device="cpu")
+    buckets = _by_row(als_ops.device_prepare_side(
+        out_rows, other, vals, n_rows, omega=om, rank_for_chunking=8,
+        device="cpu"), n_rows)
+    counts = np.bincount(out_rows, minlength=n_rows)
+    rows, cnt = plan.rows.numpy(), plan.cnt.numpy()
+    assert plan.num_rows == n_rows and plan.w is None
+    assert sorted(rows) == list(np.nonzero(counts)[0])
+    np.testing.assert_array_equal(cnt, counts[rows])
+    assert (np.diff(cnt) <= 0).all()
+    ties = np.diff(cnt) == 0
+    assert (np.diff(rows)[ties] > 0).all()
+    found = 0
+    for rows_b, oidx, vals_b, w_b, sc in buckets.values():
+        for j, row in enumerate(rows_b):
+            i = int(np.nonzero(rows == row)[0][0])
+            a, c = int(plan.ptr[i]), int(plan.cnt[i])
+            live = w_b[j] > 0
+            assert live.sum() == c
+            np.testing.assert_array_equal(plan.cols[a:a + c].numpy(),
+                                          oidx[j][live])
+            np.testing.assert_array_equal(plan.vals[a:a + c].numpy(),
+                                          vals_b[j][live])
+            if omega:
+                assert plan.scale[i].item() == sc[j][0]
+            found += 1
+    assert found == len(rows)
+    # the implicit weights: the buckets' values entry for entry
+    ip = als_ops.implicit_csr(plan, 7.0)
+    ib = _by_row(als_ops.implicit_prepared(als_ops.device_prepare_side(
+        out_rows, other, vals, n_rows, omega=om, rank_for_chunking=8,
+        device="cpu"), 7.0), n_rows)
+    for rows_b, oidx, vals_b, w_b, sc in ib.values():
+        for j, row in enumerate(rows_b):
+            i = int(np.nonzero(rows == row)[0][0])
+            a, c = int(ip.ptr[i]), int(ip.cnt[i])
+            live = np.arange(vals_b.shape[1]) < c
+            np.testing.assert_array_equal(ip.vals[a:a + c].numpy(),
+                                          vals_b[j][live])
+            np.testing.assert_array_equal(ip.w[a:a + c].numpy(),
+                                          w_b[j][live])
+
+
+def test_fused_route_applies_on_a_card_in_f32_up_to_rank_128():
+    assert als_ops.fused_route("cuda", 128)
+    assert als_ops.fused_route(torch.device("cuda", 0), 8)
+    assert not als_ops.fused_route("cuda", 129)
+    assert not als_ops.fused_route("cuda", 64, torch.bfloat16)
+    assert not als_ops.fused_route("cpu", 64)
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
+    out_rows, other, vals, F, n_rows = _skewed_problem(4, 0, k=8)
+    plan = als_ops.device_csr_plan(out_rows, other, vals, n_rows,
+                                   device="cpu")
+    Ft = torch.from_numpy(F)
+    with pytest.raises(ValueError, match="f32"):
+        als_ops.als_solve(Ft.bfloat16(), plan, 0.1)
+    with pytest.raises(ValueError, match="f32 only"):
+        als_ops.solve_side(Ft, plan, n_rows, 0.1, dtype=torch.bfloat16)
+    wide = torch.zeros((F.shape[0], 129))
+    with pytest.raises(ValueError, match="rank 129"):
+        als_ops.als_solve(wide, plan, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        als_ops.als_solve(torch.zeros((8, F.shape[0])).T, plan, 0.1)
+    with pytest.raises(ValueError, match="G has shape"):
+        als_ops.als_solve(Ft, plan, 0.1, torch.zeros((3, 3)))
+    with pytest.raises(ValueError, match="plan of"):
+        als_ops.solve_side(Ft, plan, n_rows + 1, 0.1)
 
 
 # -- the model -------------------------------------------------------------

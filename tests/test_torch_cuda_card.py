@@ -17,7 +17,9 @@ exact against ``Tensor.to``. Beside them, what runs on the
 card around the kernels: top-K and ranking quality against the same model
 on the CPU, a resumed fit bit-equal to an uninterrupted one, a bf16
 checkpoint written from the card, ALS, online MF and the serving engine
-(exact, bf16, two-stage, deltas) against their CPU runs, and the flat
+(exact, bf16, two-stage, deltas) against their CPU runs, the fused ALS
+half-step (``csrc/als_solve.cu``) against its plain version (within 2e-4
+of the largest |x|; two launches bit-equal), and the flat
 stage-1 kernels (``csrc/stage1_select.cu``) against the score-matrix route
 and their plain versions: values bit-equal, candidate rows equal but at
 ties with the ``kc``-th value.
@@ -869,6 +871,119 @@ def test_als_fit_on_card_matches_cpu(dev, path):
     torch.testing.assert_close(card.V.cpu(), cpu.V, rtol=2e-3, atol=2e-4)
     assert abs(card.rmse(test) - cpu.rmse(test)) <= 1e-4
     assert card.rmse(test) < 0.2  # 0.165 on the CPU
+
+
+# -- the fused ALS half-step (csrc/als_solve.cu) ----------------------------
+
+FUSED_LENGTHS = (0, 1, 7, 8, 31, 129, 1500, 3, 64, 0, 250)
+
+
+def _fused_case(dev, k, implicit=False, bad_row=None, omega=False, seed=0,
+                lengths=FUSED_LENGTHS, n_other=2000):
+    """A ``CsrPlan`` on ``dev`` whose row r has ``lengths[r]`` distinct
+    partners, a fixed side F ~ 0.3·N(0, 1) and (implicit) its gram G;
+    ``bad_row`` gets gram weights −50, so its system is not positive
+    definite."""
+    import dataclasses
+
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    rng = np.random.default_rng(seed)
+    out = np.repeat(np.arange(len(lengths)), lengths)
+    other = np.concatenate([rng.choice(n_other, n, replace=False)
+                            for n in lengths])
+    vals = rng.normal(size=out.shape[0]).astype(np.float32)
+    if implicit:
+        vals = np.abs(vals)
+    om = (np.bincount(out, minlength=len(lengths)).astype(np.float32)
+          if omega else None)
+    plan = als_ops.device_csr_plan(out, other, vals, len(lengths), omega=om,
+                                   device=dev)
+    if implicit:
+        plan = als_ops.implicit_csr(plan, 2.0)
+    if bad_row is not None:
+        i = int((plan.rows == bad_row).nonzero()[0, 0])
+        w = (torch.ones_like(plan.vals) if plan.w is None
+             else plan.w.clone())
+        a, c = int(plan.ptr[i]), int(plan.cnt[i])
+        w[a:a + c] = -50.0
+        plan = dataclasses.replace(plan, w=w)
+    F = torch.as_tensor((0.3 * rng.normal(size=(n_other, k)))
+                        .astype(np.float32), device=dev)
+    G = (F.T @ F).contiguous() if implicit else None
+    return plan, F, G
+
+
+@pytest.mark.parametrize("omega", [False, True])
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("k", [16, 64, 100, 128])
+def test_als_solve_kernel_matches_its_plain_version(dev, k, implicit,
+                                                    omega):
+    """Rows of 0 to 1,500 entries: within 2e-4 of the largest |x| of the
+    plain version (the sums run in another order; measured ≤ 1e-5 on an
+    H100), empty rows exactly 0, the non-positive-definite row (implicit
+    cases) NaN in both."""
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    plan, F, G = _fused_case(dev, k, implicit, bad_row=5 if implicit else None,
+                             omega=omega, seed=k)
+    got = als_ops.als_solve(F, plan, 0.1, G)
+    want = als_ops.als_solve_reference(F, plan, 0.1, G)
+    nan = torch.isnan(want).any(1)
+    assert torch.equal(torch.isnan(got).any(1), nan)
+    assert nan.sum().item() == (1 if implicit else 0)
+    assert torch.isnan(got[nan]).all()
+    scale = want[~nan].abs().max().item()
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=0,
+                               atol=2e-4 * scale)
+    empty = [r for r, n in enumerate(FUSED_LENGTHS) if n == 0]
+    assert (got[empty] == 0).all()
+
+
+def test_als_solve_kernel_two_launches_are_bit_equal(dev):
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    plan, F, G = _fused_case(dev, 128, implicit=True,
+                             lengths=FUSED_LENGTHS * 20, n_other=4000)
+    a = als_ops.als_solve(F, plan, 0.05, G)
+    b = als_ops.als_solve(F, plan, 0.05, G)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_als_fit_device_on_card_launches_the_fused_kernel(dev):
+    """``ALS.fit_device`` on the card takes the fused route: one launch a
+    half-step; the bf16 gram route keeps the bucketed one (no launch)."""
+    from large_scale_recommendation_tpu_torch.models.als import (
+        ALS,
+        ALSConfig,
+    )
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    train, _ = _als_data()
+    u, i, r, _ = train.to_numpy()
+    als_ops.reset_launch_counts()
+    ALS(ALSConfig(num_factors=16, lambda_=0.1, iterations=3)).fit_device(
+        u, i, r, 900, 500)
+    assert als_ops.LAUNCHES["als_solve_launch"] == 2 * 3
+    ALS(ALSConfig(num_factors=16, lambda_=0.1, iterations=2,
+                  gram_dtype="bf16")).fit_device(u, i, r, 900, 500)
+    assert als_ops.LAUNCHES["als_solve_launch"] == 2 * 3
+
+
+def test_als_solve_wrapper_refuses_bad_operands(dev):
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    plan, F, _ = _fused_case(dev, 16)
+    with pytest.raises(ValueError, match="f32"):
+        als_ops.als_solve(F.bfloat16(), plan, 0.1)
+    with pytest.raises(ValueError, match="rank 129"):
+        als_ops.als_solve(torch.zeros((F.shape[0], 129), device=dev), plan,
+                          0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        als_ops.als_solve(torch.zeros((16, F.shape[0]), device=dev).T, plan,
+                          0.1)
+    with pytest.raises(ValueError, match="on cpu"):
+        als_ops.als_solve(F, _fused_case("cpu", 16)[0], 0.1)
 
 
 def test_sampled_metrics_on_card_match_cpu(dev):

@@ -366,6 +366,23 @@ def test_als_fit_device_spans_and_plan_s():
     assert "device_ms" not in tot["als/solve"]  # no card here
 
 
+def test_fused_half_step_span_counts_its_rows():
+    """A fused half-step is one ``als/solve`` span with counters ``rows``
+    (the plan's rows) and ``fused`` (those the kernel solved: none on the
+    CPU, where the plain version runs)."""
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    r = _ratings(2000, 60, 40)
+    plan = als_ops.device_csr_plan(r.users, r.items, r.ratings, 60,
+                                   device="cpu")
+    F = torch.randn(40, 4)
+    _profiled(lambda: als_ops.solve_side(F, plan, 60, 0.1))
+    tot = ptr.span_totals()
+    assert tot["als/solve"]["count"] == 1
+    assert tot["als/solve"]["args"]["rows"] == plan.rows.shape[0] > 0
+    assert tot["als/solve"]["args"]["fused"] == 0
+
+
 def test_dsgd_fit_device_spans():
     from large_scale_recommendation_tpu_torch.models.dsgd import (
         DSGD, DSGDConfig)
