@@ -137,8 +137,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               ``[als.implicit]`` (α 1, rank 128, 2 rounds) with sampled
               HR/NDCG@10 and catalog coverage, card vs CPU within 1e-5;
               ``[als.fit_device]`` (the entry point, rank 64) within 1e-4
-              RMSE of the bench route; ``[als.fit]`` (host plans, rank 128)
-              in f32 and bf16 grams, RMSE gap < 0.01;
+              RMSE of the bench route, and with ``implicit_alpha`` 1 one
+              weighted launch a half-step, its tables within 1e-3 of the
+              bench route's implicit rounds; ``[als.fit]`` (host plans,
+              rank 128) in f32 and bf16 grams, RMSE gap < 0.01;
 12. als.conv — rank-32 time to holdout RMSE 0.155 on 25,000,095 ratings
               (``bench.py:851-907``), up to 7 rounds; the curve must fall;
 12a. kernels.als — the fused ALS half-step (``csrc/als_solve.cu``) at
@@ -152,6 +154,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
               and the solved table once at 3.35 TB/s), the plain
               version's ms and the bucketed route's (gathers, ``bmm``,
               ``cholesky_ex``, two ``solve_triangular``) as ``library_ms``;
+              then the weighted build at ``mpd_ials_r64.ials_fit``'s
+              shapes (its 66,346,428 draws coalesced, 1,000,000 ×
+              2,262,292, rank 64, α 40, each side's YᵀY as G), checked
+              and timed the same way against its own plain version and the
+              bucketed implicit route, beside
+              ``portbench/reference/ials_counts.py``'s bound;
 13. online  — ``OnlineMF.partial_fit`` on the Netflix-shaped stream
               (``bench.py:919-975``): 10 batches of 100,000 at rank 128,
               each synchronized (ratings/s, p50/p99/max, steady half); the
@@ -406,6 +414,7 @@ from large_scale_recommendation_tpu_torch.ops import als as als_ops
 from large_scale_recommendation_tpu_torch.ops import sgd as sgd_ops
 from large_scale_recommendation_tpu_torch.ops import topk
 from large_scale_recommendation_tpu_torch.obs import registry as obs_registry
+from large_scale_recommendation_tpu_torch.obs import trace as obs_trace
 from large_scale_recommendation_tpu_torch.obs.health import SLOTracker
 from large_scale_recommendation_tpu_torch.obs.introspect import TRACE_FILE
 from large_scale_recommendation_tpu_torch.obs.server import http_get
@@ -462,6 +471,9 @@ from large_scale_recommendation_tpu_torch.utils.checkpoint import (
     restore_online_state,
     save_online_state,
 )
+from portbench.generators.ials_fit import coalesce
+from portbench.reference import generator as bench_data
+from portbench.reference import ials_counts
 
 # published H100 SXM peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -3044,7 +3056,39 @@ def phase_als(dev):
     if not abs(rmse - rmse_route) <= 1e-4:
         raise AssertionError(f"fit_device RMSE {rmse} vs the bench route "
                              f"{rmse_route}")
-    del prep_u, prep_v, model, U, V, init
+    # implicit: the weighted build once a half-step, against the bench
+    # route's implicit rounds from the same init (items without ratings 0,
+    # as fit_device starts them: the whole-table gram sees every row)
+    solver = ALS(dataclasses.replace(cfg, implicit_alpha=1.0))
+    als_ops.reset_launch_counts()
+    obs_trace.reset_span_totals()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        model, wall = timed(lambda: solver.fit_device(au, ai, ar, nu, ni))
+    fused = dict(als_ops.LAUNCHES)
+    solve = obs_trace.span_totals()["als/solve"]
+    seen = torch.bincount(ai.long(), minlength=ni) > 0
+    iu, iv = (als_ops.implicit_prepared(p, 1.0) for p in (prep_u, prep_v))
+    U, V, _, _ = als_rounds_timed(init[64] * seen[:, None], iu, iv, nu, ni,
+                                  2, implicit=True)
+    gap = max((a - b).abs().max().item() / b.abs().max().item()
+              for a, b in ((model.U, U), (model.V, V)))
+    say("als.fit_device.implicit", rank=64, alpha=1.0, rounds=2,
+        wall_s=wall, round_ms=solver.round_ms, fused_launches=fused,
+        solve_spans=solve["count"], solve_rows=solve["args"]["rows"],
+        weighted_rows=solve["args"]["weighted"],
+        max_rel_vs_bench_route=gap)
+    if fused != {"als_solve_launch": 2 * 2} or solve["count"] != 2 * 2:
+        raise AssertionError(f"implicit fit_device launched {fused} in "
+                             f"{solve['count']} spans, expected once a "
+                             "half-step")
+    if solve["args"]["weighted"] != solve["args"]["rows"]:
+        raise AssertionError(f"implicit fit_device: {solve['args']}, "
+                             "expected the weighted build on every row")
+    if not gap <= 1e-3:  # sums in another order over four half-steps
+        raise AssertionError(f"implicit fit_device {gap:.3e} from the "
+                             "bench route")
+    del prep_u, prep_v, iu, iv, model, U, V, init
     phase_als_fit(h, hold, nu, ni)
 
 
@@ -3163,6 +3207,8 @@ def phase_als_conv(dev):
 
 ALS_KERNEL = dict(nnz=25_000_095, rank=128, lam=0.1)  # ml25m_r128.als_fit
 ALS_KERNEL_TOL = 2e-4  # of the largest |x|: sums in another order
+IALS_KERNEL = dict(config="portbench/configs/mpd_ials_r64.json",
+                   seed=3_000_002_651)  # mpd_ials_r64.ials_fit
 
 
 def fused_half_step_counts(plan, k, n_other):
@@ -3176,9 +3222,60 @@ def fused_half_step_counts(plan, k, n_other):
     return 2 * fmas, nbytes
 
 
+def kernels_als_side(side, F, plan, buckets, lam, G, counts, **facts):
+    """One side of ``[kernels.als]``: two launches (bit-equal, the only
+    ones since the reset), the kernel against its plain version and the
+    bucketed route, each timed, beside the bound of ``counts(plan)``
+    ((FLOPs, bytes)). Returns the kernel's table."""
+    k = F.shape[1]
+    als_ops.reset_launch_counts()
+    got = als_ops.als_solve(F, plan, lam, G)
+    again = als_ops.als_solve(F, plan, lam, G)
+    torch.cuda.synchronize()
+    launches = dict(als_ops.LAUNCHES)
+    bit_equal = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    del again
+    scale = got.abs().max().item()
+    plain = als_ops.als_solve_reference(F, plan, lam, G)
+    vs_plain = (got - plain).abs().max().item() / scale
+    del plain
+    bucketed = als_ops.solve_side(F, buckets, plan.num_rows, lam, G)
+    vs_bucketed = (got - bucketed).abs().max().item() / scale
+    del bucketed
+    ms = cuda_ms(lambda: als_ops.als_solve(F, plan, lam, G), 5)
+    plain_ms = cuda_ms(
+        lambda: als_ops.als_solve_reference(F, plan, lam, G), 2, warmup=1)
+    library_ms = cuda_ms(
+        lambda: als_ops.solve_side(F, buckets, plan.num_rows, lam, G), 2,
+        warmup=1)
+    flops, nbytes = counts(plan)
+    bound_ms, bound_by = bound_of(nbytes, flops)
+    say("kernels.als", side=side, route="cuda",
+        source="large_scale_recommendation_tpu_torch/csrc/als_solve.cu",
+        replaces="none (the JAX package solves ALS with XLA ops)",
+        rows=plan.rows.numel(), ratings=plan.cols.numel(), rank=k,
+        weighted=plan.w is not None, ms=ms, bound_ms=bound_ms,
+        bound_by=bound_by, roofline_pct=100.0 * bound_ms / ms,
+        gflop=flops / 1e9, mbytes=nbytes / 1e6, plain_ms=plain_ms,
+        library_ms=library_ms, max_rel_vs_plain=vs_plain,
+        max_rel_vs_bucketed=vs_bucketed, two_launches_bit_equal=bit_equal,
+        launches=launches, **facts)
+    if launches != {"als_solve_launch": 2}:
+        raise AssertionError(f"kernels.als {side}: launched {launches}")
+    if not (bit_equal and torch.isfinite(got).all()):
+        raise AssertionError(f"kernels.als {side}: two launches differ or "
+                             "NaN")
+    if not max(vs_plain, vs_bucketed) <= ALS_KERNEL_TOL:
+        raise AssertionError(f"kernels.als {side}: {vs_plain:.3e} from the "
+                             f"plain version, {vs_bucketed:.3e} from the "
+                             "bucketed route")
+    return got
+
+
 def phase_kernels_als(dev):
     """``[kernels.als]``: the fused half-step at ML-25M shapes, both
-    sides, against its plain version and the bucketed route, each timed."""
+    sides, against its plain version and the bucketed route, each timed;
+    then its weighted build at the iALS cell's."""
     k, lam = ALS_KERNEL["rank"], ALS_KERNEL["lam"]
     (train, _, (nu, ni)), gen_s = timed(
         lambda: device_blocking.synthetic_like_device(
@@ -3193,53 +3290,57 @@ def phase_kernels_als(dev):
         als_ops.device_prepare_side(i, u, r, ni, rank_for_chunking=k)))
     F = PseudoRandomFactorInitializer(k, scale=0.1)(
         torch.arange(ni, device=dev))
-    for side, plan, buckets, n_rows in (("users", pu, bu, nu),
-                                        ("items", pv, bv, ni)):
-        als_ops.reset_launch_counts()
-        got = als_ops.als_solve(F, plan, lam)
-        again = als_ops.als_solve(F, plan, lam)
-        torch.cuda.synchronize()
-        launches = dict(als_ops.LAUNCHES)
-        bit_equal = torch.equal(got.view(torch.int32), again.view(torch.int32))
-        del again
-        scale = got.abs().max().item()
-        plain = als_ops.als_solve_reference(F, plan, lam)
-        vs_plain = (got - plain).abs().max().item() / scale
-        del plain
-        bucketed = als_ops.solve_side(F, buckets, n_rows, lam)
-        vs_bucketed = (got - bucketed).abs().max().item() / scale
-        del bucketed
-        ms = cuda_ms(lambda: als_ops.als_solve(F, plan, lam), 5)
-        plain_ms = cuda_ms(lambda: als_ops.als_solve_reference(F, plan, lam),
-                           2, warmup=1)
-        library_ms = cuda_ms(
-            lambda: als_ops.solve_side(F, buckets, n_rows, lam), 2, warmup=1)
-        flops, nbytes = fused_half_step_counts(plan, k, F.shape[0])
-        bound_ms, bound_by = bound_of(nbytes, flops)
-        say("kernels.als", side=side, route="cuda",
-            source="large_scale_recommendation_tpu_torch/csrc/als_solve.cu",
-            replaces="none (the JAX package solves ALS with XLA ops)",
-            rows=plan.rows.numel(), ratings=plan.cols.numel(), rank=k,
-            ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-            roofline_pct=100.0 * bound_ms / ms, gflop=flops / 1e9,
-            mbytes=nbytes / 1e6, plain_ms=plain_ms, library_ms=library_ms,
-            max_rel_vs_plain=vs_plain, max_rel_vs_bucketed=vs_bucketed,
-            two_launches_bit_equal=bit_equal, launches=launches,
+    ptxas = [line.strip() for line in _build.build_log.get(
+        "als_solve", "").splitlines() if "registers" in line
+        or "spill" in line]
+    for side, plan, buckets in (("users", pu, bu), ("items", pv, bv)):
+        # the item side solves from the users just solved
+        F = kernels_als_side(
+            side, F, plan, buckets, lam, None,
+            lambda p, n_other=F.shape[0]: fused_half_step_counts(p, k,
+                                                                 n_other),
             generation_wall_s=gen_s, csr_plans_wall_s=plan_s,
-            bucket_plans_wall_s=bucket_s, ptxas=[
-                line.strip() for line in _build.build_log.get(
-                    "als_solve", "").splitlines() if "registers" in line
-                or "spill" in line])
-        if launches != {"als_solve_launch": 2}:
-            raise AssertionError(f"kernels.als: launched {launches}")
-        if not (bit_equal and torch.isfinite(got).all()):
-            raise AssertionError("kernels.als: two launches differ or NaN")
-        if not max(vs_plain, vs_bucketed) <= ALS_KERNEL_TOL:
-            raise AssertionError(f"kernels.als {side}: {vs_plain:.3e} from "
-                                 f"the plain version, {vs_bucketed:.3e} from "
-                                 "the bucketed route")
-        F = got  # the item side solves from the users just solved
-    del pu, pv, bu, bv, train, F, got
+            bucket_plans_wall_s=bucket_s, ptxas=ptxas)
+    del pu, pv, bu, bv, train, u, i, r, F
+    phase_kernels_ials(dev)
+
+
+def phase_kernels_ials(dev):
+    """``[kernels.als]`` at ``mpd_ials_r64.ials_fit``'s shapes: the
+    configuration's pairs drawn and coalesced as the cell's set-up does,
+    both sides' implicit plans (``implicit_csr``), the weighted build with
+    each side's YᵀY as G against its plain version and the bucketed
+    implicit route (``implicit_prepared``), beside
+    ``reference/ials_counts.py``'s bound."""
+    with open(IALS_KERNEL["config"]) as f:
+        cfg = json.load(f)
+    data, block = cfg["data"], cfg["als"]
+    nu, ni = int(data["num_users"]), int(data["num_items"])
+    k, lam = block["num_factors"], block["lambda_"]
+    alpha = block["implicit_alpha"]
+    (u, i, r), gen_s = timed(lambda: coalesce(
+        *bench_data.dataset(data, IALS_KERNEL["seed"], dev)[:2], ni))
+    (pu, pv), plan_s = timed(lambda: tuple(
+        als_ops.implicit_csr(als_ops.device_csr_plan(a, b, r, n), alpha)
+        for a, b, n in ((u, i, nu), (i, u, ni))))
+    (bu, bv), bucket_s = timed(lambda: tuple(
+        als_ops.implicit_prepared(als_ops.device_prepare_side(
+            a, b, r, n, rank_for_chunking=k), alpha)
+        for a, b, n in ((u, i, nu), (i, u, ni))))
+    del u, i, r
+    F = PseudoRandomFactorInitializer(k, scale=0.1)(
+        torch.arange(ni, device=dev))
+    for side, plan, buckets in (("users", pu, bu), ("items", pv, bv)):
+        F = kernels_als_side(
+            f"ials.{side}", F, plan, buckets, lam, als_ops._full_gram(F),
+            lambda p: (ials_counts.half_step_flops(
+                p.rows.numel(), p.cols.numel(), k),
+                ials_counts.half_step_bytes(
+                    p.rows.numel(), p.cols.numel(), k)),
+            alpha=alpha, longest_row=int(plan.cnt[0]),
+            generation_wall_s=gen_s, csr_plans_wall_s=plan_s,
+            bucket_plans_wall_s=bucket_s)
+    del pu, pv, bu, bv, F
 
 
 def online_parts(om, batch):

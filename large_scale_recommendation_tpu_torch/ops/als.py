@@ -433,10 +433,12 @@ def solve_side(
     dtype=None,
 ) -> torch.Tensor:
     """One ALS half-step over the prepared buckets or a ``CsrPlan`` (the
-    fused route, f32 only: span ``als/solve`` with counters ``rows`` and
-    ``fused``, the rows the kernel solved); with ``G`` (the fixed side's
-    VᵀV) the iALS half-step. ``dtype`` (``torch.bfloat16``) casts the fixed
-    side once before the gathers; the solved side is f32."""
+    fused route, f32 only: span ``als/solve`` with counters ``rows``,
+    ``fused``, the rows the kernel solved, ``entries``, the plan's
+    entries, and ``weighted``, the rows with gram weights, the kernel's
+    weighted build on a card); with ``G`` (the fixed side's VᵀV) the iALS
+    half-step. ``dtype`` (``torch.bfloat16``) casts the fixed side once
+    before the gathers; the solved side is f32."""
     if isinstance(prepared, CsrPlan):
         if dtype is not None:
             raise ValueError("the fused half-step solves in f32 only")
@@ -446,7 +448,9 @@ def solve_side(
         n = prepared.rows.shape[0]
         on_card = factors_other.is_cuda
         with span("als/solve", device=on_card, rows=n,
-                  fused=n if on_card else 0):
+                  fused=n if on_card else 0,
+                  entries=prepared.cols.shape[0],
+                  weighted=0 if prepared.w is None else n):
             return als_solve(factors_other, prepared, lambda_, G)
     k = factors_other.shape[-1]
     if dtype is not None:
@@ -572,21 +576,29 @@ def als_rounds(V, prep_u, prep_v, num_u: int, num_v: int, lambda_: float,
                round_ms: list | None = None):
     """``iterations`` × (user half-step; item half-step) over PREPARED
     buckets; with ``implicit`` each half-step adds the fixed side's whole
-    VᵀV gram. ``gram_dtype`` routes the gathers through a reduced-precision
+    VᵀV gram (span ``als/full_gram``, counter ``rows``: the fixed table's
+    height). ``gram_dtype`` routes the gathers through a reduced-precision
     copy of the fixed side (see ``solve_side``). Given a list ``round_ms``
     and ``V`` on a card, each round's device ms (CUDA events around it) is
     appended to it after the last round."""
     timed = round_ms is not None and V.device.type == "cuda"
     events = []
     U = None
+
+    def full_gram(F):
+        if not implicit:
+            return None
+        with span("als/full_gram", device=F.is_cuda, rows=F.shape[0]):
+            return _full_gram(F)
+
     for _ in range(iterations):
         if timed:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-        Gv = _full_gram(V) if implicit else None
-        U = solve_side(V, prep_u, num_u, lambda_, Gv, dtype=gram_dtype)
-        Gu = _full_gram(U) if implicit else None
-        V = solve_side(U, prep_v, num_v, lambda_, Gu, dtype=gram_dtype)
+        U = solve_side(V, prep_u, num_u, lambda_, full_gram(V),
+                       dtype=gram_dtype)
+        V = solve_side(U, prep_v, num_v, lambda_, full_gram(U),
+                       dtype=gram_dtype)
         if timed:
             end = torch.cuda.Event(enable_timing=True)
             end.record()

@@ -19,7 +19,8 @@ on the CPU, a resumed fit bit-equal to an uninterrupted one, a bf16
 checkpoint written from the card, ALS, online MF and the serving engine
 (exact, bf16, two-stage, deltas) against their CPU runs, the fused ALS
 half-step (``csrc/als_solve.cu``) against its plain version (within 2e-4
-of the largest |x|; two launches bit-equal), and the flat
+of the largest |x|; two launches bit-equal; its weighted build at rank 64
+on short implicit rows too), and the flat
 stage-1 kernels (``csrc/stage1_select.cu``) against the score-matrix route
 and their plain versions: values bit-equal, candidate rows equal but at
 ties with the ``kc``-th value.
@@ -948,6 +949,38 @@ def test_als_solve_kernel_two_launches_are_bit_equal(dev):
     a = als_ops.als_solve(F, plan, 0.05, G)
     b = als_ops.als_solve(F, plan, 0.05, G)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_als_solve_weighted_build_at_rank_64_on_short_rows(dev):
+    """The implicit route's weighted build at k = 64 (where the thread map,
+    laid out for 128, leaves most lanes without a tile) on rows of the
+    ``mpd_ials_r64`` cell's lengths (1 to 200 partners, most under 64),
+    strengths a pair's multiplicity, α 40 and G the whole fixed table's
+    gram: within the half-step bar of its plain version (2e-4 of the
+    largest |x|), no NaN, and two launches bit-equal."""
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    rng = np.random.default_rng(64)
+    lengths = np.minimum(rng.geometric(1 / 40, size=4096), 200)
+    lengths[:8] = (1, 2, 63, 64, 65, 128, 199, 200)
+    n_other = 50_000
+    out = np.repeat(np.arange(lengths.shape[0]), lengths)
+    other = np.concatenate([rng.choice(n_other, n, replace=False)
+                            for n in lengths])
+    mult = 1.0 + (rng.random(out.shape[0]) < 0.01)
+    plan = als_ops.implicit_csr(als_ops.device_csr_plan(
+        out, other, mult.astype(np.float32), lengths.shape[0], device=dev),
+        40.0)
+    F = torch.as_tensor((0.05 * rng.normal(size=(n_other, 64)))
+                        .astype(np.float32), device=dev)
+    G = als_ops._full_gram(F).contiguous()
+    got = als_ops.als_solve(F, plan, 0.1, G)
+    want = als_ops.als_solve_reference(F, plan, 0.1, G)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-4 * want.abs().max().item())
+    again = als_ops.als_solve(F, plan, 0.1, G)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_als_fit_device_on_card_launches_the_fused_kernel(dev):

@@ -364,6 +364,7 @@ def test_als_fit_device_spans_and_plan_s():
     # every solved row once a half-step, pad rows included
     assert tot["als/solve"]["args"]["rows"] >= 2 * (60 + 40) - 2 * 2
     assert "device_ms" not in tot["als/solve"]  # no card here
+    assert "als/full_gram" not in tot  # explicit: no whole-table gram
 
 
 def test_fused_half_step_span_counts_its_rows():
@@ -381,6 +382,37 @@ def test_fused_half_step_span_counts_its_rows():
     assert tot["als/solve"]["count"] == 1
     assert tot["als/solve"]["args"]["rows"] == plan.rows.shape[0] > 0
     assert tot["als/solve"]["args"]["fused"] == 0
+    assert tot["als/solve"]["args"]["entries"] == 2000
+    assert tot["als/solve"]["args"]["weighted"] == 0  # explicit: no weights
+
+
+def test_implicit_fit_device_spans_full_grams_and_weighted_rows(monkeypatch):
+    """iALS on the fused route's plan (its plain version here): each
+    half-step's ``als/solve`` span counts the plan's entries and its
+    weighted rows (every row), and the fixed side's whole gram is an
+    ``als/full_gram`` span a half-step counting that table's rows."""
+    from large_scale_recommendation_tpu_torch.models.als import (
+        ALS, ALSConfig)
+    from large_scale_recommendation_tpu_torch.ops import als as als_ops
+
+    monkeypatch.setattr(als_ops, "fused_route",
+                        lambda device, k, gram_dtype=None: True)
+    r = _ratings(2000, 60, 40)
+    solver = ALS(ALSConfig(num_factors=4, iterations=2, implicit_alpha=3.0),
+                 device="cpu")
+    _profiled(lambda: solver.fit_device(r.users, r.items, r.ratings, 60,
+                                        40))
+    tot = ptr.span_totals()
+    solve = tot["als/solve"]
+    rows = 2 * (len(np.unique(r.users)) + len(np.unique(r.items)))
+    assert solve["count"] == 2 * 2
+    assert solve["args"]["rows"] == solve["args"]["weighted"] == rows
+    assert solve["args"]["entries"] == 2 * 2 * 2000
+    assert solve["args"]["fused"] == 0  # no card here
+    gram = tot["als/full_gram"]
+    assert gram["count"] == 2 * 2
+    assert gram["args"]["rows"] == 2 * (40 + 60)
+    assert "device_ms" not in gram
 
 
 def test_dsgd_fit_device_spans():
